@@ -9,8 +9,9 @@
 # through flash_attention (the hand-written Hopper kernel on CUDA).
 #
 # Decode-step attention over the KV caches stays plain PyTorch, as it is
-# plain XLA in the JAX package.  Training (make_asr_train_step) is not
-# ported yet.
+# plain XLA in the JAX package.  make_asr_train_step trains through the
+# same flash_attention, whose backward runs the hand-written dQ and dK/dV
+# kernels on CUDA; its update is written into the parameters in place.
 
 from __future__ import annotations
 
@@ -22,12 +23,15 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.audio import full_f32_convolution, log_mel_spectrogram
+from ..ops.device import resolve_device
 from ..parallel.attention import flash_attention
 from .layers import dense, init_dense, init_norm, layer_norm
+from .optim import apply_updates, next_token_loss, value_and_grad
 
 __all__ = ["AsrConfig", "init_asr_params", "transcribe_audio",
            "transcribe_rescore", "encode_audio", "decode_tokens",
-           "asr_forward", "transcribe", "count_params"]
+           "asr_forward", "make_asr_train_step", "transcribe",
+           "count_params"]
 
 _NEG_INF = -1e30
 
@@ -92,10 +96,11 @@ def count_params(params) -> int:
 
 
 def init_asr_params(config: AsrConfig, generator: torch.Generator,
-                    device="cpu") -> dict:
+                    device="cuda") -> dict:
     """Random parameters drawn on the CPU from `generator` (seeded by the
     caller), cast to config.dtype and placed on `device`.  The draws
     follow the JAX package's distributions, not its numbers."""
+    device = resolve_device(device)
     d, dtype = config.d_model, config.torch_dtype
 
     def normal(shape, scale):
@@ -104,24 +109,27 @@ def init_asr_params(config: AsrConfig, generator: torch.Generator,
         return values.to(device=device, dtype=dtype)
 
     def attention():
-        return {name: init_dense(generator, d, d, dtype, device)
+        return {name: init_dense(generator, d, d, dtype, device=device)
                 for name in ("wq", "wk", "wv", "wo")}
 
     def mlp():
-        return {"w1": init_dense(generator, d, d * 4, dtype, device),
-                "w2": init_dense(generator, d * 4, d, dtype, device)}
+        return {"w1": init_dense(generator, d, d * 4, dtype, device=device),
+                "w2": init_dense(generator, d * 4, d, dtype, device=device)}
+
+    def norm():
+        return init_norm(d, dtype, device=device)
 
     conv1 = {"w": normal((d, config.n_mels, 3),
                          1.0 / np.sqrt(config.n_mels * 3)),
              "b": torch.zeros((d,), dtype=dtype, device=device)}
     conv2 = {"w": normal((d, d, 3), 1.0 / np.sqrt(d * 3)),
              "b": torch.zeros((d,), dtype=dtype, device=device)}
-    enc = [{"attn_norm": init_norm(d, dtype, device), "attn": attention(),
-            "mlp_norm": init_norm(d, dtype, device), "mlp": mlp()}
+    enc = [{"attn_norm": norm(), "attn": attention(),
+            "mlp_norm": norm(), "mlp": mlp()}
            for _ in range(config.enc_layers)]
-    dec = [{"self_norm": init_norm(d, dtype, device), "self": attention(),
-            "cross_norm": init_norm(d, dtype, device), "cross": attention(),
-            "mlp_norm": init_norm(d, dtype, device), "mlp": mlp()}
+    dec = [{"self_norm": norm(), "self": attention(),
+            "cross_norm": norm(), "cross": attention(),
+            "mlp_norm": norm(), "mlp": mlp()}
            for _ in range(config.dec_layers)]
     return {
         "conv1": conv1,
@@ -129,11 +137,11 @@ def init_asr_params(config: AsrConfig, generator: torch.Generator,
         "enc_positions": torch.from_numpy(
             _sinusoids(config.max_frames, d)).to(device=device, dtype=dtype),
         "enc_layers": _stack(enc),
-        "enc_norm": init_norm(d, dtype, device),
+        "enc_norm": norm(),
         "token_embed": {"w": normal((config.vocab_size, d), 0.02)},
         "dec_positions": normal((config.max_text_len, d), 0.01),
         "dec_layers": _stack(dec),
-        "dec_norm": init_norm(d, dtype, device),
+        "dec_norm": norm(),
     }
 
 
@@ -242,6 +250,26 @@ def asr_forward(params: dict, config: AsrConfig, mel, tokens):
     """Teacher-forced forward (scoring): logits (B, T, vocab)."""
     return decode_tokens(params, config, tokens,
                          encode_audio(params, config, mel))
+
+
+def make_asr_train_step(config: AsrConfig, optimizer):
+    """Returns train_step(params, opt_state, mel, tokens) -> (params,
+    opt_state, loss): teacher-forced next-token cross-entropy in f32 over
+    asr_forward(mel, tokens[:, :-1]) -> tokens[:, 1:] (targets clamp into
+    the vocabulary).  The update is written into params and opt_state in
+    place (the JAX step donates both)."""
+
+    def loss_fn(params, mel, tokens):
+        logits = asr_forward(params, config, mel, tokens[:, :-1])
+        return next_token_loss(logits, tokens[:, 1:])
+
+    def train_step(params, opt_state, mel, tokens):
+        loss, grads = value_and_grad(loss_fn, params, mel, tokens)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        apply_updates(params, updates)
+        return params, opt_state, loss
+
+    return train_step
 
 
 def _cross_kv(params: dict, config: AsrConfig, memory):

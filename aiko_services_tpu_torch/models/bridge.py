@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.device import resolve_device
 from ..utils.tree import tree_map
 
 __all__ = ["params_from_numpy", "params_to_numpy"]
@@ -32,9 +33,11 @@ def _leaf_to_tensor(leaf, dtype, device) -> torch.Tensor:
     return tensor.to(device)
 
 
-def params_from_numpy(tree: dict, device="cpu", dtype=None) -> dict:
-    """A tree of numpy arrays -> a tree of tensors on `device`; dtype
-    (a name or torch.dtype) casts every floating-point leaf."""
+def params_from_numpy(tree: dict, device="cuda", dtype=None) -> dict:
+    """A tree of numpy arrays -> a tree of tensors on `device` (CUDA
+    unless the caller asks for the CPU); dtype (a name or torch.dtype)
+    casts every floating-point leaf."""
+    device = resolve_device(device)
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     return tree_map(lambda leaf: _leaf_to_tensor(leaf, dtype, device),

@@ -17,6 +17,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..ops.device import resolve_device
+
 __all__ = ["read_safetensors", "write_safetensors", "SafetensorsFile",
            "save_pytree", "load_pytree"]
 
@@ -148,10 +150,11 @@ def save_pytree(path, tree, metadata: dict = None) -> None:
     write_safetensors(path, flat, metadata)
 
 
-def load_pytree(path, dtype=None, device="cpu") -> dict:
-    """Inverse of save_pytree: a nested dict of tensors on `device`;
-    dtype (a name such as "bfloat16", or a torch.dtype) casts every
-    floating-point leaf."""
+def load_pytree(path, dtype=None, device="cuda") -> dict:
+    """Inverse of save_pytree: a nested dict of tensors on `device`
+    (CUDA unless the caller asks for the CPU); dtype (a name such as
+    "bfloat16", or a torch.dtype) casts every floating-point leaf."""
+    device = resolve_device(device)
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     tree: dict = {}

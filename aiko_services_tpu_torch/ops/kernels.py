@@ -1,10 +1,10 @@
 # Building and loading the port's hand-written CUDA kernels.
 #
-# Each kernel is one source under csrc/ with a plain C interface.  At first
-# use it is compiled with nvcc for sm_90a (Hopper) into a shared library in
-# build/kernels/ beside the package (a directory .gitignore lists) and
-# loaded through ctypes.  No PyTorch header is compiled, so a build takes
-# seconds, not minutes.  The library's file name carries a digest of the
+# Each library is one source under csrc/ with a plain C interface, holding
+# one or more kernels.  At first use it is compiled with nvcc for sm_90a
+# (Hopper) into a shared library in build/kernels/ beside the package (a
+# directory .gitignore lists) and loaded through ctypes.  No PyTorch
+# header is compiled, so a build takes seconds, not minutes.  The library's file name carries a digest of the
 # source, so an edited source is rebuilt and a stale library is never
 # loaded.
 #
@@ -23,26 +23,32 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["KERNEL_SOURCES", "build_kernel", "load_kernel",
-           "launch_counts", "reset_launch_counts", "build_seconds"]
+__all__ = ["KERNEL_SOURCES", "KERNELS", "build_kernel", "build_all",
+           "load_kernel", "launch_counts", "reset_launch_counts",
+           "build_seconds"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
-# kernel name -> its source file under csrc/
+# library name -> its source file under csrc/
 KERNEL_SOURCES = {
     "flash_attention": "flash_attention.cu",
+    "flash_attention_backward": "flash_attention_backward.cu",
 }
+# the kernels, each with its launch counter: the forward in
+# flash_attention.cu, dQ and dK/dV in flash_attention_backward.cu
+KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launch_counts = {name: 0 for name in KERNEL_SOURCES}
-# kernel name -> seconds its last build took (absent: loaded from disk)
+launch_counts = {name: 0 for name in KERNELS}
+# library name -> seconds its last build took (absent: loaded from disk)
 build_seconds: dict = {}
-# kernel name -> what nvcc printed (registers, shared memory, spills)
+# library name -> what nvcc printed (registers, shared memory, spills)
 build_logs: dict = {}
 
 _LIBRARIES: dict = {}
@@ -100,8 +106,14 @@ def build_kernel(name: str) -> Path:
     return target
 
 
+def build_all() -> None:
+    """Build every library at once, one nvcc process per source."""
+    with ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as pool:
+        list(pool.map(build_kernel, KERNEL_SOURCES))
+
+
 def load_kernel(name: str) -> ctypes.CDLL:
-    """The kernel's library, built at first use and loaded once."""
+    """The library `name`, built at first use and loaded once."""
     with _LOCK:
         library = _LIBRARIES.get(name)
         if library is None:

@@ -1,6 +1,7 @@
-# The port stands alone: importing its speech-serving path loads no JAX,
-# no ml_dtypes and nothing of the JAX package, and no source file of the
-# port (nor chip_smoke.py or chip_profile.py) imports them.
+# The port stands alone: importing its speech-serving and training paths
+# loads no JAX, no optax, no ml_dtypes and nothing of the JAX package, and
+# no source file of the port (nor chip_smoke.py or chip_profile.py)
+# imports them.
 
 import ast
 import pathlib
@@ -9,7 +10,7 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "aiko_services_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "aiko_services_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "ml_dtypes", "aiko_services_tpu")
 
 
 def _forbidden(module: str) -> bool:
@@ -22,6 +23,8 @@ def test_importing_the_main_path_loads_no_jax():
         "import sys\n"
         "import aiko_services_tpu_torch.elements\n"
         "import aiko_services_tpu_torch.models\n"
+        "import aiko_services_tpu_torch.models.transformer\n"
+        "import aiko_services_tpu_torch.models.optim\n"
         "import aiko_services_tpu_torch.parallel\n"
         "import aiko_services_tpu_torch.pipeline\n"
         "import aiko_services_tpu_torch.runtime\n"
@@ -33,6 +36,8 @@ def test_importing_the_main_path_loads_no_jax():
     assert result.returncode == 0, result.stderr
     loaded = result.stdout.split()
     assert "aiko_services_tpu_torch.elements.ml" in loaded
+    assert "aiko_services_tpu_torch.models.transformer" in loaded
+    assert "aiko_services_tpu_torch.models.optim" in loaded
     assert [module for module in loaded if _forbidden(module)] == []
 
 
