@@ -206,6 +206,12 @@ def _check_backward_inputs(q, k, v, dout, lse, delta) -> None:
     if not dout.is_contiguous():
         raise ValueError("flash attention backward kernel: dout must be "
                          "contiguous")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernels copy 16-byte chunks with cp.async
+        for name, tensor in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+            if tensor.data_ptr() % 16:
+                raise ValueError(f"flash attention backward kernel: bf16 "
+                                 f"{name} must start on a 16-byte boundary")
     for name, stat in (("lse", lse), ("delta", delta)):
         if stat.device != q.device or stat.dtype != torch.float32 or (
                 stat.shape != q.shape[:3]) or not stat.is_contiguous():

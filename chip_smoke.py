@@ -9,15 +9,19 @@ result:
   0. the card: nvidia-smi's name and power limit, torch's device name and
      count (no CUDA device: fail)
   1. build every kernel library from csrc/ with nvcc (sm_90a), one nvcc
-     per source, all started together
+     per source, all started together; print each kernel's registers and
+     spill bytes as ptxas reports them, and fail on any spill
   2. hold the flash-attention forward kernel (K1) against its plain
      PyTorch version on the card, at the serving and training shapes
   2b. hold the backward kernels (K2 dQ, K3 dK/dV) against their plain
-     version on the card, on the same inputs and the same dO
+     version on the card, on the same inputs and the same dO (bf16 at
+     D = 16, 32, 64, 128, ragged, causal with a negative q_offset; f32),
+     and a second launch bitwise equal to the first
   3. time K1 at the serving shape and K1, K2, K3 at the llama32_1b
-     training shape with CUDA events, beside their bounds, their plain
-     versions and PyTorch's scaled_dot_product_attention forward and
-     backward (timed only, never used by the port)
+     training shape with CUDA events, beside their bounds (and the
+     achieved TFLOP/s and kernel/bound ratio), their plain versions and
+     PyTorch's scaled_dot_product_attention forward and backward (timed
+     only, never used by the port)
   4. asr_tones (the committed trained checkpoint) through the port's
      Process / create_pipeline on CUDA: exact transcripts
   5. whisper_small at full width (random weights from a seed) through the
@@ -44,6 +48,7 @@ import ast
 import json
 import pathlib
 import queue
+import re
 import statistics
 import subprocess
 import time
@@ -80,9 +85,10 @@ LSE_ATOL = 1e-4
 # bf16 from differently ordered f32 sums, and 12 residual layers carry
 # those one-ulp differences forward -> atol/rtol 5e-2 on values of order 1
 ENCODER_TOL = 5e-2
-# backward kernels against the plain f32 version on the same inputs: a
-# bf16 gradient is rounded once to bf16 (2^-9 relative) from f32 sums of
-# up to 1024 terms taken in another order -> per-tensor relative error
+# backward kernels against the plain f32 version on the same inputs: the
+# bf16 kernels round P and dS to bf16 before the second product and each
+# gradient once more (2^-9 relative each), from f32 sums of up to 1024
+# terms taken in another order -> per-tensor relative error
 # ||g - g_ref|| / ||g_ref|| <= 2e-2; an f32 gradient differs only by
 # summation order over up to 251 products of order 1 -> atol 1e-4
 GRAD_REL_TOL = 2e-2
@@ -120,8 +126,12 @@ def peaks_for(name: str) -> tuple:
 
 
 def cuda_ms(function, warmup: int = 3, runs: int = 25) -> float:
-    """Median milliseconds of `function` over `runs` launches, each timed
-    with CUDA events after `warmup` untimed ones."""
+    """Median milliseconds per call of `function` over `runs` samples,
+    each a run of 10 back-to-back calls between two CUDA events, after
+    `warmup` untimed calls.  Within a run the host enqueues the next call
+    while the device computes this one, so the host time a wrapper spends
+    before its launch is not counted as device time (with one call per
+    sample it would be, once the kernel is as short as the wrapper)."""
     for _ in range(warmup):
         function()
     torch.cuda.synchronize()
@@ -130,10 +140,11 @@ def cuda_ms(function, warmup: int = 3, runs: int = 25) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        function()
+        for _ in range(10):
+            function()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / 10)
     return statistics.median(times)
 
 
@@ -178,21 +189,55 @@ def phase_card() -> str:
     return smi
 
 
+def ptxas_stats(log: str) -> dict:
+    """kernel<template arguments> -> {"registers", "spill_bytes"} from
+    what `nvcc -Xptxas -v` printed (spill stores plus spill loads)."""
+    stats, label = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            name = re.search(r"(flash_[a-z]+(?:_[a-z]+)*)I", mangled)
+            dtype = ("bf16," if "I13__nv_bfloat16" in mangled else
+                     "f32," if "IfLi" in mangled else "")
+            dim = re.search(r"Li(\d+)E", mangled)
+            label = (f"{name.group(1) if name else mangled}"
+                     f"<{dtype}{dim.group(1) if dim else ''}>")
+            stats[label] = {}
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill and label:
+            stats[label]["spill_bytes"] = int(spill.group(1)) + int(
+                spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and label:
+            stats[label]["registers"] = int(used.group(1))
+    return stats
+
+
 def phase_build() -> None:
     from aiko_services_tpu_torch.ops import kernels
     start = time.perf_counter()
     kernels.build_all()
     for name in kernels.KERNEL_SOURCES:
         kernels.load_kernel(name)
-    registers = {name: ",".join(sorted(
-        {line.split("Used ")[1].split(" registers")[0]
-         for line in kernels.build_logs.get(name, "").splitlines()
-         if "registers" in line})) for name in kernels.KERNEL_SOURCES}
+    stats = {}
+    for name in kernels.KERNEL_SOURCES:
+        stats.update(ptxas_stats(kernels.build_logs.get(name, "")))
+    spilled = {label: stat for label, stat in stats.items()
+               if stat.get("spill_bytes", 0)}
     say("1 build", libraries=",".join(kernels.KERNEL_SOURCES),
         kernels=",".join(kernels.KERNELS),
         seconds=f"{time.perf_counter() - start:.2f}",
         nvcc_seconds=json.dumps(kernels.build_seconds),
-        registers_per_thread=json.dumps(registers))
+        registers_and_spill_bytes=json.dumps(
+            {label: f"{stat.get('registers')}/{stat.get('spill_bytes')}"
+             for label, stat in stats.items()}))
+    if not stats:
+        raise SystemExit("nvcc printed no ptxas statistics")
+    if spilled:
+        raise SystemExit(f"kernels spill to local memory: {spilled}")
 
 
 # (B, H, Lq, Lk, D, dtype, causal, q_offset)
@@ -248,6 +293,12 @@ BACKWARD_CASES = {
                              0),
     "cross_16x251_bf16": (16, 12, 16, 251, 64, torch.bfloat16, False, 0),
     "causal_37x251_bf16": (8, 12, 37, 251, 64, torch.bfloat16, True, 0),
+    "d16_causal_bf16": (8, 8, 200, 200, 16, torch.bfloat16, True, 0),
+    "d32_causal_bf16": (8, 8, 300, 300, 32, torch.bfloat16, True, 0),
+    "d128_causal_bf16": (4, 8, 520, 520, 128, torch.bfloat16, True, 0),
+    "ragged_65x129_d128_bf16": (2, 4, 65, 129, 128, torch.bfloat16, False,
+                                0),
+    "causal_q_offset_bf16": (4, 8, 50, 130, 32, torch.bfloat16, True, -7),
     "f32_causal_q_offset": (4, 8, 50, 130, 32, torch.float32, True, -7),
     "f32_d128_ragged": (2, 4, 65, 129, 128, torch.float32, False, 0),
     "asr_tones_d16_f32": (32, 4, 21, 21, 16, torch.float32, False, 0),
@@ -261,7 +312,9 @@ def relative_error(actual, expected) -> float:
 
 def phase_backward_checks() -> dict:
     """K2 and K3 against the plain f32 backward on the same inputs and
-    the same dO; returns the max abs errors at the training shape."""
+    the same dO, and a second launch on the same inputs bitwise equal to
+    the first (one owner block per output tile, no atomics); returns the
+    max abs errors at the training shape."""
     from aiko_services_tpu_torch.parallel.attention import (
         flash_attention_backward, flash_attention_backward_plain,
         flash_attention_forward)
@@ -276,7 +329,14 @@ def phase_backward_checks() -> dict:
                                            q_offset=q_offset)
         grads = flash_attention_backward(q, k, v, out, lse, dout,
                                          causal=causal, q_offset=q_offset)
+        repeat = flash_attention_backward(q, k, v, out, lse, dout,
+                                          causal=causal, q_offset=q_offset)
         torch.cuda.synchronize()
+        if not all(torch.equal(first, second)
+                   for first, second in zip(grads, repeat)):
+            raise SystemExit(f"{case}: two launches on the same inputs "
+                             f"differ")
+        del repeat
         expected = flash_attention_backward_plain(
             q.float(), k.float(), v.float(), out.float(), lse, dout.float(),
             causal=causal, q_offset=q_offset)
@@ -300,7 +360,7 @@ def phase_backward_checks() -> dict:
             dtype=str(dtype).replace("torch.", ""), causal=causal,
             q_offset=q_offset,
             **{key: f"{value:.3e}" for key, value in fields.items()},
-            ok=True)
+            bitwise_repeat=True, ok=True)
         if case == "lm_training_bf16":
             errors = {"flash_attention_dq": fields["dq_max_abs_err"],
                       "flash_attention_dkv": max(fields["dk_max_abs_err"],
@@ -327,6 +387,11 @@ def bound(moved: int, operations: int, peaks: dict) -> tuple:
     if bytes_ms >= operations_ms:
         return bytes_ms, "bytes"
     return operations_ms, "operations"
+
+
+def tflops(operations: int, ms: float) -> float:
+    """Achieved rate: the operations the inputs need over the time."""
+    return operations / (ms * 1e-3) / 1e12
 
 
 def phase_timing(smi: str) -> dict:
@@ -357,6 +422,8 @@ def phase_timing(smi: str) -> dict:
             shape=f"{batch}x{heads}x{q_len}x{k_len}x{dim}", causal=causal,
             dtype="bfloat16", kernel_ms=f"{kernel_ms:.4f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            kernel_over_bound=f"{kernel_ms / bound_ms:.2f}",
+            tflops=f"{tflops(operations, kernel_ms):.1f}",
             plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
             bytes=moved, operations=operations, peaks=peaks_text,
             card=repr(smi))
@@ -403,6 +470,8 @@ def phase_timing(smi: str) -> dict:
             shape=f"{batch}x{heads}x{q_len}x{k_len}x{dim}", causal=causal,
             dtype="bfloat16", kernel_ms=f"{kernel_ms:.4f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            kernel_over_bound=f"{kernel_ms / bound_ms:.2f}",
+            tflops=f"{tflops(operations, kernel_ms):.1f}",
             plain_ms=f"{plain_ms:.4f}",
             library_ms_sdpa_backward_pair=f"{library_ms:.4f}", bytes=moved,
             operations=operations, peaks=peaks_text, card=repr(smi))

@@ -9,10 +9,11 @@
 # rounding of values of order 1, plus f32 sums taken in another order);
 # f32 outputs with atol 1e-5; the f32 logsumexp with atol 1e-4 (a log of
 # a sum of up to 300 terms, summed in another order).  Gradients: bf16
-# per-tensor relative error ||g - g_ref|| / ||g_ref|| <= 2e-2 (the kernel
-# rounds each gradient once to bf16, 2^-9 relative, and sums up to 1024
-# f32 terms in another order); f32 atol 1e-4 (sums of up to 251 f32
-# products of order 1 in another order).
+# per-tensor relative error ||g - g_ref|| / ||g_ref|| <= 2e-2 (the
+# tensor-core kernels round P and dS to bf16 before the second product
+# and each gradient once more, 2^-9 relative each, and sum up to 1024 f32
+# terms in another order); f32 atol 1e-4 (sums of up to 251 f32 products
+# of order 1 in another order).
 
 import numpy as np
 import pytest
@@ -96,6 +97,12 @@ BACKWARD_CASES = {
     "encoder_bf16": (2, 4, 251, 251, 64, torch.bfloat16, False, 0),
     "cross_16x251_bf16": (2, 4, 16, 251, 64, torch.bfloat16, False, 0),
     "causal_37x251_bf16": (2, 4, 37, 251, 64, torch.bfloat16, True, 0),
+    "d16_causal_bf16": (2, 4, 200, 200, 16, torch.bfloat16, True, 0),
+    "d32_causal_bf16": (2, 4, 300, 300, 32, torch.bfloat16, True, 0),
+    "d128_causal_bf16": (1, 4, 520, 520, 128, torch.bfloat16, True, 0),
+    "ragged_65x129_d128_bf16": (1, 2, 65, 129, 128, torch.bfloat16, False,
+                                0),
+    "causal_q_offset_bf16": (2, 3, 50, 130, 32, torch.bfloat16, True, -7),
     "f32_causal_q_offset": (2, 3, 50, 130, 32, torch.float32, True, -7),
     "f32_d128_ragged": (1, 2, 65, 129, 128, torch.float32, False, 0),
     "asr_tones_f32": (4, 4, 12, 12, 16, torch.float32, False, 0),
@@ -136,6 +143,20 @@ def test_backward_kernels_match_plain(cuda, case):
                                        msg=name)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_kernels_are_bitwise_repeatable(cuda, dtype):
+    """Each output tile has one owner block and no atomics: two launches
+    on the same inputs give the same bits."""
+    q, k, v = _qkv((2, 4, 300, 64), (2, 4, 300, 64), dtype, cuda, seed=3)
+    dout = _qkv((2, 4, 300, 64), (2, 4, 1, 64), dtype, cuda, seed=4)[0]
+    out, lse = flash_attention_forward(q, k, v, causal=True)
+    first = flash_attention_backward(q, k, v, out, lse, dout, causal=True)
+    second = flash_attention_backward(q, k, v, out, lse, dout, causal=True)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+
+
 def test_flash_attention_carries_a_gradient_on_cuda(cuda):
     q, k, v = [tensor.requires_grad_(True) for tensor in _qkv(
         (1, 2, 40, 64), (1, 2, 40, 64), torch.bfloat16, cuda)]
@@ -167,3 +188,12 @@ def test_backward_wrappers_reject_what_they_do_not_take(cuda):
     q48, k48, v48 = _qkv((1, 2, 8, 48), (1, 2, 8, 48), torch.float32, cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_backward(q48, k48, v48, q48, lse, q48)
+    # the bf16 kernels copy 16-byte chunks: a tensor starting 2 bytes in
+    # is refused
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    shifted = torch.empty(qb.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(qb.shape)
+    shifted.copy_(qb)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention_backward(shifted, kb, vb, out.bfloat16(), lse,
+                                 qb)
