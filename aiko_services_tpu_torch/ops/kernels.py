@@ -1,11 +1,13 @@
 # Building and loading the port's hand-written CUDA kernels.
 #
 # Each library is one source under csrc/ with a plain C interface, holding
-# one or more kernels.  At first use it is compiled with nvcc for sm_90a
+# one or more kernels; the sources share the headers (csrc/*.cuh) they
+# include.  At first use a source is compiled with nvcc for sm_90a
 # (Hopper) into a shared library in build/kernels/ beside the package (a
 # directory .gitignore lists) and loaded through ctypes.  No PyTorch
-# header is compiled, so a build takes seconds, not minutes.  The library's file name carries a digest of the
-# source, so an edited source is rebuilt and a stale library is never
+# header is compiled, so a build takes seconds, not minutes.  The
+# library's file name carries a digest of the source and of every header,
+# so an edited source or header is rebuilt and a stale library is never
 # loaded.
 #
 # Every wrapper that launches a kernel adds one to its count in
@@ -74,9 +76,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    source = CSRC_DIR / KERNEL_SOURCES[name]
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in [CSRC_DIR / KERNEL_SOURCES[name],
+                 *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_kernel(name: str) -> Path:

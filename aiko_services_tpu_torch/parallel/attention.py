@@ -17,7 +17,9 @@
 # tensors on the CPU.  For CUDA tensors they launch the kernels in
 # csrc/flash_attention.cu (the port of the Pallas `_flash_kernel`) and
 # csrc/flash_attention_backward.cu (`_flash_dq_kernel`,
-# `_flash_dkv_kernel`) or raise: there is no fallback.
+# `_flash_dkv_kernel`) or raise: there is no fallback.  Each C entry point
+# chooses its kernel by dtype: bf16 runs on the tensor cores (and must
+# start on a 16-byte boundary), f32 on the f32 CUDA cores.
 
 from __future__ import annotations
 
@@ -195,6 +197,14 @@ def _check_kernel_inputs(q, k, v) -> None:
                          f"{batch * heads} exceeds the grid limit 65535")
 
 
+def _check_aligned(**tensors) -> None:
+    """The bf16 tensor-core kernels copy 16-byte chunks with cp.async."""
+    for name, tensor in tensors.items():
+        if tensor.dtype == torch.bfloat16 and tensor.data_ptr() % 16:
+            raise ValueError(f"flash attention kernel: bf16 {name} must "
+                             f"start on a 16-byte boundary")
+
+
 def _check_backward_inputs(q, k, v, dout, lse, delta) -> None:
     _check_kernel_inputs(q, k, v)
     if dout.device != q.device or dout.dtype != q.dtype or (
@@ -206,12 +216,7 @@ def _check_backward_inputs(q, k, v, dout, lse, delta) -> None:
     if not dout.is_contiguous():
         raise ValueError("flash attention backward kernel: dout must be "
                          "contiguous")
-    if q.dtype == torch.bfloat16:
-        # the tensor-core kernels copy 16-byte chunks with cp.async
-        for name, tensor in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-            if tensor.data_ptr() % 16:
-                raise ValueError(f"flash attention backward kernel: bf16 "
-                                 f"{name} must start on a 16-byte boundary")
+    _check_aligned(q=q, k=k, v=v, dout=dout)
     for name, stat in (("lse", lse), ("delta", delta)):
         if stat.device != q.device or stat.dtype != torch.float32 or (
                 stat.shape != q.shape[:3]) or not stat.is_contiguous():
@@ -246,6 +251,7 @@ def _diagonal(causal: bool, q_offset: int, q_len: int, k_len: int) -> int:
 def _flash_kernel_forward(q, k, v, causal: bool, sm_scale: float,
                           q_offset: int):
     _check_kernel_inputs(q, k, v)
+    _check_aligned(q=q, k=k, v=v)
     batch, heads, q_len, head_dim = q.shape
     k_len = k.shape[2]
     out = torch.empty_like(q)

@@ -10,7 +10,8 @@ parent commit's:
     source=aiko_services_tpu_torch/csrc/flash_attention_backward.cu
     git show <commit>:$source > build/parent.cu
 
-Every version is built with the port's nvcc flags into build/kernels/ and
+Every version is built with the port's nvcc flags (and csrc/ on the
+include path, for the headers the sources share) into build/kernels/ and
 loaded through the same C interface.  At the llama32_1b training shape
 (4 x 32 x 1024 x 1024 x 64, bf16, causal) each is checked against the
 plain f32 backward (per-tensor relative error <= 2e-2, the tolerance of
@@ -36,14 +37,19 @@ from chip_smoke import (GRAD_REL_TOL, card, cuda_ms, ptxas_stats,
 SHAPE = (4, 32, 1024, 64)   # B, H, L (= Lq = Lk), D
 
 
-def build(source: pathlib.Path, index: int) -> ctypes.CDLL:
+def build(source: pathlib.Path, index: int,
+          symbols=("aiko_flash_attention_dq", "aiko_flash_attention_dkv"),
+          prefix: str = "backward") -> ctypes.CDLL:
+    """Build one version with the port's nvcc flags (csrc/ on the include
+    path, for its headers), print its tensor-core kernels' registers and
+    spill bytes, and bind `symbols` as the port binds them."""
     from aiko_services_tpu_torch.ops import kernels
     from aiko_services_tpu_torch.parallel.attention import _SIGNATURES
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    target = kernels.BUILD_DIR / f"libbackward_ab{index}.so"
+    target = kernels.BUILD_DIR / f"lib{prefix}_ab{index}.so"
     result = subprocess.run(
-        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(target),
-         str(source)], capture_output=True, text=True)
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC_DIR),
+         "-o", str(target), str(source)], capture_output=True, text=True)
     if result.returncode:
         raise SystemExit(f"nvcc failed on {source}:\n{result.stderr}")
     stats = ptxas_stats(result.stdout + result.stderr)
@@ -51,7 +57,7 @@ def build(source: pathlib.Path, index: int) -> ctypes.CDLL:
         f"{label}={stat.get('registers')}/{stat.get('spill_bytes')}"
         for label, stat in stats.items() if "_tc" in label), flush=True)
     library = ctypes.CDLL(str(target))
-    for symbol in ("aiko_flash_attention_dq", "aiko_flash_attention_dkv"):
+    for symbol in symbols:
         function = getattr(library, symbol)
         function.argtypes = _SIGNATURES[symbol][1]
         function.restype = ctypes.c_int

@@ -10,9 +10,13 @@ result:
      count (no CUDA device: fail)
   1. build every kernel library from csrc/ with nvcc (sm_90a), one nvcc
      per source, all started together; print each kernel's registers and
-     spill bytes as ptxas reports them, and fail on any spill
+     spill bytes as ptxas reports them (kernel<dtype,D>), and fail on any
+     spill
   2. hold the flash-attention forward kernel (K1) against its plain
-     PyTorch version on the card, at the serving and training shapes
+     PyTorch version on the card, at the serving and training shapes and
+     at the edges the kernels meet (bf16 at D = 16, 32, 64, 128, ragged,
+     causal with a negative q_offset; f32), and a second launch bitwise
+     equal to the first
   2b. hold the backward kernels (K2 dQ, K3 dK/dV) against their plain
      version on the card, on the same inputs and the same dO (bf16 at
      D = 16, 32, 64, 128, ragged, causal with a negative q_offset; f32),
@@ -74,7 +78,9 @@ PEAKS = (
 
 # Tolerances of the kernel-vs-plain checks (the plain version runs in f32
 # on the same inputs): bf16 O may differ by one bf16 rounding of values of
-# order 1 plus f32 sums taken in another order -> atol/rtol 2e-2; f32 O
+# order 1, the tensor-core kernel's rounding of P to bf16 before P.V
+# (2^-9 relative per entry, averaged over the keys), and f32 sums taken in
+# another order -> atol/rtol 2e-2; f32 O
 # differs only by summation order -> atol 1e-5; the f32 logsumexp of up
 # to 300 terms -> atol 1e-4.
 BF16_TOL = 2e-2
@@ -198,8 +204,11 @@ def ptxas_stats(log: str) -> dict:
         if entry:
             mangled = entry.group(1)
             name = re.search(r"(flash_[a-z]+(?:_[a-z]+)*)I", mangled)
-            dtype = ("bf16," if "I13__nv_bfloat16" in mangled else
-                     "f32," if "IfLi" in mangled else "")
+            # the element type of the tensors the kernel takes: a
+            # template argument or the type of its first pointer
+            dtype = ("bf16," if "13__nv_bfloat16" in mangled else
+                     "f32," if "IfLi" in mangled or "EEvPKf" in mangled
+                     else "")
             dim = re.search(r"Li(\d+)E", mangled)
             label = (f"{name.group(1) if name else mangled}"
                      f"<{dtype}{dim.group(1) if dim else ''}>")
@@ -214,6 +223,18 @@ def ptxas_stats(log: str) -> dict:
         if used and label:
             stats[label]["registers"] = int(used.group(1))
     return stats
+
+
+# every kernel the libraries build, as ptxas_stats labels them: each C
+# entry point runs the tensor-core kernel for bf16 and the CUDA-core one
+# for f32, at every head size
+BUILT_KERNELS = tuple(
+    f"{kernel}<{dtype},{dim}>"
+    for kernel, dtype in (
+        ("flash_forward_kernel_tc", "bf16"), ("flash_forward_kernel", "f32"),
+        ("flash_dq_kernel_tc", "bf16"), ("flash_dq_kernel", "f32"),
+        ("flash_dkv_kernel_tc", "bf16"), ("flash_dkv_kernel", "f32"))
+    for dim in (16, 32, 64, 128))
 
 
 def phase_build() -> None:
@@ -234,8 +255,9 @@ def phase_build() -> None:
         registers_and_spill_bytes=json.dumps(
             {label: f"{stat.get('registers')}/{stat.get('spill_bytes')}"
              for label, stat in stats.items()}))
-    if not stats:
-        raise SystemExit("nvcc printed no ptxas statistics")
+    missing = [label for label in BUILT_KERNELS if label not in stats]
+    if missing:
+        raise SystemExit(f"nvcc printed no ptxas statistics for {missing}")
     if spilled:
         raise SystemExit(f"kernels spill to local memory: {spilled}")
 
@@ -249,12 +271,22 @@ KERNEL_CASES = {
     "cross_37x251": (8, 12, 37, 251, 64, torch.bfloat16, False, 0),
     "asr_tones_d16_f32": (4, 4, 12, 12, 16, torch.float32, False, 0),
     "lm_training_bf16": (4, 32, 1024, 1024, 64, torch.bfloat16, True, 0),
+    "d16_causal_bf16": (8, 8, 200, 200, 16, torch.bfloat16, True, 0),
+    "d32_causal_bf16": (8, 8, 300, 300, 32, torch.bfloat16, True, 0),
+    "d128_causal_bf16": (4, 8, 520, 520, 128, torch.bfloat16, True, 0),
+    "ragged_65x129_d128_bf16": (2, 4, 65, 129, 128, torch.bfloat16, False,
+                                0),
+    "causal_q_offset_bf16": (4, 8, 50, 130, 32, torch.bfloat16, True, -7),
+    "f32_causal_q_offset": (4, 8, 50, 130, 32, torch.float32, True, -7),
+    "f32_d128_ragged": (2, 4, 65, 129, 128, torch.float32, False, 0),
 }
 
 
 def phase_kernel_checks() -> float:
-    """Every case against the plain f32 version; returns the O max abs
-    error at the serving shape."""
+    """Every case against the plain f32 version, and a second launch on
+    the same inputs bitwise equal to the first (one owner block per
+    output tile, no atomics); returns the O max abs error at the serving
+    shape."""
     from aiko_services_tpu_torch.parallel.attention import (
         flash_attention_forward, flash_attention_plain)
     serving_error = None
@@ -264,7 +296,13 @@ def phase_kernel_checks() -> float:
                              seed=index)
         out, lse = flash_attention_forward(q, k, v, causal=causal,
                                            q_offset=q_offset)
+        repeat = flash_attention_forward(q, k, v, causal=causal,
+                                         q_offset=q_offset)
         torch.cuda.synchronize()
+        if not (torch.equal(out, repeat[0]) and torch.equal(lse, repeat[1])):
+            raise SystemExit(f"{case}: two launches on the same inputs "
+                             f"differ")
+        del repeat
         ref_out, ref_lse = flash_attention_plain(
             q.float(), k.float(), v.float(), causal=causal,
             q_offset=q_offset)
@@ -279,8 +317,9 @@ def phase_kernel_checks() -> float:
         say("2 kernel_vs_plain", case=case,
             shape=f"{batch}x{heads}x{q_len}x{k_len}x{dim}",
             dtype=str(dtype).replace("torch.", ""), causal=causal,
-            o_max_abs_err=f"{out_error:.3e}",
-            lse_max_abs_err=f"{lse_error:.3e}", ok=True)
+            q_offset=q_offset, o_max_abs_err=f"{out_error:.3e}",
+            lse_max_abs_err=f"{lse_error:.3e}", bitwise_repeat=True,
+            ok=True)
         if case == "serving_encoder_bf16":
             serving_error = out_error
     return serving_error

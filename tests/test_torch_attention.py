@@ -260,8 +260,9 @@ def _emulate_dkv_tc(q, k, v, dout, lse, delta, causal, sm_scale, diag):
     return dk, dv
 
 
-def _dq_block_order(q_len):
-    """q tile of each dQ block in launch order: the last tile first."""
+def _q_tile_order(q_len):
+    """q tile of each dQ (and forward) block in launch order: the last
+    tile first."""
     n_tiles = -(-q_len // _tc_tiles(64)[2])
     return [n_tiles - 1 - y for y in range(n_tiles)]
 
@@ -272,7 +273,7 @@ def _emulate_dq_tc(q, k, v, dout, lse, delta, causal, sm_scale, diag):
     k_len = k.shape[1]
     _, _, block_rows, step = _tc_tiles(dim)
     dq = torch.zeros_like(q)
-    for tile in _dq_block_order(q_len):
+    for tile in _q_tile_order(q_len):
         q0 = tile * block_rows
         last_row = min(q0 + block_rows, q_len) - 1
         k_end = min(k_len, last_row + diag + 1) if causal else k_len
@@ -313,6 +314,78 @@ def _emulate_dq_tc(q, k, v, dout, lse, delta, causal, sm_scale, diag):
     return dq
 
 
+# the TPU's masked score, -1e30, in the log2 domain the forward keeps m in
+_NEG_INF_LOG2 = float(np.float32(-1e30) * np.float32(_LOG2E))
+
+
+def _emulate_forward_tc(q, k, v, causal, sm_scale, diag, visits=None):
+    """O (BH, Lq, D) and LSE (BH, Lq) as flash_forward_kernel_tc computes
+    them: 128 q rows a block (the last tile first), K/V streamed 64 keys a
+    step (32 at D = 128), the online softmax in the log2 domain with alpha
+    rescales, P rounded to bf16 before P.V and l summed from the f32 p.
+    `visits`, if given, gets each block's count of key tiles in launch
+    order."""
+    _, q_len, dim = q.shape
+    k_len = k.shape[1]
+    _, _, block_rows, step = _tc_tiles(dim)
+    scale_log2 = sm_scale * _LOG2E
+    out = torch.zeros_like(q)
+    lse = torch.zeros(q.shape[:2])
+    for tile in _q_tile_order(q_len):
+        q0 = tile * block_rows
+        last_row = min(q0 + block_rows, q_len) - 1
+        k_end = min(k_len, last_row + diag + 1) if causal else k_len
+        n_tiles = -(-k_end // step) if k_end > 0 else 0
+        if visits is not None:
+            visits.append(n_tiles)
+        block_rows_pos = torch.arange(q0, q0 + block_rows)
+        if n_tiles * step < k_len:                   # the skipped keys
+            assert not _keep(block_rows_pos, torch.arange(
+                n_tiles * step, k_len), q_len, k_len, causal, diag).any()
+        for warp in range(block_rows // WARP_ROWS):
+            group_row = q0 + warp * WARP_ROWS // GROUP_ROWS * GROUP_ROWS
+            warp_row = q0 + warp * WARP_ROWS
+            rows = torch.arange(warp_row, warp_row + WARP_ROWS)
+            q_w = _rows(q, warp_row, WARP_ROWS)
+            m = torch.full((q.shape[0], WARP_ROWS), _NEG_INF_LOG2)
+            l = torch.zeros((q.shape[0], WARP_ROWS))
+            acc = torch.zeros((q.shape[0], WARP_ROWS, dim))
+            for t in range(n_tiles):
+                k0 = t * step
+                keys = torch.arange(k0, k0 + step)
+                # the kernel masks keys only: rows past Lq are not stored
+                keep = _keep(rows, keys, torch.inf, k_len, causal, diag)
+                visible = group_row < q_len and (
+                    not causal or k0 <= group_row + GROUP_ROWS - 1 + diag)
+                if not visible:
+                    assert not (keep & (rows[:, None] < q_len)).any()
+                    continue
+                full = k0 + step <= k_len and (
+                    not causal or k0 + step - 1 <= warp_row + diag)
+                assert not full or keep.all()
+                k_t, v_t = _rows(k, k0, step), _rows(v, k0, step)
+                s = q_w @ k_t.transpose(1, 2)
+                if not full:
+                    s = torch.where(keep, s, -torch.inf)
+                m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s * scale_log2 - m_new[..., None])
+                if not full:
+                    p_masked = torch.exp2(_NEG_INF_LOG2 - m_new)
+                    p = torch.where(keep, p, p_masked[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + _bf16(p) @ v_t
+                m = m_new
+            stop = min(warp_row + WARP_ROWS, q_len) - warp_row
+            if stop > 0:
+                denom = torch.clamp(l, min=1e-30)
+                out[:, warp_row:warp_row + stop] = _bf16(
+                    acc / denom[..., None])[:, :stop]
+                lse[:, warp_row:warp_row + stop] = (
+                    m * np.log(2.0) + torch.log(denom))[:, :stop]
+    return out, lse
+
+
 # (q_len, k_len, causal, q_offset, head_dim): GRAD_CASES at D = 16, and
 # the shapes the bf16 kernels' edges meet
 TC_CASES = {
@@ -320,6 +393,7 @@ TC_CASES = {
        for name, (q_len, k_len, causal, _, q_offset) in GRAD_CASES.items()},
     "query_shorter_than_a_step_d64": (37, 251, True, 0, 64),
     "whisper_cross_16x251_d64": (16, 251, False, 0, 64),
+    "whisper_encoder_251x251_d64": (251, 251, False, 0, 64),
     "ragged_65x129_d128": (65, 129, False, 0, 128),
     "causal_negative_offset_d32": (50, 130, True, -7, 32),
     "causal_two_blocks_d64": (256, 256, True, 0, 64),
@@ -371,6 +445,36 @@ def test_tensor_core_tile_walk_matches_plain_and_jax(case):
         assert _relative_error(got, want_plain) > 0, name
 
 
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_forward_tensor_core_tile_walk_matches_plain_and_jax(case):
+    """The forward kernel's tile walk against the plain forward and the
+    JAX package's _flash_impl (interpret mode) on bf16-rounded inputs: O
+    within relative error 2e-2 (P rounded once to bf16 before P.V, 2^-9
+    relative, and O once more), LSE within atol 1e-4 (it is formed from
+    the f32 p, in the log2 domain)."""
+    q_len, k_len, causal, q_offset, dim = TC_CASES[case]
+    q, k, v = (_bf16(torch.from_numpy(x)).numpy()
+               for x in _qkv(q_len, k_len, heads=2, dim=dim, seed=8))
+    sm_scale = 1.0 / np.sqrt(dim)
+    jax_out, jax_lse = (np.array(x) for x in jax_attention._flash_impl(
+        q, k, v, causal, sm_scale, min(32, q_len), min(32, k_len),
+        q_offset))
+    plain_out, plain_lse = torch_attention.flash_attention_plain(
+        *_torch(q, k, v), causal=causal, sm_scale=sm_scale,
+        q_offset=q_offset)
+    diag = torch_attention._diagonal(causal, q_offset, q_len, k_len)
+    out, lse = _emulate_forward_tc(
+        *(torch.from_numpy(x).reshape((-1,) + x.shape[2:])
+          for x in (q, k, v)), causal, sm_scale, diag)
+    out, lse = out.reshape(plain_out.shape), lse.reshape(plain_lse.shape)
+    for want_out, want_lse in ((plain_out, plain_lse), (jax_out, jax_lse)):
+        assert _relative_error(out, want_out) <= TC_REL_TOL
+        np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                                   atol=1e-4, rtol=0)
+    # the bf16 rounding of P and O is visible, not zero
+    assert _relative_error(out, plain_out) > 0
+
+
 def test_tensor_core_blocks_run_heavy_first():
     """Causal, Lq = Lk = 1024 (the llama32_1b shape): in launch order the
     blocks' visible tiles never increase, and every tile has one block."""
@@ -380,11 +484,18 @@ def test_tensor_core_blocks_run_heavy_first():
     for block in range(k_len // block_keys):          # blockIdx.y order
         t_begin = block * block_keys // step
         dkv_work.append(q_len // step - t_begin)
-    order = _dq_block_order(q_len)
+    order = _q_tile_order(q_len)
     assert sorted(order) == list(range(q_len // block_rows))
     dq_work = [-(-min(k_len, (tile + 1) * block_rows) // k_step)
                for tile in order]
-    for work in (dkv_work, dq_work):
+    # the forward walks the same blocks in the same order: its emulation
+    # records the key tiles each block streams
+    forward_work = []
+    q, k, v = (torch.zeros((1, length, 64)) for length in (q_len, k_len,
+                                                           k_len))
+    _emulate_forward_tc(q, k, v, True, 0.125, 0, visits=forward_work)
+    assert forward_work == dq_work
+    for work in (dkv_work, dq_work, forward_work):
         assert work == sorted(work, reverse=True) and work[0] > work[-1]
 
 

@@ -6,7 +6,8 @@
 #   python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 #
 # Tolerances: bf16 outputs are compared with atol/rtol 2e-2 (one bf16
-# rounding of values of order 1, plus f32 sums taken in another order);
+# rounding of values of order 1, the forward's rounding of P to bf16
+# before P.V, plus f32 sums taken in another order);
 # f32 outputs with atol 1e-5; the f32 logsumexp with atol 1e-4 (a log of
 # a sum of up to 300 terms, summed in another order).  Gradients: bf16
 # per-tensor relative error ||g - g_ref|| / ||g_ref|| <= 2e-2 (the
@@ -54,6 +55,13 @@ CASES = {
     "asr_tones_f32": (4, 4, 12, 12, 16, torch.float32, False, 0),
     "f32_causal_q_offset": (2, 3, 50, 130, 32, torch.float32, True, -7),
     "f32_d128_ragged": (1, 2, 65, 129, 128, torch.float32, False, 0),
+    "lm_training_bf16": (1, 4, 1024, 1024, 64, torch.bfloat16, True, 0),
+    "d16_causal_bf16": (2, 4, 200, 200, 16, torch.bfloat16, True, 0),
+    "d32_causal_bf16": (2, 4, 300, 300, 32, torch.bfloat16, True, 0),
+    "d128_causal_bf16": (1, 4, 520, 520, 128, torch.bfloat16, True, 0),
+    "ragged_65x129_d128_bf16": (1, 2, 65, 129, 128, torch.bfloat16, False,
+                                0),
+    "causal_q_offset_bf16": (2, 3, 50, 130, 32, torch.bfloat16, True, -7),
 }
 
 
@@ -89,6 +97,28 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_forward(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2))
+    # the bf16 kernel copies 16-byte chunks: a tensor starting 2 bytes in
+    # is refused
+    q, k, v = _qkv((1, 2, 8, 16), (1, 2, 8, 16), torch.bfloat16, cuda)
+    shifted = torch.empty(q.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention_forward(shifted, k, v)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention_forward(q, k, shifted)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_forward_kernel_is_bitwise_repeatable(cuda, dtype):
+    """Each output tile has one owner block and no atomics: two launches
+    on the same inputs give the same bits."""
+    q, k, v = _qkv((2, 4, 300, 64), (2, 4, 300, 64), dtype, cuda, seed=5)
+    first = flash_attention_forward(q, k, v, causal=True)
+    second = flash_attention_forward(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("out", "lse")):
+        assert torch.equal(a, b), name
 
 
 BACKWARD_CASES = {
