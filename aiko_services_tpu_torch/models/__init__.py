@@ -3,11 +3,17 @@ from .asr import (                                            # noqa: F401
     make_asr_train_step, transcribe, transcribe_audio, transcribe_rescore,
     count_params)
 from .transformer import (                                    # noqa: F401
-    TransformerConfig, init_params, forward, make_train_step,
+    TransformerConfig, init_params, forward, init_cache, decode_step,
+    generate, generate_stream, make_train_step, quantize_weights_int8,
     REMAT_POLICIES, resolve_remat_policy)
+from .tokenizer import BPETokenizer, train_bpe                # noqa: F401
+from .detector import (                                       # noqa: F401
+    DetectorConfig, init_detector_params, detect, detector_forward,
+    decode_boxes, non_max_suppression)
 from .configs import (                                        # noqa: F401
     LLAMA3_8B, LLAMA32_1B, LM_TOY, WHISPER_TINY, WHISPER_SMALL,
-    transformer_flops_per_token, asr_flops_per_example)
+    YOLOV8N_SHAPE, DETECTOR_TOY, transformer_flops_per_token,
+    asr_flops_per_example, detector_flops_per_image)
 from .optim import adam, adamw                                # noqa: F401
 from .weights import (                                        # noqa: F401
     read_safetensors, write_safetensors, SafetensorsFile, save_pytree,

@@ -36,12 +36,20 @@ def _leaf_to_tensor(leaf, dtype, device) -> torch.Tensor:
 def params_from_numpy(tree: dict, device="cuda", dtype=None) -> dict:
     """A tree of numpy arrays -> a tree of tensors on `device` (CUDA
     unless the caller asks for the CPU); dtype (a name or torch.dtype)
-    casts every floating-point leaf."""
+    casts every floating-point leaf but the int8 weights' `w_scale`
+    planes, which stay f32 (quantize_weights_int8 keeps them so)."""
     device = resolve_device(device)
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
-    return tree_map(lambda leaf: _leaf_to_tensor(leaf, dtype, device),
-                    tree)
+
+    def convert(node, key=None):
+        if isinstance(node, dict):
+            return {name: convert(child, name)
+                    for name, child in node.items()}
+        return _leaf_to_tensor(node, None if key == "w_scale" else dtype,
+                               device)
+
+    return convert(tree)
 
 
 def params_to_numpy(tree: dict) -> dict:

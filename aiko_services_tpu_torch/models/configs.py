@@ -1,7 +1,8 @@
-# Reference-scale model configurations: the LM and Whisper presets.
+# Reference-scale model configurations: the LM, Whisper and detector
+# presets.
 #
-# Counterpart of aiko_services_tpu/models/configs.py (the LM and ASR
-# parts; the detector presets come with the detector).  Llama shapes from
+# Counterpart of aiko_services_tpu/models/configs.py (all but the TTS
+# FLOP model, which comes with the TTS model).  Llama shapes from
 # the reference's LLM seat (Llama-3-8B via Ollama) and the Llama-3.2-1B
 # architecture; Whisper ladder shapes (reference speech_elements.py:186-192:
 # tiny 39M ... small 244M); multilingual vocab 51865.  Special token ids
@@ -11,11 +12,13 @@
 from __future__ import annotations
 
 from .asr import AsrConfig
+from .detector import DetectorConfig
 from .transformer import TransformerConfig
 
 __all__ = ["LLAMA3_8B", "LLAMA32_1B", "LM_TOY", "WHISPER_TINY",
-           "WHISPER_SMALL", "transformer_flops_per_token",
-           "asr_flops_per_example"]
+           "WHISPER_SMALL", "YOLOV8N_SHAPE", "DETECTOR_TOY",
+           "transformer_flops_per_token", "asr_flops_per_example",
+           "detector_flops_per_image"]
 
 # Llama-3-8B architecture
 LLAMA3_8B = TransformerConfig(
@@ -41,6 +44,16 @@ WHISPER_TINY = AsrConfig(
 WHISPER_SMALL = AsrConfig(
     n_mels=80, d_model=768, enc_layers=12, dec_layers=12, n_heads=12,
     vocab_size=51865, max_frames=1500, max_text_len=448, dtype="bfloat16")
+
+# YOLOv8-n operating shape: 640x640 input, 80 classes (reference
+# yolo.py:51-87 runs YOLOv8 on webcam frames)
+YOLOV8N_SHAPE = DetectorConfig(
+    n_classes=80, base_channels=16, image_size=640, stride=16,
+    max_detections=300, score_threshold=0.25, dtype="bfloat16")
+
+DETECTOR_TOY = DetectorConfig(
+    n_classes=16, base_channels=8, image_size=64, max_detections=8,
+    dtype="float32")
 
 
 def transformer_flops_per_token(config: TransformerConfig,
@@ -75,3 +88,22 @@ def asr_flops_per_example(config: AsrConfig, n_frames: int,
     head = 2 * d * config.vocab_size * n_tokens
     return (config.enc_layers * enc_layer
             + config.dec_layers * dec_layer + head)
+
+
+def detector_flops_per_image(config: DetectorConfig) -> float:
+    """Conv backbone FLOPs: 2 * k*k * C_in * C_out * H_out * W_out summed
+    over the backbone's 7 3x3 conv stages + the 1x1 head
+    (detector.init_detector_params)."""
+    c = config.base_channels
+    size = config.image_size
+    stages = [  # (c_in, c_out, stride) mirroring init_detector_params
+        (3, c, 2), (c, c * 2, 2), (c * 2, c * 2, 1), (c * 2, c * 4, 2),
+        (c * 4, c * 4, 1), (c * 4, c * 8, 2), (c * 8, c * 8, 1),
+    ]
+    total = 0.0
+    h = size
+    for c_in, c_out, stride in stages:
+        h = h // stride
+        total += 2 * 9 * c_in * c_out * h * h
+    total += 2 * 1 * (c * 8) * (5 + config.n_classes) * h * h  # 1x1 head
+    return total

@@ -2,7 +2,7 @@
 #
 # Counterpart of aiko_services_tpu/models/layers.py: the layers the ASR
 # model and the LM use (dense, rms_norm, layer_norm, rotary, swiglu,
-# repeat_kv and the initialisers).  conv2d comes with the detector.
+# repeat_kv, conv2d and the initialisers).
 #
 # Conventions, as in the JAX package: weights stored (in_features,
 # out_features) so forward is x @ w; attention heads live in the
@@ -11,12 +11,17 @@
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.audio import full_f32_convolution
+
 __all__ = ["dense", "rms_norm", "layer_norm", "rotary_embedding",
-           "apply_rotary", "swiglu", "repeat_kv", "init_dense", "init_norm"]
+           "apply_rotary", "swiglu", "repeat_kv", "init_dense", "init_norm",
+           "conv2d", "init_conv"]
 
 
 def init_dense(generator: torch.Generator, in_features: int,
@@ -33,11 +38,18 @@ def dense(params: dict, x):
     """x @ w (+ b), accumulated in f32 and cast once to x's dtype.  A
     bf16 product on the card accumulates in f32 inside the matmul and
     rounds once; a bias is added in f32 before that single rounding, as
-    the JAX package does."""
+    the JAX package does.
+
+    Weight-only int8 (transformer.quantize_weights_int8): the 8-bit codes
+    cast to x's dtype (exact), the product is kept in f32 and the
+    per-output-channel f32 scale applies after it, before the one
+    rounding to x's dtype."""
     w = params["w"]
     if w.dtype == torch.int8:
-        raise NotImplementedError("int8 weights (quantize_weights_int8) "
-                                  "are not yet ported to the torch port")
+        out = torch.matmul(x.float(), w.float()) * params["w_scale"].float()
+        if "b" in params:
+            out = out + params["b"].float()
+        return out.to(x.dtype)
     if "b" in params:
         out = torch.matmul(x.float(), w.float()) + params["b"].float()
         return out.to(x.dtype)
@@ -102,3 +114,56 @@ def repeat_kv(x, repeats: int):
     batch, kv_heads, length, dim = x.shape
     x = x[:, :, None].expand(batch, kv_heads, repeats, length, dim)
     return x.reshape(batch, kv_heads * repeats, length, dim)
+
+
+def init_conv(generator: torch.Generator, in_channels: int,
+              out_channels: int, kernel: int, dtype=torch.float32,
+              bias: bool = True, *, device) -> dict:
+    """HWIO weights (kernel, kernel, in, out) drawn N(0, 1/fan_in) on the
+    CPU from `generator`; a zero bias."""
+    fan_in = in_channels * kernel * kernel
+    weight = torch.randn((kernel, kernel, in_channels, out_channels),
+                         generator=generator,
+                         dtype=torch.float32) / np.sqrt(fan_in)
+    params = {"w": weight.to(device=device, dtype=dtype)}
+    if bias:
+        params["b"] = torch.zeros((out_channels,), dtype=dtype,
+                                  device=device)
+    return params
+
+
+def _same_padding(size: int, kernel: int, stride: int) -> tuple:
+    """XLA's "SAME": total = max((ceil(n/s) - 1) * s + k - n, 0), the
+    lower half (rounded down) before, the rest after.  PyTorch's
+    padding=k//2 pads both sides alike, which at stride 2 on an even size
+    shifts every window by one pixel."""
+    total = max((math.ceil(size / stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(params: dict, x, stride: int = 1, padding="SAME"):
+    """x (B, H, W, C), w (kh, kw, I, O) -> (B, H', W', O): NHWC/HWIO, as
+    the JAX package's lax.conv_general_dilated call.
+
+    The NHWC tensor is padded as it lies and handed to F.conv2d as a
+    channels-last NCHW view (no copy).  The bias goes into the
+    convolution call, so a bf16 convolution rounds its f32 sums plus bias
+    once, as the JAX package does; f32 convolutions run with TF32 off
+    (cuDNN's default would keep about three decimal digits).  Only the
+    "SAME" padding the detector uses is ported."""
+    if padding != "SAME":
+        raise ValueError(f"conv2d ports padding='SAME' only, got "
+                         f"{padding!r}")
+    weight = params["w"].to(x.dtype).permute(3, 2, 0, 1)     # -> OIHW
+    bias = params["b"].to(x.dtype) if "b" in params else None
+    top, bottom = _same_padding(x.shape[1], weight.shape[2], stride)
+    left, right = _same_padding(x.shape[2], weight.shape[3], stride)
+    if top or bottom or left or right:
+        x = F.pad(x, (0, 0, left, right, top, bottom))
+    nchw = x.permute(0, 3, 1, 2)
+    if x.dtype == torch.float32:
+        with full_f32_convolution():
+            out = F.conv2d(nchw, weight, bias, stride=stride)
+    else:
+        out = F.conv2d(nchw, weight, bias, stride=stride)
+    return out.permute(0, 2, 3, 1)

@@ -1,19 +1,27 @@
-# Decoder-only transformer LM (Llama-family architecture): the training
-# and scoring part.
+# Decoder-only transformer LM (Llama-family architecture): training,
+# scoring and closed-batch greedy generation.
 #
-# Counterpart of aiko_services_tpu/models/transformer.py, cacheless path
-# only: init_params, forward (a causal prefill over the whole sequence),
-# the remat policies and make_train_step.  Same model, same parameter tree
-# (layers stacked on a leading (L, ...) axis), same casts; PyTorch run
-# eagerly on the device its tensors lie on.  jax.lax.scan over the stacked
-# layers is a Python loop over layer slices, jax.checkpoint is
-# torch.utils.checkpoint, and every attention goes through flash_attention
-# (the hand-written Hopper kernels on CUDA, forward and backward).
+# Counterpart of aiko_services_tpu/models/transformer.py: init_params,
+# forward (the causal prefill over the whole sequence, and the cached
+# forward at `pos`), the remat policies, make_train_step, weight-only int8
+# (quantize_weights_int8), the KV cache (init_cache, fp or int8) and greedy
+# generation (decode_step, generate, generate_stream).  Same model, same
+# parameter tree (layers stacked on a leading (L, ...) axis), same casts;
+# PyTorch run eagerly on the device its tensors lie on.  jax.lax.scan over
+# the stacked layers is a Python loop over layer slices, jax.checkpoint is
+# torch.utils.checkpoint, and every cacheless attention goes through
+# flash_attention (the hand-written Hopper kernels on CUDA, forward and
+# backward).  The cached attention is the JAX package's masked einsum (no
+# Pallas kernel there either), here plain matmuls.
 #
-# Not ported yet, and raising NotImplementedError when asked for: the KV
-# cache (cache/pos, generate, decode_step, the paged and int8 KV paths),
-# mixture of experts (n_experts > 0), sequence parallelism, sharding
-# (activation_specs, sharded=True, param_specs) and int8 weights.
+# The cache is written IN PLACE (the JAX package donates it to its jitted
+# steps, so no caller keeps the old buffer); forward returns it all the
+# same, as the JAX package returns its updated cache.
+#
+# Not ported yet, and raising NotImplementedError when asked for: the
+# paged KV pool and its steps (the decode engine), mixture of experts
+# (n_experts > 0), sequence parallelism and sharding (activation_specs,
+# sharded=True, param_specs).
 
 from __future__ import annotations
 
@@ -33,8 +41,10 @@ from .layers import (
     rotary_embedding, swiglu)
 from .optim import apply_updates, next_token_loss, value_and_grad
 
-__all__ = ["TransformerConfig", "init_params", "forward", "make_train_step",
-           "count_params", "REMAT_POLICIES", "resolve_remat_policy"]
+__all__ = ["TransformerConfig", "init_params", "forward", "init_cache",
+           "decode_step", "generate", "generate_stream", "make_train_step",
+           "count_params", "quantize_weights_int8", "REMAT_POLICIES",
+           "resolve_remat_policy"]
 
 
 @dataclass(frozen=True)
@@ -59,7 +69,9 @@ class TransformerConfig:
     # weight of the MoE load-balancing aux loss in make_train_step
     moe_aux_weight: float = 0.01
     moe_decode_gather: bool = True
-    # "int8": an 8-bit KV cache: not yet ported ("" keeps the compute dtype)
+    # "int8": the KV cache stores 8-bit codes + a per-(head, position) f32
+    # scale, quantized once when a token is written ("" keeps the compute
+    # dtype)
     kv_dtype: str = ""
 
     def __post_init__(self):
@@ -95,8 +107,6 @@ def _require_ported(config: TransformerConfig) -> None:
         raise _not_ported("the mixture-of-experts FFN (n_experts > 0)")
     if config.sequence_parallel:
         raise _not_ported("sequence-parallel attention")
-    if config.kv_dtype == "int8":
-        raise _not_ported("the int8 KV cache (kv_dtype='int8')")
 
 
 # -- parameters -------------------------------------------------------------
@@ -153,11 +163,130 @@ def _unstack(stacked: dict) -> list:
             for index in range(_layer_count(stacked))]
 
 
+# -- weight-only int8 (serving decode) ---------------------------------------
+
+_DENSE_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _quantize_rows(entry: dict, axis: int) -> dict:
+    """Symmetric absmax int8 over `axis`: codes round(w / scale), half to
+    even (torch.round, as jnp.round), clipped to +-127, and an f32 scale
+    kept at the weight's rank."""
+    w = entry["w"].float()
+    scale = torch.clamp_min(w.abs().amax(dim=axis, keepdim=True),
+                            1e-12) / 127.0
+    codes = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    out = {"w": codes, "w_scale": scale}
+    if "b" in entry:
+        out["b"] = entry["b"]
+    return out
+
+
+def quantize_weights_int8(params: dict, config: TransformerConfig) -> dict:
+    """Weight-only int8 for serving: the dense weights become 8-bit codes
+    and a per-output-channel f32 scale; embed / lm_head quantize per vocab
+    row (one scale serves the gather and the logits product, where it
+    factors out of the contraction).  Norms stay as they are.  Not for
+    training."""
+    _require_ported(config)
+    layers = dict(params["layers"])
+    for key in _DENSE_QUANT_KEYS:
+        layers[key] = _quantize_rows(layers[key], axis=-2)
+    quantized = dict(params)
+    quantized["layers"] = layers
+    quantized["embed"] = _quantize_rows(params["embed"], axis=-1)
+    if "lm_head" in params:
+        quantized["lm_head"] = _quantize_rows(params["lm_head"], axis=-1)
+    return quantized
+
+
+# -- KV cache ---------------------------------------------------------------
+
+def init_cache(config: TransformerConfig, batch: int,
+               max_len: int | None = None, device="cuda") -> dict:
+    """Zeroed cache (layers, batch, kv_heads, max_len, head_dim) on
+    `device`: in the compute dtype, or int8 codes with f32 scale planes
+    (..., max_len, 1) when config.kv_dtype is "int8"."""
+    device = resolve_device(device)
+    max_len = max_len or config.max_seq_len
+    shape = (config.n_layers, batch, config.n_kv_heads, max_len,
+             config.head_dim)
+    if config.kv_dtype == "int8":
+        scale_shape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scale_shape, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_scale": torch.zeros(scale_shape, device=device)}
+    return {"k": torch.zeros(shape, dtype=config.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=config.torch_dtype, device=device)}
+
+
+def _quantize_kv(x):
+    """(B, H, L, D) float -> (int8 codes, f32 scale (B, H, L, 1)):
+    symmetric absmax per (batch, head, position) over head_dim; one
+    rounding per written token, dequantized as codes * scale."""
+    as_f32 = x.float()
+    scale = torch.clamp_min(as_f32.abs().amax(dim=-1, keepdim=True),
+                            1e-8) / 127.0
+    codes = torch.clamp(torch.round(as_f32 / scale), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def _write_at(buffer, update, pos: int) -> None:
+    """buffer[:, :, pos:pos + L] = update, in place, with the start
+    clamped so that the update fits, as lax.dynamic_update_slice clamps
+    it (a write past the end lands on the last L positions)."""
+    length = update.shape[2]
+    start = max(0, min(pos, buffer.shape[2] - length))
+    buffer[:, :, start:start + length] = update
+
+
 # -- forward ----------------------------------------------------------------
 
-def _attention(config: TransformerConfig, layer, h, cos, sin):
-    """Causal self-attention over the whole sequence (the cacheless
-    path): project, rotate, expand the KV heads, flash attention."""
+@functools.lru_cache(maxsize=None)
+def _attention_scale(head_dim: int) -> float:
+    """1 / sqrt(head_dim) taken in f32, as the JAX package takes it."""
+    return (1.0 / torch.tensor(float(head_dim)).sqrt()).item()
+
+
+def _cached_attention(config: TransformerConfig, q, k, v, layer_cache,
+                      pos: int):
+    """Write the new K/V at `pos` (quantized when the cache is int8),
+    then masked attention of q over the whole cache buffer: q·kᵀ kept in
+    f32, masked with -1e30, softmax in f32, the weights cast to V's dtype
+    for the second product."""
+    cache_k, cache_v = layer_cache["k"], layer_cache["v"]
+    quantized = cache_k.dtype == torch.int8
+    if quantized:
+        k, k_scale = _quantize_kv(k)
+        v, v_scale = _quantize_kv(v)
+        _write_at(layer_cache["k_scale"], k_scale, pos)
+        _write_at(layer_cache["v_scale"], v_scale, pos)
+    _write_at(cache_k, k, pos)
+    _write_at(cache_v, v, pos)
+    if quantized:
+        k_eff = (cache_k.float() * layer_cache["k_scale"]).to(q.dtype)
+        v_eff = (cache_v.float() * layer_cache["v_scale"]).to(q.dtype)
+    else:
+        k_eff, v_eff = cache_k, cache_v
+    repeats = config.n_heads // config.n_kv_heads
+    k_full = repeat_kv(k_eff, repeats)
+    v_full = repeat_kv(v_eff, repeats)
+    logits = torch.matmul(q.float(), k_full.float().transpose(-1, -2)) \
+        * _attention_scale(config.head_dim)
+    length, max_len = q.shape[2], cache_k.shape[2]
+    q_pos = pos + torch.arange(length, device=q.device)[:, None]
+    k_pos = torch.arange(max_len, device=q.device)[None, :]
+    logits = logits.masked_fill(k_pos > q_pos, -1e30)
+    weights = torch.softmax(logits, dim=-1)
+    return torch.matmul(weights.to(v_full.dtype), v_full)
+
+
+def _attention(config: TransformerConfig, layer, h, cos, sin,
+               layer_cache=None, pos: int = 0):
+    """Self-attention: project, rotate, then either the causal prefill
+    over the whole sequence (no cache: flash attention, K/V heads
+    expanded) or the cached path at `pos`."""
     batch, length, _ = h.shape
     hd = config.head_dim
     q = dense(layer["wq"], h).reshape(
@@ -168,22 +297,30 @@ def _attention(config: TransformerConfig, layer, h, cos, sin):
         batch, length, config.n_kv_heads, hd).transpose(1, 2)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
-    repeats = config.n_heads // config.n_kv_heads
-    # the kernels take contiguous (B, H, L, D) tensors only
-    out = flash_attention(q.contiguous(),
-                          repeat_kv(k, repeats).contiguous(),
-                          repeat_kv(v, repeats).contiguous(), causal=True)
+    if layer_cache is not None:
+        out = _cached_attention(config, q, k, v, layer_cache, pos)
+    else:
+        repeats = config.n_heads // config.n_kv_heads
+        # the kernels take contiguous (B, H, L, D) tensors only
+        out = flash_attention(q.contiguous(),
+                              repeat_kv(k, repeats).contiguous(),
+                              repeat_kv(v, repeats).contiguous(),
+                              causal=True)
     out = out.transpose(1, 2).reshape(batch, length, -1)
     return dense(layer["wo"], out)
 
 
 def _embed(params: dict, config: TransformerConfig, tokens):
     """Token embedding gather; out-of-vocab ids clamp to the table
-    (jnp.take mode="clip")."""
+    (jnp.take mode="clip").  An int8 table gathers its rows' scales
+    alongside and dequantizes only the gathered tokens."""
     table = params["embed"]["w"]
+    index = tokens.clamp(0, table.shape[0] - 1)
+    h = table[index]
     if table.dtype == torch.int8:
-        raise _not_ported("int8 weights (quantize_weights_int8)")
-    return table[tokens.clamp(0, table.shape[0] - 1)]
+        h = (h.float() * params["embed"]["w_scale"][index]).to(
+            config.torch_dtype)
+    return h
 
 
 def _mlp_block(config: TransformerConfig, layer, mlp_in):
@@ -194,18 +331,21 @@ def _mlp_block(config: TransformerConfig, layer, mlp_in):
 
 def _lm_head(params: dict, config: TransformerConfig, h):
     """Output norm + f32 logits; an untied head when the tree carries
-    one, the tied embedding otherwise."""
+    one, the tied embedding otherwise.  An int8 head's per-row scales
+    apply to the result (they factor out of the contraction)."""
     h = rms_norm(params["norm_out"], h, config.norm_eps)
     head = params.get("lm_head", params["embed"])
+    logits = torch.einsum("bld,vd->blv", h.float(), head["w"].float())
     if head["w"].dtype == torch.int8:
-        raise _not_ported("int8 weights (quantize_weights_int8)")
-    return torch.einsum("bld,vd->blv", h.float(), head["w"].float())
+        logits = logits * head["w_scale"][:, 0]
+    return logits
 
 
-def _layer_step(config: TransformerConfig, layer, h, cos, sin):
+def _layer_step(config: TransformerConfig, layer, h, cos, sin,
+                layer_cache=None, pos: int = 0):
     h = h + _attention(config, layer,
                        rms_norm(layer["attn_norm"], h, config.norm_eps),
-                       cos, sin)
+                       cos, sin, layer_cache, pos)
     mlp_out, aux = _mlp_block(
         config, layer, rms_norm(layer["mlp_norm"], h, config.norm_eps))
     return h + mlp_out, aux
@@ -215,34 +355,140 @@ def forward(params: dict, config: TransformerConfig, tokens,
             cache: dict | None = None, pos: int = 0,
             activation_specs: bool = False, return_aux: bool = False,
             remat_policy: str | None = None):
-    """tokens (B, L) int -> logits (B, L, V) f32: a causal prefill over
-    the whole sequence (training / scoring).  return_aux=True also
-    returns the mean MoE load-balancing loss across layers (0 for the
-    dense FFN).  remat_policy names a REMAT_POLICIES entry wrapping each
-    layer in torch.utils.checkpoint."""
-    if cache is not None or pos != 0:
-        raise _not_ported("forward with a KV cache (cache / pos)")
+    """tokens (B, L) int -> logits (B, L, V) f32 [+ the cache].
+
+    With cache=None: a causal prefill over the whole sequence (training /
+    scoring); return_aux=True also returns the mean MoE load-balancing
+    loss across layers (0 for the dense FFN), and remat_policy names a
+    REMAT_POLICIES entry wrapping each layer in torch.utils.checkpoint.
+    With a cache (init_cache): K/V are written at `pos` (an int or a 0-d
+    tensor), in place, and (logits, cache) is returned -- the
+    incremental-decode path."""
+    if return_aux and cache is not None:
+        raise ValueError(
+            "return_aux is only meaningful on the cache-less (training/"
+            "scoring) path; with a cache forward returns (logits, cache)")
+    if remat_policy not in (None, "none") and cache is not None:
+        raise ValueError(
+            "remat_policy is only meaningful on the cache-less "
+            "(training/scoring) path; incremental decode saves nothing "
+            "by rematerializing")
     if activation_specs:
         raise _not_ported("activation sharding (activation_specs)")
     _require_ported(config)
+    pos = int(pos)
     context_fn = resolve_remat_policy(remat_policy)
     h = _embed(params, config, tokens)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = rotary_embedding(positions, config.head_dim,
                                 config.rope_theta)
     cos, sin = cos[None, None], sin[None, None]  # (1, 1, L, hd/2)
     aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
-    for layer in _unstack(params["layers"]):
-        if context_fn is None:
+    for index, layer in enumerate(_unstack(params["layers"])):
+        if cache is not None:
+            layer_cache = {name: buffer[index]
+                           for name, buffer in cache.items()}
+            h, aux = _layer_step(config, layer, h, cos, sin, layer_cache,
+                                 pos)
+        elif context_fn is None:
             h, aux = _layer_step(config, layer, h, cos, sin)
         else:
             h, aux = checkpoint(_layer_step, config, layer, h, cos, sin,
                                 use_reentrant=False, context_fn=context_fn)
         aux_sum = aux_sum + aux
     logits = _lm_head(params, config, h)
+    if cache is not None:
+        return logits, cache
     if return_aux:
         return logits, aux_sum / max(config.n_layers, 1)
     return logits
+
+
+# -- generation -------------------------------------------------------------
+#
+# The JAX package jits these (generate as prefill + lax.fori_loop); here
+# they run eagerly: one forward per token, the loop in Python.  Token ids
+# leave as int32, as there.
+
+def _greedy(logits):
+    """(B, L, V) -> the argmax of the last position, (B, 1) int32 (the
+    first maximum on ties, as jnp.argmax)."""
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+
+
+@torch.no_grad()
+def decode_step(params, config: TransformerConfig, cache, token, pos):
+    """One incremental decode step: token (B, 1) at absolute position pos.
+    Returns (next_token greedy (B, 1) int32, logits, cache)."""
+    logits, cache = forward(params, config, token, cache=cache, pos=pos)
+    return _greedy(logits), logits, cache
+
+
+def _prompt_cache(config, prompt, max_new_tokens: int, cache):
+    if cache is not None:
+        return cache
+    return init_cache(config, prompt.shape[0],
+                      max_len=prompt.shape[1] + max_new_tokens,
+                      device=prompt.device)
+
+
+@torch.no_grad()
+def generate(params, config: TransformerConfig, prompt,
+             max_new_tokens: int, cache=None):
+    """Greedy generation: prefill the prompt, then one cached step per
+    new token.  Returns (tokens (B, max_new_tokens) int32, cache).  A
+    caller-supplied cache is written in place."""
+    batch, prompt_len = prompt.shape
+    cache = _prompt_cache(config, prompt, max_new_tokens, cache)
+    logits, cache = forward(params, config, prompt, cache=cache, pos=0)
+    out = torch.zeros((batch, max_new_tokens), dtype=torch.int32,
+                      device=prompt.device)
+    out[:, :1] = _greedy(logits)
+    del logits
+    for step in range(1, max_new_tokens):
+        step_logits, cache = forward(params, config, out[:, step - 1:step],
+                                     cache=cache, pos=prompt_len + step - 1)
+        out[:, step:step + 1] = _greedy(step_logits)
+    return out, cache
+
+
+@torch.no_grad()
+def _prefill_step(params, config: TransformerConfig, prompt, cache):
+    logits, cache = forward(params, config, prompt, cache=cache, pos=0)
+    return _greedy(logits), cache
+
+
+@torch.no_grad()
+def _decode_chunk(params, config: TransformerConfig, token, cache, pos: int,
+                  chunk: int):
+    """`chunk` greedy steps from `token` at `pos`: returns (the chunk's
+    tokens (B, chunk) int32, the last token, cache)."""
+    out = torch.zeros((token.shape[0], chunk), dtype=torch.int32,
+                      device=token.device)
+    for step in range(chunk):
+        logits, cache = forward(params, config, token, cache=cache,
+                                pos=pos + step)
+        token = _greedy(logits)
+        out[:, step:step + 1] = token
+    return out, token, cache
+
+
+def generate_stream(params, config: TransformerConfig, prompt,
+                    max_new_tokens: int, cache=None, chunk: int = 8):
+    """Streaming greedy generation: yields (offset, tokens (B, n)) numpy
+    chunks as they decode -- the prefill's token first, then chunks of
+    up to `chunk` steps.  The chunks concatenate to generate()'s tokens."""
+    prompt_len = prompt.shape[1]
+    cache = _prompt_cache(config, prompt, max_new_tokens, cache)
+    token, cache = _prefill_step(params, config, prompt, cache)
+    yield 0, token.cpu().numpy()
+    produced = 1
+    while produced < max_new_tokens:
+        size = min(chunk, max_new_tokens - produced)
+        block, token, cache = _decode_chunk(
+            params, config, token, cache, prompt_len + produced - 1, size)
+        yield produced, block.cpu().numpy()
+        produced += size
 
 
 # -- training ---------------------------------------------------------------

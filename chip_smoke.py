@@ -40,10 +40,23 @@ result:
      under torch.profiler: device idle share and where the time goes
   7. asr_tones trained from a seeded init on the card through
      make_asr_train_step until held-out tones transcribe exactly
+  8. the config-5 serving graph, (sources (asr (text) (lm (reply)))
+     (detector)), at full width (whisper_small, llama32_1b, the
+     yolov8n-shape detector at 640 px, bf16, random weights from seeds):
+     8a the LM's cached prefill (masked einsum) against the cacheless
+        forward (K1 causal) at llama32_1b width on 16-token prompts;
+     8b greedy generation of a small f32 LM on the card token for token
+        equal to the CPU's;
+     8c the committed detector checkpoint on the card: the right class
+        and IoU >= 0.5 with the true box;
+     8d serving through Process / create_pipeline: one warm-up group and
+        4 measured groups of 8 frames x 16 rows, every output checked,
+        then frames/s, p50 frame latency, per-element times, LM tokens/s,
+        K1 launches and peak device memory
 
-The line before the last is one JSON object describing every kernel of
-the paths; the last line is {"ok": true, "device": {...}}.  Imports
-nothing of JAX and nothing of the JAX package.
+The last three lines are the card's nvidia-smi name and power limit, one
+JSON object describing every kernel of the paths, and {"ok": true,
+"device": {...}}.  Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -1004,6 +1017,311 @@ def phase_asr_tones_training() -> dict:
     return launches
 
 
+# -- the config-5 serving graph --------------------------------------------
+
+# bench.py::_multimodal_setup at its throughput operating point: 16 rows
+# of 5 s audio and 640 px images per frame, micro_batch 8 on the three
+# model stages (128 rows per fused group), one group in flight
+C5_ROWS, C5_SECONDS, C5_MICRO, C5_GROUPS = 16, 5.0, 8, 4
+C5_MAX_TOKENS, C5_MAX_NEW, C5_IMAGE = 16, 32, 640
+# 8a: llama32_1b's last-position logits (values of order 1) from the
+# cached prefill (f32 q.k^T, softmax in f32, bf16 P.V) against the
+# cacheless forward (K1: bf16 P, another summation order): each of the
+# 16 layers rounds its attention output to bf16 from differently
+# ordered sums, and those one-ulp differences (2^-8 relative) pass
+# through 16 residual layers -> atol 1e-1
+LM_CACHE_TOL = 1e-1
+
+
+def config5_definition() -> dict:
+    samples = int(C5_SECONDS * SAMPLE_RATE)
+    audio_t = f"f32[b,{samples}]"
+    image_t = f"f32[b,3,{C5_IMAGE},{C5_IMAGE}]"
+    tokens_t = f"i32[b,{C5_MAX_TOKENS}]"
+    generated_t = f"i32[b,{C5_MAX_NEW}]"
+    # micro_batch_wait_ms: the flush waits for the full group of 8
+    batching = {"micro_batch": C5_MICRO, "micro_batch_wait_ms": 5000}
+
+    def local(class_name):
+        return {"local": {"module": MODULE, "class_name": class_name}}
+
+    return {
+        "name": "config5",
+        "graph": ["(sources (asr (text) (lm (reply))) (detector))"],
+        "parameters": {"device": "cuda"},
+        "elements": [
+            {"name": "sources",
+             "output": [{"name": "audio", "type": audio_t},
+                        {"name": "image", "type": image_t},
+                        {"name": "t0", "type": "float"}],
+             "parameters": {"data_sources": [[440, C5_SECONDS]],
+                            "image_shape": [3, C5_IMAGE, C5_IMAGE],
+                            "data_batch_size": C5_ROWS, "timestamps": True,
+                            "on_device": True,
+                            "count": C5_MICRO * (C5_GROUPS + 1)},
+             "deploy": local("MultiModalSource")},
+            {"name": "asr",
+             "input": [{"name": "audio", "type": audio_t}],
+             "output": [{"name": "tokens", "type": tokens_t}],
+             "parameters": {"preset": "whisper_small", "max_frames": 512,
+                            "max_tokens": C5_MAX_TOKENS,
+                            "dtype": "bfloat16", **batching},
+             "deploy": local("SpeechToText")},
+            {"name": "text",
+             "input": [{"name": "tokens", "type": tokens_t}],
+             "output": [{"name": "text", "type": "str"}],
+             "parameters": {"workers": 32},
+             "deploy": local("TokensToText")},
+            {"name": "lm",
+             "input": [{"name": "tokens", "type": tokens_t}],
+             "output": [{"name": "generated", "type": generated_t}],
+             "parameters": {"preset": "llama32_1b", "dtype": "bfloat16",
+                            "max_new_tokens": C5_MAX_NEW, **batching},
+             "deploy": local("LMGenerate")},
+            {"name": "reply",
+             "input": [{"name": "tokens", "type": generated_t}],
+             "output": [{"name": "text", "type": "str"}],
+             "map_in": {"tokens": "generated"},
+             "map_out": {"text": "reply"},
+             "parameters": {"workers": 32},
+             "deploy": local("TokensToText")},
+            {"name": "detector",
+             "input": [{"name": "image", "type": image_t}],
+             "output": [{"name": "detections", "type": "dict"}],
+             "parameters": {"preset": "yolov8n", "dtype": "bfloat16",
+                            **batching},
+             "deploy": local("Detector")},
+        ],
+    }
+
+
+def phase_lm_cache_vs_kernel(params, config) -> None:
+    """8a: the cached prefill's last-position logits against the
+    cacheless forward's (K1 causal) on the same 16-token prompts."""
+    from aiko_services_tpu_torch.models import forward, init_cache
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, config.vocab_size, (C5_ROWS, C5_MAX_TOKENS)).astype(
+            np.int32)).cuda()
+    with torch.no_grad():
+        cache = init_cache(config, C5_ROWS,
+                           max_len=C5_MAX_TOKENS + C5_MAX_NEW,
+                           device=tokens.device)
+        cached, _ = forward(params, config, tokens, cache=cache, pos=0)
+        cached = cached[:, -1]
+        kernel = forward(params, config, tokens)[:, -1]
+    torch.cuda.synchronize()
+    if not (torch.isfinite(cached).all() and torch.isfinite(kernel).all()):
+        raise SystemExit("8a: llama32_1b logits are not finite")
+    error = (cached - kernel).abs()
+    same_argmax = (cached.argmax(-1) == kernel.argmax(-1)).float().mean()
+    say("8a lm_cache_vs_k1", rows=C5_ROWS, prompt=C5_MAX_TOKENS,
+        vocab=config.vocab_size, max_abs_err=f"{error.max().item():.3e}",
+        mean_abs_err=f"{error.mean().item():.3e}", tolerance=LM_CACHE_TOL,
+        logit_abs_max=f"{kernel.abs().max().item():.3f}",
+        same_argmax_share=f"{same_argmax.item():.3f}")
+    if error.max().item() > LM_CACHE_TOL:
+        raise SystemExit(f"8a: cached prefill differs from the K1 forward "
+                         f"by {error.max().item():.3e} > {LM_CACHE_TOL}")
+
+
+def phase_generate_f32_vs_cpu() -> None:
+    """8b: greedy tokens of LM_TOY at f32 on the card equal the CPU's."""
+    from aiko_services_tpu_torch.models import LM_TOY, generate, init_params
+    from aiko_services_tpu_torch.utils.tree import tree_map
+    params = init_params(LM_TOY, torch.Generator().manual_seed(3),
+                         device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        3, LM_TOY.vocab_size, (8, 12)).astype(np.int32))
+    expected, _ = generate(params, LM_TOY, prompt, 24)
+    actual, cache = generate(tree_map(lambda leaf: leaf.cuda(), params),
+                             LM_TOY, prompt.cuda(), 24)
+    if not cache["k"].is_cuda:
+        raise SystemExit("8b: the cache is not on the card")
+    same = torch.equal(actual.cpu(), expected)
+    say("8b generate_f32_card_vs_cpu", rows=8, prompt=12, new_tokens=24,
+        identical=same)
+    if not same:
+        raise SystemExit(f"8b: tokens on the card {actual.cpu().tolist()} "
+                         f"differ from the CPU's {expected.tolist()}")
+
+
+def phase_detector_checkpoint() -> None:
+    """8c: the committed detector checkpoint on the card finds squares:
+    the right class, IoU >= 0.5."""
+    from aiko_services_tpu_torch.models import (
+        DetectorConfig, SafetensorsFile, detect, load_pytree)
+    asset = ROOT / "tests" / "assets" / "detector_shapes.safetensors"
+    container = SafetensorsFile(asset)
+    metadata = {key: ast.literal_eval(value)
+                for key, value in container.metadata.items()}
+    container.close()
+    config = DetectorConfig(**metadata["config"])
+    params = load_pytree(asset, dtype=config.dtype, device="cuda")
+    colors = np.asarray(metadata["colors"], np.float32)
+    size = config.image_size
+    cases = [(0, 6, 8, 20), (1, 30, 12, 16), (2, 14, 34, 22),
+             (3, 36, 36, 18)]
+    images, boxes = [], []
+    for class_id, x0, y0, side in cases:
+        rng = np.random.default_rng(class_id * 1000 + x0 + y0)
+        image = rng.uniform(0.0, 0.25, (3, size, size)).astype(np.float32)
+        image[:, y0:y0 + side, x0:x0 + side] = (
+            colors[class_id][:, None, None] * 0.9)
+        images.append(image)
+        boxes.append((x0, y0, x0 + side, y0 + side))
+    found = detect(params, config, torch.from_numpy(np.stack(images)).cuda())
+    ious = []
+    for index, (class_id, *_) in enumerate(cases):
+        valid = found["valid"][index].cpu().numpy()
+        if valid.sum() != 1:
+            raise SystemExit(f"8c: case {index}: {int(valid.sum())} "
+                             f"detections, expected 1")
+        slot = int(np.argmax(valid))
+        if int(found["classes"][index, slot]) != class_id:
+            raise SystemExit(f"8c: case {index}: class "
+                             f"{int(found['classes'][index, slot])}, "
+                             f"expected {class_id}")
+        ious.append(box_iou(found["boxes"][index, slot].cpu().tolist(),
+                            boxes[index]))
+    if min(ious) < 0.5:
+        raise SystemExit(f"8c: IoU {ious} below 0.5")
+    say("8c detector_checkpoint", cases=len(cases),
+        ious=json.dumps([round(value, 3) for value in ious]), ok=True)
+
+
+def box_iou(a, b) -> float:
+    inter = (max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+             * max(0.0, min(a[3], b[3]) - max(a[1], b[1])))
+    union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+             - inter)
+    return inter / max(union, 1e-9)
+
+
+def check_config5_outputs(outputs: dict, limits: dict) -> None:
+    """Shapes, dtypes, devices and ranges of one served frame; `limits`
+    holds the vocabularies, the detection slots and the class count."""
+    def fail(what):
+        raise SystemExit(f"8d: {what}")
+
+    def check(name, value, shape, dtype):
+        if not (value.is_cuda and value.dtype == dtype
+                and tuple(value.shape) == shape):
+            fail(f"{name} is {value.dtype} {tuple(value.shape)} on "
+                 f"{value.device}")
+
+    for name, width, vocab in (
+            ("tokens", C5_MAX_TOKENS, limits["asr_vocab"]),
+            ("generated", C5_MAX_NEW, limits["lm_vocab"])):
+        check(name, outputs[name], (C5_ROWS, width), torch.int32)
+        if not ((0 <= outputs[name]).all() and (outputs[name] < vocab).all()):
+            fail(f"{name} outside [0, {vocab})")
+    for name in ("text", "reply"):
+        if not (isinstance(outputs[name], list)
+                and len(outputs[name]) == C5_ROWS
+                and all(isinstance(text, str) for text in outputs[name])):
+            fail(f"{name} is not {C5_ROWS} strings")
+    detections, slots = outputs["detections"], limits["detections"]
+    check("boxes", detections["boxes"], (C5_ROWS, slots, 4), torch.float32)
+    check("scores", detections["scores"], (C5_ROWS, slots), torch.float32)
+    check("classes", detections["classes"], (C5_ROWS, slots), torch.int32)
+    check("valid", detections["valid"], (C5_ROWS, slots), torch.bool)
+    scores, classes = detections["scores"], detections["classes"]
+    if not (torch.isfinite(detections["boxes"]).all()
+            and (0 <= scores).all() and (scores <= 1).all()
+            and (0 <= classes).all()
+            and (classes < limits["classes"]).all()):
+        fail("detections outside their ranges")
+    if not isinstance(outputs.get("t0"), float):
+        fail("no t0 timestamp")
+
+
+def phase_config5(smi: str) -> dict:
+    """Returns the kernel launches of the measured serving run."""
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    from aiko_services_tpu_torch.utils.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    process = Process(transport_kind="loopback")
+    try:
+        pipeline = create_pipeline(process, config5_definition())
+        start = time.perf_counter()
+        for name in ("asr", "lm", "detector"):
+            pipeline.elements[name]._ensure_ready()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - start
+        lm = pipeline.elements["lm"]
+        phase_lm_cache_vs_kernel(lm.state, lm.config)
+        phase_generate_f32_vs_cpu()
+        phase_detector_checkpoint()
+        detector = pipeline.elements["detector"].config
+        limits = {"asr_vocab": pipeline.elements["asr"].config.vocab_size,
+                  "lm_vocab": lm.config.vocab_size,
+                  "detections": detector.max_detections,
+                  "classes": detector.n_classes}
+        lm_weight_bytes = sum(leaf.numel() * leaf.element_size()
+                              for leaf in tree_leaves(lm.state))
+
+        process.run(in_thread=True)
+        responses = queue.Queue()
+        torch.cuda.synchronize()
+        pipeline.create_stream("s1", queue_response=responses,
+                               parameters={"frame_window": C5_MICRO})
+        warmup = [responses.get(timeout=900) for _ in range(C5_MICRO)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        measured = []   # (arrival time.time(), frame, outputs)
+        for _ in range(C5_MICRO * C5_GROUPS):
+            _, frame, outputs = responses.get(timeout=900)
+            measured.append((time.time(), frame, outputs))
+        elapsed = time.perf_counter() - start
+        launches = dict(kernels.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        summary = pipeline.telemetry.summary()
+    finally:
+        process.terminate()
+
+    for *_, outputs in warmup + measured:
+        check_config5_outputs(outputs, limits)
+    groups = C5_GROUPS + 1
+    if (summary["fused_groups"] != 3 * groups
+            or summary["chained_groups"] or summary["errors"]):
+        raise SystemExit(f"8d: expected {3 * groups} fused groups and no "
+                         f"chained group or error: {summary}")
+    encoder_layers = 12
+    if launches["flash_attention"] < encoder_layers * C5_GROUPS:
+        raise SystemExit(f"8d: {launches['flash_attention']} K1 launches "
+                         f"in {C5_GROUPS} groups, expected at least "
+                         f"{encoder_layers} per group")
+    # frame latency: synthesis (t0) -> the response's arrival
+    latencies = sorted(arrival - outputs["t0"]
+                       for arrival, _, outputs in measured)
+    stage_ms = {}
+    for node in ("asr", "text", "lm", "reply", "detector"):
+        values = [frame.metrics.get(f"time_{node}")
+                  for _, frame, _ in measured]
+        values = [value for value in values if value is not None]
+        if values:
+            stage_ms[node] = round(statistics.median(values) * 1e3, 2)
+    frames = len(measured)
+    tokens = frames * C5_ROWS * C5_MAX_NEW
+    say("8d config5_serving", groups=C5_GROUPS, frames=frames,
+        rows_per_frame=C5_ROWS, rows_per_group=C5_ROWS * C5_MICRO,
+        frames_per_s=f"{frames / elapsed:.3f}",
+        p50_frame_latency_ms=f"{statistics.median(latencies) * 1e3:.1f}",
+        lm_generated_tokens_per_s=f"{tokens / elapsed:.1f}",
+        element_ms_median_per_frame=json.dumps(stage_ms),
+        flash_attention_launches=launches["flash_attention"],
+        fused_groups=summary["fused_groups"],
+        lm_weight_gib=f"{lm_weight_bytes / 2**30:.2f}",
+        max_memory_allocated_gib=f"{peak / 2**30:.2f}",
+        setup_seconds=f"{setup_s:.1f}", card=repr(smi))
+    return launches
+
+
 def main() -> None:
     from aiko_services_tpu_torch.ops import kernels
     smi = phase_card()
@@ -1015,12 +1333,13 @@ def main() -> None:
     launches = {name: 0 for name in kernels.KERNELS}
     launches["flash_attention"] += phase_whisper_small(smi)
     for path_launches in (phase_llama_training(smi),
-                          phase_asr_tones_training()):
+                          phase_asr_tones_training(), phase_config5(smi)):
         for name, count in path_launches.items():
             launches[name] += count
     sources = {"flash_attention": ("flash_attention.cu", 75),
                "flash_attention_dq": ("flash_attention_backward.cu", 264),
                "flash_attention_dkv": ("flash_attention_backward.cu", 314)}
+    print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1031,7 +1350,6 @@ def main() -> None:
         "max_abs_err": max_abs_err[name],
         **timing[name],
     } for name in kernels.KERNELS]}), flush=True)
-    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

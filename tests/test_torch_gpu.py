@@ -227,3 +227,91 @@ def test_backward_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="16-byte boundary"):
         flash_attention_backward(shifted, kb, vb, out.bfloat16(), lse,
                                  qb)
+
+
+# -- the config-5 serving path on the card -----------------------------------
+
+def test_generate_on_cuda_equals_the_cpu_at_f32(cuda):
+    """Greedy tokens of a small f32 LM on the card (the cached prefill
+    and decode in f32 matmuls, TF32 off) equal the CPU's on the same
+    weights and prompts."""
+    from aiko_services_tpu_torch.models import (
+        LM_TOY, generate, init_params)
+    from aiko_services_tpu_torch.utils.tree import tree_map
+    config = LM_TOY
+    params = init_params(config, torch.Generator().manual_seed(0),
+                         device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        3, config.vocab_size, (4, 12)).astype(np.int32))
+    expected, _ = generate(params, config, prompt, 10)
+    on_card = tree_map(lambda leaf: leaf.to(cuda), params)
+    actual, cache = generate(on_card, config, prompt.to(cuda), 10)
+    assert cache["k"].is_cuda and actual.dtype == torch.int32
+    assert torch.equal(actual.cpu(), expected)
+
+
+def test_detector_on_cuda_finds_the_checkpoints_square(cuda):
+    import ast
+    import pathlib
+    from aiko_services_tpu_torch.models import (
+        DetectorConfig, SafetensorsFile, detect, load_pytree)
+    asset = (pathlib.Path(__file__).parent / "assets"
+             / "detector_shapes.safetensors")
+    container = SafetensorsFile(asset)
+    metadata = {key: ast.literal_eval(value)
+                for key, value in container.metadata.items()}
+    container.close()
+    config = DetectorConfig(**metadata["config"])
+    params = load_pytree(asset, dtype=config.dtype, device=cuda)
+    colors = np.asarray(metadata["colors"], np.float32)
+    rng = np.random.default_rng(1030)
+    image = rng.uniform(0.0, 0.25, (3, 64, 64)).astype(np.float32)
+    image[:, 12:28, 30:46] = colors[1][:, None, None] * 0.9
+    detections = detect(params, config, torch.from_numpy(image)[None].to(
+        cuda))
+    valid = detections["valid"][0].cpu().numpy()
+    assert valid.sum() == 1
+    slot = int(np.argmax(valid))
+    assert int(detections["classes"][0, slot]) == 1
+    x0, y0, x1, y1 = detections["boxes"][0, slot].cpu().tolist()
+    inter = max(0.0, min(x1, 46) - max(x0, 30)) * max(
+        0.0, min(y1, 28) - max(y0, 12))
+    union = (x1 - x0) * (y1 - y0) + 16 * 16 - inter
+    assert inter / union >= 0.5
+
+
+def test_multimodal_source_on_device_yields_cuda_tensors(cuda):
+    import queue
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    definition = {
+        "name": "sources",
+        "graph": ["(sources)"],
+        "parameters": {"device": "cuda"},
+        "elements": [
+            {"name": "sources",
+             "output": [{"name": "audio", "type": "f32[b,8000]"},
+                        {"name": "image", "type": "f32[b,3,64,64]"}],
+             "parameters": {"data_sources": [[440, 0.5]],
+                            "image_shape": [3, 64, 64],
+                            "data_batch_size": 4, "on_device": True,
+                            "count": 2},
+             "deploy": {"local": {
+                 "module": "aiko_services_tpu_torch.elements",
+                 "class_name": "MultiModalSource"}}}],
+    }
+    process = Process(transport_kind="loopback")
+    try:
+        pipeline = create_pipeline(process, definition)
+        process.run(in_thread=True)
+        responses = queue.Queue()
+        pipeline.create_stream("s1", queue_response=responses)
+        for _ in range(2):
+            _, _, outputs = responses.get(timeout=60)
+            assert outputs["audio"].is_cuda and outputs["image"].is_cuda
+            assert tuple(outputs["audio"].shape) == (4, 8000)
+            assert tuple(outputs["image"].shape) == (4, 3, 64, 64)
+            assert outputs["image"].dtype == torch.float32
+            assert 0 <= outputs["image"].min() and outputs["image"].max() < 1
+    finally:
+        process.terminate()

@@ -1,5 +1,6 @@
-# The port stands alone: importing its speech-serving and training paths
-# loads no JAX, no optax, no ml_dtypes and nothing of the JAX package, and
+# The port stands alone: importing its speech-serving, config-5 serving
+# (LM generation, tokenizer, detector, sources) and training paths loads
+# no JAX, no optax, no ml_dtypes and nothing of the JAX package, and
 # no source file of the port (nor the chip scripts chip_smoke.py,
 # chip_profile.py and chip_backward_ab.py) imports them.
 
@@ -25,6 +26,9 @@ def test_importing_the_main_path_loads_no_jax():
         "import aiko_services_tpu_torch.models\n"
         "import aiko_services_tpu_torch.models.transformer\n"
         "import aiko_services_tpu_torch.models.optim\n"
+        "import aiko_services_tpu_torch.models.detector\n"
+        "import aiko_services_tpu_torch.models.tokenizer\n"
+        "import aiko_services_tpu_torch.elements.compute\n"
         "import aiko_services_tpu_torch.parallel\n"
         "import aiko_services_tpu_torch.pipeline\n"
         "import aiko_services_tpu_torch.runtime\n"
@@ -38,6 +42,10 @@ def test_importing_the_main_path_loads_no_jax():
     assert "aiko_services_tpu_torch.elements.ml" in loaded
     assert "aiko_services_tpu_torch.models.transformer" in loaded
     assert "aiko_services_tpu_torch.models.optim" in loaded
+    for module in ("models.detector", "models.tokenizer", "elements.compute",
+                   "elements.common_io", "elements.audio_io",
+                   "elements.image_io"):
+        assert f"aiko_services_tpu_torch.{module}" in loaded
     assert [module for module in loaded if _forbidden(module)] == []
 
 

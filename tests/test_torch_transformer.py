@@ -198,41 +198,61 @@ def test_constructors_default_to_cuda():
         layers.init_norm(3)
 
 
-def _int8_params(numpy_params):
-    params = _port_params(numpy_params)
-    params["layers"]["wq"] = {
-        "w": params["layers"]["wq"]["w"].to(torch.int8),
-        "w_scale": torch.ones((2, 1, 64))}
-    return params
+def _element(class_name: str, parameters: dict) -> None:
+    """Build a one-element port pipeline on the CPU (construction is
+    where the port refuses what it does not have)."""
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    create_pipeline(Process(transport_kind="loopback"), {
+        "name": "unported",
+        "graph": ["(node)"],
+        "parameters": {"device": "cpu"},
+        "elements": [
+            {"name": "node", "input": [{"name": "tokens"}],
+             "output": [{"name": "generated"}], "parameters": parameters,
+             "deploy": {"local": {
+                 "module": "aiko_services_tpu_torch.elements",
+                 "class_name": class_name}}}],
+    })
 
 
-# what this slice does not port raises, never runs something else
+def _foreign_checkpoint(directory, name: str) -> str:
+    """A checkpoint holding one tensor under a foreign naming convention
+    (HuggingFace Llama, ultralytics YOLOv8)."""
+    from aiko_services_tpu_torch.models import write_safetensors
+    path = directory / "foreign.safetensors"
+    write_safetensors(path, {name: np.zeros(2, np.float32)})
+    return str(path)
+
+
+# what the port does not have yet raises, never runs something else
 UNPORTED = {
-    "cache": lambda c, p, t: torch_lm.forward(p, c, t, cache={}),
-    "pos": lambda c, p, t: torch_lm.forward(p, c, t, pos=3),
-    "activation_specs": lambda c, p, t: torch_lm.forward(
+    "activation_specs": lambda c, p, t, d: torch_lm.forward(
         p, c, t, activation_specs=True),
-    "sharded_train_step": lambda c, p, t: torch_lm.make_train_step(
+    "sharded_train_step": lambda c, p, t, d: torch_lm.make_train_step(
         c, optim.adam(1e-3), sharded=True),
-    "kv_dtype_int8": lambda c, p, t: torch_lm.forward(
-        p, torch_lm.TransformerConfig(**CONFIG, kv_dtype="int8"), t),
-    "n_experts": lambda c, p, t: torch_lm.init_params(
+    "n_experts": lambda c, p, t, d: torch_lm.init_params(
         torch_lm.TransformerConfig(**CONFIG, n_experts=4),
         torch.Generator(), device="cpu"),
-    "sequence_parallel": lambda c, p, t: torch_lm.make_train_step(
+    "sequence_parallel": lambda c, p, t, d: torch_lm.make_train_step(
         torch_lm.TransformerConfig(**CONFIG, sequence_parallel=True),
         optim.adam(1e-3)),
+    "continuous": lambda c, p, t, d: _element(
+        "LMGenerate", {**CONFIG, "continuous": True}),
+    "role": lambda c, p, t, d: _element(
+        "LMGenerate", {**CONFIG, "role": "prefill"}),
+    "hf_llama_weights": lambda c, p, t, d: _element(
+        "LMGenerate", {**CONFIG, "weights": _foreign_checkpoint(
+            d, "model.embed_tokens.weight")}),
+    "ultralytics_detector_weights": lambda c, p, t, d: _element(
+        "Detector", {"weights": _foreign_checkpoint(
+            d, "model.0.conv.weight")}),
 }
 
 
-@pytest.mark.parametrize("option", sorted(UNPORTED) + ["int8_weights"])
-def test_unported_options_raise(lm, option):
+@pytest.mark.parametrize("option", sorted(UNPORTED))
+def test_unported_options_raise(lm, option, tmp_path):
     _, _, torch_config, numpy_params, tokens = lm
-    tokens = torch.from_numpy(tokens)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        if option == "int8_weights":
-            torch_lm.forward(_int8_params(numpy_params), torch_config,
-                             tokens)
-        else:
-            UNPORTED[option](torch_config, _port_params(numpy_params),
-                             tokens)
+        UNPORTED[option](torch_config, _port_params(numpy_params),
+                         torch.from_numpy(tokens), tmp_path)
