@@ -14,8 +14,12 @@
 #              counterpart of tpu_element.py
 #   ops/       device helpers, log-mel frontend, kernel build/load
 #   parallel/  attention: the flash-attention kernel and its plain version
-#   models/    Whisper-style ASR, layers, configs, safetensors, bridge
-#   elements/  SpeechToText and TokensToText
+#   models/    Whisper-style ASR, the LM (with its paged KV steps), the
+#              detector, layers, configs, safetensors, bridge
+#   decode/    the continuous decode engine (paged KV blocks, the
+#              slot scheduler, the prefix cache)
+#   elements/  SpeechToText, LMGenerate, Detector, the text and source
+#              elements
 #   csrc/      CUDA C++ kernel sources
 
 __version__ = "0.1.0"

@@ -268,10 +268,10 @@ def check_faults_spec(spec) -> list:
 
 
 # The grammars below configure subsystems the torch port does not have
-# yet (serve/, decode/, tune/).  Each check keeps its signature and rule
-# code and refuses any spec, so a definition that carries one fails at
-# construction with a DefinitionError naming the rule, never with an
-# ImportError.
+# yet (serve/, decode/checkpoint.py and decode/disagg.py, tune/).  Each
+# check keeps its signature and rule code and refuses any spec, so a
+# definition that carries one fails at construction with a
+# DefinitionError naming the rule, never with an ImportError.
 
 def check_gateway_policy(spec) -> list:
     return _not_ported("AIKO403", "gateway_policy", "serving gateway")
@@ -300,7 +300,24 @@ def check_autoscale_policy(spec) -> list:
 
 
 def check_prefix_policy(spec, element: bool = False) -> list:
-    return _not_ported("AIKO411", "prefix_policy", "prefix KV cache")
+    """(code, message) problems in a cross-request prefix-reuse spec
+    (rule code AIKO411): the per-directive grammar check, then the REAL
+    PrefixPolicy.parse plus its scope validation -- `affinity_weight` is
+    gateway-side (routing score), `min_prefix_blocks`/`cache_blocks` are
+    engine-side (cache shape) -- so a spec on the wrong side fails
+    offline exactly as at construction."""
+    from ..decode.prefix import PREFIX_GRAMMAR, PrefixPolicy
+    problems = PREFIX_GRAMMAR.check(spec, value_code="AIKO411")
+    if not problems:
+        try:
+            policy = PrefixPolicy.parse(spec)
+            if element:
+                policy.validate_engine()
+            else:
+                policy.validate_gateway()
+        except ValueError as error:
+            problems.append(("AIKO411", str(error)))
+    return problems
 
 
 def check_autopilot_policy(spec) -> list:
@@ -417,7 +434,10 @@ def run_policy_pass(definition) -> AnalysisReport:
     # check_decode_parameters above (same split as checkpoint)
     prefix_spec = (definition.parameters or {}).get("prefix_policy")
     if prefix_spec:
-        for code, message in check_prefix_policy(prefix_spec):
+        problems = (check_prefix_policy(prefix_spec)
+                    or _not_ported("AIKO411", "prefix_policy",
+                                   "gateway's prefix-affinity routing"))
+        for code, message in problems:
             report.add(Diagnostic(code, message, definition=name))
     tune_spec = (definition.parameters or {}).get("tune")
     if tune_spec:

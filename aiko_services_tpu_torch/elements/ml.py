@@ -2,20 +2,23 @@
 #
 # Counterpart of aiko_services_tpu/elements/ml.py: SpeechToText (the
 # reference's PE_WhisperX seat, reference speech_elements.py:229-262),
-# LMForward, LMGenerate's closed-batch path (the reference's PE_LLM seat,
+# LMForward, LMGenerate (the reference's PE_LLM seat,
 # elements_llm.py:137-210: chat template, detections context, streamed
-# tokens), Detector (the YoloDetector seat, yolo.py:51-87),
-# DetectionsPublish, TokensToText and TextToTokens.  Everything runs
-# eagerly on the element's device (`device`, CUDA unless the definition
-# asks for the CPU).
+# tokens) with its closed-batch path and its continuous decode engine
+# (`continuous: true`, decode/engine.py: continuous batching, chunked
+# prefill, speculative decode, the local prefix cache), Detector (the
+# YoloDetector seat, yolo.py:51-87), DetectionsPublish, TokensToText and
+# TextToTokens.  Everything runs on the element's device (`device`, CUDA
+# unless the definition asks for the CPU).
 #
-# Not ported yet, and raising NotImplementedError naming it: LMGenerate's
-# decode engine (`continuous`, `speculative`) and prefill/decode
-# disaggregation (`role`, handoff / restore inputs); HuggingFace Llama
-# and whisper checkpoints; ultralytics YOLOv8 checkpoints for the
-# Detector; TextToSpeech.  `checkpoint` and `prefix_policy` are refused
-# as DefinitionErrors by analyze/policies.py; `sequence_parallel` and a
-# `sharding` block raise at construction.
+# Not ported yet, and raising NotImplementedError naming it: prefill/
+# decode disaggregation (`role`, handoff / restore inputs), warm KV
+# failover (`checkpoint`) and the cross-replica prefix store
+# (`prefix_keeper`), all ROADMAP Queue A item 2; HuggingFace Llama and
+# whisper checkpoints; ultralytics YOLOv8 checkpoints for the Detector;
+# TextToSpeech.  Lint also refuses `checkpoint` as a DefinitionError
+# (analyze/policies.py); `sequence_parallel` and a `sharding` block raise
+# at construction.
 
 from __future__ import annotations
 
@@ -199,8 +202,12 @@ class LMGenerate(ComputeElement):
     """tokens (B, L) prompt -> generated (B, max_new_tokens) greedy
     tokens (int32).
 
-    Owns its KV cache; a frame's generation is a prefill and one cached
-    step per token, so the pipeline only sees whole completions.
+    Closed batch (the default): owns its KV cache; a frame's generation
+    is a prefill and one cached step per token, so the pipeline only sees
+    whole completions.  `continuous: true`: each frame's rows are
+    submitted to the slot-based DecodeEngine and the frame parks until
+    they complete (decode_slots, kv_block_size, kv_blocks, max_context,
+    eos_id, prefill_chunk_size, speculative, prefix_policy).
 
     Chat semantics (reference elements_llm.py:137-210): a "system_prompt"
     parameter and optional "chat_template" ({system}/{context}/{user}
@@ -243,16 +250,16 @@ class LMGenerate(ComputeElement):
             self.process.add_message_handler(handler, topic)
 
     def _refuse_unported(self, stream=None) -> None:
-        """The decode engine's and disaggregation's parameters raise:
-        the closed batch would silently ignore them."""
-        if self.engine_managed(stream):
-            raise _not_ported(self, "continuous batching (`continuous`, "
-                                    "the decode engine)")
-        if self.get_parameter("speculative", None, stream):
-            raise _not_ported(self, "speculative decoding (`speculative`)")
+        """Disaggregation, warm KV failover and the cross-replica prefix
+        store raise: the engine would silently ignore them."""
         if self.disagg_role(stream):
             raise _not_ported(self, "prefill/decode disaggregation "
                                     "(`role`)")
+        if self.get_parameter("checkpoint", None, stream):
+            raise _not_ported(self, "warm KV failover (`checkpoint`)")
+        if self.get_parameter("prefix_keeper", "", stream):
+            raise _not_ported(self, "the cross-replica prefix store "
+                                    "(`prefix_keeper`)")
 
     def engine_managed(self, stream):
         return truthy(self.get_parameter("continuous", False, stream))
@@ -317,8 +324,10 @@ class LMGenerate(ComputeElement):
                       handoff=None, restore=None):
         self._refuse_unported(stream)
         if handoff is not None or restore is not None:
-            raise _not_ported(self, "KV handoff / restore inputs (the "
-                                    "decode engine)")
+            raise _not_ported(self, "KV handoff / restore inputs "
+                                    "(disaggregation, warm KV failover)")
+        if self.engine_managed(stream):
+            return self._process_frame_continuous(stream, tokens, text)
         self._ensure_ready()
         max_new = int(self.get_parameter("max_new_tokens", 32, stream))
         formatted = None
@@ -352,6 +361,263 @@ class LMGenerate(ComputeElement):
                               for row in _host(out)]
         return StreamEvent.OKAY, result
 
+    # -- continuous batching (decode/ engine) ------------------------------
+    #
+    # `continuous: true` swaps the closed batch for the slot-based
+    # DecodeEngine: each frame's rows are SUBMITTED as requests and the
+    # frame parks (StreamEvent.PENDING) while the engine interleaves its
+    # decode steps with every other in-flight frame's.  The pump rides the
+    # element's own mailbox -- one engine step per message -- so frames
+    # arriving on the pipeline mailbox are admitted into the RUNNING
+    # decode loop at prefill boundaries instead of convoying behind a
+    # closed batch.  Completions resume their frame through the ordinary
+    # process_frame_response path, with the closed batch's tokens.
+
+    def _ensure_engine(self):
+        engine = getattr(self, "_engine", None)
+        if engine is not None:
+            return engine
+        self._ensure_ready()
+        from ..decode import DecodeEngine
+        telemetry = getattr(self.pipeline, "telemetry", None)
+        registry = (telemetry.registry if telemetry is not None
+                    and telemetry.enabled else None)
+        kv_blocks = self.get_parameter("kv_blocks")
+        max_context = self.get_parameter("max_context")
+        eos_id = self.get_parameter("eos_id")
+        prefill_chunk = self.get_parameter("prefill_chunk_size")
+        draft_params, draft_config, spec_k = self._speculative_setup()
+        prefix_spec = self.get_parameter("prefix_policy")
+        prefix_policy = None
+        if prefix_spec:
+            # the spec parses through the AIKO411 grammar AS-IS (string
+            # or dict, the value lint checked): a bad value fails here
+            # with the message `aiko lint` reports
+            from ..decode.prefix import PrefixPolicy
+            prefix_policy = PrefixPolicy.parse(prefix_spec)
+            prefix_policy.validate_engine()
+        self._engine = DecodeEngine(
+            self.state, self.config,
+            decode_slots=int(self.get_parameter("decode_slots", 4)),
+            kv_block_size=int(self.get_parameter("kv_block_size", 16)),
+            kv_blocks=int(kv_blocks) if kv_blocks else None,
+            max_context=int(max_context) if max_context else None,
+            eos_id=int(eos_id) if eos_id is not None else None,
+            prefill_chunk_size=(int(prefill_chunk) if prefill_chunk
+                                else None),
+            draft_params=draft_params, draft_config=draft_config,
+            spec_k=spec_k,
+            prefix_policy=prefix_policy,
+            registry=registry)
+        self._engine_frames = {}
+        self._pump_posted = False
+        return self._engine
+
+    def _speculative_setup(self):
+        """`speculative` parameter -> (draft_params, draft_config, k).
+        `draft=self` shrinks the TARGET's config family (layers/d_ff
+        overrides); `draft=<preset>` instantiates an _LM_PRESETS entry,
+        which must share the target's vocabulary.  The draft's weights are
+        random from a torch.Generator seeded by `seed` (jax.random's
+        cannot be reproduced); greedy-exact acceptance makes the tokens
+        independent of the draft -- a weak one only costs acceptance
+        length."""
+        spec = self.get_parameter("speculative")
+        if not spec:
+            return None, None, 0
+        from ..analyze.policies import parse_speculative_spec
+        parsed = parse_speculative_spec(str(spec))
+        draft = parsed["draft"]
+        if draft == "self":
+            draft_config = self.config
+        elif draft in _LM_PRESETS:
+            draft_config = _LM_PRESETS[draft]
+            if draft_config.dtype != self.config.dtype:
+                draft_config = replace(draft_config,
+                                       dtype=self.config.dtype)
+        else:
+            raise ValueError(
+                f"{self.definition.name}: speculative draft={draft!r} "
+                f"is neither 'self' nor a preset "
+                f"{sorted(_LM_PRESETS)}")
+        overrides = {}
+        if "layers" in parsed:
+            overrides["n_layers"] = parsed["layers"]
+        if "d_ff" in parsed:
+            overrides["d_ff"] = parsed["d_ff"]
+        if overrides:
+            draft_config = replace(draft_config, **overrides)
+        draft_params = init_params(
+            draft_config,
+            torch.Generator().manual_seed(int(parsed.get("seed", 0))),
+            device=self.device)
+        return draft_params, draft_config, parsed["k"]
+
+    def _process_frame_continuous(self, stream, tokens, text):
+        engine = self._ensure_engine()
+        formatted = None
+        if tokens is None:
+            if text is None:
+                raise ValueError("LMGenerate needs tokens or text input")
+            tokens, formatted = self._encode_prompts(stream, text)
+        tokens = _host(tokens).astype(np.int32)
+        if tokens.ndim == 1:
+            tokens = tokens[None]
+        rows = tokens.shape[0]
+        max_new = int(self.get_parameter("max_new_tokens", 32, stream))
+        key = (stream.stream_id, stream.current_frame_id)
+        self._engine_frames[key] = {
+            "rows": rows, "done": {}, "formatted": formatted,
+            "submitted_at": time.perf_counter(),
+            "stream_tokens": truthy(self.get_parameter(
+                "stream_tokens", False, stream)),
+            "chunk": max(1, int(self.get_parameter(
+                "stream_chunk", 8, stream))),
+            "buffers": {},
+        }
+        # submission order == row order; the engine's FIFO admission
+        # keeps caller-observed ordering deterministic.  A rejected row
+        # (e.g. prompt + max_new over max_context) must not leak the
+        # frame entry or strand already-queued sibling rows
+        try:
+            for row in range(rows):
+                engine.submit(key + (row,), tokens[row], max_new)
+        except ValueError:
+            self._engine_frames.pop(key, None)
+            engine.cancel(lambda rid: rid[:2] == key)
+            raise
+        self._schedule_pump()
+        return StreamEvent.PENDING, None
+
+    def _schedule_pump(self):
+        """At most ONE pump message in flight: each tick runs one engine
+        step and re-posts itself while the engine has work, so the
+        mailbox interleaves admissions with decode progress."""
+        if not getattr(self, "_pump_posted", False):
+            self._pump_posted = True
+            self.post_message("_engine_pump", [])
+
+    def _engine_pump(self):
+        self._pump_posted = False
+        engine = getattr(self, "_engine", None)
+        if engine is None:
+            return
+        try:
+            report = engine.step()
+            for request_id, _offset, token in report.emitted:
+                self._buffer_streamed_token(request_id, token)
+            for completion in report.completions:
+                self._finish_request(completion)
+        except Exception as error:
+            # the mailbox swallows exceptions, so an unguarded failure
+            # here (device error, tokenizer crash) would strand every
+            # PENDING frame with the pump never re-posted
+            self._fail_engine_frames(error)
+            return
+        if engine.has_work():
+            self._schedule_pump()
+
+    def _fail_engine_frames(self, error):
+        """Engine failure: every in-flight frame gets an error response
+        (the AsyncHostElement contract, element.py) so streams apply
+        their on_error policy instead of hanging; the engine is dropped
+        and lazily rebuilt by the next continuous frame."""
+        _LOGGER.error("%s: decode engine failed, releasing %d in-flight "
+                      "frame(s): %s", self.definition.name,
+                      len(self._engine_frames), error)
+        frames, self._engine_frames = self._engine_frames, {}
+        self._engine = None
+        for stream_id, frame_id in frames:
+            self.pipeline.post_message("process_frame_response", [
+                {"stream_id": stream_id, "frame_id": frame_id,
+                 "node": self.definition.name, "event": "error"}, {}])
+
+    def _buffer_streamed_token(self, request_id, token):
+        entry = self._engine_frames.get(request_id[:2])
+        if entry is None or not entry["stream_tokens"]:
+            return
+        row = request_id[2]
+        buffer = entry["buffers"].setdefault(row, [0, []])
+        buffer[1].append(int(token))
+        if len(buffer[1]) >= entry["chunk"]:
+            self._flush_stream_buffer(request_id[:2], entry, row)
+
+    def _flush_stream_buffer(self, key, entry, row):
+        """Publish one token chunk for one request row:
+        `(token_chunk stream_id frame_id row offset payload)` -- offset
+        is the row's completion-token offset of the chunk's first token
+        (a preempted request's regenerated tokens are never re-emitted,
+        so offsets stay gapless).  Not the closed batch's `(tokens
+        stream_id offset payload)` command: one command name, one
+        schema."""
+        start, chunk = entry["buffers"].pop(row, (0, []))
+        if not chunk:
+            return
+        payload = ([self.tokenizer.decode(np.asarray(chunk, np.int32))]
+                   if self.tokenizer is not None else [chunk])
+        self.publish_out("token_chunk",
+                         [key[0], key[1], row, start, payload])
+        entry["buffers"][row] = [start + len(chunk), []]
+
+    def _finish_request(self, completion):
+        stream_id, frame_id, row = completion.request_id
+        key = (stream_id, frame_id)
+        entry = self._engine_frames.get(key)
+        if entry is None:
+            return  # stream destroyed mid-decode; engine.cancel raced
+        if entry["stream_tokens"]:
+            self._flush_stream_buffer(key, entry, row)
+            entry["buffers"].pop(row, None)
+        entry["done"][row] = completion
+        if len(entry["done"]) < entry["rows"]:
+            return
+        # the entry stays registered until the response is POSTED: a
+        # crash in decode/telemetry below must leave the key visible to
+        # _fail_engine_frames or the frame would park forever
+        out = np.stack([entry["done"][r].tokens
+                        for r in range(entry["rows"])])
+        outputs = {"generated": out}
+        if entry["formatted"] is not None:
+            outputs["prompt"] = entry["formatted"]
+        if self.tokenizer is not None:
+            outputs["text"] = [self.tokenizer.decode(r) for r in out]
+        stats = [entry["done"][r].stats for r in range(entry["rows"])]
+        pipeline = self.pipeline
+        telemetry = getattr(pipeline, "telemetry", None)
+        if telemetry is not None:
+            stream = pipeline.streams.get(stream_id)
+            frame = (stream.frames.get(frame_id)
+                     if stream is not None else None)
+            if frame is not None:
+                telemetry.record_engine_frame(
+                    frame, self.definition.name, stats)
+        # "time" is the element-compute share only: the engine's slot
+        # wait is reported as time_queue_{node} by record_engine_frame
+        queue_wait = max((float(s.get("queue_wait_s", 0.0))
+                          for s in stats), default=0.0)
+        total = time.perf_counter() - entry["submitted_at"]
+        pipeline.post_message("process_frame_response", [
+            {"stream_id": stream_id, "frame_id": frame_id,
+             "node": self.definition.name,
+             "time": max(total - queue_wait, 0.0)},
+            outputs])
+        del self._engine_frames[key]
+
+    def stop_stream(self, stream, stream_id):
+        engine = getattr(self, "_engine", None)
+        if engine is not None:
+            for key in [key for key in list(self._engine_frames)
+                        if key[0] == stream_id]:
+                self._engine_frames.pop(key, None)
+            engine.cancel(lambda rid: rid[0] == stream_id)
+        return super().stop_stream(stream, stream_id)
+
+    def engine_stats(self) -> dict | None:
+        """Live engine occupancy (dashboard / tests); None before the
+        first continuous frame."""
+        engine = getattr(self, "_engine", None)
+        return None if engine is None else engine.stats()
+
     def group_kernel(self, stream):
         """Fused micro-batch hook for the decode stage: greedy generation
         over the whole coalesced group.  The chained path runs instead
@@ -365,7 +631,8 @@ class LMGenerate(ComputeElement):
         self._ensure_ready()  # configure(): config + tokenizer exist
         if (self.tokenizer is not None
                 or truthy(self.get_parameter(
-                    "stream_tokens", False, stream))):
+                    "stream_tokens", False, stream))
+                or self.engine_managed(stream)):
             return None
         max_new = int(self.get_parameter("max_new_tokens", 32, stream))
 

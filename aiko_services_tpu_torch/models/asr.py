@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from ..ops.audio import full_f32_convolution, log_mel_spectrogram
 from ..ops.device import resolve_device
 from ..parallel.attention import flash_attention
-from .layers import dense, init_dense, init_norm, layer_norm
+from .layers import dense, f32_reduction, init_dense, init_norm, layer_norm
 from .optim import apply_updates, next_token_loss, value_and_grad
 
 __all__ = ["AsrConfig", "init_asr_params", "transcribe_audio",
@@ -289,7 +289,8 @@ def _attend_cached(q, k, v):
     scale = 1.0 / np.sqrt(q.shape[-1])
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     att = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", att, v)
+    with f32_reduction():
+        return torch.einsum("bhqk,bhkd->bhqd", att, v)
 
 
 def _decode_step(params: dict, config: AsrConfig, token, index: int,
@@ -321,7 +322,8 @@ def _decode_step(params: dict, config: AsrConfig, token, index: int,
                               sk.float()) * scale
         scores = scores.masked_fill(mask, _NEG_INF)
         att = torch.softmax(scores, dim=-1).to(sv.dtype)
-        self_out = torch.einsum("bhqk,bhkd->bhqd", att, sv)
+        with f32_reduction():
+            self_out = torch.einsum("bhqk,bhkd->bhqd", att, sv)
         h = h + dense(layer["self"]["wo"], _merge_heads(self_out))
         xc = layer_norm(layer["cross_norm"], h)
         qc = _split_heads(dense(layer["cross"]["wq"], xc), config.n_heads)

@@ -11,6 +11,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -21,7 +22,25 @@ from ..ops.audio import full_f32_convolution
 
 __all__ = ["dense", "rms_norm", "layer_norm", "rotary_embedding",
            "apply_rotary", "swiglu", "repeat_kv", "init_dense", "init_norm",
-           "conv2d", "init_conv"]
+           "conv2d", "init_conv", "f32_reduction"]
+
+
+@contextlib.contextmanager
+def f32_reduction():
+    """bf16 and fp16 matmuls on the card reduce in f32 for the duration
+    (cuBLAS may otherwise sum split-K partials in the narrow type, where
+    XLA's dot accumulates in f32 and rounds once); restores the previous
+    setting.  The flags are process-wide."""
+    matmul = torch.backends.cuda.matmul
+    previous = (matmul.allow_bf16_reduced_precision_reduction,
+                matmul.allow_fp16_reduced_precision_reduction)
+    matmul.allow_bf16_reduced_precision_reduction = False
+    matmul.allow_fp16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (matmul.allow_bf16_reduced_precision_reduction,
+         matmul.allow_fp16_reduced_precision_reduction) = previous
 
 
 def init_dense(generator: torch.Generator, in_features: int,
@@ -36,9 +55,9 @@ def init_dense(generator: torch.Generator, in_features: int,
 
 def dense(params: dict, x):
     """x @ w (+ b), accumulated in f32 and cast once to x's dtype.  A
-    bf16 product on the card accumulates in f32 inside the matmul and
-    rounds once; a bias is added in f32 before that single rounding, as
-    the JAX package does.
+    bf16 product on the card accumulates in f32 inside the matmul, its
+    split-K partials too (f32_reduction), and rounds once; a bias is
+    added in f32 before that single rounding, as the JAX package does.
 
     Weight-only int8 (transformer.quantize_weights_int8): the 8-bit codes
     cast to x's dtype (exact), the product is kept in f32 and the
@@ -54,7 +73,8 @@ def dense(params: dict, x):
         out = torch.matmul(x.float(), w.float()) + params["b"].float()
         return out.to(x.dtype)
     if w.dtype == x.dtype:
-        return torch.matmul(x, w)
+        with f32_reduction():
+            return torch.matmul(x, w)
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 

@@ -1,27 +1,33 @@
 # Decoder-only transformer LM (Llama-family architecture): training,
-# scoring and closed-batch greedy generation.
+# scoring, closed-batch greedy generation and the paged-KV steps of the
+# continuous decode engine.
 #
 # Counterpart of aiko_services_tpu/models/transformer.py: init_params,
 # forward (the causal prefill over the whole sequence, and the cached
 # forward at `pos`), the remat policies, make_train_step, weight-only int8
-# (quantize_weights_int8), the KV cache (init_cache, fp or int8) and greedy
-# generation (decode_step, generate, generate_stream).  Same model, same
-# parameter tree (layers stacked on a leading (L, ...) axis), same casts;
-# PyTorch run eagerly on the device its tensors lie on.  jax.lax.scan over
-# the stacked layers is a Python loop over layer slices, jax.checkpoint is
-# torch.utils.checkpoint, and every cacheless attention goes through
-# flash_attention (the hand-written Hopper kernels on CUDA, forward and
-# backward).  The cached attention is the JAX package's masked einsum (no
-# Pallas kernel there either), here plain matmuls.
+# (quantize_weights_int8), the KV cache (init_cache, fp or int8), greedy
+# generation (decode_step, generate, generate_stream) and the paged KV
+# pool with its steps (init_paged_pool, paged_prefill, paged_decode_step,
+# paged_verify_step, paged_prefill_chunk; decode/engine.py drives them).
+# Same model, same parameter tree (layers stacked on a leading (L, ...)
+# axis), same casts; PyTorch run eagerly on the device its tensors lie on.
+# jax.lax.scan over the stacked layers is a Python loop over layer slices,
+# jax.checkpoint is torch.utils.checkpoint, and every cacheless attention
+# goes through flash_attention (the hand-written Hopper kernels on CUDA,
+# forward and backward).  The cached and paged attentions are the JAX
+# package's masked einsum (no Pallas kernel there either), here plain
+# matmuls, one function for both.
 #
-# The cache is written IN PLACE (the JAX package donates it to its jitted
-# steps, so no caller keeps the old buffer); forward returns it all the
-# same, as the JAX package returns its updated cache.
+# The cache and the pool are written IN PLACE (the JAX package donates
+# them to its jitted steps, so no caller keeps the old buffer); forward
+# and the paged steps return them all the same, as the JAX package
+# returns its updated cache and pool.  A paged step takes its positions
+# as a device tensor and never reads one back, so the engine can capture
+# it as a CUDA graph.
 #
-# Not ported yet, and raising NotImplementedError when asked for: the
-# paged KV pool and its steps (the decode engine), mixture of experts
-# (n_experts > 0), sequence parallelism and sharding (activation_specs,
-# sharded=True, param_specs).
+# Not ported yet, and raising NotImplementedError when asked for: mixture
+# of experts (n_experts > 0), sequence parallelism and sharding
+# (activation_specs, sharded=True, param_specs).
 
 from __future__ import annotations
 
@@ -37,14 +43,16 @@ from ..parallel.attention import flash_attention
 from ..utils.tree import tree_map
 from .asr import _layer_count, _stack, count_params
 from .layers import (
-    apply_rotary, dense, init_dense, init_norm, repeat_kv, rms_norm,
-    rotary_embedding, swiglu)
+    apply_rotary, dense, f32_reduction, init_dense, init_norm, repeat_kv,
+    rms_norm, rotary_embedding, swiglu)
 from .optim import apply_updates, next_token_loss, value_and_grad
 
 __all__ = ["TransformerConfig", "init_params", "forward", "init_cache",
            "decode_step", "generate", "generate_stream", "make_train_step",
            "count_params", "quantize_weights_int8", "REMAT_POLICIES",
-           "resolve_remat_policy"]
+           "resolve_remat_policy", "init_paged_pool", "paged_prefill",
+           "paged_decode_step", "paged_verify_step", "paged_prefill_chunk",
+           "f32_head"]
 
 
 @dataclass(frozen=True)
@@ -249,12 +257,35 @@ def _attention_scale(head_dim: int) -> float:
     return (1.0 / torch.tensor(float(head_dim)).sqrt()).item()
 
 
+def _masked_attention(config: TransformerConfig, q, k_eff, v_eff, q_pos,
+                      k_pos):
+    """Attention of q over a whole K/V buffer, the JAX package's masked
+    einsum: K/V heads expanded, q·kᵀ kept in f32 from bf16 operands,
+    keys past each query's position (k_pos > q_pos, broadcast against
+    the (B, H, Lq, Lk) logits) masked with -1e30, softmax in f32, the
+    weights cast to V's dtype for the second product.  The cached and
+    the paged paths both attend through here, so they cannot drift."""
+    repeats = config.n_heads // config.n_kv_heads
+    k_full = repeat_kv(k_eff, repeats)
+    v_full = repeat_kv(v_eff, repeats)
+    logits = torch.matmul(q.float(), k_full.float().transpose(-1, -2)) \
+        * _attention_scale(config.head_dim)
+    logits = logits.masked_fill(k_pos > q_pos, -1e30)
+    weights = torch.softmax(logits, dim=-1)
+    with f32_reduction():
+        return torch.matmul(weights.to(v_full.dtype), v_full)
+
+
+def _dequantized(codes, scale, dtype):
+    """int8 KV codes x their f32 scale planes, cast to the compute dtype:
+    the dequantization folded into the einsum operand load."""
+    return (codes.float() * scale).to(dtype)
+
+
 def _cached_attention(config: TransformerConfig, q, k, v, layer_cache,
                       pos: int):
     """Write the new K/V at `pos` (quantized when the cache is int8),
-    then masked attention of q over the whole cache buffer: q·kᵀ kept in
-    f32, masked with -1e30, softmax in f32, the weights cast to V's dtype
-    for the second product."""
+    then masked attention of q over the whole cache buffer."""
     cache_k, cache_v = layer_cache["k"], layer_cache["v"]
     quantized = cache_k.dtype == torch.int8
     if quantized:
@@ -265,28 +296,19 @@ def _cached_attention(config: TransformerConfig, q, k, v, layer_cache,
     _write_at(cache_k, k, pos)
     _write_at(cache_v, v, pos)
     if quantized:
-        k_eff = (cache_k.float() * layer_cache["k_scale"]).to(q.dtype)
-        v_eff = (cache_v.float() * layer_cache["v_scale"]).to(q.dtype)
+        k_eff = _dequantized(cache_k, layer_cache["k_scale"], q.dtype)
+        v_eff = _dequantized(cache_v, layer_cache["v_scale"], q.dtype)
     else:
         k_eff, v_eff = cache_k, cache_v
-    repeats = config.n_heads // config.n_kv_heads
-    k_full = repeat_kv(k_eff, repeats)
-    v_full = repeat_kv(v_eff, repeats)
-    logits = torch.matmul(q.float(), k_full.float().transpose(-1, -2)) \
-        * _attention_scale(config.head_dim)
     length, max_len = q.shape[2], cache_k.shape[2]
     q_pos = pos + torch.arange(length, device=q.device)[:, None]
     k_pos = torch.arange(max_len, device=q.device)[None, :]
-    logits = logits.masked_fill(k_pos > q_pos, -1e30)
-    weights = torch.softmax(logits, dim=-1)
-    return torch.matmul(weights.to(v_full.dtype), v_full)
+    return _masked_attention(config, q, k_eff, v_eff, q_pos, k_pos)
 
 
-def _attention(config: TransformerConfig, layer, h, cos, sin,
-               layer_cache=None, pos: int = 0):
-    """Self-attention: project, rotate, then either the causal prefill
-    over the whole sequence (no cache: flash attention, K/V heads
-    expanded) or the cached path at `pos`."""
+def _project_qkv(config: TransformerConfig, layer, h, cos, sin):
+    """h (B, L, d_model) -> rotated q (B, H, L, hd) and k, unrotated v
+    (B, Hkv, L, hd)."""
     batch, length, _ = h.shape
     hd = config.head_dim
     q = dense(layer["wq"], h).reshape(
@@ -295,8 +317,16 @@ def _attention(config: TransformerConfig, layer, h, cos, sin,
         batch, length, config.n_kv_heads, hd).transpose(1, 2)
     v = dense(layer["wv"], h).reshape(
         batch, length, config.n_kv_heads, hd).transpose(1, 2)
-    q = apply_rotary(q, cos, sin)
-    k = apply_rotary(k, cos, sin)
+    return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
+
+
+def _attention(config: TransformerConfig, layer, h, cos, sin,
+               layer_cache=None, pos: int = 0):
+    """Self-attention: project, rotate, then either the causal prefill
+    over the whole sequence (no cache: flash attention, K/V heads
+    expanded) or the cached path at `pos`."""
+    batch, length, _ = h.shape
+    q, k, v = _project_qkv(config, layer, h, cos, sin)
     if layer_cache is not None:
         out = _cached_attention(config, q, k, v, layer_cache, pos)
     else:
@@ -489,6 +519,197 @@ def generate_stream(params, config: TransformerConfig, prompt,
             params, config, token, cache, prompt_len + produced - 1, size)
         yield produced, block.cpu().numpy()
         produced += size
+
+
+# -- paged KV: the continuous-batching decode substrate ----------------------
+#
+# One fixed-size POOL of KV blocks plus per-slot block tables, so that
+# the decode engine (decode/engine.py) admits and evicts requests
+# mid-decode without ever changing a tensor's shape.  The JAX package's
+# three invariants hold here too:
+#
+#   - block contents are written by the same forward()/_quantize_kv math
+#     as the contiguous cache (paged_prefill reshapes a forward() cache
+#     into blocks);
+#   - the paged attention is _masked_attention, the cached path's, over
+#     the block-table gather: positions beyond a slot's cursor hold stale
+#     or trash values but are masked to exactly zero weight;
+#   - inactive slots compute on the reserved TRASH block (index 0, never
+#     allocated), so a step's shapes -- (slots, max_blocks) -- stay the
+#     same across any admission/eviction sequence.  On the card that is
+#     what lets the engine capture each step once as a CUDA graph and
+#     replay it.
+
+def init_paged_pool(config: TransformerConfig, num_blocks: int,
+                    block_size: int, device="cuda") -> dict:
+    """Zeroed paged KV pool (layers, num_blocks, kv_heads, block_size,
+    head_dim) on `device`: in the compute dtype, or int8 codes with f32
+    scale planes (..., block_size, 1) when config.kv_dtype is "int8" --
+    init_cache's leaves, blocked.  Block 0 is the engine's trash block."""
+    device = resolve_device(device)
+    shape = (config.n_layers, num_blocks, config.n_kv_heads, block_size,
+             config.head_dim)
+    if config.kv_dtype == "int8":
+        scale_shape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scale_shape, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_scale": torch.zeros(scale_shape, device=device)}
+    return {"k": torch.zeros(shape, dtype=config.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=config.torch_dtype, device=device)}
+
+
+def f32_head(params: dict) -> dict:
+    """The parameter tree with its LM head (the tied embedding when there
+    is no lm_head) kept once in f32 as `lm_head`, so _lm_head's f32
+    product stops copying the whole table on every call.  The same
+    logits: the JAX package converts the same weights inside its jit.  An
+    int8 or f32 head is left as it is."""
+    head = params.get("lm_head", params["embed"])
+    if head["w"].dtype in (torch.int8, torch.float32):
+        return params
+    return {**params, "lm_head": {**head, "w": head["w"].float()}}
+
+
+@torch.no_grad()
+def paged_prefill(params, config: TransformerConfig, pool, prompt,
+                  table_row, true_len):
+    """Prefill one request into its pool blocks.  prompt (1, Lb) with Lb a
+    multiple of the block size (right-padded to a bucket); table_row
+    (max_blocks,) names the slot's blocks, of which the first
+    Lb // block_size receive the prompt's K/V, written in place.  Returns
+    (pool, first_token): the greedy token after the TRUE prompt length
+    (causal masking makes it independent of the padding), a 0-d int32
+    tensor."""
+    block_size = pool["k"].shape[3]
+    local = init_cache(config, 1, max_len=prompt.shape[1],
+                       device=prompt.device)
+    logits, local = forward(params, config, prompt, cache=local, pos=0)
+    first = torch.argmax(logits[0, int(true_len) - 1]).to(torch.int32)
+    blocks = prompt.shape[1] // block_size
+    rows = torch.as_tensor(table_row, device=prompt.device)[:blocks].long()
+    for name, written in local.items():
+        # (nl, 1, H, Lb, d) -> (nl, blocks, H, block_size, d), scattered
+        # into the slot's first `blocks` pool entries
+        entry = written[:, 0]
+        layers, heads, _, depth = entry.shape
+        pool[name][:, rows] = entry.reshape(
+            layers, heads, blocks, block_size, depth).transpose(1, 2)
+    return pool, first
+
+
+def _paged_gather(pool_layer, tables):
+    """(num_blocks, H, bs, d)[tables (S, MB)] -> each slot's contiguous
+    view (S, H, MB * bs, d)."""
+    view = pool_layer[tables]
+    slots, max_blocks, heads, block_size, depth = view.shape
+    return view.transpose(1, 2).reshape(slots, heads,
+                                        max_blocks * block_size, depth)
+
+
+@torch.no_grad()
+def _paged_window(params, config: TransformerConfig, pool, tables,
+                  positions, tokens, write_blocks, write_offsets):
+    """The paged step over a per-slot TOKEN WINDOW -- the one
+    implementation behind paged_decode_step (window 1), paged_verify_step
+    (window k + 1) and paged_prefill_chunk (window = chunk bucket).
+
+    tokens (S, W) are consumed left to right per slot: window position i
+    sits at absolute position positions[s] + i and its K/V lands at
+    (write_blocks[s, i], write_offsets[s, i]).  Every write of the window
+    happens before the gather, so later window positions attend to
+    earlier ones causally; rows meant to be inert write to the trash
+    block (duplicate trash writes leave only the trash's contents
+    depending on which one wins).  Returns greedy (S, W) int32:
+    greedy[s, i] is the greedy token after window positions 0..i."""
+    block_size = pool["k"].shape[3]
+    quantized = config.kv_dtype == "int8"
+    device = tokens.device
+    slots, window = tokens.shape
+    tables = tables.long()
+    write_blocks = write_blocks.long()
+    write_offsets = write_offsets.long()
+    h = _embed(params, config, tokens)
+    q_pos = positions.long()[:, None] + torch.arange(
+        window, device=device)[None, :]                     # (S, W)
+    cos, sin = rotary_embedding(q_pos, config.head_dim, config.rope_theta)
+    cos, sin = cos[:, None], sin[:, None]                   # (S, 1, W, hd/2)
+    k_pos = torch.arange(tables.shape[1] * block_size, device=device)
+    mask_pos = q_pos[:, None, :, None]                      # (S, 1, W, 1)
+    for index, layer in enumerate(_unstack(params["layers"])):
+        layer_pool = {name: buffer[index] for name, buffer in pool.items()}
+        q, k, v = _project_qkv(
+            config, layer, rms_norm(layer["attn_norm"], h, config.norm_eps),
+            cos, sin)
+        if quantized:
+            k, k_scale = _quantize_kv(k)
+            v, v_scale = _quantize_kv(v)
+            layer_pool["k_scale"][write_blocks, :, write_offsets] = \
+                k_scale.transpose(1, 2)
+            layer_pool["v_scale"][write_blocks, :, write_offsets] = \
+                v_scale.transpose(1, 2)
+        # (S, H, W, d) -> (S, W, H, d): the (S, W) block/offset index
+        # pairs on axes 0 and 2 put their own dimensions first, as in
+        # numpy and JAX, so one put writes every window position of
+        # every slot
+        layer_pool["k"][write_blocks, :, write_offsets] = k.transpose(1, 2)
+        layer_pool["v"][write_blocks, :, write_offsets] = v.transpose(1, 2)
+        if quantized:
+            k_eff = _dequantized(_paged_gather(layer_pool["k"], tables),
+                                 _paged_gather(layer_pool["k_scale"],
+                                               tables), q.dtype)
+            v_eff = _dequantized(_paged_gather(layer_pool["v"], tables),
+                                 _paged_gather(layer_pool["v_scale"],
+                                               tables), q.dtype)
+        else:
+            k_eff = _paged_gather(layer_pool["k"], tables)
+            v_eff = _paged_gather(layer_pool["v"], tables)
+        out = _masked_attention(config, q, k_eff, v_eff, mask_pos, k_pos)
+        out = out.transpose(1, 2).reshape(slots, window, -1)
+        h = h + dense(layer["wo"], out)
+        mlp_out, _ = _mlp_block(
+            config, layer, rms_norm(layer["mlp_norm"], h, config.norm_eps))
+        h = h + mlp_out
+    logits = _lm_head(params, config, h)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def paged_decode_step(params, config: TransformerConfig, pool, tables,
+                      positions, tokens, write_blocks, write_offsets):
+    """ONE greedy decode step over all slots of a continuous-batching
+    engine: tables (S, max_blocks), positions (S,) each slot's next write
+    position, tokens (S, 1) the previous greedy tokens, write_blocks /
+    write_offsets (S,) where this step's K/V land (inactive slots point at
+    the trash block).  Returns (pool, next_tokens (S, 1) int32); inactive
+    rows are garbage the engine ignores.  The window-1 _paged_window."""
+    return pool, _paged_window(params, config, pool, tables, positions,
+                               tokens, write_blocks[:, None],
+                               write_offsets[:, None])
+
+
+def paged_verify_step(params, config: TransformerConfig, pool, tables,
+                      positions, tokens, write_blocks, write_offsets):
+    """Speculative verification: a decode step with a TOKEN WINDOW per
+    slot.  tokens (S, W) = [last emitted token, draft_1..draft_{W-1}];
+    write_blocks / write_offsets (S, W).  Returns (pool, greedy (S, W)),
+    greedy[s, i] the target's greedy token after window position i."""
+    return pool, _paged_window(params, config, pool, tables, positions,
+                               tokens, write_blocks, write_offsets)
+
+
+def paged_prefill_chunk(params, config: TransformerConfig, pool, tokens,
+                        table_row, start, write_blocks, write_offsets):
+    """Prefill ONE request's next C prompt tokens into its pool blocks,
+    attending to the blocks earlier chunks wrote through the table:
+    tokens (1, C) right-padded to the chunk's bucket, table_row
+    (max_blocks,), start the chunk's first absolute position,
+    write_blocks / write_offsets (C,) (padding -> trash block).  Returns
+    (pool, greedy (C,)): greedy[i] is the greedy token after prompt
+    position start + i."""
+    start = torch.as_tensor(start, device=tokens.device).reshape(1)
+    greedy = _paged_window(params, config, pool, table_row[None], start,
+                           tokens, write_blocks[None], write_offsets[None])
+    return pool, greedy[0]
 
 
 # -- training ---------------------------------------------------------------

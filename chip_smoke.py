@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's speech-serving and training paths on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's speech-serving, training and LM-serving
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -53,6 +53,26 @@ result:
         4 measured groups of 8 frames x 16 rows, every output checked,
         then frames/s, p50 frame latency, per-element times, LM tokens/s,
         K1 launches and peak device memory
+  9. the continuous decode engine (decode/engine.py, paged KV steps
+     replayed as captured CUDA graphs) at llama32_1b's full width, bf16,
+     on bench.py's config-6b workload (8 slots, 32-position blocks, 96
+     seeded requests, prompts of 32-128 tokens, 16-96 new tokens):
+     9a warm-up, capacity with every slot busy, then open-loop arrivals
+        at twice that: goodput tokens/s, TTFT p50/p99, ms per engine
+        step, slot occupancy, step signatures added in the window (must
+        be 0), peak memory; 20 steps under torch.profiler (idle share)
+        and one graph replay's device time; the same requests submitted
+        all at once and through a pool cut until preemption fires, each
+        request's tokens identical to the open-loop run's;
+     9b 16 steps of one slot state replayed from the graph and run
+        eagerly: identical tokens;
+     9c the same weights in f32 (TF32 off): 12 requests through the
+        engine, closed-batch generate one at a time, the engine with
+        prefill_chunk_size 64 and with a 2-layer draft (k = 4): identical
+        tokens (any difference fails, printed with its top-2 logit gap);
+     9d 4 frames of 8 text rows (the BPE tokenizer) through LMGenerate
+        `continuous: true` in a pipeline: every frame completes with the
+        engine's tokens for the same rows
 
 The last three lines are the card's nvidia-smi name and power limit, one
 JSON object describing every kernel of the paths, and {"ok": true,
@@ -1322,6 +1342,480 @@ def phase_config5(smi: str) -> dict:
     return launches
 
 
+# -- the continuous decode engine --------------------------------------------
+
+# bench.py's config 6b (bench_continuous) at its full size: LLAMA32_1B at
+# its published widths and full depth, bf16, random weights from seed 0;
+# 8 decode slots, 32-position KV blocks; 96 requests from
+# default_rng(11), prompts of 32-128 tokens, 16-96 new tokens; the
+# context rounded up from bucket(128) + 96
+E_SLOTS, E_BLOCK, E_REQUESTS = 8, 32, 96
+E_PROMPT, E_NEW = (32, 128), (16, 96)
+E_PROFILE_STEPS, E_GRAPH_STEPS = 20, 16
+# 9c: 12 of the requests through four paths in f32 (TF32 off): the
+# engine, closed-batch generate one request at a time, the engine with
+# prefill_chunk_size 64 and with speculative draft=self;layers=2;k=4
+E_F32_REQUESTS, E_CHUNK, E_DRAFT_LAYERS, E_SPEC_K = 12, 64, 2, 4
+# 9d: frames of text rows through LMGenerate `continuous: true`
+E_FRAMES, E_ROWS, E_FRAME_NEW = 4, 8, 32
+
+
+def engine_workload(vocab: int) -> tuple:
+    """bench_continuous's workload: (requests [(prompt, max_new)], the
+    rng, positioned for the arrival draws, max_context)."""
+    from aiko_services_tpu_torch.utils.padding import bucket_length
+    rng = np.random.default_rng(11)
+    workload = [
+        (rng.integers(1, vocab, size=int(rng.integers(
+            E_PROMPT[0], E_PROMPT[1] + 1))).astype(np.int32),
+         int(rng.integers(E_NEW[0], E_NEW[1] + 1)))
+        for _ in range(E_REQUESTS)]
+    bucket = bucket_length(E_PROMPT[1], minimum=E_BLOCK)
+    max_context = -(-(bucket + E_NEW[1]) // E_BLOCK) * E_BLOCK
+    return workload, rng, max_context
+
+
+def drain_engine(engine, limit: int = 100000) -> tuple:
+    """Step the engine until idle: ({request: Completion}, steps)."""
+    done, steps = {}, 0
+    while engine.has_work():
+        for completion in engine.step().completions:
+            done[completion.request_id] = completion
+        steps += 1
+        if steps > limit:
+            raise SystemExit("9: the engine did not drain")
+    return done, steps
+
+
+def same_tokens(what: str, done: dict, reference: dict) -> None:
+    differ = [key for key in reference
+              if not np.array_equal(done[key].tokens, reference[key])]
+    if len(done) != len(reference) or differ:
+        raise SystemExit(f"{what}: {len(differ)} of {len(reference)} "
+                         f"requests differ from the open-loop run "
+                         f"(first: {differ[:4]})")
+
+
+def phase_engine_storm(params, config, workload, rng, max_context,
+                       smi: str) -> tuple:
+    """9a.  Returns (the open-loop tokens {request: tokens}, the engine)."""
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    from aiko_services_tpu_torch.ops import kernels
+    engine = DecodeEngine(params, config, decode_slots=E_SLOTS,
+                          kv_block_size=E_BLOCK, max_context=max_context)
+    length, index = E_BLOCK, 0
+    while length <= max_context - E_NEW[1]:   # one prompt per bucket
+        engine.submit(("warm", index), np.ones((length,), np.int32), 2)
+        length, index = length * 2, index + 1
+    drain_engine(engine)
+    # capacity with all slots busy: decoded tokens/s
+    probe_steps = 32
+    for index in range(E_SLOTS):
+        engine.submit(("probe", index), np.ones((E_PROMPT[0],), np.int32),
+                      probe_steps + 2)
+    engine.step()
+    torch.cuda.synchronize()
+    start, decoded = time.perf_counter(), 0
+    while engine.has_work():
+        decoded += engine.step().active
+    capacity = decoded / (time.perf_counter() - start)
+    mean_new = float(np.mean([new for _, new in workload]))
+    arrivals = np.cumsum(rng.exponential(mean_new / (2.0 * capacity),
+                                         size=E_REQUESTS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    signatures = engine.compile_count
+    ttft, occupancy, step_ms, tokens_done, done = {}, [], [], 0, {}
+    next_index = 0
+    start = time.perf_counter()
+    while next_index < E_REQUESTS or engine.has_work():
+        now = time.perf_counter() - start
+        while next_index < E_REQUESTS and arrivals[next_index] <= now:
+            prompt, max_new = workload[next_index]
+            engine.submit(next_index, prompt, max_new)
+            next_index += 1
+        if not engine.has_work():
+            time.sleep(min(arrivals[next_index] - now, 0.01))
+            continue
+        step_start = time.perf_counter()
+        report = engine.step()
+        step_ms.append((time.perf_counter() - step_start) * 1e3)
+        occupancy.append(report.active / E_SLOTS)
+        for request_id, offset, _ in report.emitted:
+            if offset == 0:
+                ttft[request_id] = (time.perf_counter() - start
+                                    - arrivals[request_id])
+        for completion in report.completions:
+            tokens_done += completion.stats["tokens"]
+            done[completion.request_id] = completion
+    elapsed = time.perf_counter() - start
+    added = engine.compile_count - signatures
+    peak = torch.cuda.max_memory_allocated()
+    # the engine's path runs no Pallas counterpart: the JAX package's
+    # paged steps are masked einsums too
+    flash_launches = sum(kernels.launch_counts.values())
+    open_loop = {key: done[key].tokens for key in range(E_REQUESTS)}
+    for key, tokens in open_loop.items():
+        if not (tokens.shape == (workload[key][1],)
+                and (0 <= tokens).all() and (tokens < config.vocab_size)
+                .all()):
+            raise SystemExit(f"9a: request {key}: tokens {tokens}")
+    ttft_ms = np.asarray(list(ttft.values())) * 1e3
+    say("9a engine_open_loop", requests=E_REQUESTS, slots=E_SLOTS,
+        block=E_BLOCK, max_context=max_context,
+        capacity_tokens_per_s=f"{capacity:.1f}",
+        offered_requests_per_s=f"{2.0 * capacity / mean_new:.3f}",
+        goodput_tokens_per_s=f"{tokens_done / elapsed:.1f}",
+        ttft_p50_ms=f"{np.percentile(ttft_ms, 50):.1f}",
+        ttft_p99_ms=f"{np.percentile(ttft_ms, 99):.1f}",
+        engine_step_ms_mean=f"{np.mean(step_ms):.3f}",
+        engine_step_ms_p50=f"{np.median(step_ms):.3f}",
+        engine_steps=len(step_ms),
+        slot_occupancy_mean=f"{np.mean(occupancy):.3f}",
+        signatures_in_window=added,
+        flash_attention_launches=flash_launches,
+        preempted=engine.counters["preempted"],
+        max_memory_allocated_gib=f"{peak / 2**30:.2f}",
+        wall_s=f"{elapsed:.2f}", card=repr(smi))
+    if added or flash_launches:
+        raise SystemExit(f"9a: {added} step signatures added and "
+                         f"{flash_launches} flash-attention launches "
+                         f"inside the measured window")
+    profile_engine_steps(engine, workload, smi)
+    # the same requests submitted all at once, then with the pool cut so
+    # that preemption fires: each request's tokens are those of the
+    # open-loop run (a row's result through a fixed-shape step depends
+    # on that row only)
+    for index, (prompt, max_new) in enumerate(workload):
+        engine.submit(index, prompt, max_new)
+    same_tokens("9a all-at-once", drain_engine(engine)[0], open_loop)
+    cut = DecodeEngine(params, config, decode_slots=E_SLOTS,
+                       kv_block_size=E_BLOCK, max_context=max_context,
+                       kv_blocks=3 * E_SLOTS + 1)
+    for index, (prompt, max_new) in enumerate(workload):
+        cut.submit(index, prompt, max_new)
+    same_tokens("9a preempted", drain_engine(cut)[0], open_loop)
+    if not cut.counters["preempted"]:
+        raise SystemExit("9a: the cut pool preempted nothing")
+    say("9a engine_replays", all_at_once_identical=True,
+        cut_pool_blocks=cut.blocks.capacity,
+        preempted=cut.counters["preempted"],
+        deferred_admissions=cut.counters["deferred_admissions"],
+        cut_pool_identical=True)
+    return open_loop, engine
+
+
+def decode_step_bound(engine, smi: str) -> tuple:
+    """The least time one decode step over every slot could take on this
+    card: the bytes it must move (every layer's weights, the f32 head, the
+    embedding rows, the pool blocks the tables name, the K/V it writes)
+    over the memory rate, against its operations (2 per weight and token:
+    bf16 layers on the tensor cores, the f32 head on the CUDA cores).
+    Returns (bound_ms, bound_by, bytes)."""
+    from aiko_services_tpu_torch.decode import TRASH_BLOCK
+    from aiko_services_tpu_torch.utils.tree import tree_leaves
+    _, peaks = peaks_for(smi)
+    params, config, slots = engine.params, engine.config, engine.slots_n
+    head = params.get("lm_head", params["embed"])["w"]
+    layer_bytes = sum(leaf.numel() * leaf.element_size()
+                      for leaf in tree_leaves(params["layers"]))
+    layer_weights = sum(leaf.numel() for leaf in tree_leaves(
+        params["layers"]) if leaf.dim() == 3)
+    pool_block = sum(leaf[:, 0].numel() * leaf.element_size()
+                     for leaf in engine.pool.values())
+    blocks = len(set(engine.tables.ravel().tolist()) - {TRASH_BLOCK})
+    moved = (layer_bytes + head.numel() * head.element_size()
+             + slots * config.d_model * params["embed"]["w"].element_size()
+             + blocks * pool_block
+             + slots * pool_block // engine.blocks.block_size)
+    seconds = {"bytes": moved / peaks["bytes"],
+               "operations": 2 * slots * layer_weights / peaks["bfloat16"]
+               + 2 * slots * head.numel() / peaks["float32"]}
+    bound_by = max(seconds, key=seconds.get)
+    return seconds[bound_by] * 1e3, bound_by, moved
+
+
+def profile_engine_steps(engine, workload, smi: str) -> None:
+    """The device's busy and idle share of E_PROFILE_STEPS decode steps
+    with every slot busy, under torch.profiler, and the device time of
+    one replay of the captured decode step (back-to-back replays between
+    CUDA events, static inputs pointed at the trash block)."""
+    from aiko_services_tpu_torch.decode import TRASH_BLOCK
+    for index in range(E_SLOTS):
+        engine.submit(("profile", index), workload[index][0],
+                      E_PROFILE_STEPS + 4)
+    while any(slot is None or slot.prefilling for slot in engine.slots):
+        engine.step()
+    bound_ms, bound_by, moved = decode_step_bound(engine, smi)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as profile:
+        start = time.perf_counter()
+        for _ in range(E_PROFILE_STEPS):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    device_events = [event for event in profile.events()
+                     if event.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(event.time_range.elapsed_us()
+                  for event in device_events) / 1e3
+    drain_engine(engine)
+    captured = engine._captured[("target", "paged_decode_step", 1)]
+    for static in captured.inputs:
+        static.fill_(TRASH_BLOCK)
+    replay_ms = cuda_ms(captured.graph.replay, warmup=2, runs=10)
+    say("9a engine_step_profile", steps=E_PROFILE_STEPS,
+        wall_ms=f"{wall_ms:.1f}",
+        step_ms=f"{wall_ms / E_PROFILE_STEPS:.3f}",
+        device_busy_ms=f"{busy_ms:.1f}",
+        device_launches_per_step=len(device_events) / E_PROFILE_STEPS,
+        idle_share=(f"{1 - busy_ms / wall_ms:.3f}" if busy_ms > 0
+                    else "not measured (the profiler saw no device time)"),
+        graph_replay_device_ms=f"{replay_ms:.3f}",
+        step_bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
+        step_bytes=moved,
+        idle_share_from_replay=(
+            f"{1 - replay_ms * E_PROFILE_STEPS / wall_ms:.3f}"),
+        card=repr(smi))
+
+
+def phase_engine_graph_vs_eager(params, config, workload, max_context,
+                                smi: str) -> None:
+    """9b: the first E_GRAPH_STEPS steps of one slot state, replayed from
+    the captured graph and run eagerly, give identical tokens."""
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    emitted, step_ms = {}, {}
+    for mode in ("graph", "eager"):
+        engine = DecodeEngine(params, config, decode_slots=E_SLOTS,
+                              kv_block_size=E_BLOCK,
+                              max_context=max_context)
+        engine._graphs = mode == "graph"
+        for index in range(E_SLOTS):
+            engine.submit(index, workload[index][0], E_GRAPH_STEPS + 1)
+        tokens, times = [], []
+        for _ in range(E_GRAPH_STEPS + 1):
+            start = time.perf_counter()
+            tokens.extend(engine.step().emitted)
+            times.append((time.perf_counter() - start) * 1e3)
+        emitted[mode] = tokens
+        step_ms[mode] = float(np.median(times[2:]))
+        del engine
+    same = emitted["graph"] == emitted["eager"]
+    say("9b engine_graph_vs_eager", steps=E_GRAPH_STEPS,
+        tokens=len(emitted["graph"]), identical=same,
+        graph_step_ms=f"{step_ms['graph']:.3f}",
+        eager_step_ms=f"{step_ms['eager']:.3f}", card=repr(smi))
+    if not same or len(emitted["graph"]) != E_SLOTS * (E_GRAPH_STEPS + 1):
+        raise SystemExit("9b: graph replay and the eager step differ")
+
+
+def top2_gap(params, config, prompt, generated, position) -> float:
+    """The gap between the two largest logits after the prompt and the
+    first `position` generated tokens (the logits that chose token
+    `position`)."""
+    from aiko_services_tpu_torch.models import forward
+    tokens = np.concatenate([prompt, generated[:position]]).astype(np.int32)
+    with torch.no_grad():
+        logits = forward(params, config, torch.from_numpy(tokens)[None]
+                         .cuda())[0, -1]
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def phase_engine_f32(params, config, workload, max_context,
+                     smi: str) -> None:
+    """9c: the same weights in f32, TF32 off: 12 requests through the
+    engine, closed-batch generate one at a time, the chunked engine and
+    the speculative engine give identical tokens.  In bf16 the rounding
+    noise is of the order of the top-2 logit gaps, so tokens can only be
+    expected to agree across different shapes in f32."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    from aiko_services_tpu_torch.models import generate, init_params
+    from aiko_services_tpu_torch.utils.tree import tree_map
+    config32 = replace(config, dtype="float32")
+    params32 = tree_map(lambda leaf: leaf.float(), params)
+    requests = workload[:E_F32_REQUESTS]
+    previous = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        tokens, stats = {}, {}
+        draft_config = replace(config32, n_layers=E_DRAFT_LAYERS)
+        draft = init_params(draft_config, torch.Generator().manual_seed(0),
+                            device="cuda")
+        for path, options in (
+                ("engine", {}),
+                ("chunked", {"prefill_chunk_size": E_CHUNK}),
+                ("speculative", {"draft_params": draft,
+                                 "draft_config": draft_config,
+                                 "spec_k": E_SPEC_K})):
+            engine = DecodeEngine(params32, config32, decode_slots=E_SLOTS,
+                                  kv_block_size=E_BLOCK,
+                                  max_context=max_context, **options)
+            for index, (prompt, max_new) in enumerate(requests):
+                engine.submit(index, prompt, max_new)
+            start = time.perf_counter()
+            done, steps = drain_engine(engine)
+            stats[path] = (engine.stats(),
+                           (time.perf_counter() - start) * 1e3 / steps)
+            tokens[path] = [done[index].tokens
+                            for index in range(len(requests))]
+            del engine
+        tokens["generate"] = []
+        for prompt, max_new in requests:
+            out, _ = generate(params32, config32,
+                              torch.from_numpy(prompt)[None].cuda(),
+                              max_new)
+            tokens["generate"].append(out[0].cpu().numpy())
+        differences = []
+        for index, (prompt, _) in enumerate(requests):
+            for path in ("generate", "chunked", "speculative"):
+                other, mine = tokens[path][index], tokens["engine"][index]
+                if not np.array_equal(other, mine):
+                    position = int(np.argmax(other != mine))
+                    differences.append((index, path, position,
+                                        int(mine[position]),
+                                        int(other[position])))
+        spec = stats["speculative"][0]
+        say("9c engine_f32_paths", requests=len(requests),
+            tokens=int(sum(out.size for out in tokens["engine"])),
+            identical=not differences,
+            prefill_chunks=stats["chunked"][0]["prefill_chunks"],
+            spec_windows=spec["spec_windows"],
+            accepted_len_mean=spec["accepted_len_mean"],
+            engine_step_ms=f"{stats['engine'][1]:.3f}",
+            speculative_step_ms=f"{stats['speculative'][1]:.3f}",
+            card=repr(smi))
+        for index, path, position, mine, other in differences:
+            # the f32 cacheless forward's top-2 gap where they part: a
+            # near tie says summation order, a wide gap a fault
+            gap = top2_gap(params32, config32, requests[index][0],
+                           tokens["engine"][index], position)
+            say("9c difference", request=index, path=path,
+                position=position, engine_token=mine, path_token=other,
+                top2_gap=f"{gap:.6g}")
+        if differences:
+            raise SystemExit(f"9c: {len(differences)} path(s) differ from "
+                             f"the engine in f32")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = previous
+        del params32
+        torch.cuda.empty_cache()
+
+
+E_WORDS = ("the", "engine", "admits", "requests", "into", "free", "slots",
+           "while", "every", "decode", "step", "runs", "over", "a", "paged",
+           "pool", "of", "blocks", "and", "tokens", "stream", "back", "to",
+           "each", "frame", "in", "order", "card", "graph", "replay")
+
+
+def engine_text_frames() -> list:
+    """E_FRAMES frames of E_ROWS seeded sentences (8-40 words)."""
+    rng = np.random.default_rng(9)
+    return [[" ".join(rng.choice(E_WORDS, size=int(rng.integers(8, 41))))
+             for _ in range(E_ROWS)] for _ in range(E_FRAMES)]
+
+
+def phase_engine_pipeline(max_context: int, smi: str) -> None:
+    """9d: text frames through LMGenerate `continuous: true` (the BPE
+    tokenizer, bf16 llama32_1b) in a pipeline; every frame completes and
+    its rows equal a DecodeEngine's tokens for the same token rows."""
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    engine_parameters = {"decode_slots": E_SLOTS, "kv_block_size": E_BLOCK,
+                         "max_context": max_context}
+    definition = {
+        "name": "continuous",
+        "graph": ["(lm)"],
+        "parameters": {"device": "cuda"},
+        "elements": [
+            {"name": "lm", "input": [{"name": "text"}],
+             "output": [{"name": "generated"}, {"name": "text"}],
+             "parameters": {"preset": "llama32_1b", "dtype": "bfloat16",
+                            "tokenizer": "default", "continuous": True,
+                            "max_new_tokens": E_FRAME_NEW,
+                            **engine_parameters},
+             "deploy": {"local": {"module": MODULE,
+                                  "class_name": "LMGenerate"}}}],
+    }
+    frames = engine_text_frames()
+    process = Process(transport_kind="loopback")
+    try:
+        pipeline = create_pipeline(process, definition)
+        lm = pipeline.elements["lm"]
+        lm._ensure_ready()
+        process.run(in_thread=True)
+        responses = queue.Queue()
+        stream = pipeline.create_stream("s1", queue_response=responses)
+        start = time.perf_counter()
+        for texts in frames:
+            pipeline.create_frame(stream, {"text": texts})
+        served = {}
+        for _ in frames:
+            _, frame, outputs = responses.get(timeout=600)
+            served[frame.frame_id] = outputs
+        elapsed = time.perf_counter() - start
+        stats = lm.engine_stats()
+        rows = [lm._encode_prompts(None, texts)[0] for texts in frames]
+        params, config = lm.state, lm.config
+    finally:
+        process.terminate()
+    engine = DecodeEngine(params, config, **engine_parameters)
+    for frame_id, tokens in enumerate(rows):
+        for row in range(tokens.shape[0]):
+            engine.submit((frame_id, row), tokens[row], E_FRAME_NEW)
+    done, _ = drain_engine(engine)
+    for frame_id in range(len(frames)):
+        outputs = served.get(frame_id)
+        if outputs is None:
+            raise SystemExit(f"9d: frame {frame_id} did not complete")
+        generated = np.asarray(outputs["generated"])
+        expected = np.stack([done[(frame_id, row)].tokens
+                             for row in range(E_ROWS)])
+        if not (generated.shape == (E_ROWS, E_FRAME_NEW)
+                and np.array_equal(generated, expected)
+                and len(outputs["text"]) == E_ROWS):
+            raise SystemExit(f"9d: frame {frame_id}'s rows differ from "
+                             f"the engine's tokens")
+    say("9d engine_pipeline", frames=len(frames), rows_per_frame=E_ROWS,
+        prompt_widths=json.dumps([int(tokens.shape[1]) for tokens in rows]),
+        new_tokens=E_FRAME_NEW, identical=True,
+        admitted=stats["admitted"], completed=stats["completed"],
+        wall_s=f"{elapsed:.2f}",
+        tokens_per_s=f"{len(frames) * E_ROWS * E_FRAME_NEW / elapsed:.1f}",
+        card=repr(smi))
+
+
+def phase_engine(smi: str) -> None:
+    """Phase 9: the continuous decode engine at llama32_1b's full width."""
+    from aiko_services_tpu_torch.models import LLAMA32_1B, init_params
+    from aiko_services_tpu_torch.utils.tree import tree_leaves
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    params = init_params(LLAMA32_1B, torch.Generator().manual_seed(0),
+                         device="cuda")
+    workload, rng, max_context = engine_workload(LLAMA32_1B.vocab_size)
+    weight_bytes = sum(leaf.numel() * leaf.element_size()
+                       for leaf in tree_leaves(params))
+    say("9 engine_setup", weights_gib=f"{weight_bytes / 2**30:.2f}",
+        setup_s=f"{time.perf_counter() - start:.1f}")
+    _, engine = phase_engine_storm(params, LLAMA32_1B, workload, rng,
+                                   max_context, smi)
+    del engine
+    phase_engine_graph_vs_eager(params, LLAMA32_1B, workload, max_context,
+                                smi)
+    phase_engine_f32(params, LLAMA32_1B, workload, max_context, smi)
+    del params
+    torch.cuda.empty_cache()
+    phase_engine_pipeline(max_context, smi)
+
+
 def main() -> None:
     from aiko_services_tpu_torch.ops import kernels
     smi = phase_card()
@@ -1336,6 +1830,7 @@ def main() -> None:
                           phase_asr_tones_training(), phase_config5(smi)):
         for name, count in path_launches.items():
             launches[name] += count
+    phase_engine(smi)
     sources = {"flash_attention": ("flash_attention.cu", 75),
                "flash_attention_dq": ("flash_attention_backward.cu", 264),
                "flash_attention_dkv": ("flash_attention_backward.cu", 314)}

@@ -315,3 +315,69 @@ def test_multimodal_source_on_device_yields_cuda_tensors(cuda):
             assert 0 <= outputs["image"].min() and outputs["image"].max() < 1
     finally:
         process.terminate()
+
+
+def test_bf16_dense_reduces_in_f32_at_a_split_k_shape(cuda):
+    """A bf16 dense at M = 8, K = 8192 (small M and long K invite cuBLAS
+    to split K) is its f32 product rounded once to bf16.  The inputs are
+    small integers, so every partial sum is exact in f32 whatever the
+    order: the only way to differ is to sum in bf16."""
+    from aiko_services_tpu_torch.models.layers import dense
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(-3, 4, (8, 8192)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.integers(-3, 4, (8192, 2048)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    expected = torch.matmul(x.float(), w.float()).to(torch.bfloat16)
+    assert torch.equal(dense({"w": w}, x), expected)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_decode_step_replays_the_eager_step(cuda, dtype):
+    """The engine's captured paged_decode_step (and the speculative
+    verify windows) against the same engine run eagerly on the card:
+    identical tokens and a bit-identical pool after a storm with
+    admissions, evictions and a block crossing."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    from aiko_services_tpu_torch.models import TransformerConfig, init_params
+    config = TransformerConfig(vocab_size=256, d_model=64, n_layers=2,
+                               n_heads=4, n_kv_heads=2, d_ff=128,
+                               max_seq_len=128, dtype=dtype)
+    draft_config = replace(config, n_layers=1)
+    params = init_params(config, torch.Generator().manual_seed(0),
+                         device=cuda)
+    draft = init_params(draft_config, torch.Generator().manual_seed(1),
+                        device=cuda)
+    rng = np.random.default_rng(4)
+    requests = [(rng.integers(1, 256, size=int(rng.integers(3, 30)))
+                 .astype(np.int32), int(rng.integers(2, 20)))
+                for _ in range(10)]
+    runs = {}
+    for graphs in (True, False):
+        for speculative in (False, True):
+            options = ({"draft_params": draft, "draft_config": draft_config,
+                        "spec_k": 3} if speculative else {})
+            engine = DecodeEngine(params, config, decode_slots=3,
+                                  kv_block_size=8, **options)
+            engine._graphs = graphs
+            for index, (prompt, max_new) in enumerate(requests):
+                engine.submit(index, prompt, max_new)
+            done = {}
+            while engine.has_work():
+                for completion in engine.step().completions:
+                    done[completion.request_id] = completion.tokens
+            assert bool(engine._captured) == graphs
+            runs[graphs, speculative] = (done, {
+                name: leaf.clone() for name, leaf in engine.pool.items()})
+    for speculative in (False, True):
+        graph_done, graph_pool = runs[True, speculative]
+        eager_done, eager_pool = runs[False, speculative]
+        for index in range(len(requests)):
+            np.testing.assert_array_equal(graph_done[index],
+                                          eager_done[index])
+        for name in graph_pool:
+            # block 0 is the trash block: which duplicate write wins
+            # there is unspecified
+            assert torch.equal(graph_pool[name][:, 1:],
+                               eager_pool[name][:, 1:])

@@ -1,8 +1,9 @@
 # The port stands alone: importing its speech-serving, config-5 serving
-# (LM generation, tokenizer, detector, sources) and training paths loads
-# no JAX, no optax, no ml_dtypes and nothing of the JAX package, and
-# no source file of the port (nor the chip scripts chip_smoke.py,
-# chip_profile.py and chip_backward_ab.py) imports them.
+# (LM generation, tokenizer, detector, sources), continuous decode engine
+# (decode/) and training paths loads no JAX, no optax, no ml_dtypes and
+# nothing of the JAX package, and no source file of the port (decode/
+# included; nor the chip scripts chip_smoke.py, chip_profile.py and
+# chip_backward_ab.py) imports them.
 
 import ast
 import pathlib
@@ -34,6 +35,7 @@ def test_importing_the_main_path_loads_no_jax():
         "import aiko_services_tpu_torch.runtime\n"
         "import aiko_services_tpu_torch.analyze\n"
         "import aiko_services_tpu_torch.observe\n"
+        "import aiko_services_tpu_torch.decode\n"
         "print(' '.join(sorted(sys.modules)))\n")
     result = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                             capture_output=True, text=True, timeout=120)
@@ -44,7 +46,8 @@ def test_importing_the_main_path_loads_no_jax():
     assert "aiko_services_tpu_torch.models.optim" in loaded
     for module in ("models.detector", "models.tokenizer", "elements.compute",
                    "elements.common_io", "elements.audio_io",
-                   "elements.image_io"):
+                   "elements.image_io", "decode.blocks", "decode.engine",
+                   "decode.prefix"):
         assert f"aiko_services_tpu_torch.{module}" in loaded
     assert [module for module in loaded if _forbidden(module)] == []
 
@@ -63,6 +66,8 @@ def _imports(path: pathlib.Path) -> list:
 def test_no_source_imports_jax_or_the_jax_package():
     sources = sorted(PORT.rglob("*.py")) + sorted(ROOT.glob("chip_*.py"))
     assert len(sources) > 40
+    assert {PORT / "decode" / name for name in (
+        "__init__.py", "blocks.py", "engine.py", "prefix.py")} <= set(sources)
     offenders = {str(path.relative_to(ROOT)): bad
                  for path in sources
                  if (bad := [module for module in _imports(path)

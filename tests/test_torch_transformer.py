@@ -216,6 +216,11 @@ def _element(class_name: str, parameters: dict) -> None:
     })
 
 
+def _decode_engine(params, config):
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    return DecodeEngine(params, config, decode_slots=1)
+
+
 def _foreign_checkpoint(directory, name: str) -> str:
     """A checkpoint holding one tensor under a foreign naming convention
     (HuggingFace Llama, ultralytics YOLOv8)."""
@@ -237,8 +242,10 @@ UNPORTED = {
     "sequence_parallel": lambda c, p, t, d: torch_lm.make_train_step(
         torch_lm.TransformerConfig(**CONFIG, sequence_parallel=True),
         optim.adam(1e-3)),
-    "continuous": lambda c, p, t, d: _element(
-        "LMGenerate", {**CONFIG, "continuous": True}),
+    # the continuous engine runs; adopting a migrated request (prefill/
+    # decode disaggregation) is what it does not have yet
+    "continuous": lambda c, p, t, d: _decode_engine(p, c).adopt_request(
+        0, {}),
     "role": lambda c, p, t, d: _element(
         "LMGenerate", {**CONFIG, "role": "prefill"}),
     "hf_llama_weights": lambda c, p, t, d: _element(
@@ -256,3 +263,36 @@ def test_unported_options_raise(lm, option, tmp_path):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         UNPORTED[option](torch_config, _port_params(numpy_params),
                          torch.from_numpy(tokens), tmp_path)
+
+
+def test_dense_reduces_bf16_products_in_f32(monkeypatch):
+    """During a bf16 dense (and the cached attention's bf16 P·V) cuBLAS
+    may not reduce in bf16: the flag is off inside the product and
+    restored after."""
+    from aiko_services_tpu_torch.models import layers
+    seen = []
+    matmul = torch.matmul
+
+    def spy(a, b):
+        seen.append(torch.backends.cuda.matmul
+                    .allow_bf16_reduced_precision_reduction)
+        return matmul(a, b)
+
+    before = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    monkeypatch.setattr(torch, "matmul", spy)
+    x = torch.ones((2, 8), dtype=torch.bfloat16)
+    w = torch.ones((8, 4), dtype=torch.bfloat16)
+    assert torch.equal(layers.dense({"w": w}, x),
+                       torch.full((2, 4), 8.0, dtype=torch.bfloat16))
+    assert seen == [False]
+    assert (torch.backends.cuda.matmul
+            .allow_bf16_reduced_precision_reduction == before)
+    config = torch_lm.TransformerConfig(**{**CONFIG, "dtype": "bfloat16"})
+    q = torch.ones((1, config.n_heads, 1, config.head_dim),
+                   dtype=torch.bfloat16)
+    kv = torch.ones((1, config.n_kv_heads, 3, config.head_dim),
+                    dtype=torch.bfloat16)
+    seen.clear()
+    torch_lm._masked_attention(config, q, kv, kv, torch.tensor([[2]]),
+                               torch.arange(3)[None])
+    assert seen == [True, False]    # q·kᵀ in f32, then the bf16 P·V
