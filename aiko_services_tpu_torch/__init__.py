@@ -17,7 +17,10 @@
 #   models/    Whisper-style ASR, the LM (with its paged KV steps), the
 #              detector, layers, configs, safetensors, bridge
 #   decode/    the continuous decode engine (paged KV blocks, the
-#              slot scheduler, the prefix cache)
+#              slot scheduler, the prefix cache, the prefill engine, the
+#              decode-state checkpointer and its keeper)
+#   serve/     the serving gateway (admission, routing, failover, the
+#              journal, disaggregation, federation)
 #   elements/  SpeechToText, LMGenerate, Detector, the text and source
 #              elements
 #   csrc/      CUDA C++ kernel sources

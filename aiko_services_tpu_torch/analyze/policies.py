@@ -267,18 +267,43 @@ def check_faults_spec(spec) -> list:
     return FAULTS_GRAMMAR.check(spec, value_code="AIKO402")
 
 
-# The grammars below configure subsystems the torch port does not have
-# yet (serve/, decode/checkpoint.py and decode/disagg.py, tune/).  Each
-# check keeps its signature and rule code and refuses any spec, so a
-# definition that carries one fails at construction with a
-# DefinitionError naming the rule, never with an ImportError.
+# The grammars of subsystems the torch port does not have yet (tune/,
+# serve/autoscale.py, serve/autopilot.py: ROADMAP Queue A item 8) keep
+# their signature and rule code and refuse any spec, so a definition
+# that carries one fails at construction with a DefinitionError naming
+# the rule, never with an ImportError.
 
 def check_gateway_policy(spec) -> list:
-    return _not_ported("AIKO403", "gateway_policy", "serving gateway")
+    """(code, message) problems in a gateway admission-policy spec.
+
+    After the per-directive grammar check, a grammar-clean spec goes
+    through the REAL AdmissionPolicy.parse so cross-field constraints
+    (throttle_low <= throttle_high, bucket rate/burst > 0) fail
+    offline exactly as they would at Gateway construction."""
+    from ..serve.policy import POLICY_GRAMMAR, AdmissionPolicy
+    problems = POLICY_GRAMMAR.check(spec, value_code="AIKO403")
+    if not problems:
+        try:
+            AdmissionPolicy.parse(spec)
+        except ValueError as error:
+            problems.append(("AIKO403", str(error)))
+    return problems
 
 
 def check_journal_policy(spec) -> list:
-    return _not_ported("AIKO407", "journal_policy", "gateway journal")
+    """(code, message) problems in a gateway HA/journal spec.  Same
+    shape as check_gateway_policy: the per-directive grammar check,
+    then the REAL JournalPolicy.parse so the cross-field constraint
+    (backend=sqlite requires path=) fails offline exactly as it would
+    at Gateway construction."""
+    from ..serve.journal import JOURNAL_GRAMMAR, JournalPolicy
+    problems = JOURNAL_GRAMMAR.check(spec, value_code="AIKO407")
+    if not problems:
+        try:
+            JournalPolicy.parse(spec)
+        except ValueError as error:
+            problems.append(("AIKO407", str(error)))
+    return problems
 
 
 def check_tune_spec(spec) -> list:
@@ -286,13 +311,42 @@ def check_tune_spec(spec) -> list:
 
 
 def check_disagg_policy(spec) -> list:
-    return _not_ported("AIKO408", "disagg",
-                       "prefill/decode disaggregation")
+    """(code, message) problems in a prefill/decode disaggregation
+    spec (gateway `disagg` parameter, or a replica definition's
+    `disagg: "role=..."`).  Same shape as check_gateway_policy: the
+    per-directive grammar check as AIKO408, then the REAL
+    DisaggPolicy.parse so cross-field constraints (role= is
+    replica-side only) fail offline exactly as at construction."""
+    from ..serve.disagg import DISAGG_GRAMMAR, DisaggPolicy
+    problems = DISAGG_GRAMMAR.check(spec, value_code="AIKO408")
+    if not problems:
+        try:
+            DisaggPolicy.parse(spec)
+        except ValueError as error:
+            problems.append(("AIKO408", str(error)))
+    return problems
 
 
 def check_checkpoint_policy(spec, element: bool = False) -> list:
-    return _not_ported("AIKO409", "checkpoint",
-                       "decode-state checkpointing")
+    """(code, message) problems in a warm-KV-failover checkpoint spec
+    (rule code AIKO409).  Same shape as check_disagg_policy: the
+    per-directive grammar check, then the REAL CheckpointPolicy.parse
+    plus its scope validation -- `recovery_rate` is gateway-side
+    (failover pacing), `checkpoint_every`/`max_checkpoint_lag` are
+    engine-side (snapshot cadence) -- so a spec on the wrong side
+    fails offline exactly as at construction."""
+    from ..decode.checkpoint import CHECKPOINT_GRAMMAR, CheckpointPolicy
+    problems = CHECKPOINT_GRAMMAR.check(spec, value_code="AIKO409")
+    if not problems:
+        try:
+            policy = CheckpointPolicy.parse(spec)
+            if element:
+                policy.validate_engine()
+            else:
+                policy.validate_gateway()
+        except ValueError as error:
+            problems.append(("AIKO409", str(error)))
+    return problems
 
 
 def check_autoscale_policy(spec) -> list:
@@ -325,8 +379,19 @@ def check_autopilot_policy(spec) -> list:
 
 
 def check_federation_policy(spec) -> list:
-    return _not_ported("AIKO410", "federation_policy",
-                       "federated gateway tier")
+    """(code, message) problems in a federated-gateway spec.  Same
+    shape as check_gateway_policy: the per-directive grammar check as
+    AIKO410, then the REAL FederationPolicy.parse so cross-field
+    constraints (non-empty unique groups, own group in the set) fail
+    offline exactly as Gateway construction would."""
+    from ..serve.federation import FEDERATION_GRAMMAR, FederationPolicy
+    problems = FEDERATION_GRAMMAR.check(spec, value_code="AIKO410")
+    if not problems:
+        try:
+            FederationPolicy.parse(spec)
+        except ValueError as error:
+            problems.append(("AIKO410", str(error)))
+    return problems
 
 
 def run_policy_pass(definition) -> AnalysisReport:
@@ -434,10 +499,7 @@ def run_policy_pass(definition) -> AnalysisReport:
     # check_decode_parameters above (same split as checkpoint)
     prefix_spec = (definition.parameters or {}).get("prefix_policy")
     if prefix_spec:
-        problems = (check_prefix_policy(prefix_spec)
-                    or _not_ported("AIKO411", "prefix_policy",
-                                   "gateway's prefix-affinity routing"))
-        for code, message in problems:
+        for code, message in check_prefix_policy(prefix_spec):
             report.add(Diagnostic(code, message, definition=name))
     tune_spec = (definition.parameters or {}).get("tune")
     if tune_spec:

@@ -45,13 +45,23 @@
 # step signatures this engine has run or captured, the counterpart of
 # the jit cache entries its JAX twin compiles.
 #
-# Not ported yet (the transfer plane, the checkpoint keeper and
-# decode/disagg.py, ROADMAP Queue A item 2): adopt_request,
-# restore_request, export_prefix_snapshot and adopt_prefix raise
-# NotImplementedError.
+# KV migration (adopt_request: a prefill pool's handoff; restore_request:
+# a checkpoint keeper's snapshot; adopt_prefix: the cross-replica prefix
+# store) fetches blocks over the transfer plane and writes them into the
+# pool IN PLACE (index_copy_ on the block axis): the captured graphs read
+# the pool tensors they were captured with, so a reassigned pool leaf
+# would leave them decoding from stale KV.
+#
+# On the card each engine issues all its work on its own CUDA stream and
+# captures with capture_error_mode="thread_local", so two engines on one
+# card (two replicas, or a replica beside a prefill engine, each driven
+# by its own thread) neither serialize through one stream nor trip each
+# other's captures.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 
 from collections import deque
@@ -129,11 +139,31 @@ class _Slot:
         return self.prefill_pos < self.true_len
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to the torch port (it needs the "
-        f"transfer plane, the checkpoint keeper and decode/disagg.py: "
-        f"ROADMAP Queue A item 2)")
+# One capture at a time in this process: torch.cuda.graph synchronizes the
+# device and empties the allocator's cache before it begins, which must
+# not run while another engine's capture is underway.  Launches, copies
+# and allocations of other threads stay free during a capture (thread-
+# local capture mode).
+_CAPTURE_LOCK = threading.Lock()
+
+
+def work_stream(device: torch.device):
+    """The CUDA stream an engine issues all its work on (ordered after
+    everything already queued on the current stream, e.g. the params'
+    creation); None on the CPU."""
+    if device.type != "cuda":
+        return None
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    return stream
+
+
+def on_stream(stream):
+    """Context running the enclosed device work on `stream` (a no-op for
+    None, the CPU)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
 
 
 class _CapturedStep:
@@ -158,7 +188,10 @@ class _CapturedStep:
                 run()
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # thread_local: another engine's thread may launch, allocate or
+        # copy while this one captures
+        with _CAPTURE_LOCK, torch.cuda.graph(
+                self.graph, capture_error_mode="thread_local"):
             self.output = run()
 
     def replay(self, arrays) -> np.ndarray:
@@ -187,11 +220,13 @@ class DecodeEngine:
         if decode_slots < 1:
             raise ValueError(f"decode_slots must be >= 1, "
                              f"got {decode_slots}")
-        # the f32 LM head kept once beside the params (f32_head): the
-        # steps' logits product reads it instead of copying the table
-        self.params = f32_head(params)
         self.config = config
         self.device = params["embed"]["w"].device
+        self.stream = work_stream(self.device)
+        with on_stream(self.stream):
+            # the f32 LM head kept once beside the params (f32_head): the
+            # steps' logits product reads it instead of copying the table
+            self.params = f32_head(params)
         # one captured CUDA graph per step signature on the card; eager
         # steps on the CPU
         self._graphs = self.device.type == "cuda"
@@ -219,9 +254,10 @@ class DecodeEngine:
         self.prefix_policy = policy
         self.prefix = (PrefixCache(self.blocks, policy.cache_blocks)
                        if policy is not None else None)
-        self.pool = init_paged_pool(config, self.blocks.num_blocks,
-                                    self.blocks.block_size,
-                                    device=self.device)
+        with on_stream(self.stream):
+            self.pool = init_paged_pool(config, self.blocks.num_blocks,
+                                        self.blocks.block_size,
+                                        device=self.device)
         self.tables = np.full((self.slots_n, self.max_blocks),
                               TRASH_BLOCK, np.int32)
         self.positions = np.zeros((self.slots_n,), np.int32)
@@ -249,8 +285,9 @@ class DecodeEngine:
                              f"(draft_params/draft_config)")
         if draft_params is not None and self.spec_k < 1:
             self.spec_k = 4
-        self.draft_params = (f32_head(draft_params)
-                             if draft_params is not None else None)
+        with on_stream(self.stream):
+            self.draft_params = (f32_head(draft_params)
+                                 if draft_params is not None else None)
         self.draft_config = draft_config
         if draft_config is not None:
             if draft_config.vocab_size != config.vocab_size:
@@ -262,9 +299,10 @@ class DecodeEngine:
             # per slot: the draft is small, so the reservation is cheap
             # and speculation stays out of the target pool's
             # allocation/preemption logic entirely
-            self.draft_pool = init_paged_pool(
-                draft_config, self.slots_n * self.max_blocks + 1,
-                self.blocks.block_size, device=self.device)
+            with on_stream(self.stream):
+                self.draft_pool = init_paged_pool(
+                    draft_config, self.slots_n * self.max_blocks + 1,
+                    self.blocks.block_size, device=self.device)
             self.draft_tables = np.zeros(
                 (self.slots_n, self.max_blocks), np.int32)
             for index in range(self.slots_n):
@@ -323,25 +361,304 @@ class DecodeEngine:
             submitted_at=time.perf_counter()))
         self._update_gauges()
 
-    def _ingest_kv_blocks(self, record: dict, needed: int, timeout,
-                          fallback, what: str):
-        """The consumer half of both KV migrations (fetch a record's
-        blocks over the transfer plane into the pool): not ported yet."""
-        raise _not_ported(f"_ingest_kv_blocks ({what} KV migration)")
+    def _ingest_kv_blocks(self, record: dict, needed: int,
+                          timeout, fallback, what: str):
+        """The shared CONSUMER half of both KV migrations -- prefill
+        handoff adoption and checkpoint restore: allocate `needed`
+        blocks, batch-fetch `record`'s raw block descriptors (ONE
+        connection per producing peer), and scatter them into the
+        pool.  Returns (granted_blocks, migrated_bytes); on ANY
+        failure the grant is returned to the free list, `fallback`
+        runs with the reason, and (None, 0) comes back."""
+        from .disagg import fetch_kv_blocks
+
+        granted = self._allocate(needed)
+        if granted is None:
+            fallback("pool exhausted")
+            return None, 0
+        try:
+            leaves = fetch_kv_blocks(record, timeout=timeout,
+                                     pin=self.device.type == "cuda")
+        except (KeyError, ValueError) as error:
+            # TransferError subclasses ValueError; expired keys raise
+            # KeyError -- either way the prompt re-prefills locally
+            self.blocks.free(granted)
+            fallback(f"KV fetch failed: {error}")
+            return None, 0
+        if set(leaves) != set(self.pool):
+            self.blocks.free(granted)
+            fallback(f"{what} leaves {sorted(leaves)} != pool leaves "
+                     f"{sorted(self.pool)} (kv_dtype mismatch?)")
+            return None, 0
+        for name, stacked in leaves.items():
+            # same leaf names + block size but a different model
+            # geometry or dtype (mixed fleet / rolling reconfig) must
+            # degrade like every other path -- checked BEFORE any write,
+            # never leaking the grant
+            leaf = self.pool[name]
+            fits = (leaf.shape[0], len(granted)) + tuple(leaf.shape[2:])
+            if tuple(stacked.shape) != fits or stacked.dtype != leaf.dtype:
+                self.blocks.free(granted)
+                fallback(f"{what} leaf {name!r} {tuple(stacked.shape)} "
+                         f"{stacked.dtype} does not fit this pool's "
+                         f"{fits} {leaf.dtype}")
+                return None, 0
+        # IN PLACE into the pool's own storage: the captured decode and
+        # verify graphs read these tensors
+        index = torch.as_tensor(granted, dtype=torch.long,
+                                device=self.device)
+        migrated = 0
+        for name, stacked in leaves.items():
+            migrated += stacked.numel() * stacked.element_size()
+            self.pool[name].index_copy_(
+                1, index, stacked.to(self.device, non_blocking=True))
+        return granted, migrated
 
     def adopt_request(self, request_id, handoff: dict,
                       timeout: float | None = None) -> StepReport:
-        """Adopt a remotely prefilled request's KV blocks (prefill/decode
-        disaggregation): not ported yet."""
-        raise _not_ported("adopt_request (prefill/decode disaggregation)")
+        """Adopt a remotely prefilled request MID-FLIGHT: fetch the
+        handoff's KV blocks over the transfer plane (one batched
+        connection per peer), rewrite a free slot's block table to the
+        granted blocks, and continue greedy decode from the prompt end
+        -- no re-prefill, int8 KV carried through unchanged, tokens
+        bit-identical to a co-located prefill+decode (the transferred
+        K/V are exact copies, and the writes-before-gather invariant
+        covers the last block's padding tail exactly as it covers
+        local prefill's).
+
+        NEVER loses the request: a fetch failure/timeout, a block-size
+        mismatch, a full slot array, or an exhausted pool all FALL
+        BACK to a plain submit() -- a local re-prefill through the
+        ordinary admission path (decode.adopt_fallbacks counts it).
+        Returns a StepReport carrying the first token's emission (and
+        the completion, when max_new == 1)."""
+        with on_stream(self.stream):
+            return self._adopt_request(request_id, handoff, timeout)
+
+    def _adopt_request(self, request_id, handoff: dict,
+                       timeout: float | None) -> StepReport:
+        report = StepReport()
+        prompt = np.asarray(handoff["prompt"], np.int32).reshape(-1)
+        max_new = int(handoff["max_new"])
+        true_len = int(handoff.get("true_len", prompt.size))
+
+        def fallback(reason: str) -> StepReport:
+            _LOGGER.info("adopt %r fell back to local re-prefill: %s",
+                         request_id, reason)
+            self.counters["adopt_fallbacks"] += 1
+            self._bump("decode.adopt_fallbacks", 1)
+            self.submit(request_id, prompt, max_new)
+            return report
+
+        if int(handoff.get("block_size", 0)) != self.blocks.block_size:
+            return fallback(
+                f"block_size {handoff.get('block_size')} != pool's "
+                f"{self.blocks.block_size}")
+        free = [index for index, slot in enumerate(self.slots)
+                if slot is None]
+        if not free:
+            return fallback("no free slot")
+        worst = max(self._bucket(true_len), true_len + max_new)
+        if worst > self.max_context:
+            raise ValueError(
+                f"{request_id}: prompt {true_len} + max_new {max_new} "
+                f"exceeds max_context {self.max_context}")
+        needed = self.blocks.blocks_for(true_len)
+        if len(handoff.get("kv_blocks") or []) != needed:
+            return fallback(
+                f"handoff carries {len(handoff.get('kv_blocks') or [])}"
+                f" blocks, prompt needs {needed}")
+        adopt_start = time.perf_counter()
+        granted, migrated = self._ingest_kv_blocks(
+            handoff, needed, timeout, fallback, "handoff")
+        if granted is None:
+            return report
+        # slot bookkeeping identical to a local prefill's end state
+        request = _Request(
+            request_id=request_id, prompt=prompt, max_new=max_new,
+            submitted_at=(adopt_start
+                          - float(handoff.get("queue_wait_s", 0.0))
+                          - float(handoff.get("prefill_s", 0.0))))
+        request.admitted_at = adopt_start
+        bucket = self._bucket(true_len)
+        padded = np.zeros((bucket,), np.int32)
+        padded[:true_len] = prompt
+        index = free[0]
+        slot = _Slot(request, granted, self._admission_seq, true_len,
+                     bucket, padded)
+        self._admission_seq += 1
+        slot.prefill_pos = true_len
+        self.slots[index] = slot
+        self.tables[index, :] = TRASH_BLOCK
+        self.tables[index, :needed] = granted
+        self._finish_prefill(index, report,
+                             int(handoff["first_token"]))
+        adopt_ms = (time.perf_counter() - adopt_start) * 1000.0
+        self.counters["adopted"] += 1
+        self.counters["kv_migrated_bytes"] += migrated
+        self.counters["admitted"] += 1
+        report.admitted += 1
+        self._bump("decode.adopted", 1)
+        self._bump("decode.admitted", 1)
+        self._bump("decode.kv_migrated_bytes", migrated)
+        if self._registry is not None:
+            self._registry.histogram("decode.adopt_ms").record(adopt_ms)
+        self._update_gauges()
+        return report
 
     def restore_request(self, request_id, record,
                         prompt_tokens=None, max_new_tokens=None,
                         timeout: float | None = None,
                         resume_from: int = 0) -> StepReport:
-        """Resume a request from a decode-state checkpoint (warm KV
-        failover): not ported yet."""
-        raise _not_ported("restore_request (warm KV failover)")
+        """Resume a request from a CHECKPOINT after its decode replica
+        died (decode/checkpoint.py): fetch the keeper's merged KV
+        blocks over the transfer plane, scatter them into a free slot,
+        restore the cursor + generated-token list, and continue greedy
+        decode from the snapshot position -- re-decoding only the (at
+        most max_checkpoint_lag) tokens generated after the snapshot,
+        which greedy determinism regenerates bit-identically, instead
+        of re-prefilling the whole prompt.
+
+        `resume_from` is the highest token offset already DELIVERED
+        downstream (a replaying client's hint): tokens below it
+        re-decode silently -- counted as
+        decode.restore_replayed_tokens -- and emission resumes
+        gaplessly at that offset.  Without a hint every restored token
+        DELIBERATELY re-emits with its original offset -- the
+        snapshot's own emitted floor is NOT trusted, because the dead
+        element may have buffered (never published) chunks the engine
+        already counted as surfaced -- so an offset-keyed consumer
+        assembles an exactly-once, gapless stream either way.
+
+        NEVER loses the request: a missing/stale/mismatched record, a
+        failed fetch, a full slot array, or an exhausted pool all FALL
+        BACK to a plain submit() -- the existing replay re-prefill --
+        with decode.restore_fallbacks counting the degradation."""
+        with on_stream(self.stream):
+            return self._restore_request(request_id, record,
+                                         prompt_tokens, max_new_tokens,
+                                         timeout, resume_from)
+
+    def _restore_request(self, request_id, record, prompt_tokens,
+                         max_new_tokens, timeout,
+                         resume_from) -> StepReport:
+        report = StepReport()
+        if record is not None:
+            prompt = np.asarray(record.get("prompt", ()),
+                                np.int32).reshape(-1)
+            max_new = int(record.get("max_new", max_new_tokens or 0))
+        else:
+            prompt = np.asarray(
+                () if prompt_tokens is None else prompt_tokens,
+                np.int32).reshape(-1)
+            max_new = int(max_new_tokens or 0)
+        if prompt.size < 1 or max_new < 1:
+            raise ValueError(
+                f"{request_id}: restore needs a prompt and "
+                f"max_new_tokens (from the record or the caller)")
+
+        def fallback(reason: str) -> StepReport:
+            _LOGGER.info("restore %r fell back to local re-prefill: "
+                         "%s", request_id, reason)
+            self.counters["restore_fallbacks"] += 1
+            self._bump("decode.restore_fallbacks", 1)
+            self.submit(request_id, prompt, max_new)
+            return report
+
+        if record is None:
+            return fallback("no checkpoint record")
+        generated = [int(token) for token in
+                     (record.get("generated") or ())]
+        if not generated:
+            return fallback("snapshot precedes the first token")
+        if int(record.get("block_size", 0)) != self.blocks.block_size:
+            return fallback(
+                f"block_size {record.get('block_size')} != pool's "
+                f"{self.blocks.block_size}")
+        true_len = int(record.get("true_len", prompt.size))
+        position = int(record.get("position", 0))
+        if position != true_len + len(generated) - 1:
+            return fallback(
+                f"inconsistent snapshot: position {position} != "
+                f"true_len {true_len} + {len(generated)} - 1")
+        free = [index for index, slot in enumerate(self.slots)
+                if slot is None]
+        if not free:
+            return fallback("no free slot")
+        worst = max(self._bucket(true_len), true_len + max_new)
+        if worst > self.max_context:
+            raise ValueError(
+                f"{request_id}: prompt {true_len} + max_new {max_new} "
+                f"exceeds max_context {self.max_context}")
+        needed = self.blocks.blocks_for(position)
+        if len(record.get("kv_blocks") or []) != needed:
+            return fallback(
+                f"snapshot carries "
+                f"{len(record.get('kv_blocks') or [])} blocks, "
+                f"position {position} needs {needed}")
+        restore_start = time.perf_counter()
+        granted, migrated = self._ingest_kv_blocks(
+            record, needed, timeout, fallback, "snapshot")
+        if granted is None:
+            return report
+        now = time.perf_counter()
+        request = _Request(
+            request_id=request_id, prompt=prompt, max_new=max_new,
+            submitted_at=now)
+        request.admitted_at = now
+        request.first_token_at = now
+        request.generated = generated
+        # the emission floor: tokens the downstream already holds are
+        # re-decoded (their K/V feeds later positions) but re-emission
+        # resumes at the floor, so streamed offsets stay gapless.  With
+        # a floor PAST the snapshot the gap is exactly the post-snapshot
+        # tokens the dead replica emitted -- the re-decode burden
+        # max_checkpoint_lag bounds
+        resume = max(int(resume_from or 0), 0)
+        replayed = max(resume - len(generated), 0)
+        request.emitted_upto = min(resume, max_new)
+        bucket = self._bucket(true_len)
+        padded = np.zeros((bucket,), np.int32)
+        padded[:true_len] = prompt
+        index = free[0]
+        slot = _Slot(request, granted, self._admission_seq, true_len,
+                     bucket, padded)
+        self._admission_seq += 1
+        slot.prefill_pos = true_len
+        self.slots[index] = slot
+        self.tables[index, :] = TRASH_BLOCK
+        self.tables[index, :needed] = granted
+        self.positions[index] = position
+        self.last_tokens[index, 0] = generated[-1]
+        if self.draft_params is not None:
+            # the draft's cache cannot restore from the target's
+            # snapshot: rebuild it from the prompt and let the pending
+            # window re-ingest the restored tail lazily -- proposals
+            # are only ever proposals, so correctness is unaffected
+            self._draft_prefill(index)
+            catchup = generated[max(len(generated) - 2, 0):]
+            slot.draft_pending = list(catchup)
+            self.draft_positions[index] = (
+                position + 1 - len(slot.draft_pending))
+        restore_ms = (time.perf_counter() - restore_start) * 1000.0
+        self.counters["restores"] += 1
+        self.counters["kv_migrated_bytes"] += migrated
+        self.counters["admitted"] += 1
+        self.counters["restore_replayed_tokens"] += replayed
+        report.admitted += 1
+        self._bump("decode.restores", 1)
+        self._bump("decode.admitted", 1)
+        self._bump("decode.kv_migrated_bytes", migrated)
+        if replayed:
+            self._bump("decode.restore_replayed_tokens", replayed)
+        if self._registry is not None:
+            self._registry.histogram("decode.restore_ms").record(
+                restore_ms)
+        self._surface(report, request)
+        if self._finished(request):
+            report.completions.append(self._complete(index))
+        self._update_gauges()
+        return report
 
     def cancel(self, predicate) -> int:
         """Drop every request whose request_id satisfies `predicate`
@@ -378,6 +695,10 @@ class DecodeEngine:
         step over the decoding slots.  Chunked prefill progress and
         decode progress share the tick -- that interleaving is what
         stops a long prompt from convoying every co-scheduled slot."""
+        with on_stream(self.stream):
+            return self._step()
+
+    def _step(self) -> StepReport:
         report = StepReport()
         self._admit(report)
         ran_chunk = self._advance_prefills(report)
@@ -905,16 +1226,86 @@ class DecodeEngine:
         return self.prefix.heads()
 
     def export_prefix_snapshot(self, tokens) -> dict | None:
-        """Package a resident cached prefix as a keeper snapshot (the
-        cross-replica prefix store): not ported yet."""
-        raise _not_ported("export_prefix_snapshot (the cross-replica "
-                          "prefix store)")
+        """Package the resident cached prefix of `tokens` as a
+        checkpoint-keeper snapshot (decode/checkpoint.py schema), so
+        the keeper doubles as a second-chance CROSS-REPLICA prefix
+        store: another replica's adopt_prefix() pulls the blocks over
+        the transfer plane instead of re-prefilling.  Returns None
+        when the cache is disarmed or holds no block of this chain.
+
+        Keyed ("prefix", head-digest) -- digests are process-stable,
+        so any replica that computes the same chain finds it.  seq=0
+        every time: a prefix snapshot is always a full (non-delta)
+        incarnation."""
+        if self.prefix is None:
+            return None
+        from .checkpoint import CHECKPOINT_SCHEMA
+        from .disagg import offer_pool_blocks
+
+        hashes = chain_hashes(tokens, self.blocks.block_size)
+        blocks = self.prefix.resident_blocks(hashes)
+        if not blocks:
+            return None
+        with on_stream(self.stream):
+            kv_blocks, _total = offer_pool_blocks(self.pool, blocks)
+        count = len(blocks)
+        size = self.blocks.block_size
+        prefix_tokens = np.asarray(tokens, np.int32).reshape(-1)
+        return {
+            "schema": CHECKPOINT_SCHEMA,
+            "request_id": ["prefix", hashes[0]],
+            "prompt": [int(token) for token
+                       in prefix_tokens[:count * size]],
+            "generated": [],
+            "emitted_upto": 0,
+            "max_new": 0,
+            "true_len": count * size,
+            "position": count * size,
+            "block_size": size,
+            "kv_dtype": self.config.kv_dtype or "",
+            "blocks_total": count,
+            "delta_from": 0,
+            "seq": 0,
+            "kv_blocks": kv_blocks,
+        }
 
     def adopt_prefix(self, record: dict,
                      timeout: float | None = None) -> int:
-        """Ingest a keeper prefix record into the local cache (the
-        cross-replica prefix store): not ported yet."""
-        raise _not_ported("adopt_prefix (the cross-replica prefix store)")
+        """Ingest a keeper prefix record into the LOCAL cache: fetch
+        the KV blocks over the transfer plane (the same consumer half
+        prefill handoff and checkpoint restore use) and register them
+        at refcount 0 -- straight into the reclaimable cached tier, so
+        an imported prefix can never pin pool capacity a live request
+        needs.  Returns the number of blocks registered (0 on any
+        failure or when the chain is already resident: pre-warming is
+        best-effort by design)."""
+        if self.prefix is None:
+            return 0
+        if int(record.get("block_size", 0)) != self.blocks.block_size:
+            return 0
+        prompt = np.asarray(record.get("prompt", ()),
+                            np.int32).reshape(-1)
+        hashes = chain_hashes(prompt, self.blocks.block_size)
+        needed = len(record.get("kv_blocks") or [])
+        if not hashes or needed != len(hashes):
+            return 0
+        if self.prefix.lookup(hashes) == len(hashes):
+            return 0                  # already fully resident
+
+        def fallback(reason: str) -> None:
+            _LOGGER.info("prefix adopt skipped: %s", reason)
+
+        with on_stream(self.stream):
+            granted, migrated = self._ingest_kv_blocks(
+                record, needed, timeout, fallback, "prefix")
+        if granted is None:
+            return 0
+        indexed = self.prefix.register(hashes, granted, depth=0,
+                                       refcount=0)
+        self.counters["kv_migrated_bytes"] += migrated
+        self._bump("decode.kv_migrated_bytes", migrated)
+        self._update_gauges()
+        return len(indexed)
 
     # -- the device steps --------------------------------------------------
 

@@ -1,8 +1,8 @@
 # Cross-request prefix KV reuse: radix-style hash-chained block cache.
 #
 # The port's own copy of aiko_services_tpu/decode/prefix.py (host only,
-# jax-free there too).  The gateway's affinity routing and the keeper's
-# cross-replica prefix store that also read it are not ported yet.
+# jax-free there too).  The chain digests must stay the JAX package's:
+# the gateway routes on them across replicas of either package.
 #
 # Million-user chat traffic is dominated by shared prefixes (system
 # prompts, few-shot templates, multi-turn history).  The paged pool

@@ -11,14 +11,17 @@
 # TextToTokens.  Everything runs on the element's device (`device`, CUDA
 # unless the definition asks for the CPU).
 #
-# Not ported yet, and raising NotImplementedError naming it: prefill/
-# decode disaggregation (`role`, handoff / restore inputs), warm KV
-# failover (`checkpoint`) and the cross-replica prefix store
-# (`prefix_keeper`), all ROADMAP Queue A item 2; HuggingFace Llama and
-# whisper checkpoints; ultralytics YOLOv8 checkpoints for the Detector;
-# TextToSpeech.  Lint also refuses `checkpoint` as a DefinitionError
-# (analyze/policies.py); `sequence_parallel` and a `sharding` block raise
-# at construction.
+# LMGenerate also serves the split fleet of the serving tier: `role:
+# prefill` (decode/disagg.py PrefillEngine: frames return KV handoffs),
+# the `handoff` input (the decode engine adopts the migrated KV), warm KV
+# failover (`checkpoint`: decode/checkpoint.py snapshots, and the
+# `restore` input a failing-over gateway attaches) and the cross-replica
+# prefix store (`prefix_keeper`).
+#
+# Not ported yet, and raising NotImplementedError naming it: HuggingFace
+# Llama and whisper checkpoints; ultralytics YOLOv8 checkpoints for the
+# Detector; TextToSpeech.  `sequence_parallel` and a `sharding` block
+# raise at construction.
 
 from __future__ import annotations
 
@@ -207,7 +210,9 @@ class LMGenerate(ComputeElement):
     whole completions.  `continuous: true`: each frame's rows are
     submitted to the slot-based DecodeEngine and the frame parks until
     they complete (decode_slots, kv_block_size, kv_blocks, max_context,
-    eos_id, prefill_chunk_size, speculative, prefix_policy).
+    eos_id, prefill_chunk_size, speculative, prefix_policy, checkpoint,
+    prefix_keeper, adopt_timeout; the `handoff` and `restore` inputs).
+    `role: prefill`: frames run the PrefillEngine and return KV handoffs.
 
     Chat semantics (reference elements_llm.py:137-210): a "system_prompt"
     parameter and optional "chat_template" ({system}/{context}/{user}
@@ -220,8 +225,12 @@ class LMGenerate(ComputeElement):
 
     def __init__(self, process, pipeline, definition):
         super().__init__(process, pipeline, definition)
-        self._refuse_unported()
         _refuse_llama_weights(self)
+        # continuous-mode engine state: present (None/empty) from
+        # construction so observers can poll without racing the first
+        # frame's lazy _ensure_engine()
+        self._engine = None
+        self._engine_frames = {}
         # subscribe at CONSTRUCTION (not lazy setup): detections published
         # before the first frame must still be visible to that frame's
         # prompt, like the reference's init-time subscription
@@ -249,22 +258,14 @@ class LMGenerate(ComputeElement):
             self._detections_handler = (handler, topic)
             self.process.add_message_handler(handler, topic)
 
-    def _refuse_unported(self, stream=None) -> None:
-        """Disaggregation, warm KV failover and the cross-replica prefix
-        store raise: the engine would silently ignore them."""
-        if self.disagg_role(stream):
-            raise _not_ported(self, "prefill/decode disaggregation "
-                                    "(`role`)")
-        if self.get_parameter("checkpoint", None, stream):
-            raise _not_ported(self, "warm KV failover (`checkpoint`)")
-        if self.get_parameter("prefix_keeper", "", stream):
-            raise _not_ported(self, "the cross-replica prefix store "
-                                    "(`prefix_keeper`)")
-
     def engine_managed(self, stream):
         return truthy(self.get_parameter("continuous", False, stream))
 
     def disagg_role(self, stream=None) -> str:
+        """Disaggregated-fleet role: "" (co-located, the default),
+        "prefill" (prompt prefills only -- frames return a KV handoff
+        instead of tokens), or "decode" (the continuous engine, which
+        ADOPTS incoming handoffs instead of re-prefilling)."""
         return str(self.get_parameter("role", "", stream) or "")
 
     def configure(self):
@@ -322,12 +323,11 @@ class LMGenerate(ComputeElement):
 
     def process_frame(self, stream, tokens=None, text=None,
                       handoff=None, restore=None):
-        self._refuse_unported(stream)
-        if handoff is not None or restore is not None:
-            raise _not_ported(self, "KV handoff / restore inputs "
-                                    "(disaggregation, warm KV failover)")
+        if self.disagg_role(stream) == "prefill":
+            return self._process_frame_prefill(stream, tokens, text)
         if self.engine_managed(stream):
-            return self._process_frame_continuous(stream, tokens, text)
+            return self._process_frame_continuous(stream, tokens, text,
+                                                  handoff, restore)
         self._ensure_ready()
         max_new = int(self.get_parameter("max_new_tokens", 32, stream))
         formatted = None
@@ -409,8 +409,28 @@ class LMGenerate(ComputeElement):
             spec_k=spec_k,
             prefix_policy=prefix_policy,
             registry=registry)
+        self._prefix_heads_shared = ""
         self._engine_frames = {}
         self._pump_posted = False
+        self._checkpointer = None
+        spec = self.get_parameter("checkpoint")
+        if spec:
+            # warm KV failover (decode/checkpoint.py): ship incremental
+            # decode-state snapshots to the named keeper so a crash
+            # restores on a survivor instead of re-prefilling.  The spec
+            # parses through the AIKO409 grammar AS-IS (string or dict,
+            # the value lint checked): a bad value fails here with the
+            # message `aiko lint` reports
+            from ..decode.checkpoint import (
+                CheckpointPolicy, DecodeCheckpointer)
+            policy = CheckpointPolicy.parse(spec)
+            policy.validate_engine()
+            on_checkpoint = (telemetry.record_checkpoint
+                             if telemetry is not None
+                             and telemetry.enabled else None)
+            self._checkpointer = DecodeCheckpointer(
+                self._engine, policy, registry=registry,
+                node=self.definition.name, on_checkpoint=on_checkpoint)
         return self._engine
 
     def _speculative_setup(self):
@@ -453,41 +473,368 @@ class LMGenerate(ComputeElement):
             device=self.device)
         return draft_params, draft_config, parsed["k"]
 
-    def _process_frame_continuous(self, stream, tokens, text):
-        engine = self._ensure_engine()
-        formatted = None
+    # -- disaggregated prefill (decode/disagg.py PrefillEngine) ------------
+    #
+    # `role: prefill` turns the element into the prompt half of a
+    # split fleet: frames run paged_prefill / paged_prefill_chunk into
+    # a private paged pool and the response carries a KV HANDOFF (one
+    # JSON-safe record per row: prompt + first token + `__tensorref__`
+    # descriptors for the prompt's KV blocks) instead of tokens.  A
+    # decode-role replica adopts the handoff into a free slot and
+    # continues greedy decode bit-identically -- no re-prefill.
+
+    def _ensure_prefill_engine(self):
+        engine = getattr(self, "_prefill_engine", None)
+        if engine is not None:
+            return engine
+        self._ensure_ready()
+        from ..decode import PrefillEngine
+        telemetry = getattr(self.pipeline, "telemetry", None)
+        registry = (telemetry.registry if telemetry is not None
+                    and telemetry.enabled else None)
+        max_context = self.get_parameter("max_context")
+        prefill_chunk = self.get_parameter("prefill_chunk_size")
+        self._prefill_engine = PrefillEngine(
+            self.state, self.config,
+            kv_block_size=int(self.get_parameter("kv_block_size", 16)),
+            max_context=int(max_context) if max_context else None,
+            prefill_chunk_size=(int(prefill_chunk) if prefill_chunk
+                                else None),
+            registry=registry, device=self.device)
+        self._prefill_frames = {}
+        self._prefill_pump_posted = False
+        return self._prefill_engine
+
+    def _process_frame_prefill(self, stream, tokens, text):
+        engine = self._ensure_prefill_engine()
         if tokens is None:
             if text is None:
                 raise ValueError("LMGenerate needs tokens or text input")
-            tokens, formatted = self._encode_prompts(stream, text)
+            tokens, _ = self._encode_prompts(stream, text)
         tokens = _host(tokens).astype(np.int32)
         if tokens.ndim == 1:
             tokens = tokens[None]
-        rows = tokens.shape[0]
+        max_new = int(self.get_parameter("max_new_tokens", 32, stream))
+        key = (stream.stream_id, stream.current_frame_id)
+        # fleet tracing: the prefill frame's (possibly gateway-minted)
+        # trace context is frozen here so the finished KV handoff can
+        # carry it -- the adopting decode replica parents its adopt
+        # span under THIS prefill hop, not just the gateway root
+        frame = stream.frames.get(stream.current_frame_id)
+        trace = getattr(frame, "trace", None) if frame is not None \
+            else None
+        context = None
+        if trace is not None:
+            from ..observe.trace import make_trace_context
+            context = make_trace_context(trace)
+        self._prefill_frames[key] = {
+            "rows": tokens.shape[0], "done": {},
+            "submitted_at": time.perf_counter(),
+            "trace_context": context,
+        }
+        try:
+            for row in range(tokens.shape[0]):
+                engine.submit(key + (row,), tokens[row], max_new)
+        except ValueError:
+            self._prefill_frames.pop(key, None)
+            engine.cancel(lambda rid: rid[:2] == key)
+            raise
+        self._schedule_prefill_pump()
+        return StreamEvent.PENDING, None
+
+    def _schedule_prefill_pump(self):
+        if not getattr(self, "_prefill_pump_posted", False):
+            self._prefill_pump_posted = True
+            self.post_message("_prefill_pump", [])
+
+    def _prefill_pump(self):
+        self._prefill_pump_posted = False
+        engine = getattr(self, "_prefill_engine", None)
+        if engine is None:
+            return
+        try:
+            for handoff in engine.step():
+                self._finish_prefill_handoff(handoff)
+        except Exception as error:
+            self._fail_prefill_frames(error)
+            return
+        if engine.has_work():
+            self._schedule_prefill_pump()
+
+    def _finish_prefill_handoff(self, handoff):
+        stream_id, frame_id, row = handoff["request_id"]
+        key = (stream_id, frame_id)
+        entry = self._prefill_frames.get(key)
+        if entry is None:
+            return  # stream destroyed mid-prefill
+        record = dict(handoff)
+        record["request_id"] = row  # peer-local identity, JSON-safe
+        if entry.get("trace_context"):
+            # the handoff DESCRIPTOR carries the trace context: even a
+            # handoff forwarded through a telemetry-disabled gateway
+            # still links decode's adopt span to this prefill hop
+            record["trace_context"] = entry["trace_context"]
+        entry["done"][row] = record
+        if len(entry["done"]) < entry["rows"]:
+            return
+        outputs = {"handoff": [entry["done"][r]
+                               for r in range(entry["rows"])]}
+        self.pipeline.post_message("process_frame_response", [
+            {"stream_id": stream_id, "frame_id": frame_id,
+             "node": self.definition.name,
+             "time": time.perf_counter() - entry["submitted_at"]},
+            outputs])
+        del self._prefill_frames[key]
+
+    def _fail_prefill_frames(self, error):
+        """Prefill engine failure: release every PENDING frame with an
+        error response (the stream applies its on_error policy; a
+        disagg gateway degrades the frame to a local decode-side
+        prefill) and rebuild the engine lazily."""
+        _LOGGER.error("%s: prefill engine failed, releasing %d frames: "
+                      "%s", self.definition.name,
+                      len(getattr(self, "_prefill_frames", {})), error)
+        frames = getattr(self, "_prefill_frames", {})
+        self._prefill_frames = {}
+        self._prefill_engine = None
+        for stream_id, frame_id in frames:
+            self.pipeline.post_message("process_frame_response", [
+                {"stream_id": stream_id, "frame_id": frame_id,
+                 "node": self.definition.name, "event": "error"}, {}])
+
+    def prefill_stats(self) -> dict | None:
+        """Live prefill-engine occupancy; None before the first
+        prefill frame."""
+        engine = getattr(self, "_prefill_engine", None)
+        return None if engine is None else engine.stats()
+
+    def _process_frame_continuous(self, stream, tokens, text,
+                                  handoff=None, restore=None):
+        engine = self._ensure_engine()
+        formatted = None
+        handoffs = None
+        if handoff:
+            # disaggregated hop 2: adopt the prefill pool's KV blocks
+            # instead of re-prefilling the prompt locally
+            handoffs = handoff if isinstance(handoff, list) else [handoff]
+            rows = len(handoffs)
+        else:
+            if tokens is None:
+                if text is None:
+                    raise ValueError(
+                        "LMGenerate needs tokens, text, or handoff "
+                        "input")
+                tokens, formatted = self._encode_prompts(stream, text)
+            tokens = _host(tokens).astype(np.int32)
+            if tokens.ndim == 1:
+                tokens = tokens[None]
+            rows = tokens.shape[0]
         max_new = int(self.get_parameter("max_new_tokens", 32, stream))
         key = (stream.stream_id, stream.current_frame_id)
         self._engine_frames[key] = {
-            "rows": rows, "done": {}, "formatted": formatted,
+            "rows": rows, "done": {},
+            "formatted": formatted, "max_new": max_new,
             "submitted_at": time.perf_counter(),
             "stream_tokens": truthy(self.get_parameter(
                 "stream_tokens", False, stream)),
             "chunk": max(1, int(self.get_parameter(
                 "stream_chunk", 8, stream))),
             "buffers": {},
+            # cross-replica prefix store (decode/prefix.py): the
+            # gateway injects `prefix_keeper` when it runs both a
+            # checkpoint keeper and a prefix policy; prompts are kept
+            # so finished requests can export their cached prefix
+            "prefix_keeper": str(self.get_parameter(
+                "prefix_keeper", "", stream) or ""),
+            "prompts": None,
         }
         # submission order == row order; the engine's FIFO admission
         # keeps caller-observed ordering deterministic.  A rejected row
         # (e.g. prompt + max_new over max_context) must not leak the
         # frame entry or strand already-queued sibling rows
         try:
-            for row in range(rows):
-                engine.submit(key + (row,), tokens[row], max_new)
+            if handoffs is not None:
+                timeout = self.get_parameter("adopt_timeout", None,
+                                             stream)
+                adopt_s = time.perf_counter()
+                upstream = None
+                for row, record in enumerate(handoffs):
+                    if isinstance(record, dict) \
+                            and "trace_context" in record:
+                        # the prefill hop's trace identity rides the
+                        # handoff descriptor: strip it before the
+                        # engine sees the record, keep it as the adopt
+                        # span's parent link
+                        record = dict(record)
+                        upstream = record.pop("trace_context") or \
+                            upstream
+                    report = engine.adopt_request(
+                        key + (row,), record,
+                        timeout=(float(timeout) if timeout else None))
+                    for rid, _offset, token in report.emitted:
+                        self._buffer_streamed_token(rid, token)
+                    for completion in report.completions:
+                        self._finish_request(completion)
+                self._note_adopt_span(stream, key,
+                                      time.perf_counter() - adopt_s,
+                                      parent=upstream)
+            elif restore:
+                self._restore_rows(stream, key, tokens, max_new,
+                                   restore)
+            else:
+                if engine.prefix is not None:
+                    self._engine_frames[key]["prompts"] = tokens
+                    self._prewarm_prefix(stream, tokens)
+                for row in range(rows):
+                    engine.submit(key + (row,), tokens[row], max_new)
         except ValueError:
             self._engine_frames.pop(key, None)
             engine.cancel(lambda rid: rid[:2] == key)
             raise
         self._schedule_pump()
         return StreamEvent.PENDING, None
+
+    def _restore_rows(self, stream, key, tokens, max_new,
+                      restore) -> None:
+        """Warm failover (decode/checkpoint.py): a gateway replaying a
+        dead decode replica's frames attached a RESTORE hint naming
+        the checkpoint keeper.  Each row asks the keeper for its
+        snapshot (keyed by (stream_id, frame_id, row) -- stable across
+        replicas) and resumes via engine.restore_request; a missing/
+        stale/unfetchable snapshot degrades to the ordinary re-prefill
+        inside restore_request, so the frame is never lost.  The
+        optional `resume_from` map (row -> highest token offset the
+        client already holds) makes re-emission resume gaplessly."""
+        from ..decode.checkpoint import get_keeper
+        engine = self._engine
+        hint = restore if isinstance(restore, dict) else {}
+        keeper = get_keeper(str(hint.get("keeper") or ""))
+        resume_map = hint.get("resume_from") or {}
+        timeout = self.get_parameter("adopt_timeout", None, stream)
+        restore_s = time.perf_counter()
+        entry = self._engine_frames[key]
+        for row in range(tokens.shape[0]):
+            request_key = key + (row,)
+            record = None
+            if keeper is not None:
+                try:
+                    record = keeper.restore(request_key)
+                except (KeyError, ValueError) as error:
+                    _LOGGER.info("%s: keeper has no snapshot for %r "
+                                 "(%s); re-prefilling",
+                                 self.definition.name, request_key,
+                                 error)
+            resume = int(resume_map.get(row,
+                                        resume_map.get(str(row), 0))
+                         or 0)
+            restores_before = engine.counters["restores"]
+            report = engine.restore_request(
+                request_key, record, prompt_tokens=tokens[row],
+                max_new_tokens=max_new,
+                timeout=(float(timeout) if timeout else None),
+                resume_from=resume)
+            if (resume and entry["stream_tokens"]
+                    and engine.counters["restores"] > restores_before):
+                # a RESTORED row resumes emission at the client's
+                # floor: the chunk buffer must publish offsets from
+                # there, not from 0 -- an offset-keyed consumer would
+                # otherwise overwrite its held prefix with later
+                # tokens.  A FALLBACK row re-prefills and re-emits
+                # from offset 0, so its buffer keeps the default start
+                entry["buffers"][row] = [min(resume, max_new), []]
+            for rid, _offset, token in report.emitted:
+                self._buffer_streamed_token(rid, token)
+            for completion in report.completions:
+                self._finish_request(completion)
+        # restores ride the adopt span category: both are KV
+        # migrations, and tune's migration-bound classifier should see
+        # failover restores exactly as it sees prefill-pool adoptions;
+        # the hint's trace context (frozen at failover) parents the
+        # span under the gateway's replayed-frame root
+        hint_context = hint.get("trace_context")
+        self._note_adopt_span(
+            stream, key, time.perf_counter() - restore_s,
+            parent=(hint_context
+                    if isinstance(hint_context, dict) else None))
+
+    def _note_adopt_span(self, stream, key, elapsed_s: float,
+                         parent: dict | None = None) -> None:
+        """Record the adopt (KV-migration) span on the frame trace so
+        `aiko tune` can attribute migration-bound waits distinctly from
+        slot-queue waits.  `parent` is the upstream (prefill-hop) trace
+        context the handoff descriptor carried, linking the adopt span
+        across processes in a merged fleet artifact."""
+        telemetry = getattr(self.pipeline, "telemetry", None)
+        if telemetry is None or not telemetry.enabled:
+            return
+        telemetry.record_adopt(
+            self.pipeline.streams.get(key[0]), key[1],
+            self.definition.name, elapsed_s, parent=parent)
+
+    def _prewarm_prefix(self, stream, tokens) -> None:
+        """Second-chance CROSS-REPLICA prefix pre-warm: when this
+        prompt's hash chain has no local cache hit, ask the stream's
+        `prefix_keeper` (injected by the gateway when it runs both a
+        checkpoint keeper and a prefix policy) for a snapshot keyed by
+        the chain head and adopt it into the local cached tier over
+        the transfer plane -- so a follow-up turn landing on a COLD
+        replica still skips the shared-prefix prefill.  Best-effort
+        end to end: any miss/failure just means a normal cold
+        prefill."""
+        engine = self._engine
+        keeper_name = str(self.get_parameter(
+            "prefix_keeper", "", stream) or "")
+        if not keeper_name:
+            return
+        from ..decode.checkpoint import get_keeper
+        from ..decode.prefix import chain_hashes
+        keeper = get_keeper(keeper_name)
+        if keeper is None:
+            return
+        timeout = self.get_parameter("adopt_timeout", None, stream)
+        for row in range(tokens.shape[0]):
+            hashes = chain_hashes(tokens[row],
+                                  engine.blocks.block_size)
+            if not hashes or engine.prefix.lookup(hashes):
+                continue      # local hit (or sub-block prompt)
+            try:
+                record = keeper.restore(("prefix", hashes[0]))
+            except (KeyError, ValueError):
+                continue
+            engine.adopt_prefix(
+                record, timeout=(float(timeout) if timeout else None))
+
+    def _export_prefix(self, entry: dict, row: int) -> None:
+        """Offer a finished request's cached prefix blocks to the
+        stream's prefix keeper (once per chain: skipped when the
+        keeper already holds it).  The keeper ingests asynchronously,
+        so this never blocks the engine pump."""
+        engine = getattr(self, "_engine", None)
+        if engine is None or engine.prefix is None:
+            return
+        prompts = entry.get("prompts")
+        if prompts is None:
+            return
+        from ..decode.checkpoint import get_keeper
+        keeper = get_keeper(entry["prefix_keeper"])
+        if keeper is None:
+            return
+        snapshot = engine.export_prefix_snapshot(prompts[row])
+        if snapshot is None:
+            return
+        if keeper.kept_blocks(tuple(snapshot["request_id"])) \
+                >= snapshot["blocks_total"]:
+            return
+        keeper.store(snapshot)
+
+    def _publish_prefix_heads(self, engine) -> None:
+        """Mirror the cache's resident chain-head digests into the
+        pipeline share (comma-joined, on change only) -- the compact
+        summary gateway prefix-affinity routing scores against."""
+        heads = ",".join(engine.prefix_heads())
+        if heads != getattr(self, "_prefix_heads_shared", ""):
+            self._prefix_heads_shared = heads
+            self.pipeline.set_parameter("prefix_heads", heads)
 
     def _schedule_pump(self):
         """At most ONE pump message in flight: each tick runs one engine
@@ -508,6 +855,27 @@ class LMGenerate(ComputeElement):
                 self._buffer_streamed_token(request_id, token)
             for completion in report.completions:
                 self._finish_request(completion)
+            if getattr(self, "_checkpointer", None) is not None:
+                # live cadence override: a gateway's
+                # set_replica_parameter retunes `checkpoint_every`, so
+                # the policy is re-read each step (wire values arrive as
+                # strings) and takes effect on the NEXT cadence tick --
+                # never a checkpointer rebuild, never a restart
+                cadence = self.get_parameter("checkpoint_every")
+                if cadence is not None:
+                    try:
+                        cadence = int(cadence)
+                    except (TypeError, ValueError):
+                        cadence = None
+                if cadence is not None and cadence > 0 and cadence \
+                        != self._checkpointer.policy.checkpoint_every:
+                    self._checkpointer.policy.checkpoint_every = cadence
+                # one cadence tick per engine step: a failed offer keeps
+                # the keeper's previous snapshot, a device fault in the
+                # gather fails the engine's frames like a step's would
+                self._checkpointer.tick()
+            if engine.prefix is not None:
+                self._publish_prefix_heads(engine)
         except Exception as error:
             # the mailbox swallows exceptions, so an unguarded failure
             # here (device error, tokenizer crash) would strand every
@@ -527,6 +895,7 @@ class LMGenerate(ComputeElement):
                       len(self._engine_frames), error)
         frames, self._engine_frames = self._engine_frames, {}
         self._engine = None
+        self._checkpointer = None  # rebuilt with the engine
         for stream_id, frame_id in frames:
             self.pipeline.post_message("process_frame_response", [
                 {"stream_id": stream_id, "frame_id": frame_id,
@@ -560,6 +929,12 @@ class LMGenerate(ComputeElement):
         entry["buffers"][row] = [start + len(chunk), []]
 
     def _finish_request(self, completion):
+        checkpointer = getattr(self, "_checkpointer", None)
+        if checkpointer is not None:
+            # a cleanly finished request's snapshots are dead weight on
+            # the keeper; FENCED streams (failover) deliberately skip
+            # this -- their snapshots are what the survivor restores
+            checkpointer.forget(completion.request_id)
         stream_id, frame_id, row = completion.request_id
         key = (stream_id, frame_id)
         entry = self._engine_frames.get(key)
@@ -568,6 +943,8 @@ class LMGenerate(ComputeElement):
         if entry["stream_tokens"]:
             self._flush_stream_buffer(key, entry, row)
             entry["buffers"].pop(row, None)
+        if entry.get("prefix_keeper"):
+            self._export_prefix(entry, row)
         entry["done"][row] = completion
         if len(entry["done"]) < entry["rows"]:
             return
@@ -610,6 +987,12 @@ class LMGenerate(ComputeElement):
                         if key[0] == stream_id]:
                 self._engine_frames.pop(key, None)
             engine.cancel(lambda rid: rid[0] == stream_id)
+        prefill = getattr(self, "_prefill_engine", None)
+        if prefill is not None:
+            for key in [key for key in list(self._prefill_frames)
+                        if key[0] == stream_id]:
+                self._prefill_frames.pop(key, None)
+            prefill.cancel(lambda rid: rid[0] == stream_id)
         return super().stop_stream(stream, stream_id)
 
     def engine_stats(self) -> dict | None:
@@ -617,6 +1000,12 @@ class LMGenerate(ComputeElement):
         first continuous frame."""
         engine = getattr(self, "_engine", None)
         return None if engine is None else engine.stats()
+
+    def checkpoint_stats(self) -> dict | None:
+        """Live decode-checkpointer counters; None when the element
+        runs without a `checkpoint` spec (or before the engine)."""
+        checkpointer = getattr(self, "_checkpointer", None)
+        return None if checkpointer is None else checkpointer.stats()
 
     def group_kernel(self, stream):
         """Fused micro-batch hook for the decode stage: greedy generation
@@ -627,12 +1016,12 @@ class LMGenerate(ComputeElement):
             # a subclass overriding process_frame must not have its
             # override silently bypassed by the inherited fused kernel
             return None
-        self._refuse_unported(stream)
         self._ensure_ready()  # configure(): config + tokenizer exist
         if (self.tokenizer is not None
                 or truthy(self.get_parameter(
                     "stream_tokens", False, stream))
-                or self.engine_managed(stream)):
+                or self.engine_managed(stream)
+                or self.disagg_role(stream)):
             return None
         max_new = int(self.get_parameter("max_new_tokens", 32, stream))
 

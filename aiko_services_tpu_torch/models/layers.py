@@ -11,7 +11,6 @@
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import numpy as np
@@ -19,28 +18,32 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.audio import full_f32_convolution
+from ..ops.device import counted_flags
 
 __all__ = ["dense", "rms_norm", "layer_norm", "rotary_embedding",
            "apply_rotary", "swiglu", "repeat_kv", "init_dense", "init_norm",
            "conv2d", "init_conv", "f32_reduction"]
 
 
-@contextlib.contextmanager
-def f32_reduction():
-    """bf16 and fp16 matmuls on the card reduce in f32 for the duration
-    (cuBLAS may otherwise sum split-K partials in the narrow type, where
-    XLA's dot accumulates in f32 and rounds once); restores the previous
-    setting.  The flags are process-wide."""
+def _reduction_flags() -> tuple:
     matmul = torch.backends.cuda.matmul
-    previous = (matmul.allow_bf16_reduced_precision_reduction,
-                matmul.allow_fp16_reduced_precision_reduction)
-    matmul.allow_bf16_reduced_precision_reduction = False
-    matmul.allow_fp16_reduced_precision_reduction = False
-    try:
-        yield
-    finally:
-        (matmul.allow_bf16_reduced_precision_reduction,
-         matmul.allow_fp16_reduced_precision_reduction) = previous
+    return (matmul.allow_bf16_reduced_precision_reduction,
+            matmul.allow_fp16_reduced_precision_reduction)
+
+
+def _set_reduction_flags(flags) -> None:
+    matmul = torch.backends.cuda.matmul
+    (matmul.allow_bf16_reduced_precision_reduction,
+     matmul.allow_fp16_reduced_precision_reduction) = flags
+
+
+# bf16 and fp16 matmuls on the card reduce in f32 for the duration of a
+# scope (cuBLAS may otherwise sum split-K partials in the narrow type,
+# where XLA's dot accumulates in f32 and rounds once); the flags are
+# process-wide, so the scopes of all threads share one count
+# (device.counted_flags)
+f32_reduction = counted_flags(_reduction_flags, _set_reduction_flags,
+                              (False, False))
 
 
 def init_dense(generator: torch.Generator, in_features: int,

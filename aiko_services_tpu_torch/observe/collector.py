@@ -411,10 +411,7 @@ def collect_traces(process, wait: float = 3.0,
         from ..runtime import ServiceFilter
         from ..runtime.service import SERVICE_PROTOCOL_PIPELINE
         from ..runtime.share import services_cache_create_singleton
-        from ..runtime.service import PROTOCOL_PREFIX
-        # the gateway's protocol name (serve/ is not ported yet; the
-        # wire name is the JAX package's, so its gateways are found)
-        SERVICE_PROTOCOL_GATEWAY = f"{PROTOCOL_PREFIX}/gateway:0"
+        from ..serve import SERVICE_PROTOCOL_GATEWAY
         wanted = {
             "pipeline": SERVICE_PROTOCOL_PIPELINE,
             "gateway": SERVICE_PROTOCOL_GATEWAY,

@@ -10,12 +10,13 @@
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .device import counted_flags
 
 __all__ = ["mel_filterbank", "log_mel_spectrogram", "dft_basis",
            "full_f32_convolution", "SAMPLE_RATE", "N_FFT", "HOP_LENGTH",
@@ -77,17 +78,15 @@ def mel_filterbank(sample_rate: int = SAMPLE_RATE, n_fft: int = N_FFT,
     return bank
 
 
-@contextlib.contextmanager
-def full_f32_convolution():
-    """cuDNN float32 convolutions in full float32 (TF32 off) for the
-    duration; restores the previous setting.  The flag is process-wide."""
-    cudnn = torch.backends.cudnn
-    previous = cudnn.allow_tf32
-    cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32 = previous
+def _set_cudnn_tf32(allow) -> None:
+    torch.backends.cudnn.allow_tf32 = allow
+
+
+# cuDNN float32 convolutions in full float32 (TF32 off) for the duration
+# of a scope; the flag is process-wide, so the scopes of all threads
+# share one count (device.counted_flags)
+full_f32_convolution = counted_flags(
+    lambda: torch.backends.cudnn.allow_tf32, _set_cudnn_tf32, False)
 
 
 def log_mel_spectrogram(waveform, sample_rate: int = SAMPLE_RATE,

@@ -7,10 +7,13 @@
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
-__all__ = ["as_device_array", "resolve_device"]
+__all__ = ["as_device_array", "counted_flags", "resolve_device"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -31,3 +34,31 @@ def as_device_array(value, dtype, device) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(value), dtype=dtype, device=device)
+
+
+def counted_flags(read, write, value):
+    """A context manager that holds process-wide flags at `value` while
+    any of its scopes is open, in any thread: the first scope to open
+    saves read() and writes `value`, the last to close writes the saved
+    flags back.  The scopes of all threads share one count, so no
+    thread's work runs with the flags restored by another thread's exit
+    (two engines on one card)."""
+    lock = threading.Lock()
+    state = {"depth": 0, "previous": None}
+
+    @contextlib.contextmanager
+    def scope():
+        with lock:
+            if state["depth"] == 0:
+                state["previous"] = read()
+                write(value)
+            state["depth"] += 1
+        try:
+            yield
+        finally:
+            with lock:
+                state["depth"] -= 1
+                if state["depth"] == 0:
+                    write(state["previous"])
+
+    return scope

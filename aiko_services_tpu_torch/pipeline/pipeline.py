@@ -239,11 +239,15 @@ class Pipeline(Actor):
         # how a discovering gateway learns pool membership (local
         # attaches read it directly).  Parse errors are left to the
         # construction lint (AIKO408) below
-        if (definition.parameters or {}).get("disagg"):
-            from .definition import DefinitionError
-            raise DefinitionError(
-                f"{definition.name}: `disagg` (prefill/decode "
-                f"disaggregation) is not supported by the torch port yet")
+        disagg_spec = (definition.parameters or {}).get("disagg")
+        if disagg_spec:
+            from ..serve.disagg import DisaggPolicy
+            try:
+                disagg_role = DisaggPolicy.parse(disagg_spec).role
+            except ValueError:
+                disagg_role = None
+            if disagg_role:
+                self.share["role"] = disagg_role
         # telemetry: metrics registry + frame tracer + periodic export
         # (pipeline parameter "telemetry: false" disables ALL per-frame
         # instrument writes -- the latency operating point)

@@ -43,7 +43,6 @@ import socket
 import struct
 import threading
 import time
-import uuid
 
 import numpy as np
 import torch
@@ -58,8 +57,13 @@ __all__ = [
 ]
 
 _HEADER = struct.Struct("!Q")
-_KEY_BYTES = 32  # uuid4().hex
+_KEY_BYTES = 32  # 16 random bytes in hex
 _PURGE_INTERVAL = 5.0
+# offer() sweeps the store for expired keys at most this often: a sweep
+# scans every entry, and a producer offering per block (the decode
+# checkpointer, the prefill handoff) would otherwise pay O(store) per
+# offer; an expired key lives at most this much longer
+_OFFER_PURGE_INTERVAL = 0.1
 
 TENSOR_REF_KEY = "__tensorref__"
 
@@ -228,8 +232,9 @@ class TensorTransferServer:
     """Per-process tensor side-channel: offered arrays are served by key
     until ttl expires.  A key stays valid for transfer_linger() seconds
     after its first fetch (re-fetchable across broker redelivery or a
-    second hop-topic subscriber), then expires; expiry is enforced both
-    on offer() and periodically by the accept loop.  The listen interface
+    second hop-topic subscriber), then expires; expired keys are swept
+    by offer() (at most every _OFFER_PURGE_INTERVAL seconds) and
+    periodically by the accept loop, and a fetch never serves one.  The listen interface
     defaults to all interfaces; set AIKO_TRANSFER_BIND to restrict (the
     key is otherwise the only access control)."""
 
@@ -238,6 +243,7 @@ class TensorTransferServer:
         self.ttl = float(ttl)
         self._store: dict[str, tuple[float, np.ndarray]] = {}
         self._lock = threading.Lock()
+        self._purged_at = time.monotonic()
         self._listener = self._make_listener(int(port))
         self.port = self._listener.getsockname()[1]
         self.host = host or _advertised_host()
@@ -261,19 +267,40 @@ class TensorTransferServer:
     def offer(self, array) -> dict:
         """Stage an array or tensor for remote fetch; returns its
         descriptor."""
-        array, dtype_name = host_bits(array)
-        key = uuid.uuid4().hex
+        return self.offer_many([array])[0]
+
+    def offer_many(self, arrays, dtype_name: str | None = None) -> list:
+        """offer() for several arrays or tensors at once: one draw of
+        random keys, one lock, one metrics update and at most one sweep
+        for all of them; returns their descriptors in order.  With
+        `dtype_name`, every entry is already a contiguous host numpy
+        array of that dtype's bits (a slice of what host_bits returned),
+        served as is."""
+        if dtype_name is None:
+            staged = [host_bits(array) for array in arrays]
+        else:
+            staged = [(array, dtype_name) for array in arrays]
+        keys = os.urandom(_KEY_BYTES // 2 * len(staged)).hex()
+        deadline = time.monotonic() + self.ttl
+        descriptors = []
         with self._lock:
-            self._store[key] = (time.monotonic() + self.ttl, array)
+            for index, (array, name) in enumerate(staged):
+                key = keys[index * _KEY_BYTES:(index + 1) * _KEY_BYTES]
+                self._store[key] = (deadline, array)
+                descriptors.append(
+                    {"host": self.host, "port": self.port, "key": key,
+                     "dtype": name, "shape": list(array.shape)})
         metrics = get_registry()
-        metrics.counter("transfer.offers").inc()
-        metrics.counter("transfer.offered_bytes").inc(array.nbytes)
-        self._purge()
-        return {"host": self.host, "port": self.port, "key": key,
-                "dtype": dtype_name, "shape": list(array.shape)}
+        metrics.counter("transfer.offers").inc(len(staged))
+        metrics.counter("transfer.offered_bytes").inc(
+            sum(array.nbytes for array, _ in staged))
+        if time.monotonic() - self._purged_at >= _OFFER_PURGE_INTERVAL:
+            self._purge()
+        return descriptors
 
     def _purge(self):
         now = time.monotonic()
+        self._purged_at = now
         with self._lock:
             expired = [key for key, (deadline, _) in self._store.items()
                        if deadline < now]

@@ -1,7 +1,8 @@
 """Where the serving paths spend their time on one NVIDIA GPU.
 
-    python3 chip_profile.py            # the speech branch
-    python3 chip_profile.py config5    # the config-5 graph
+    python3 chip_profile.py             # the speech branch
+    python3 chip_profile.py config5     # the config-5 graph
+    python3 chip_profile.py checkpoint  # the decode checkpointer
 
 Speech: serves whisper_small (the configuration chip_smoke.py phase 5
 drives: preset whisper_small, max_frames 512, bf16, max_tokens 16,
@@ -20,6 +21,18 @@ Each prints:
     kernel's share (speech: the served group under torch.profiler;
     config5: each model's group work under torch.profiler on the main
     thread, summed, over a served group's wall time).
+
+checkpoint: chip_smoke.py phase 10b's checkpointed engine without the
+pipeline around it (llama32_1b, bf16, 12 slots of 6-token prompts and 48
+new tokens, 32-position blocks, checkpoint_every=1) and where a tick's
+time goes: the device gather, the transfer-plane offers (the store sweep
+among them), the keeper's enqueue and the rest (the snapshot dicts), with
+the keeper thread's ingest beside them.  Ten pairs of arms, alternating
+which runs first: "before" offers one block of one leaf at a time
+and sweeps the transfer store on every offer, as the checkpointer did
+before offer_many; "after" is the code as committed.  Then one "after"
+arm under cProfile (chiprun_out/profile_checkpoint.txt) and one arm
+without a checkpointer.
 
 The speech group's Chrome trace goes to chiprun_out/profile_speech.json
 (config5 keeps none: its LM stage alone records ~35,000 kernels, too
@@ -40,6 +53,9 @@ import torch
 import chip_smoke
 
 OUT = pathlib.Path(__file__).resolve().parent / "chiprun_out"
+# checkpoint: pairs of "before" and "after" arms, alternating which runs
+# first
+CHECKPOINT_PAIRS = 10
 
 
 def stage_ms(function, runs: int = 3) -> float:
@@ -268,7 +284,192 @@ def profile_config5(smi: str) -> None:
 
 ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
               torch.profiler.ProfilerActivity.CUDA]
-MODES = {"speech": profile_speech, "config5": profile_config5}
+class _Timed:
+    """Wraps `owner.name` so that every call adds its seconds to
+    `self.seconds` (restore() puts the original back)."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
+        self.original = getattr(owner, name)
+        self.seconds, self.calls = 0.0, 0
+
+        def timed(*args, **kwargs):
+            start = time.perf_counter()
+            try:
+                return self.original(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - start
+                self.calls += 1
+
+        setattr(owner, name, timed)
+
+    def restore(self) -> None:
+        setattr(self.owner, self.name, self.original)
+
+
+def offer_one_by_one(host: dict) -> tuple:
+    """The checkpointer's offers as they were before offer_many (the
+    comparison arm): one server.offer a block a leaf."""
+    from aiko_services_tpu_torch.pipeline import transfer
+    server = transfer.get_transfer_server()
+    names = sorted(host)
+    kv_blocks, total = [], 0
+    for index in range(host[names[0]].shape[0]):
+        entry = {}
+        for name in names:
+            view = host[name][index]
+            total += view.numel() * view.element_size()
+            entry[name] = server.offer(view)
+        kv_blocks.append(entry)
+    return kv_blocks, total
+
+
+def checkpoint_arm(engine, prompts: list, arm: str | None,
+                   profiler=None) -> dict:
+    """Drive `prompts` through `engine` with a checkpointer ticking after
+    every step (none when arm is None) on a fresh transfer server and
+    keeper: seconds per part and counts.  Arm "before": one offer a
+    block a leaf, the store swept on every offer; "after": the committed
+    code (one offer_many a leaf a tick, a sweep at most every 0.1 s)."""
+    from aiko_services_tpu_torch.decode import (
+        CheckpointKeeper, CheckpointPolicy, DecodeCheckpointer, disagg,
+        reset_keepers)
+    from aiko_services_tpu_torch.pipeline import transfer
+    transfer.reset_transfer_server()
+    reset_keepers()
+    keeper = checkpointer = None
+    parts = {}
+    sweep_every = transfer._OFFER_PURGE_INTERVAL
+    offer_blocks = disagg.offer_blocks
+    if arm is not None:
+        if arm == "before":
+            transfer._OFFER_PURGE_INTERVAL = 0.0
+            disagg.offer_blocks = offer_one_by_one
+        keeper = CheckpointKeeper("profile_keeper")
+        checkpointer = DecodeCheckpointer(
+            engine, CheckpointPolicy.parse(
+                "checkpoint_every=1;max_checkpoint_lag=4;"
+                "keeper=profile_keeper"), keeper=keeper)
+        server = transfer.get_transfer_server()
+        parts = {"gather": _Timed(disagg, "gather_pool_blocks"),
+                 "offer": _Timed(disagg, "offer_blocks"),
+                 "sweep": _Timed(server, "_purge"),
+                 "server_offer": _Timed(server, "offer_many"),
+                 "enqueue": _Timed(keeper, "store"),
+                 "ingest": _Timed(keeper, "_ingest")}
+    for index, prompt in enumerate(prompts):
+        engine.submit(f"r{index}", prompt, chip_smoke.B_NEW)
+    step_s = tick_s = 0.0
+    steps = 0
+    try:
+        while engine.has_work():
+            start = time.perf_counter()
+            engine.step()
+            step_s += time.perf_counter() - start
+            steps += 1
+            if checkpointer is not None:
+                start = time.perf_counter()
+                if profiler is not None:
+                    profiler.enable()
+                checkpointer.tick()
+                if profiler is not None:
+                    profiler.disable()
+                tick_s += time.perf_counter() - start
+        if keeper is not None and not keeper.flush(timeout=60):
+            raise SystemExit("checkpoint: the keeper did not drain")
+    finally:
+        for part in parts.values():
+            part.restore()
+        transfer._OFFER_PURGE_INTERVAL = sweep_every
+        disagg.offer_blocks = offer_blocks
+    result = {"steps": steps, "step_s": step_s, "tick_s": tick_s,
+              **{name: part.seconds for name, part in parts.items()},
+              "offer_calls": parts["server_offer"].calls if parts else 0,
+              "sweeps": parts["sweep"].calls if parts else 0}
+    if checkpointer is not None:
+        stats = checkpointer.stats()
+        result.update(bytes=stats["checkpoint_bytes"],
+                      errors=stats["checkpoint_errors"],
+                      store_errors=keeper.stats()["store_errors"],
+                      store_size=len(transfer.get_transfer_server()._store))
+    reset_keepers()
+    return result
+
+
+def profile_checkpoint(smi: str) -> None:
+    """Where the decode checkpointer's tick spends its time: phase 10b's
+    shape on a bare engine, pairs of "before" and "after" arms, a
+    cProfiled "after" arm and a baseline without a checkpointer."""
+    import cProfile
+    import io
+    import pstats
+    import numpy as np
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    from aiko_services_tpu_torch.models import LLAMA32_1B, init_params
+    params = init_params(LLAMA32_1B, torch.Generator().manual_seed(0),
+                         device="cuda")
+    engine = DecodeEngine(params, LLAMA32_1B,
+                          decode_slots=chip_smoke.B_STREAMS,
+                          kv_block_size=chip_smoke.S_BLOCK,
+                          max_context=chip_smoke.B_CONTEXT)
+    rng = np.random.default_rng(chip_smoke.B_SEED)
+    prompts = [rng.integers(1, LLAMA32_1B.vocab_size,
+                            size=chip_smoke.B_PROMPT).astype(np.int32)
+               for _ in range(chip_smoke.B_STREAMS)]
+    checkpoint_arm(engine, prompts, None)            # capture, warm up
+    pairs = [("before", "after") if index % 2 == 0 else ("after", "before")
+             for index in range(CHECKPOINT_PAIRS)]
+    arms = [arm for pair in pairs for arm in pair] + ["after_cprofile", None]
+    ticks = {"before": [], "after": []}
+    for arm in arms:
+        profiler = cProfile.Profile() if arm == "after_cprofile" else None
+        result = checkpoint_arm(engine, prompts,
+                                arm and arm.split("_")[0], profiler)
+        steps = max(result["steps"], 1)
+        fields = {"steps": result["steps"],
+                  "step_ms": f"{result['step_s'] / steps * 1e3:.3f}"}
+        if arm is not None:
+            tick = result["tick_s"]
+            other = tick - sum(result[part] for part in
+                               ("gather", "offer", "enqueue"))
+            fields.update({
+                "tick_ms": f"{tick / steps * 1e3:.3f}",
+                "share_of_step": f"{tick / max(tick + result['step_s'], 1e-9):.3f}",
+                **{f"{part}_ms": f"{result[part] / steps * 1e3:.3f}"
+                   for part in ("gather", "offer", "sweep", "enqueue")},
+                "dicts_and_rest_ms": f"{other / steps * 1e3:.3f}",
+                "keeper_ingest_ms": f"{result['ingest'] / steps * 1e3:.3f}",
+                "offer_calls_per_tick": f"{result['offer_calls'] / steps:.1f}",
+                "sweeps": result["sweeps"],
+                "store_size_at_end": result["store_size"],
+                "mib_per_tick": f"{result['bytes'] / steps / 2**20:.3f}",
+                "errors": result["errors"],
+                "store_errors": result["store_errors"]})
+        name = arm or "no_checkpointer"
+        if arm in ticks:
+            ticks[arm].append(result["tick_s"] / steps * 1e3)
+        chip_smoke.say(f"checkpoint {name}", **fields, card=repr(smi))
+        if profiler is not None:
+            text = io.StringIO()
+            pstats.Stats(profiler, stream=text).sort_stats(
+                "cumulative").print_stats(30)
+            OUT.mkdir(exist_ok=True)
+            (OUT / "profile_checkpoint.txt").write_text(text.getvalue())
+            print("\n".join(text.getvalue().splitlines()[:45]))
+
+    before, after = ticks["before"], ticks["after"]
+    quartiles = statistics.quantiles(before, n=4)
+    chip_smoke.say(
+        "checkpoint pairs", pairs=CHECKPOINT_PAIRS,
+        tick_ms_median_before=f"{statistics.median(before):.3f}",
+        tick_ms_median_after=f"{statistics.median(after):.3f}",
+        before_iqr_ms=f"{quartiles[2] - quartiles[0]:.3f}",
+        after_wins=sum(a < b for a, b in zip(after, before)),
+        card=repr(smi))
+
+
+MODES = {"speech": profile_speech, "config5": profile_config5,
+         "checkpoint": profile_checkpoint}
 
 
 def main() -> None:

@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's speech-serving, training and LM-serving
-paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's speech-serving, training, LM-serving
+and serving-tier paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -73,6 +73,32 @@ result:
      9d 4 frames of 8 text rows (the BPE tokenizer) through LMGenerate
         `continuous: true` in a pipeline: every frame completes with the
         engine's tokens for the same rows
+ 10. the serving tier (serve/, decode/disagg.py, decode/checkpoint.py) at
+     llama32_1b's full width, bf16, one set of seeded weights shared by
+     every engine and replica:
+     10a bench.py's config 6f: 64 decode requests open-loop at 0.4x the
+         capacity and 8 long 256-token prompts mid-run, colocated (long
+         prompts prefill on the decode engine) and disaggregated (a
+         PrefillEngine on its own thread, its handoffs adopted into free
+         slots): identical tokens, 8 adopted, 0 fallbacks, 0 signatures;
+         KV MiB per long prompt, adopt ms and decode TTFT p50/p99 per
+         arm; then text frames through a `disagg: role=prefill` pipeline
+         and a decode pipeline behind Gateway(disagg=...), equal to a
+         colocated engine's tokens;
+     10b warm failover (bench.py's _chaos_decode_replica_kill): 12
+         checkpointed streams on one replica of two, killed mid-decode by
+         the seeded plan's replica_kill: the same tokens as the uncrashed
+         arm, 0 frames lost, 12 restores, 0 restore fallbacks, 0 survivor
+         signatures; recovery TTFT, checkpoint MiB and ms per tick and the
+         checkpointer's share of a step;
+     10c prefix affinity and the keeper store in f32: a hinted stream
+         routes to the replica holding its prefix, the other replica
+         pre-warms it from the keeper, warm tokens equal cold ones;
+     10d admission under 2x overload (bench.py --router 2): two Detector
+         replicas (yolov8n shape, 640 px, micro_batch 16), 16 streams x
+         30 frames; goodput, shed rate, admitted p50/p99, 0 frames lost,
+         every admitted frame's detections bit-equal to the direct
+         replica's
 
 The last three lines are the card's nvidia-smi name and power limit, one
 JSON object describing every kernel of the paths, and {"ok": true,
@@ -1816,6 +1842,785 @@ def phase_engine(smi: str) -> None:
     phase_engine_pipeline(max_context, smi)
 
 
+# -- the serving tier ----------------------------------------------------------
+
+# Phase 10 serves LLAMA32_1B at its published widths and full depth, bf16,
+# random weights from seed 0 (shared by every engine and replica through
+# restore_state), 32-position KV blocks and 8 slots unless stated.
+S_SLOTS, S_BLOCK = 8, 32
+# 10a: bench.py config 6f (bench_disagg): 64 decode requests from
+# default_rng(17) (prompts 16-48 tokens, 32-96 new), 8 long prompts of
+# 4 x bucket(48) = 256 tokens landing mid-run, open-loop arrivals at 0.4x
+# the capacity measured with every slot busy; then text frames through a
+# prefill pipeline and a decode pipeline behind Gateway(disagg=...)
+A_DECODE, A_PROMPT, A_NEW, A_LONGS, A_LOAD = 64, (16, 48), (32, 96), 8, 0.4
+A_FRAMES, A_ROWS, A_FRAME_NEW, A_FRAME_CONTEXT = 2, 4, 16, 128
+# 10b: _chaos_decode_replica_kill (bench.py:2072): 12 streams of 6-token
+# prompts from default_rng(13), 48 new tokens each, two checkpointed
+# `continuous: true` replicas (one slot a stream), a seeded replica_kill
+B_STREAMS, B_PROMPT, B_NEW, B_SEED, B_CONTEXT = 12, 6, 48, 13, 64
+B_KEEPER = "smoke_ckpt_keeper"
+# 10c: three prompts sharing a 4-block preamble, two prefix-cached
+# replicas behind a prefix-affinity gateway, f32 (TF32 off): warm tokens
+# must equal cold ones, and across prefill shapes only f32 can
+C_PREFIX_BLOCKS, C_PROMPTS, C_NEW, C_CONTEXT = 4, 3, 16, 256
+C_KEEPER = "smoke_prefix_store"
+# 10d: bench.py --router 2 (bench_router, bench.py:1212): two Detector
+# replicas (YOLOV8N_SHAPE, 640 px, micro_batch 16), 16 streams x 30
+# frames offered open-loop at twice the measured aggregate capacity
+D_STREAMS, D_FRAMES, D_MICRO, D_IMAGES = 16, 30, 16, 32
+D_POLICY = "max_inflight=64;queue=128"
+
+
+def percentile_ms(seconds, q: float) -> str:
+    return (f"{np.percentile(np.asarray(seconds) * 1e3, q):.1f}"
+            if len(seconds) else "none")
+
+
+def lm_pipeline(name: str, parameters: dict, params, inputs=("tokens",),
+                optional=(), output="generated",
+                pipeline_parameters=None) -> tuple:
+    """(process, pipeline): one LMGenerate element on the card whose
+    weights are `params` (installed through restore_state, so replicas
+    share one copy on the card)."""
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    definition = {
+        "name": name,
+        "graph": ["(lm)"],
+        "parameters": {"device": "cuda", **(pipeline_parameters or {})},
+        "elements": [
+            {"name": "lm",
+             "input": [{"name": port} for port in inputs]
+             + [{"name": port, "optional": True} for port in optional],
+             "output": [{"name": output}],
+             "parameters": {"preset": "llama32_1b", **parameters},
+             "deploy": {"local": {"module": MODULE,
+                                  "class_name": "LMGenerate"}}}],
+    }
+    process = Process(transport_kind="loopback")
+    pipeline = create_pipeline(process, definition)
+    pipeline.elements["lm"].restore_state(params)
+    return process, pipeline
+
+
+def stop_processes(processes) -> None:
+    for process in processes:
+        try:
+            process.terminate()
+        except Exception as error:    # a crashed replica's teardown
+            say("10 teardown", process=process.topic_path_process,
+                error=repr(error))
+
+
+def disagg_workload(vocab: int) -> tuple:
+    """bench_disagg's workload: (decode requests [(prompt, max_new)],
+    long prompts, mean new tokens, max_context)."""
+    from aiko_services_tpu_torch.utils.padding import bucket_length
+    rng = np.random.default_rng(17)
+    work = [(rng.integers(1, vocab, size=int(rng.integers(
+                A_PROMPT[0], A_PROMPT[1] + 1))).astype(np.int32),
+             int(rng.integers(A_NEW[0], A_NEW[1] + 1)))
+            for _ in range(2 * A_DECODE)]      # bench draws the 2x arm too
+    long_len = 4 * bucket_length(A_PROMPT[1], minimum=S_BLOCK)
+    longs = [rng.integers(1, vocab, size=long_len).astype(np.int32)
+             for _ in range(A_LONGS)]
+    mean_new = float(np.mean([new for _, new in work]))
+    max_context = -(-(long_len + A_NEW[1]) // S_BLOCK) * S_BLOCK
+    return work[:A_DECODE], longs, mean_new, max_context
+
+
+def disagg_arm(params, config, work, longs, offered_req_s,
+               max_context: int, disagg: bool) -> dict:
+    """One arm of 10a: decode requests open-loop, long prompts landing
+    at evenly spaced points of the arrival span -- prefilled on the
+    decode engine (colocated) or on a PrefillEngine on its own thread
+    whose handoffs the decode engine adopts into free slots."""
+    import threading
+    from aiko_services_tpu_torch.decode import DecodeEngine, PrefillEngine
+    from aiko_services_tpu_torch.utils.padding import bucket_length
+    engine = DecodeEngine(params, config, decode_slots=S_SLOTS,
+                          kv_block_size=S_BLOCK, max_context=max_context)
+    length, index = S_BLOCK, 0
+    while length <= bucket_length(len(longs[0]), minimum=S_BLOCK):
+        engine.submit(("warm", index), np.ones((length,), np.int32), 2)
+        length, index = length * 2, index + 1
+    drain_engine(engine)
+    jobs, handoffs, worker, prefill = queue.Queue(), queue.Queue(), None, None
+    if disagg:
+        prefill = PrefillEngine(params, config, kv_block_size=S_BLOCK,
+                                max_context=max_context, device="cuda")
+        # both halves of the migration once outside the window
+        prefill.submit(("warm", "prefill"), longs[0], 2)
+        for handoff in prefill.step():
+            engine.adopt_request(("warm", "adopt"), handoff, timeout=30)
+        drain_engine(engine)
+
+        def pump():
+            # the prefill replica: its own thread, pool and CUDA stream
+            while (job := jobs.get()) is not None:
+                prefill.submit(*job)
+                while prefill.has_work():
+                    for handoff in prefill.step():
+                        handoffs.put(handoff)
+
+        worker = threading.Thread(target=pump, daemon=True)
+        worker.start()
+    counters = dict(engine.counters)
+    signatures = engine.compile_count
+    arrivals = np.cumsum(np.random.default_rng(29).exponential(
+        1.0 / offered_req_s, size=len(work)))
+    long_arrivals = [arrivals[-1] * (index + 1) / (len(longs) + 1)
+                     for index in range(len(longs))]
+    ttft, outputs, adopt_s = {}, {}, []
+    next_decode = next_long = adopted = 0
+    start = time.perf_counter()
+    try:
+        while (next_decode < len(work) or next_long < len(longs)
+               or adopted < (next_long if disagg else 0)
+               or engine.has_work()):
+            now = time.perf_counter() - start
+            while next_decode < len(work) and arrivals[next_decode] <= now:
+                engine.submit(("d", next_decode), *work[next_decode])
+                next_decode += 1
+            while (next_long < len(longs)
+                   and long_arrivals[next_long] <= now):
+                request = (("long", next_long), longs[next_long],
+                           A_NEW[0])
+                if disagg:
+                    jobs.put(request)
+                else:
+                    engine.submit(*request)
+                next_long += 1
+            # adopt only INTO free slots: a busy engine leaves the
+            # handoff on the transfer plane instead of falling back
+            while disagg and any(slot is None for slot in engine.slots):
+                try:
+                    handoff = handoffs.get_nowait()
+                except queue.Empty:
+                    break
+                adopt_start = time.perf_counter()
+                report = engine.adopt_request(handoff["request_id"],
+                                              handoff, timeout=30)
+                adopt_s.append(time.perf_counter() - adopt_start)
+                adopted += 1
+                for completion in report.completions:
+                    outputs[completion.request_id] = completion.tokens
+            if not engine.has_work():
+                time.sleep(0.001)       # open loop: the next arrival
+                continue
+            report = engine.step()
+            now = time.perf_counter() - start
+            for request_id, offset, _ in report.emitted:
+                if offset == 0 and request_id[0] == "d":
+                    ttft[request_id] = now - arrivals[request_id[1]]
+            for completion in report.completions:
+                outputs[completion.request_id] = completion.tokens
+        elapsed = time.perf_counter() - start
+    finally:
+        jobs.put(None)
+        if worker is not None:
+            worker.join(timeout=60)
+    delta = {name: engine.counters[name] - counters[name]
+             for name in ("adopted", "adopt_fallbacks",
+                          "kv_migrated_bytes")}
+    result = {"outputs": outputs, "ttft": list(ttft.values()),
+              "adopt_s": adopt_s, "elapsed": elapsed,
+              "signatures": engine.compile_count - signatures, **delta}
+    del engine, prefill
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_disagg(params, config, smi: str) -> None:
+    """10a: the colocated and the disaggregated arm on one workload:
+    identical tokens, every long prompt adopted (0 fallbacks), 0 step
+    signatures added in either window."""
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    work, longs, mean_new, max_context = disagg_workload(config.vocab_size)
+    probe = DecodeEngine(params, config, decode_slots=S_SLOTS,
+                         kv_block_size=S_BLOCK, max_context=max_context)
+    for index in range(S_SLOTS):
+        probe.submit(("probe", index), np.ones((A_PROMPT[0],), np.int32),
+                     34)
+    probe.step()
+    torch.cuda.synchronize()
+    start, decoded = time.perf_counter(), 0
+    while probe.has_work():
+        decoded += probe.step().active
+    capacity = decoded / (time.perf_counter() - start)
+    del probe
+    offered = A_LOAD * capacity / mean_new
+    arms = {name: disagg_arm(params, config, work, longs, offered,
+                             max_context, disagg=name == "disagg")
+            for name in ("colocated", "disagg")}
+    colocated, split = arms["colocated"], arms["disagg"]
+    for name, arm in arms.items():
+        say(f"10a disagg_{name}", requests=len(work), longs=len(longs),
+            long_prompt=len(longs[0]),
+            offered_requests_per_s=f"{offered:.3f}",
+            completed=len(arm["outputs"]),
+            decode_ttft_p50_ms=percentile_ms(arm["ttft"], 50),
+            decode_ttft_p99_ms=percentile_ms(arm["ttft"], 99),
+            adopted=arm["adopted"], adopt_fallbacks=arm["adopt_fallbacks"],
+            kv_migrated_mib_per_long=(
+                f"{arm['kv_migrated_bytes'] / max(arm['adopted'], 1) / 2**20:.3f}"),
+            adopt_ms_p50=percentile_ms(arm["adopt_s"], 50),
+            adopt_ms_p99=percentile_ms(arm["adopt_s"], 99),
+            signatures_in_window=arm["signatures"],
+            wall_s=f"{arm['elapsed']:.2f}", card=repr(smi))
+    expected = len(work) + len(longs)
+    differ = [key for key, tokens in colocated["outputs"].items()
+              if not np.array_equal(split["outputs"].get(key), tokens)]
+    if (len(colocated["outputs"]) != expected
+            or len(split["outputs"]) != expected or differ):
+        raise SystemExit(f"10a: {len(differ)} requests differ between "
+                         f"the arms (first: {differ[:4]}); completed "
+                         f"{len(colocated['outputs'])} / "
+                         f"{len(split['outputs'])} of {expected}")
+    if (split["adopted"] != len(longs) or split["adopt_fallbacks"]
+            or colocated["signatures"] or split["signatures"]):
+        raise SystemExit(f"10a: adopted {split['adopted']} of "
+                         f"{len(longs)}, {split['adopt_fallbacks']} "
+                         f"fallbacks, signatures added "
+                         f"{colocated['signatures']} / "
+                         f"{split['signatures']}")
+    phase_disagg_gateway(params, config, smi)
+
+
+def phase_disagg_gateway(params, config, smi: str) -> None:
+    """10a: text frames through a `disagg: role=prefill` pipeline and a
+    `role: decode` pipeline behind Gateway(disagg=...): every frame's
+    rows equal a colocated DecodeEngine's tokens for the same rows."""
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    from aiko_services_tpu_torch.runtime import Process
+    from aiko_services_tpu_torch.serve import Gateway
+    common = {"dtype": "bfloat16", "tokenizer": "default",
+              "kv_block_size": S_BLOCK, "max_context": A_FRAME_CONTEXT,
+              "max_new_tokens": A_FRAME_NEW}
+    prefill_process, prefill = lm_pipeline(
+        "smoke_prefill", {**common, "role": "prefill"}, params,
+        inputs=("text",), output="handoff",
+        pipeline_parameters={"disagg": "role=prefill"})
+    decode_process, decode = lm_pipeline(
+        "smoke_decode", {**common, "role": "decode", "continuous": True,
+                         "decode_slots": S_SLOTS}, params,
+        inputs=("text",), optional=("handoff",))
+    gateway_process = Process(transport_kind="loopback")
+    processes = [prefill_process, decode_process, gateway_process]
+    rng = np.random.default_rng(5)
+    frames = [[" ".join(rng.choice(E_WORDS, size=int(rng.integers(6, 30))))
+               for _ in range(A_ROWS)] for _ in range(A_FRAMES)]
+    try:
+        gateway = Gateway(gateway_process, policy="max_inflight=8;queue=32",
+                          disagg="adopt_timeout=30")
+        gateway.attach_replica(prefill)
+        gateway.attach_replica(decode)
+        for process in processes:
+            process.run(in_thread=True)
+        replies = queue.Queue()
+        gateway.submit_stream("text", {}, queue_response=replies)
+        for frame_id, texts in enumerate(frames):
+            gateway.submit_frame("text", {"text": texts}, frame_id=frame_id)
+        served = {}
+        for _ in frames:
+            _, frame_id, outputs, status = replies.get(timeout=600)
+            if status != "ok":
+                raise SystemExit(f"10a: gateway frame {frame_id}: {status}")
+            served[frame_id] = np.asarray(outputs["generated"])
+        lm = decode.elements["lm"]
+        stats = lm.engine_stats()
+        rows = [lm._encode_prompts(None, texts)[0] for texts in frames]
+        migrations = gateway.telemetry.kv_migrations.value
+    finally:
+        stop_processes(processes)
+    engine = DecodeEngine(params, config, decode_slots=S_SLOTS,
+                          kv_block_size=S_BLOCK,
+                          max_context=A_FRAME_CONTEXT)
+    for frame_id, tokens in enumerate(rows):
+        for row in range(tokens.shape[0]):
+            engine.submit((frame_id, row), tokens[row], A_FRAME_NEW)
+    done, _ = drain_engine(engine)
+    del engine
+    for frame_id in range(len(frames)):
+        expected = np.stack([done[(frame_id, row)].tokens
+                             for row in range(A_ROWS)])
+        if not np.array_equal(served[frame_id], expected):
+            raise SystemExit(f"10a: gateway frame {frame_id}'s rows "
+                             f"differ from the colocated engine's")
+    if (migrations != len(frames) or stats["adopted"] != len(frames) * A_ROWS
+            or stats["adopt_fallbacks"]):
+        raise SystemExit(f"10a: {migrations} migrations, adopted "
+                         f"{stats['adopted']}, {stats['adopt_fallbacks']} "
+                         f"fallbacks")
+    say("10a disagg_gateway", frames=len(frames), rows_per_frame=A_ROWS,
+        kv_migrations=migrations, adopted=stats["adopted"],
+        adopt_fallbacks=stats["adopt_fallbacks"], identical=True,
+        card=repr(smi))
+
+
+def failover_arm(params, frames: list, kill: bool) -> dict:
+    """One arm of 10b: every stream pinned to replica ck_dec0; the kill
+    arm pauses its engine once every stream has a checkpoint and none
+    has finished, consults the seeded plan's replica_kill point, crashes
+    the replica and fails its streams over to ck_dec1."""
+    import threading
+    from aiko_services_tpu_torch.decode import (
+        CheckpointKeeper, reset_keepers)
+    from aiko_services_tpu_torch.faults import create_injector
+    from aiko_services_tpu_torch.runtime import Process
+    from aiko_services_tpu_torch.serve import Gateway
+    from aiko_services_tpu_torch.utils import parse
+    reset_keepers()
+    keeper = CheckpointKeeper(B_KEEPER)
+    parameters = {
+        "dtype": "bfloat16", "continuous": True, "decode_slots": B_STREAMS,
+        "kv_block_size": S_BLOCK, "max_context": B_CONTEXT,
+        "max_new_tokens": B_NEW, "stream_tokens": True, "stream_chunk": 1,
+        "checkpoint": (f"checkpoint_every=1;max_checkpoint_lag=4;"
+                       f"keeper={B_KEEPER}")}
+    victim_process, victim = lm_pipeline("ck_dec0", parameters, params,
+                                         optional=("restore",))
+    survivor_process, survivor = lm_pipeline("ck_dec1", parameters, params,
+                                             optional=("restore",))
+    gateway_process = Process(transport_kind="loopback")
+    processes = [victim_process, survivor_process, gateway_process]
+    lock, token_times = threading.Lock(), {}
+    paused, resume = threading.Event(), threading.Event()
+
+    def on_out(topic, payload):
+        try:
+            command, fields = parse(payload)
+        except ValueError:
+            return
+        if command == "token_chunk" and len(fields) >= 5:
+            now = time.perf_counter()
+            with lock:
+                for index in range(len(fields[4][0])):
+                    token_times.setdefault(
+                        (str(fields[0]), int(fields[3]) + index), now)
+
+    try:
+        gateway = Gateway(gateway_process, policy="max_inflight=32;queue=128",
+                          router_seed=B_SEED, metrics_interval=60.0,
+                          checkpoint=f"recovery_rate=4;keeper={B_KEEPER}")
+        gateway.attach_replica(victim)
+        for pipe in (victim, survivor):
+            pipe.process.add_message_handler(
+                on_out, f"{pipe.elements['lm'].topic_path}/out")
+        for process in processes:
+            process.run(in_thread=True)
+        # warm both engines (the prompt bucket and the captured decode
+        # step) outside the window
+        warm = queue.Queue()
+        for pipe in (victim, survivor):
+            stream = pipe.create_stream("warm", queue_response=warm,
+                                        grace_time=300)
+            pipe.create_frame(stream, {"tokens": frames[0]})
+            warm.get(timeout=600)
+            pipe.destroy_stream("warm")
+        engines = {name: pipe.elements["lm"]._engine
+                   for name, pipe in (("victim", victim),
+                                      ("survivor", survivor))}
+        signatures = {name: engine.compile_count
+                      for name, engine in engines.items()}
+        before = dict(victim.elements["lm"].checkpoint_stats())
+        step_s = [0.0]
+        step = engines["victim"].step
+
+        def timed_step():
+            if (kill and not paused.is_set() and keeper.flush(timeout=5)
+                    and keeper.kept_count() >= B_STREAMS):
+                paused.set()              # every stream checkpointed
+                resume.wait(timeout=600)
+            step_start = time.perf_counter()
+            report = step()
+            step_s[0] += time.perf_counter() - step_start
+            return report
+
+        engines["victim"].step = timed_step
+        replies = queue.Queue()
+        for index, frame in enumerate(frames):
+            gateway.submit_stream(f"s{index}", {}, queue_response=replies)
+            gateway.submit_frame(f"s{index}", {"tokens": frame}, frame_id=0)
+        kill_at, migrated = None, []
+        if kill:
+            if not paused.wait(timeout=600):
+                raise SystemExit("10b: the streams never all checkpointed")
+            gateway.attach_replica(survivor)
+            injector = create_injector(
+                f"seed={B_SEED};replica_kill:node={victim.name}:frame=0")
+            if not injector.replica_kill(victim.name):
+                raise SystemExit("10b: the seeded replica_kill did not fire")
+            migrated = sorted(gateway.replicas[victim.topic_path].streams)
+            kill_at = time.perf_counter()
+            victim.process.crash()
+            gateway.post_message("_replica_lost", [
+                victim.topic_path, "injected replica_kill"])
+        outputs, deadline = {}, time.monotonic() + 600
+        while len(outputs) < len(frames) and time.monotonic() < deadline:
+            try:
+                stream_id, _, out, status = replies.get(
+                    timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                break
+            if status == "ok":
+                outputs[stream_id] = np.asarray(out["generated"])
+        recovery_ttft = []
+        with lock:
+            for stream_id in migrated:
+                after = [at for (sid, _), at in token_times.items()
+                         if sid == stream_id and at > kill_at]
+                if after:
+                    recovery_ttft.append(min(after) - kill_at)
+        victim_stats = victim.elements["lm"].checkpoint_stats()
+        survivor_stats = survivor.elements["lm"].checkpoint_stats()
+        result = {
+            "outputs": outputs, "frames_lost": len(frames) - len(outputs),
+            "migrated": len(migrated), "recovery_ttft": recovery_ttft,
+            "survivor": survivor.elements["lm"].engine_stats(),
+            "survivor_signatures": (engines["survivor"].compile_count
+                                    - signatures["survivor"]),
+            "paced": gateway.telemetry.recovery_paced.value,
+            "step_s": step_s[0],
+            "checkpoint_errors": (victim_stats["checkpoint_errors"]
+                                  + survivor_stats["checkpoint_errors"]),
+            "store_errors": keeper.stats()["store_errors"],
+            **{name: victim_stats[name] - before[name]
+               for name in ("ticks", "checkpoints", "checkpoint_bytes",
+                            "checkpoint_s")}}
+    finally:
+        resume.set()
+        stop_processes(processes)
+        reset_keepers()
+    del victim, survivor, engines
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_warm_failover(params, config, smi: str) -> None:
+    """10b: the kill arm equals the uncrashed arm, frames_lost == 0,
+    every migrated stream resumes from its checkpoint (0 restore
+    fallbacks, 0 replayed tokens: the kill comes after a tick shipped
+    every stream), no snapshot failed to ship or to ingest (0
+    checkpoint errors, 0 keeper store errors) and the survivor adds 0
+    step signatures."""
+    rng = np.random.default_rng(B_SEED)
+    frames = [rng.integers(1, config.vocab_size, size=(1, B_PROMPT))
+              .astype(np.int32) for _ in range(B_STREAMS)]
+    uncrashed = failover_arm(params, frames, kill=False)
+    killed = failover_arm(params, frames, kill=True)
+    survivor = killed["survivor"]
+    restores, fallbacks = survivor["restores"], survivor["restore_fallbacks"]
+    ticks = max(uncrashed["ticks"], 1)
+    share = uncrashed["checkpoint_s"] / max(
+        uncrashed["checkpoint_s"] + uncrashed["step_s"], 1e-9)
+    identical = (sorted(killed["outputs"]) == sorted(uncrashed["outputs"])
+                 and all(np.array_equal(killed["outputs"][key], tokens)
+                         for key, tokens in uncrashed["outputs"].items()))
+    say("10b warm_failover", streams=B_STREAMS, new_tokens=B_NEW,
+        frames_lost=killed["frames_lost"],
+        frames_lost_uncrashed=uncrashed["frames_lost"],
+        identical=identical, migrated_streams=killed["migrated"],
+        restores=restores, restore_fallbacks=fallbacks,
+        restore_replayed_tokens=survivor["restore_replayed_tokens"],
+        checkpoint_errors=(killed["checkpoint_errors"]
+                           + uncrashed["checkpoint_errors"]),
+        keeper_store_errors=(killed["store_errors"]
+                             + uncrashed["store_errors"]),
+        reprefill_avoided=f"{restores / max(restores + fallbacks, 1):.3f}",
+        recovery_paced=killed["paced"],
+        recovery_ttft_p50_ms=percentile_ms(killed["recovery_ttft"], 50),
+        recovery_ttft_p99_ms=percentile_ms(killed["recovery_ttft"], 99),
+        survivor_signatures_in_window=killed["survivor_signatures"],
+        checkpoints=uncrashed["checkpoints"],
+        checkpoint_mib_per_tick=(
+            f"{uncrashed['checkpoint_bytes'] / ticks / 2**20:.3f}"),
+        checkpoint_ms_per_tick=f"{uncrashed['checkpoint_s'] / ticks * 1e3:.3f}",
+        step_ms_per_tick=f"{uncrashed['step_s'] / ticks * 1e3:.3f}",
+        checkpointer_share_of_step=f"{share:.3f}", card=repr(smi))
+    if not (identical and killed["frames_lost"] == 0
+            and uncrashed["frames_lost"] == 0 and fallbacks == 0
+            and restores == killed["migrated"] == B_STREAMS
+            and survivor["restore_replayed_tokens"] == 0
+            and killed["checkpoint_errors"] == uncrashed["checkpoint_errors"]
+            == killed["store_errors"] == uncrashed["store_errors"] == 0
+            and killed["survivor_signatures"] == 0):
+        raise SystemExit("10b: the kill arm failed its checks")
+
+
+def phase_prefix(params, config, smi: str) -> None:
+    """10c: prefix affinity and the keeper store in f32 (TF32 off): a
+    request hinting a cached head routes to its holder, the other
+    replica pre-warms the prefix from the keeper (adopt_prefix), and
+    warm tokens equal a cold replica's."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.decode import (
+        CheckpointKeeper, prefix_head, reset_keepers)
+    from aiko_services_tpu_torch.runtime import Process
+    from aiko_services_tpu_torch.serve import Gateway
+    from aiko_services_tpu_torch.utils.tree import tree_map
+    params32 = tree_map(lambda leaf: leaf.float(), params)
+    config32 = replace(config, dtype="float32")
+    rng = np.random.default_rng(21)
+    preamble = rng.integers(1, config.vocab_size,
+                            size=C_PREFIX_BLOCKS * S_BLOCK).astype(np.int32)
+    prompts = [np.concatenate([preamble, rng.integers(
+        1, config.vocab_size, size=int(rng.integers(5, 21)))])
+        .astype(np.int32)[None] for _ in range(C_PROMPTS)]
+    head = prefix_head(prompts[0][0], S_BLOCK)
+    previous = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_keepers()
+    keeper = CheckpointKeeper(C_KEEPER)
+    parameters = {"dtype": "float32", "continuous": True,
+                  "decode_slots": S_SLOTS, "kv_block_size": S_BLOCK,
+                  "max_context": C_CONTEXT, "max_new_tokens": C_NEW}
+    warm_parameters = {**parameters,
+                       "prefix_policy": "prefix_cache=on;min_prefix_blocks=1"}
+    built = [lm_pipeline(f"px{index}", warm_parameters, params32)
+             for index in range(2)]
+    built.append(lm_pipeline("px_cold", parameters, params32))
+    processes = [process for process, _ in built]
+    replicas, cold = [pipe for _, pipe in built[:2]], built[2][1]
+    processes.append(Process(transport_kind="loopback"))
+    try:
+        gateway = Gateway(processes[-1], policy="max_inflight=8;queue=32",
+                          router_seed=2,
+                          prefix="prefix_cache=on;affinity_weight=4",
+                          checkpoint=f"keeper={C_KEEPER}")
+        for replica in replicas:
+            gateway.attach_replica(replica)
+        for process in processes:
+            process.run(in_thread=True)
+
+        def direct(pipe, stream_id, tokens, stream_parameters=None):
+            replies = queue.Queue()
+            stream = pipe.create_stream(stream_id, queue_response=replies,
+                                        grace_time=300,
+                                        parameters=stream_parameters or {})
+            pipe.create_frame(stream, {"tokens": tokens})
+            return np.asarray(replies.get(timeout=600)[2]["generated"])
+
+        warm, placed = [], []
+        for index in range(2):
+            replies = queue.Queue()
+            gateway.submit_stream(f"p{index}", {"prefix_hint": head},
+                                  queue_response=replies, grace_time=300)
+            gateway.submit_frame(f"p{index}", {"tokens": prompts[index]},
+                                 frame_id=0)
+            _, _, outputs, status = replies.get(timeout=600)
+            if status != "ok":
+                raise SystemExit(f"10c: gateway stream p{index}: {status}")
+            warm.append(np.asarray(outputs["generated"]))
+            placed.append(gateway.streams[f"p{index}"].replica.name)
+        holder = next(pipe for pipe in replicas if pipe.name == placed[0])
+        other = next(pipe for pipe in replicas if pipe.name != placed[0])
+        holder_stats = holder.elements["lm"].engine_stats()
+        keeper.flush(timeout=30)
+        warm.append(direct(other, "prewarm", prompts[2],
+                           {"prefix_keeper": C_KEEPER}))
+        other_stats = other.elements["lm"].engine_stats()
+        cold_tokens = [direct(cold, f"cold{index}", prompt)
+                       for index, prompt in enumerate(prompts)]
+        hits = gateway.telemetry.affinity_hits.value
+    finally:
+        stop_processes(processes)
+        reset_keepers()
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = previous
+        del params32
+        torch.cuda.empty_cache()
+    identical = all(np.array_equal(got, want)
+                    for got, want in zip(warm, cold_tokens))
+    say("10c prefix_store", prompts=len(prompts),
+        preamble_blocks=C_PREFIX_BLOCKS, placements=json.dumps(placed),
+        affinity_hits=hits, holder_prefix_hits=holder_stats["prefix_hits"],
+        prewarmed_prefix_hits=other_stats["prefix_hits"],
+        prewarmed_blocks_shared=other_stats["prefix_blocks_shared"],
+        warm_equals_cold=identical, card=repr(smi))
+    if not (identical and placed[1] == placed[0]
+            and holder_stats["prefix_hits"] >= 1
+            and other_stats["prefix_hits"] == 1
+            and other_stats["prefix_blocks_shared"] == C_PREFIX_BLOCKS):
+        raise SystemExit("10c: prefix affinity or the keeper store failed "
+                         "its checks")
+
+
+def detector_pipeline(name: str) -> tuple:
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    process = Process(transport_kind="loopback")
+    return process, create_pipeline(process, {
+        "name": name,
+        "parameters": {"device": "cuda", "metrics_interval": 60.0},
+        "graph": ["(detector)"],
+        "elements": [
+            {"name": "detector", "input": [{"name": "image"}],
+             "output": [{"name": "detections", "type": "dict"}],
+             "parameters": {"preset": "yolov8n", "dtype": "bfloat16",
+                            "micro_batch": D_MICRO},
+             "deploy": {"local": {"module": MODULE,
+                                  "class_name": "Detector"}}}]})
+
+
+def served_detections(pipe, stream_ids: list, frames_per_stream: int,
+                      image_for) -> tuple:
+    """Serve every (stream, frame) straight through one replica:
+    ({(stream index, frame id): detections}, seconds)."""
+    replies = queue.Queue()
+    streams = [pipe.create_stream(stream_id, queue_response=replies,
+                                  grace_time=600)
+               for stream_id in stream_ids]
+    start = time.perf_counter()
+    for frame_id in range(frames_per_stream):
+        for index, stream in enumerate(streams):
+            pipe.create_frame(stream, {"image": image_for(index, frame_id)})
+    out = {}
+    for _ in range(len(streams) * frames_per_stream):
+        stream, frame, outputs = replies.get(timeout=600)
+        detections = {name: value.cpu()
+                      for name, value in outputs["detections"].items()}
+        out[stream_ids.index(stream.stream_id), frame.frame_id] = detections
+    elapsed = time.perf_counter() - start
+    for stream_id in stream_ids:
+        pipe.destroy_stream(stream_id)
+    return out, elapsed
+
+
+def phase_admission(smi: str) -> None:
+    """10d: two Detector replicas behind a gateway under 2x overload:
+    every frame answered or shed (none lost), every admitted frame's
+    detections bit-equal to the same frame served straight through one
+    replica (the engine pads every micro-batch to micro_batch rows, so
+    each group runs at one shape)."""
+    import threading
+    from aiko_services_tpu_torch.runtime import Process
+    from aiko_services_tpu_torch.serve import Gateway
+    from aiko_services_tpu_torch.models import YOLOV8N_SHAPE
+    generator = torch.Generator(device="cuda").manual_seed(3)
+    size = YOLOV8N_SHAPE.image_size
+    images = [torch.rand((1, 3, size, size), generator=generator,
+                         device="cuda") for _ in range(D_IMAGES)]
+
+    def image_for(stream_index, frame_id):
+        return images[(stream_index * (D_FRAMES + 1) + frame_id)
+                      % D_IMAGES]
+
+    built = [detector_pipeline(f"det{index}") for index in range(2)]
+    processes = [process for process, _ in built]
+    replicas = [pipe for _, pipe in built]
+    processes.append(Process(transport_kind="loopback"))
+    try:
+        for process in processes[:2]:
+            process.run(in_thread=True)
+        # capacity: one replica driven closed-loop with every stream busy
+        probe_ids = [f"probe{index}" for index in range(D_STREAMS)]
+        served_detections(replicas[0], probe_ids, 1, image_for)   # warm
+        _, probe_s = served_detections(replicas[0], probe_ids, 4,
+                                       image_for)
+        capacity = 4 * D_STREAMS / probe_s
+        gateway = Gateway(processes[2], policy=D_POLICY, router_seed=7,
+                          metrics_interval=60.0)
+        for replica in replicas:
+            gateway.attach_replica(replica)
+        processes[2].run(in_thread=True)
+        replies = queue.Queue()
+        for index in range(D_STREAMS):
+            gateway.submit_stream(f"g{index}", {}, queue_response=replies,
+                                  grace_time=600)
+            gateway.submit_frame(f"g{index}", {"image": image_for(index, 0)},
+                                 frame_id=0)
+        for _ in range(D_STREAMS):            # frame 0 warms both replicas
+            if replies.get(timeout=600)[3] != "ok":
+                raise SystemExit("10d: a warm-up frame was not answered")
+        offered_rate = 2.0 * 2 * capacity
+        offered = D_STREAMS * D_FRAMES
+        submitted, answered, statuses = {}, {}, {"ok": 0, "shed": 0}
+        done = threading.Event()
+
+        def drain():
+            for _ in range(offered):
+                stream_id, frame_id, outputs, status = replies.get(
+                    timeout=600)
+                key = (int(stream_id[1:]), int(frame_id))
+                if status == "ok":
+                    detections = {name: value.cpu() for name, value
+                                  in outputs["detections"].items()}
+                    answered[key] = (detections,
+                                     time.perf_counter() - submitted[key])
+                statuses[status] = statuses.get(status, 0) + 1
+            done.set()
+
+        drainer = threading.Thread(target=drain, daemon=True)
+        drainer.start()
+        start = time.perf_counter()
+        for index in range(offered):
+            stream_index, frame_id = index % D_STREAMS, 1 + index // D_STREAMS
+            submitted[stream_index, frame_id] = time.perf_counter()
+            gateway.submit_frame(f"g{stream_index}",
+                                 {"image": image_for(stream_index, frame_id)},
+                                 frame_id=frame_id)
+            ahead = start + (index + 1) / offered_rate - time.perf_counter()
+            if ahead > 0:
+                time.sleep(ahead)             # open loop: the arrival clock
+        if not done.wait(timeout=600):
+            raise SystemExit("10d: frames were neither answered nor shed")
+        elapsed = time.perf_counter() - start
+        summary = gateway.telemetry.summary()
+        reference, _ = served_detections(
+            replicas[0], [f"ref{index}" for index in range(D_STREAMS)],
+            D_FRAMES + 1, image_for)
+    finally:
+        stop_processes(processes)
+    lost = offered - statuses["ok"] - statuses["shed"]
+    mismatched = [key for key, (detections, _) in answered.items()
+                  if not all(torch.equal(detections[name],
+                                         reference[key][name])
+                             for name in detections)]
+    latencies = [latency for _, latency in answered.values()]
+    say("10d admission", replicas=2, streams=D_STREAMS, policy=D_POLICY,
+        micro_batch=D_MICRO, capacity_single_fps=f"{capacity:.1f}",
+        offered_fps=f"{offered_rate:.1f}", offered_frames=offered,
+        admitted=statuses["ok"], shed=statuses["shed"], lost=lost,
+        goodput_fps=f"{statuses['ok'] / elapsed:.1f}",
+        shed_rate=f"{statuses['shed'] / offered:.3f}",
+        admitted_p50_ms=percentile_ms(latencies, 50),
+        admitted_p99_ms=percentile_ms(latencies, 99),
+        throttled=summary.get("throttled", 0),
+        bit_equal_to_direct=not mismatched, card=repr(smi))
+    if lost or mismatched or set(statuses) - {"ok", "shed"}:
+        raise SystemExit(f"10d: {lost} frames lost, statuses {statuses}, "
+                         f"{len(mismatched)} admitted frames differ from "
+                         f"the direct replica (first: {mismatched[:4]})")
+
+
+def phase_serving_tier(smi: str) -> None:
+    """Phase 10: the serving tier at llama32_1b's full width."""
+    from aiko_services_tpu_torch.models import LLAMA32_1B, init_params
+    from aiko_services_tpu_torch.ops import kernels
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    kernels.reset_launch_counts()
+    params = init_params(LLAMA32_1B, torch.Generator().manual_seed(0),
+                         device="cuda")
+    say("10 serving_setup", setup_s=f"{time.perf_counter() - start:.1f}")
+    phase_disagg(params, LLAMA32_1B, smi)
+    phase_warm_failover(params, LLAMA32_1B, smi)
+    phase_prefix(params, LLAMA32_1B, smi)
+    del params
+    torch.cuda.empty_cache()
+    phase_admission(smi)
+    flash_launches = sum(kernels.launch_counts.values())
+    say("10 serving_tier", flash_attention_launches=flash_launches,
+        wall_s=f"{time.perf_counter() - start:.1f}", card=repr(smi))
+    if flash_launches:
+        raise SystemExit(f"10: {flash_launches} flash-attention launches "
+                         f"on the serving tier's path")
+
+
 def main() -> None:
     from aiko_services_tpu_torch.ops import kernels
     smi = phase_card()
@@ -1831,6 +2636,7 @@ def main() -> None:
         for name, count in path_launches.items():
             launches[name] += count
     phase_engine(smi)
+    phase_serving_tier(smi)
     sources = {"flash_attention": ("flash_attention.cu", 75),
                "flash_attention_dq": ("flash_attention_backward.cu", 264),
                "flash_attention_dkv": ("flash_attention_backward.cu", 314)}

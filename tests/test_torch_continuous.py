@@ -5,8 +5,9 @@
 # save_pytree and loaded by both); chunked prefill and speculation
 # through the element; token streaming, stream teardown and engine
 # failure; the AIKO405 / AIKO411 lint verdicts against the JAX package's;
-# and what is still refused (`role`, `checkpoint`, `prefix_keeper`,
-# handoff / restore inputs).  f32 throughout; tokens must be identical.
+# and the serving tier's options (`role`, `checkpoint`, `prefix_keeper`,
+# the handoff / restore inputs) through the element.  f32 throughout;
+# tokens must be identical.
 
 import queue
 import time
@@ -65,14 +66,23 @@ def wait_for(predicate, timeout=30.0):
 
 
 def definition(package, parameters, validate=True):
+    """A one-element LMGenerate pipeline: a prefill-role element answers
+    with `handoff`; a continuous one also takes the optional `handoff`
+    and `restore` inputs of the serving tier."""
+    inputs = [{"name": "tokens"}]
+    if parameters.get("continuous"):
+        inputs += [{"name": "handoff", "optional": True},
+                   {"name": "restore", "optional": True}]
+    output = "handoff" if parameters.get("role") == "prefill" \
+        else "generated"
     return {
         "name": "lm_pipe",
         "graph": ["(lm)"],
         "parameters": ({"device": "cpu"} if package is PORT else {})
         | ({} if validate else {"validate": False}),
         "elements": [
-            {"name": "lm", "input": [{"name": "tokens"}],
-             "output": [{"name": "generated"}],
+            {"name": "lm", "input": inputs,
+             "output": [{"name": output}],
              "parameters": {**LM, **parameters},
              "deploy": {"local": {"module": package[0],
                                   "class_name": "LMGenerate"}}}],
@@ -402,37 +412,105 @@ def test_malformed_speculative_spec_fails_construction():
                               "speculative": "draft=self;k=oops"}))
 
 
-# -- still refused ------------------------------------------------------------
+# -- the serving tier's options through the element ---------------------------
 
-REFUSED = {
-    "role": {"continuous": True, "role": "decode"},
-    "checkpoint": {"continuous": True,
-                   "checkpoint": "checkpoint_every=1;keeper=K"},
-    "prefix_keeper": {"continuous": True, "prefix_keeper": "K"},
+SERVING_OPTIONS = {
+    "role": {"role": "prefill", "kv_block_size": 8},
+    "checkpoint": {"continuous": True, "kv_block_size": 8,
+                   "checkpoint": "checkpoint_every=1;keeper=opt_k"},
+    "prefix_keeper": {"continuous": True, "kv_block_size": 8,
+                      "prefix_policy": "prefix_cache=on",
+                      "prefix_keeper": "opt_k"},
 }
 
 
-@pytest.mark.parametrize("option", sorted(REFUSED))
-def test_unported_options_still_raise(option):
-    """Past lint (`validate: false`), the element itself refuses."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_pipeline.create_pipeline(
-            torch_runtime.Process(transport_kind="loopback"),
-            definition(PORT, REFUSED[option], validate=False))
+@pytest.mark.parametrize("option", sorted(SERVING_OPTIONS))
+def test_serving_options_run_through_the_element(option):
+    """`role: prefill` answers with KV handoffs, `checkpoint` ships
+    snapshots to its keeper, `prefix_keeper` exports the finished
+    prompt's cached prefix -- each through a pipeline that passes lint."""
+    from aiko_services_tpu_torch.decode import (
+        CheckpointKeeper, prefix_head, reset_keepers)
+    keeper = CheckpointKeeper("opt_k")
+    prompt = np.random.default_rng(4).integers(1, 300, size=(1, 19)) \
+        .astype(np.int32)
+    running = Running(PORT, SERVING_OPTIONS[option])
+    try:
+        [(_, _, outputs)] = running.serve([prompt])
+        lm = running.lm
+        assert keeper.flush()
+        if option == "role":
+            [handoff] = outputs["handoff"]
+            assert handoff["true_len"] == 19 and handoff["block_size"] == 8
+            assert len(handoff["kv_blocks"]) == 3
+            assert lm.prefill_stats()["exported"] == 1
+        elif option == "checkpoint":
+            assert np.asarray(outputs["generated"]).shape == (1, 6)
+            assert lm.checkpoint_stats()["checkpoints"] >= 3
+            # a cleanly finished request's snapshots are forgotten
+            assert keeper.kept_count() == 0
+        else:
+            head = prefix_head(prompt[0], 8)
+            assert keeper.kept_blocks(("prefix", head)) == 2
+    finally:
+        running.close()
+        reset_keepers()
 
 
-def test_checkpoint_is_refused_by_lint():
-    with pytest.raises(DefinitionError, match="AIKO409"):
-        torch_pipeline.create_pipeline(
-            torch_runtime.Process(transport_kind="loopback"),
-            definition(PORT, REFUSED["checkpoint"]))
+@pytest.mark.parametrize("spec, valid", [
+    ("checkpoint_every=1;keeper=K", True), ("recovery_rate=1", False),
+    ("checkpoint_every=0", False)])
+def test_checkpoint_lint_at_construction(spec, valid):
+    process = torch_runtime.Process(transport_kind="loopback")
+    definition_ = definition(PORT, {"continuous": True, "checkpoint": spec})
+    if valid:
+        torch_pipeline.create_pipeline(process, definition_)
+    else:
+        with pytest.raises(DefinitionError, match="AIKO409"):
+            torch_pipeline.create_pipeline(process, definition_)
 
 
 @pytest.mark.parametrize("port", ["handoff", "restore"])
-def test_handoff_and_restore_inputs_raise(port):
-    process = torch_runtime.Process(transport_kind="loopback")
-    pipeline = torch_pipeline.create_pipeline(
-        process, definition(PORT, {"continuous": True}))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pipeline.elements["lm"].process_frame(
-            None, tokens=None, **{port: {"prompt": [1, 2]}})
+def test_handoff_and_restore_inputs_give_the_closed_batch(port):
+    """A frame carrying a prefill replica's `handoff`, or a restore hint
+    naming the keeper a crashed replica checkpointed to, decodes the
+    closed batch's tokens on a continuous replica."""
+    from aiko_services_tpu_torch.decode import (
+        CheckpointKeeper, reset_keepers)
+    prompt = np.random.default_rng(12).integers(1, 300, size=(1, 11)) \
+        .astype(np.int32)
+    [(_, _, closed)] = Running(PORT, {}).serve([prompt])
+    keeper = CheckpointKeeper("input_k")
+    decode = Running(PORT, {"continuous": True, "kv_block_size": 8})
+    try:
+        if port == "handoff":
+            source = Running(PORT, {"role": "prefill", "kv_block_size": 8})
+            [(_, _, prefilled)] = source.serve([prompt])
+            source.close()
+            data = {"tokens": prompt, "handoff": prefilled["handoff"]}
+        else:
+            source = Running(PORT, {
+                "continuous": True, "kv_block_size": 8,
+                "checkpoint": "checkpoint_every=1;keeper=input_k"})
+            engine = source.lm._ensure_engine()
+            checkpointer = source.lm._checkpointer
+            engine.submit(("s", 0, 0), prompt[0], 6)
+            for _ in range(3):
+                engine.step()
+                checkpointer.tick()
+            assert keeper.flush() and keeper.kept_count() == 1
+            source.close()
+            data = {"tokens": prompt, "restore": {"keeper": "input_k"}}
+        responses = queue.Queue()
+        stream = decode.pipeline.create_stream(
+            "s", queue_response=responses, grace_time=300)
+        decode.pipeline.create_frame(stream, data)
+        outputs = responses.get(timeout=120)[2]
+        np.testing.assert_array_equal(np.asarray(outputs["generated"]),
+                                      np.asarray(closed["generated"]))
+        stats = decode.lm.engine_stats()
+        migrated = "adopted" if port == "handoff" else "restores"
+        assert stats[migrated] == 1 and stats["kv_migrated_bytes"] > 0
+    finally:
+        decode.close()
+        reset_keepers()

@@ -27,6 +27,7 @@ import torch
 
 from aiko_services_tpu import decode as jax_decode
 from aiko_services_tpu.models import transformer as jax_lm
+from aiko_services_tpu_torch import decode as torch_decode
 from aiko_services_tpu_torch.decode import (
     TRASH_BLOCK, BlockManager, DecodeEngine)
 from aiko_services_tpu_torch.models import params_from_numpy
@@ -812,23 +813,87 @@ def test_spec_rejects_mismatched_vocab_and_partial_config(tiny):
         DecodeEngine(params, config, spec_k=3)
 
 
-# -- what the engine does not have yet raises --------------------------------
+# -- KV migration: the JAX engine's outcome, method by method ---------------
 
-UNPORTED_METHODS = {
-    "_ingest_kv_blocks": lambda engine: engine._ingest_kv_blocks(
-        {}, 1, None, lambda reason: None, "handoff"),
-    "adopt_request": lambda engine: engine.adopt_request(0, {}),
-    "restore_request": lambda engine: engine.restore_request(0, None),
-    "export_prefix_snapshot": lambda engine: engine.export_prefix_snapshot(
-        np.arange(1, 9, dtype=np.int32)),
-    "adopt_prefix": lambda engine: engine.adopt_prefix({}),
-}
+MIGRATIONS = ["_ingest_kv_blocks", "adopt_request", "restore_request",
+              "export_prefix_snapshot", "adopt_prefix"]
+PREFIX = "prefix_cache=on;min_prefix_blocks=1"
 
 
-@pytest.mark.parametrize("method", sorted(UNPORTED_METHODS))
-def test_unported_engine_methods_raise(tiny, method):
-    params, config = tiny
-    engine = DecodeEngine(params, config, decode_slots=1, kv_block_size=8,
-                          prefix_policy="prefix_cache=on")
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        UNPORTED_METHODS[method](engine)
+def _migrate(package, params, config, method) -> dict:
+    """One KV migration into a fresh engine of `package`: a prefill
+    handoff (ingested or adopted), a checkpoint restore, or a prefix
+    snapshot (exported or adopted); returns what the caller observes."""
+    prompt = np.arange(1, 20, dtype=np.int32)
+    device = {"device": "cpu"} if package is torch_decode else {}
+    engine = package.DecodeEngine(params, config, decode_slots=1,
+                                  kv_block_size=8, prefix_policy=PREFIX)
+    outcome = {}
+    if method in ("_ingest_kv_blocks", "adopt_request"):
+        prefill = package.PrefillEngine(params, config, kv_block_size=8,
+                                        **device)
+        prefill.submit("r", prompt, 5)
+        [handoff] = prefill.step()
+        if method == "_ingest_kv_blocks":
+            reasons = []
+            granted, migrated = engine._ingest_kv_blocks(
+                handoff, 3, 5, reasons.append, "handoff")
+            return {"granted": [int(block) for block in granted],
+                    "migrated": int(migrated), "reasons": reasons}
+        report = engine.adopt_request("r", handoff, timeout=5)
+    elif method == "restore_request":
+        keeper = package.CheckpointKeeper("migration_k")
+        source = package.DecodeEngine(params, config, decode_slots=1,
+                                      kv_block_size=8)
+        checkpointer = package.DecodeCheckpointer(
+            source, package.CheckpointPolicy.parse("checkpoint_every=1"),
+            keeper=keeper)
+        source.submit("r", prompt, 5)
+        for _ in range(3):
+            source.step()
+            checkpointer.tick()
+        assert keeper.flush()
+        report = engine.restore_request("r", keeper.restore("r"),
+                                        timeout=5)
+    else:
+        source = package.DecodeEngine(params, config, decode_slots=1,
+                                      kv_block_size=8, prefix_policy=PREFIX)
+        source.submit("r0", prompt, 5)
+        while source.has_work():
+            source.step()
+        snapshot = source.export_prefix_snapshot(prompt)
+        if method == "export_prefix_snapshot":
+            return {key: value for key, value in snapshot.items()
+                    if key != "kv_blocks"}
+        outcome["registered"] = engine.adopt_prefix(snapshot, timeout=5)
+        engine.submit("r", prompt, 5)
+        report = None
+    done = {} if report is None else {
+        completion.request_id: completion
+        for completion in report.completions}
+    while engine.has_work():
+        for completion in engine.step().completions:
+            done[completion.request_id] = completion
+    counters = engine.stats()
+    return outcome | {
+        "tokens": np.asarray(done["r"].tokens).tolist(),
+        **{name: counters[name] for name in (
+            "adopted", "adopt_fallbacks", "restores", "restore_fallbacks",
+            "kv_migrated_bytes", "prefix_hits", "prefix_blocks_shared",
+            "free_blocks")}}
+
+
+@pytest.mark.parametrize("method", MIGRATIONS)
+def test_migration_methods_match_the_jax_engine(method):
+    """The five migration methods (prefill handoff ingest and adoption,
+    checkpoint restore, prefix snapshot export and adoption) observe what
+    the JAX engine's do on the same weights and prompt: the same tokens,
+    grants, byte counts and counters."""
+    jax_params, jax_config, params, config = _models(TINY)
+    expected = _migrate(jax_decode, jax_params, jax_config, method)
+    try:
+        actual = _migrate(torch_decode, params, config, method)
+    finally:
+        jax_decode.reset_keepers()
+        torch_decode.reset_keepers()
+    assert actual == expected

@@ -381,3 +381,101 @@ def test_captured_decode_step_replays_the_eager_step(cuda, dtype):
             # there is unspecified
             assert torch.equal(graph_pool[name][:, 1:],
                                eager_pool[name][:, 1:])
+
+
+def _lm(cuda, dtype="bfloat16"):
+    from aiko_services_tpu_torch.models import TransformerConfig, init_params
+    config = TransformerConfig(vocab_size=256, d_model=64, n_layers=2,
+                               n_heads=4, n_kv_heads=2, d_ff=128,
+                               max_seq_len=128, dtype=dtype)
+    return init_params(config, torch.Generator().manual_seed(0),
+                       device=cuda), config
+
+
+def _drain(engine, done):
+    while engine.has_work():
+        for completion in engine.step().completions:
+            done[completion.request_id] = completion.tokens
+    return done
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adopt_into_a_captured_pool_equals_a_local_prefill(cuda, dtype):
+    """Blocks adopted into a pool whose decode graph was captured BEFORE
+    the adopt: the replayed graph reads the adopted KV (the scatter
+    writes the pool's own storage) and decodes the local prefill's
+    tokens, bit for bit."""
+    from aiko_services_tpu_torch.decode import DecodeEngine, PrefillEngine
+    params, config = _lm(cuda, dtype)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 256, size=n).astype(np.int32)
+               for n in (9, 21, 30)]
+    local = DecodeEngine(params, config, decode_slots=3, kv_block_size=8)
+    for index, prompt in enumerate(prompts):
+        local.submit(index, prompt, 12)
+    expected = _drain(local, {})
+    engine = DecodeEngine(params, config, decode_slots=3, kv_block_size=8)
+    engine.submit("warm", prompts[0], 3)     # captures the decode step
+    _drain(engine, {})
+    assert engine._captured
+    pointers = {name: leaf.data_ptr() for name, leaf in engine.pool.items()}
+    prefill = PrefillEngine(params, config, kv_block_size=8, device=cuda)
+    done = {}
+    for index, prompt in enumerate(prompts):
+        prefill.submit(index, prompt, 12)
+    while prefill.has_work():
+        for handoff in prefill.step():
+            report = engine.adopt_request(handoff["request_id"], handoff,
+                                          timeout=30)
+            for completion in report.completions:
+                done[completion.request_id] = completion.tokens
+    _drain(engine, done)
+    assert engine.counters["adopted"] == 3
+    assert engine.counters["adopt_fallbacks"] == 0
+    assert {name: leaf.data_ptr()
+            for name, leaf in engine.pool.items()} == pointers
+    for index in range(len(prompts)):
+        np.testing.assert_array_equal(done[index], expected[index])
+
+
+def test_two_engines_capture_from_two_threads(cuda):
+    """Two decode engines on one card, each stepped by its own thread:
+    each engine's capture runs while the other thread launches work, and
+    both decode the tokens they decode alone."""
+    import threading
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    params, config = _lm(cuda)
+    rng = np.random.default_rng(9)
+    workloads = [[(rng.integers(1, 256, size=int(rng.integers(4, 40)))
+                   .astype(np.int32), int(rng.integers(8, 40)))
+                  for _ in range(8)] for _ in range(2)]
+
+    def serve(workload, slots):
+        engine = DecodeEngine(params, config, decode_slots=slots,
+                              kv_block_size=8)
+        for index, (prompt, max_new) in enumerate(workload):
+            engine.submit(index, prompt, max_new)
+        return _drain(engine, {})
+
+    alone = [serve(workload, slots)
+             for workload, slots in zip(workloads, (3, 4))]
+    results, errors = [None, None], []
+    start = threading.Barrier(2)
+
+    def run(position, slots):
+        try:
+            start.wait()
+            results[position] = serve(workloads[position], slots)
+        except Exception as error:        # surfaced by the assert below
+            errors.append(error)
+
+    threads = [threading.Thread(target=run, args=(position, slots))
+               for position, slots in ((0, 3), (1, 4))]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=600)
+    assert errors == []
+    for together, solo in zip(results, alone):
+        for index in solo:
+            np.testing.assert_array_equal(together[index], solo[index])

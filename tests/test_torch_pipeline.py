@@ -122,18 +122,34 @@ def test_cuda_device_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("parameter, value", [
-    ("gateway_policy", "max_inflight=4"),
     ("autoscale_policy", "min_replicas=1"),
-    ("journal_policy", "backend=retained"),
-    ("federation_policy", "groups=a,b"),
     ("tune", "slo=latency"),
-    ("disagg", "role=prefill"),
 ])
 def test_unported_grammars_fail_as_definition_errors(parameter, value):
     with pytest.raises(DefinitionError, match="not supported by the torch "
                                               "port yet"):
         create_pipeline(Process(transport_kind="loopback"),
                         _definition(parameters={parameter: value}))
+
+
+@pytest.mark.parametrize("parameter, good, bad, code", [
+    ("gateway_policy", "max_inflight=4", "max_inflight=many", "AIKO403"),
+    ("journal_policy", "backend=retained", "backend=sqlite", "AIKO407"),
+    ("federation_policy", "groups=a,b", "groups=a,a", "AIKO410"),
+    ("disagg", "role=prefill", "role=gpu", "AIKO408"),
+])
+def test_serving_grammars_check_definitions(parameter, good, bad, code):
+    """The serving tier's definition-level grammars construct on a good
+    spec and fail with their rule code on a bad one; `disagg:
+    "role=prefill"` puts the replica's pool role into its share, where a
+    gateway reads it."""
+    pipeline = create_pipeline(Process(transport_kind="loopback"),
+                               _definition(parameters={parameter: good}))
+    if parameter == "disagg":
+        assert pipeline.share["role"] == "prefill"
+    with pytest.raises(DefinitionError, match=code):
+        create_pipeline(Process(transport_kind="loopback"),
+                        _definition(parameters={parameter: bad}))
 
 
 def test_sharding_block_is_not_ported():

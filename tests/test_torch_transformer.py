@@ -216,9 +216,10 @@ def _element(class_name: str, parameters: dict) -> None:
     })
 
 
-def _decode_engine(params, config):
-    from aiko_services_tpu_torch.decode import DecodeEngine
-    return DecodeEngine(params, config, decode_slots=1)
+def _gateway(**options) -> None:
+    from aiko_services_tpu_torch.runtime import Process
+    from aiko_services_tpu_torch.serve import Gateway
+    Gateway(Process(transport_kind="loopback"), **options)
 
 
 def _foreign_checkpoint(directory, name: str) -> str:
@@ -242,12 +243,10 @@ UNPORTED = {
     "sequence_parallel": lambda c, p, t, d: torch_lm.make_train_step(
         torch_lm.TransformerConfig(**CONFIG, sequence_parallel=True),
         optim.adam(1e-3)),
-    # the continuous engine runs; adopting a migrated request (prefill/
-    # decode disaggregation) is what it does not have yet
-    "continuous": lambda c, p, t, d: _decode_engine(p, c).adopt_request(
-        0, {}),
-    "role": lambda c, p, t, d: _element(
-        "LMGenerate", {**CONFIG, "role": "prefill"}),
+    # the serving gateway runs; its elastic fleet and its SLO autopilot
+    # (ROADMAP Queue A item 8) are what it does not have yet
+    "autoscale": lambda c, p, t, d: _gateway(autoscale="min_replicas=1"),
+    "autopilot": lambda c, p, t, d: _gateway(autopilot="apply=off"),
     "hf_llama_weights": lambda c, p, t, d: _element(
         "LMGenerate", {**CONFIG, "weights": _foreign_checkpoint(
             d, "model.embed_tokens.weight")}),
@@ -296,3 +295,71 @@ def test_dense_reduces_bf16_products_in_f32(monkeypatch):
     torch_lm._masked_attention(config, q, kv, kv, torch.tensor([[2]]),
                                torch.arange(3)[None])
     assert seen == [True, False]    # q·kᵀ in f32, then the bf16 P·V
+
+
+@pytest.mark.parametrize("guard", ["f32_reduction", "full_f32_convolution"])
+def test_precision_guards_hold_across_threads(guard):
+    """Two threads' scopes overlap (two engines on one card): the flag
+    stays off until the LAST scope closes, then the previous setting
+    comes back -- one thread's exit never turns it on under the other's
+    product."""
+    import threading
+    from aiko_services_tpu_torch.models import layers
+    from aiko_services_tpu_torch.ops import audio
+    scope, read, write = {
+        "f32_reduction": (
+            layers.f32_reduction,
+            lambda: torch.backends.cuda.matmul
+            .allow_bf16_reduced_precision_reduction,
+            lambda value: setattr(torch.backends.cuda.matmul,
+                                  "allow_bf16_reduced_precision_reduction",
+                                  value)),
+        "full_f32_convolution": (
+            audio.full_f32_convolution,
+            lambda: torch.backends.cudnn.allow_tf32,
+            lambda value: setattr(torch.backends.cudnn, "allow_tf32",
+                                  value))}[guard]
+    before = read()
+    write(True)
+    try:
+        entered, leave = threading.Event(), threading.Event()
+
+        def other():
+            with scope():
+                entered.set()
+                leave.wait(timeout=30)
+
+        thread = threading.Thread(target=other)
+        with scope():
+            thread.start()
+            assert entered.wait(timeout=30)
+        # this thread's scope closed first: the other's is still open
+        assert read() is False
+        leave.set()
+        thread.join(timeout=30)
+        assert not thread.is_alive() and read() is True
+        # stress: more threads than cores, switching often; inside any
+        # scope the flag must read off, whatever the others do
+        import sys
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        violations = []
+
+        def churn():
+            for _ in range(200):
+                with scope():
+                    if read() is not False:
+                        violations.append(1)
+
+        threads = [threading.Thread(target=churn) for _ in range(16)]
+        try:
+            for worker in threads:
+                worker.start()
+            for worker in threads:
+                worker.join(timeout=60)
+        finally:
+            sys.setswitchinterval(interval)
+        assert not any(worker.is_alive() for worker in threads)
+        assert violations == [] and read() is True
+    finally:
+        write(before)
