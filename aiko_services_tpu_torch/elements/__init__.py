@@ -1,6 +1,6 @@
 from .ml import (                                             # noqa: F401
-    LMForward, LMGenerate, SpeechToText, Detector, DetectionsPublish,
-    TokensToText, TextToTokens)
+    LMForward, LMGenerate, SpeechToText, TextToSpeech, Detector,
+    DetectionsPublish, TokensToText, TextToTokens)
 from .common_io import (                                      # noqa: F401
     DataSource, DataTarget, Sample, expand_data_sources)
 from .compute import (                                        # noqa: F401

@@ -18,10 +18,13 @@
 # `restore` input a failing-over gateway attaches) and the cross-replica
 # prefix store (`prefix_keeper`).
 #
+# TextToSpeech (the reference's Coqui seat) synthesizes through
+# models/tts.py; the Detector loads ultralytics YOLOv8 checkpoints
+# (models/yolo.py) as well as the native detector's.
+#
 # Not ported yet, and raising NotImplementedError naming it: HuggingFace
-# Llama and whisper checkpoints; ultralytics YOLOv8 checkpoints for the
-# Detector; TextToSpeech.  `sequence_parallel` and a `sharding` block
-# raise at construction.
+# Llama and whisper checkpoints.  `sequence_parallel` and a `sharding`
+# block raise at construction.
 
 from __future__ import annotations
 
@@ -32,18 +35,20 @@ import numpy as np
 import torch
 
 from ..models import (
-    AsrConfig, BPETokenizer, DetectorConfig, TransformerConfig,
-    count_params, detect, forward, generate, generate_stream,
-    init_asr_params, init_detector_params, init_params, load_pytree,
-    quantize_weights_int8)
+    YOLO_VARIANTS, AsrConfig, BPETokenizer, DetectorConfig, TTSConfig,
+    TransformerConfig, count_params, detect, encode_chars, forward,
+    generate, generate_stream, infer_yolov8_config, init_asr_params,
+    init_detector_params, init_params, init_tts_params, load_pytree,
+    load_yolov8_params, quantize_weights_int8, synthesize, yolo_detect)
 from ..models import configs as model_configs
 from ..ops.device import as_device_array
 from ..pipeline import (
     AsyncHostElement, ComputeElement, PipelineElement, StreamEvent)
 from ..utils import get_logger, truthy
+from ..utils.padding import bucket_length
 
-__all__ = ["LMForward", "LMGenerate", "SpeechToText", "Detector",
-           "DetectionsPublish", "TokensToText", "TextToTokens"]
+__all__ = ["LMForward", "LMGenerate", "SpeechToText", "TextToSpeech",
+           "Detector", "DetectionsPublish", "TokensToText", "TextToTokens"]
 
 _LOGGER = get_logger("ml_elements")
 
@@ -74,9 +79,10 @@ def _not_ported(element, what: str) -> NotImplementedError:
 
 
 def _weights_named(weights, names) -> bool:
-    """True when the checkpoint holds any of `names` (a foreign naming
-    convention the port does not map yet).  Probes the FIRST shard when
-    weights is a list (shards share one naming convention)."""
+    """True when the checkpoint holds any of `names` (a naming
+    convention: ultralytics selects the Detector's YOLOv8, HuggingFace
+    names are refused).  Probes the FIRST shard when weights is a list
+    (shards share one naming convention)."""
     if not weights:
         return False
     from ..models import SafetensorsFile
@@ -1133,6 +1139,60 @@ class SpeechToText(ComputeElement):
         return None
 
 
+class TextToSpeech(ComputeElement):
+    """text (str | list[str]) -> waveform (B, samples) f32 on the
+    element's device + sample_rate: the reference's Coqui TTS seat
+    (reference speech_elements.py:109-146).  Characters -> mel ->
+    Griffin-Lim (models/tts.py).  Prompt lengths pad to power-of-two
+    buckets of at least 16 characters; "max_chars" (default 512) caps
+    them, with a warning on truncation."""
+
+    def configure(self):
+        if hasattr(self, "config"):
+            return
+        self.config = TTSConfig(
+            d_model=int(self.get_parameter("d_model", 256)),
+            n_conv_layers=int(self.get_parameter("n_conv_layers", 4)),
+            sample_rate=int(self.get_parameter("sample_rate", 16000)),
+            frames_per_char=int(self.get_parameter("frames_per_char", 6)),
+            griffin_lim_iters=int(
+                self.get_parameter("griffin_lim_iters", 30)),
+        )
+
+    def setup(self):
+        weights = self.get_parameter("weights")
+        if weights:
+            params = load_pytree(weights, dtype=self.config.dtype,
+                                 device=self.device)
+        else:
+            params = init_tts_params(
+                self.config,
+                torch.Generator().manual_seed(
+                    int(self.get_parameter("seed", 0))),
+                device=self.device)
+        _LOGGER.info("%s: TTS %.1fM params", self.definition.name,
+                     count_params(params) / 1e6)
+        return params
+
+    def process_frame(self, stream, text):
+        self._ensure_ready()
+        prompts = [text] if isinstance(text, str) else list(text)
+        max_chars = int(self.get_parameter("max_chars", 512, stream))
+        longest = max((len(prompt.encode("utf-8", "replace"))
+                       for prompt in prompts), default=1)
+        if longest > max_chars:
+            _LOGGER.warning(
+                "%s: prompt of %d chars truncated to max_chars=%d",
+                self.definition.name, longest, max_chars)
+        width = bucket_length(min(longest, max_chars), minimum=16)
+        chars = np.concatenate([encode_chars(prompt, max_len=width)
+                                for prompt in prompts])
+        waveform = synthesize(self.state, self.config,
+                              torch.from_numpy(chars).to(self.device))
+        return StreamEvent.OKAY, {
+            "audio": waveform, "sample_rate": self.config.sample_rate}
+
+
 class DetectionsPublish(AsyncHostElement):
     """detections (the Detector contract) -> "(detections (names...))" on
     the "{namespace}/detections" side-channel, closing the vision->LLM
@@ -1215,16 +1275,36 @@ class Detector(ComputeElement):
     classes, valid} (the reference overlay contract, yolo.py:56-87, is
     produced from them downstream); detections stay on the device."""
 
-    def __init__(self, process, pipeline, definition):
-        super().__init__(process, pipeline, definition)
-        if _weights_named(self.get_parameter("weights"),
-                          ("model.0.conv.weight",
-                           "model.model.0.conv.weight")):
-            raise _not_ported(self, "ultralytics YOLOv8 checkpoints "
-                                    "(models/yolo.py)")
-
     def configure(self) -> None:
+        """Probes the weights: ultralytics YOLOv8 naming selects the real
+        v8 architecture (models/yolo.py, BatchNorm folded), its layout
+        read off the checkpoint's shapes (yolo_variant "auto") or named
+        (one of YOLO_VARIANTS)."""
         if hasattr(self, "config"):
+            return
+        weights = self.get_parameter("weights")
+        self._yolo = _weights_named(weights, ("model.0.conv.weight",
+                                              "model.model.0.conv.weight"))
+        if self._yolo:
+            overrides = dict(
+                image_size=int(self.get_parameter("image_size", 640)),
+                max_detections=int(
+                    self.get_parameter("max_detections", 300)),
+                score_threshold=float(
+                    self.get_parameter("score_threshold", 0.25)),
+                dtype=str(self.get_parameter("dtype", "bfloat16")))
+            variant = str(self.get_parameter("yolo_variant", "auto"))
+            if variant == "auto":
+                self.config = infer_yolov8_config(weights, **overrides)
+            elif variant in YOLO_VARIANTS:
+                self.config = replace(
+                    YOLO_VARIANTS[variant],
+                    n_classes=int(self.get_parameter("n_classes", 80)),
+                    **overrides)
+            else:
+                raise ValueError(
+                    f"unknown yolo_variant {variant!r}; "
+                    f"'auto' or one of {sorted(YOLO_VARIANTS)}")
             return
         preset = self.get_parameter("preset")
         if preset:
@@ -1246,6 +1326,12 @@ class Detector(ComputeElement):
 
     def setup(self):
         weights = self.get_parameter("weights")
+        if self._yolo:
+            params = load_yolov8_params(weights, self.config,
+                                        device=self.device)
+            _LOGGER.info("%s: yolov8 %.1fM params (BN folded)",
+                         self.definition.name, count_params(params) / 1e6)
+            return params
         if weights:
             params = load_pytree(weights, dtype=self.config.dtype,
                                  device=self.device)
@@ -1263,7 +1349,8 @@ class Detector(ComputeElement):
         image = as_device_array(image, torch.float32, self.device)
         if image.ndim == 3:
             image = image[None]
-        return detect(state, self.config, image)
+        detect_fn = yolo_detect if self._yolo else detect
+        return detect_fn(state, self.config, image)
 
     def process_frame(self, stream, image):
         self._ensure_ready()  # configure() runs inside

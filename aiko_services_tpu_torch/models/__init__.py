@@ -10,7 +10,13 @@ from .transformer import (                                    # noqa: F401
 from .tokenizer import BPETokenizer, train_bpe                # noqa: F401
 from .detector import (                                       # noqa: F401
     DetectorConfig, init_detector_params, detect, detector_forward,
-    decode_boxes, non_max_suppression)
+    decode_boxes, non_max_suppression, make_detector_train_step)
+from .yolo import (                                           # noqa: F401
+    YoloV8Config, YOLOV8N, YOLO_VARIANTS, init_yolo_params,
+    infer_yolov8_config, load_yolov8_params, yolo_forward, yolo_detect)
+from .tts import (                                            # noqa: F401
+    TTSConfig, init_tts_params, synthesize, synthesize_mel, encode_chars,
+    make_tts_train_step)
 from .configs import (                                        # noqa: F401
     LLAMA3_8B, LLAMA32_1B, LM_TOY, WHISPER_TINY, WHISPER_SMALL,
     YOLOV8N_SHAPE, DETECTOR_TOY, transformer_flops_per_token,

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ..ops.audio import full_f32_convolution, log_mel_spectrogram
 from ..ops.device import resolve_device
 from ..parallel.attention import flash_attention
+from ..utils.tree import tree_leaves
 from .layers import dense, f32_reduction, init_dense, init_norm, layer_norm
 from .optim import apply_updates, next_token_loss, value_and_grad
 
@@ -90,9 +91,7 @@ def _layer_count(stacked: dict) -> int:
 
 
 def count_params(params) -> int:
-    if isinstance(params, dict):
-        return sum(count_params(value) for value in params.values())
-    return int(params.numel())
+    return sum(int(leaf.numel()) for leaf in tree_leaves(params))
 
 
 def init_asr_params(config: AsrConfig, generator: torch.Generator,

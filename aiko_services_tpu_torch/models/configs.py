@@ -1,8 +1,7 @@
 # Reference-scale model configurations: the LM, Whisper and detector
 # presets.
 #
-# Counterpart of aiko_services_tpu/models/configs.py (all but the TTS
-# FLOP model, which comes with the TTS model).  Llama shapes from
+# Counterpart of aiko_services_tpu/models/configs.py.  Llama shapes from
 # the reference's LLM seat (Llama-3-8B via Ollama) and the Llama-3.2-1B
 # architecture; Whisper ladder shapes (reference speech_elements.py:186-192:
 # tiny 39M ... small 244M); multilingual vocab 51865.  Special token ids
@@ -18,7 +17,7 @@ from .transformer import TransformerConfig
 __all__ = ["LLAMA3_8B", "LLAMA32_1B", "LM_TOY", "WHISPER_TINY",
            "WHISPER_SMALL", "YOLOV8N_SHAPE", "DETECTOR_TOY",
            "transformer_flops_per_token", "asr_flops_per_example",
-           "detector_flops_per_image"]
+           "detector_flops_per_image", "tts_flops_per_example"]
 
 # Llama-3-8B architecture
 LLAMA3_8B = TransformerConfig(
@@ -88,6 +87,20 @@ def asr_flops_per_example(config: AsrConfig, n_frames: int,
     head = 2 * d * config.vocab_size * n_tokens
     return (config.enc_layers * enc_layer
             + config.dec_layers * dec_layer + head)
+
+
+def tts_flops_per_example(config, n_chars: int) -> float:
+    """chars -> waveform FLOPs: the conv stack over the upsampled frames,
+    the mel head and Griffin-Lim's STFT/ISTFT pair per iteration as DFT
+    matmuls (tts.synthesize)."""
+    frames = n_chars * config.frames_per_char
+    d = config.d_model
+    conv = config.n_conv_layers * 2 * config.kernel_size * d * d * frames
+    mel_head = 2 * d * config.n_mels * frames
+    bins = config.n_fft // 2 + 1
+    griffin = (config.griffin_lim_iters
+               * 2 * 2 * frames * config.n_fft * bins)
+    return conv + mel_head + griffin
 
 
 def detector_flops_per_image(config: DetectorConfig) -> float:

@@ -1,8 +1,7 @@
 # Single-stage anchor-free object detector (YOLO-family architecture).
 #
 # Counterpart of aiko_services_tpu/models/detector.py (config, parameters,
-# forward, box decode, NMS, detect; the train step waits for the training
-# slice).  Same parameter tree (HWIO conv weights), same casts: a conv
+# forward, box decode, NMS, detect and the single-object train step).  Same parameter tree (HWIO conv weights), same casts: a conv
 # backbone to stride 16 in NHWC (layers.conv2d), an anchor-free head
 # (cx, cy, w, h, objectness, classes per cell), box decode and fixed-size
 # exact greedy NMS, run eagerly on the device the tensors lie on.
@@ -24,9 +23,11 @@ import torch.nn.functional as F
 
 from ..ops.device import resolve_device
 from .layers import conv2d, init_conv
+from .optim import apply_updates, value_and_grad
 
 __all__ = ["DetectorConfig", "init_detector_params", "detect",
-           "detector_forward", "decode_boxes", "non_max_suppression"]
+           "detector_forward", "decode_boxes", "non_max_suppression",
+           "make_detector_train_step"]
 
 _ROUNDS_PER_CHECK = 4
 
@@ -183,6 +184,68 @@ def non_max_suppression(boxes, scores, classes, config: DetectorConfig):
     entries zeroed."""
     return tuple(value[0] for value in _nms(
         boxes[None], scores[None], classes[None], config))
+
+
+def _sigmoid_binary_cross_entropy(logits, labels):
+    """optax.sigmoid_binary_cross_entropy, elementwise:
+    -labels log sigmoid(x) - (1 - labels) log sigmoid(-x)."""
+    labels = labels.to(logits.dtype)
+    return (-labels * F.logsigmoid(logits)
+            - (1.0 - labels) * F.logsigmoid(-logits))
+
+
+def make_detector_train_step(config: DetectorConfig, optimizer):
+    """Returns train_step(params, opt_state, images, targets) -> (params,
+    opt_state, loss) for single-object supervision; targets {"box": (B, 4)
+    xyxy pixels, "class": (B,) int}.  The cell holding the box center is
+    the positive: L2 on (sigmoid offsets, log sizes) there, objectness BCE
+    over every cell (5x), class BCE at the positive.  The update is
+    written into params and opt_state in place (the JAX step donates
+    both)."""
+
+    def loss_fn(params, images, boxes, classes):
+        raw = detector_forward(params, config, images).float()
+        batch, _, grid_h, grid_w = raw.shape
+        stride = float(config.stride)
+        center_x = (boxes[:, 0] + boxes[:, 2]) / 2.0
+        center_y = (boxes[:, 1] + boxes[:, 3]) / 2.0
+        cell_x = torch.clamp(torch.floor(center_x / stride).to(torch.int64),
+                             0, grid_w - 1)
+        cell_y = torch.clamp(torch.floor(center_y / stride).to(torch.int64),
+                             0, grid_h - 1)
+        rows = torch.arange(batch, device=raw.device)
+        positive = raw[rows, :, cell_y, cell_x]              # (B, 5+C)
+        target_dx = center_x / stride - cell_x.float()
+        target_dy = center_y / stride - cell_y.float()
+        target_w = torch.log(torch.clamp_min(
+            (boxes[:, 2] - boxes[:, 0]) / stride, 1e-3))
+        target_h = torch.log(torch.clamp_min(
+            (boxes[:, 3] - boxes[:, 1]) / stride, 1e-3))
+        box_loss = ((torch.sigmoid(positive[:, 0]) - target_dx) ** 2
+                    + (torch.sigmoid(positive[:, 1]) - target_dy) ** 2
+                    + (positive[:, 2] - target_w) ** 2
+                    + (positive[:, 3] - target_h) ** 2)
+        objectness = raw[:, 4]                               # (B, G, G)
+        positive_mask = torch.zeros_like(objectness)
+        positive_mask[rows, cell_y, cell_x] = 1.0
+        objectness_loss = torch.mean(
+            _sigmoid_binary_cross_entropy(objectness, positive_mask))
+        class_targets = (classes.long()[:, None] == torch.arange(
+            config.n_classes, device=raw.device)).float()
+        class_loss = torch.mean(_sigmoid_binary_cross_entropy(
+            positive[:, 5:], class_targets))
+        return torch.mean(box_loss) + 5.0 * objectness_loss + class_loss
+
+    def train_step(params, opt_state, images, targets):
+        loss, grads = value_and_grad(
+            loss_fn, params, images, targets["box"].float(),
+            targets["class"])
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        del grads
+        apply_updates(params, updates)
+        return params, opt_state, loss
+
+    return train_step
 
 
 @torch.no_grad()

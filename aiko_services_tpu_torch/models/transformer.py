@@ -25,15 +25,25 @@
 # as a device tensor and never reads one back, so the engine can capture
 # it as a CUDA graph.
 #
-# Not ported yet, and raising NotImplementedError when asked for: mixture
-# of experts (n_experts > 0), sequence parallelism and sharding
-# (activation_specs, sharded=True, param_specs).
+# The switch mixture-of-experts FFN (n_experts > 0: the router, the
+# capacity dispatch, its dense oracle and the per-token weight gather of
+# short windows) runs on every path through _mlp_block, as there: the
+# train step with the load-balancing aux loss, the cached forward and
+# generation, and the paged steps the decode engine drives.  Its products
+# are plain matmuls, as the JAX package's are einsums outside any Pallas
+# kernel.
+#
+# Not ported yet, and raising NotImplementedError when asked for:
+# sequence parallelism and sharding (activation_specs, sharded=True,
+# param_specs).
 
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
@@ -71,11 +81,16 @@ class TransformerConfig:
     # "seq" mesh axis): not yet ported
     sequence_parallel: bool = False
     sp_mechanism: str = "ring"
-    # > 0: a switch mixture-of-experts FFN: not yet ported
+    # > 0: a switch (top-1) mixture-of-experts FFN with n_experts experts
     n_experts: int = 0
+    # expert capacity = ceil(moe_capacity_factor * L / E) tokens per batch
+    # row and call; tokens past it are dropped (their FFN output is 0);
+    # <= 0 runs the dense oracle (every expert computes every token)
     moe_capacity_factor: float = 1.25
     # weight of the MoE load-balancing aux loss in make_train_step
     moe_aux_weight: float = 0.01
+    # windows shorter than n_experts (decode, verify) gather each token's
+    # expert weights instead of dispatching by capacity
     moe_decode_gather: bool = True
     # "int8": the KV cache stores 8-bit codes + a per-(head, position) f32
     # scale, quantized once when a token is written ("" keeps the compute
@@ -111,8 +126,6 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _require_ported(config: TransformerConfig) -> None:
-    if config.n_experts > 0:
-        raise _not_ported("the mixture-of-experts FFN (n_experts > 0)")
     if config.sequence_parallel:
         raise _not_ported("sequence-parallel attention")
 
@@ -123,7 +136,7 @@ def _init_layer(generator: torch.Generator, config: TransformerConfig,
                 device) -> dict:
     d, hd, ff = config.d_model, config.head_dim, config.d_ff
     dtype = config.torch_dtype
-    return {
+    layer = {
         "attn_norm": init_norm(d, dtype, device=device),
         "wq": init_dense(generator, d, config.n_heads * hd, dtype,
                          device=device),
@@ -134,10 +147,26 @@ def _init_layer(generator: torch.Generator, config: TransformerConfig,
         "wo": init_dense(generator, config.n_heads * hd, d, dtype,
                          device=device),
         "mlp_norm": init_norm(d, dtype, device=device),
-        "w_gate": init_dense(generator, d, ff, dtype, device=device),
-        "w_up": init_dense(generator, d, ff, dtype, device=device),
-        "w_down": init_dense(generator, ff, d, dtype, device=device),
     }
+    if config.n_experts > 0:
+        experts = config.n_experts
+
+        def expert_weights(rows, cols):
+            # N(0, 1/rows) per expert, stacked (E, rows, cols)
+            weight = torch.randn((experts, rows, cols), generator=generator,
+                                 dtype=torch.float32) / np.sqrt(rows)
+            return {"w": weight.to(device=device, dtype=dtype)}
+
+        layer["router"] = init_dense(generator, d, experts, dtype,
+                                     device=device)
+        layer["w_gate"] = expert_weights(d, ff)
+        layer["w_up"] = expert_weights(d, ff)
+        layer["w_down"] = expert_weights(ff, d)
+    else:
+        layer["w_gate"] = init_dense(generator, d, ff, dtype, device=device)
+        layer["w_up"] = init_dense(generator, d, ff, dtype, device=device)
+        layer["w_down"] = init_dense(generator, ff, d, dtype, device=device)
+    return layer
 
 
 def init_params(config: TransformerConfig, generator: torch.Generator,
@@ -194,11 +223,15 @@ def quantize_weights_int8(params: dict, config: TransformerConfig) -> dict:
     """Weight-only int8 for serving: the dense weights become 8-bit codes
     and a per-output-channel f32 scale; embed / lm_head quantize per vocab
     row (one scale serves the gather and the logits product, where it
-    factors out of the contraction).  Norms stay as they are.  Not for
+    factors out of the contraction).  Norms stay as they are; so do the
+    MoE router and expert weights, whose products bypass dense(): with
+    n_experts > 0 only wq, wk, wv and wo are quantized.  Not for
     training."""
     _require_ported(config)
+    dense_keys = (_DENSE_QUANT_KEYS[:4] if config.n_experts > 0
+                  else _DENSE_QUANT_KEYS)
     layers = dict(params["layers"])
-    for key in _DENSE_QUANT_KEYS:
+    for key in dense_keys:
         layers[key] = _quantize_rows(layers[key], axis=-2)
     quantized = dict(params)
     quantized["layers"] = layers
@@ -353,8 +386,120 @@ def _embed(params: dict, config: TransformerConfig, tokens):
     return h
 
 
+# -- switch mixture of experts ----------------------------------------------
+#
+# The JAX package's einsums take bf16 operands with
+# preferred_element_type=float32: exact products summed in f32, the
+# result never rounded to bf16.  A bf16 torch.matmul returns bf16, one
+# rounding too many, so every expert product here takes its operands in
+# f32 (exact for bf16 values) and keeps the f32 result; TF32 stays off
+# (torch's default for matmuls).  One-hots are comparisons with an
+# arange, never F.one_hot (it checks its range on the host) and nothing
+# reads a value back, so the paged steps stay capturable as CUDA graphs.
+
+def _f32_matmul(a, b):
+    """a @ b with f32 operands and an f32 result."""
+    return torch.matmul(a.float(), b.float())
+
+
+def _one_hot(index, classes: int):
+    """index (...) int -> (..., classes) f32, without a host check."""
+    return (index[..., None] == torch.arange(
+        classes, device=index.device)).float()
+
+
+def _router(config: TransformerConfig, layer, x):
+    """Top-1 router: (best (B, L) the chosen experts, mask1 (B, L, E) its
+    one-hot, weight (B, L, 1) its router probability, aux the Switch
+    load-balancing loss E * sum_e mean(mask1_e) * mean(prob_e)).  Logits
+    in f32; argmax takes the first maximum, as jnp.argmax; mask1 carries
+    no gradient, so aux's flows through the probabilities alone."""
+    router_probs = torch.softmax(_f32_matmul(x, layer["router"]["w"]),
+                                 dim=-1)                     # (B, L, E)
+    best = torch.argmax(router_probs, dim=-1)                # (B, L)
+    mask1 = _one_hot(best, config.n_experts)
+    weight = torch.sum(router_probs * mask1, dim=-1, keepdim=True)
+    fraction = mask1.mean(dim=(0, 1))
+    prob_mass = router_probs.mean(dim=(0, 1))
+    aux = config.n_experts * torch.sum(fraction * prob_mass)
+    return best, mask1, weight, aux
+
+
+def _switch_moe_dense(config: TransformerConfig, layer, x):
+    """The oracle: every expert computes every token, the router's one-hot
+    picks the winner.  Exact (no capacity drops), E x the dense FFN."""
+    _, mask1, weight, aux = _router(config, layer, x)
+    batch, length, d_model = x.shape
+    rows = x.reshape(batch * length, d_model)
+    gate = _f32_matmul(rows, layer["w_gate"]["w"])           # (E, BL, F)
+    up = _f32_matmul(rows, layer["w_up"]["w"])
+    expert_out = _f32_matmul(torch.nn.functional.silu(gate) * up,
+                             layer["w_down"]["w"])           # (E, BL, D)
+    mask = mask1.reshape(batch * length, -1).transpose(0, 1)[..., None]
+    mixed = torch.sum(expert_out * mask, dim=0).reshape(x.shape)
+    return (mixed * weight).to(x.dtype), aux
+
+
+def _switch_moe(config: TransformerConfig, layer, x):
+    """Switch (top-1) FFN with capacity dispatch: each expert takes at
+    most C = min(L, max(1, ceil(cf * L / E))) tokens of each batch row, in
+    order; tokens past it are dropped (their output is exactly 0, the
+    residual carries them).  A one-hot dispatch product gathers the kept
+    tokens into (E, B, C, D), the FFN runs batched over experts, and a
+    combine product weighted by the router probability scatters the
+    results back.  Windows shorter than E gather each token's expert
+    weights instead (moe_decode_gather); cf <= 0 runs the oracle.
+    Returns (output (B, L, D), aux)."""
+    if config.moe_capacity_factor <= 0:
+        return _switch_moe_dense(config, layer, x)
+    batch, length, d_model = x.shape
+    experts = config.n_experts
+    if length < experts and config.moe_decode_gather:
+        return _switch_moe_gather(config, layer, x)
+    capacity = min(length, max(1, math.ceil(
+        config.moe_capacity_factor * length / experts)))
+    _, mask1, weight, aux = _router(config, layer, x)
+    # each token's 1-based place in its expert's queue, per batch row
+    # (an f32 cumsum of 0/1 values: exact below 2^24)
+    position = torch.cumsum(mask1, dim=1) * mask1
+    keep = mask1 * (position <= capacity)                    # (B, L, E)
+    # a dropped token's index is 0, and keep zeroes its row
+    disp = keep[..., None] * _one_hot(
+        ((position - 1.0) * keep).to(torch.int64), capacity)  # (B, L, E, C)
+    # one nonzero term per sum: exact in x's dtype
+    expert_in = torch.einsum("bld,blec->ebcd", x, disp.to(x.dtype))
+    expert_in = expert_in.reshape(experts, batch * capacity, d_model)
+    gate = _f32_matmul(expert_in, layer["w_gate"]["w"])      # (E, BC, F)
+    up = _f32_matmul(expert_in, layer["w_up"]["w"])
+    hidden = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+    expert_out = _f32_matmul(hidden, layer["w_down"]["w"]).reshape(
+        experts, batch, capacity, d_model)                   # f32
+    combine = disp * weight[..., None]                       # (B, L, E, C)
+    out = torch.einsum("ebcd,blec->bld", expert_out, combine)
+    return out.to(x.dtype), aux
+
+
+def _switch_moe_gather(config: TransformerConfig, layer, x):
+    """Per-token expert-weight gather for windows shorter than E (decode,
+    verification): each token reads only its own expert's weights, one
+    dense FFN of work and bytes a token, with no capacity limit."""
+    best, _, weight, aux = _router(config, layer, x)
+    w_gate = layer["w_gate"]["w"][best]                      # (B, L, D, F)
+    w_up = layer["w_up"]["w"][best]
+    w_down = layer["w_down"]["w"][best]                      # (B, L, F, D)
+    rows = x[..., None, :]                                   # (B, L, 1, D)
+    gate = _f32_matmul(rows, w_gate)
+    up = _f32_matmul(rows, w_up)
+    hidden = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+    out = _f32_matmul(hidden, w_down)[..., 0, :]             # (B, L, D)
+    return (out * weight).to(x.dtype), aux
+
+
 def _mlp_block(config: TransformerConfig, layer, mlp_in):
-    """One layer's dense SwiGLU FFN.  Returns (output, aux = 0)."""
+    """One layer's FFN, dense SwiGLU or switch MoE, shared by forward()
+    and the paged steps.  Returns (output, aux; 0 for the dense FFN)."""
+    if config.n_experts > 0:
+        return _switch_moe(config, layer, mlp_in)
     out = swiglu(layer["w_gate"], layer["w_up"], layer["w_down"], mlp_in)
     return out, torch.zeros((), dtype=torch.float32, device=mlp_in.device)
 

@@ -1,8 +1,9 @@
 # Weight ingestion: safetensors read/write + checkpoint -> parameter tree.
 #
-# Counterpart of aiko_services_tpu/models/weights.py (the container and
-# the save/load of parameter trees; the HuggingFace whisper/llama name
-# maps are not ported yet).  The container is parsed in numpy: 8-byte
+# Counterpart of aiko_services_tpu/models/weights.py (the container, the
+# save/load of parameter trees and the multi-shard index the YOLOv8 loader
+# reads through; the HuggingFace whisper/llama name maps are not ported
+# yet).  The container is parsed in numpy: 8-byte
 # little-endian header length, JSON header of {name: {dtype, shape,
 # data_offsets}}, flat data buffer, read through mmap.  numpy has no
 # bfloat16, so BF16 tensors are read as their raw uint16 bits and viewed
@@ -10,6 +11,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import json
 import mmap
 from pathlib import Path
@@ -20,7 +22,7 @@ import torch
 from ..ops.device import resolve_device
 
 __all__ = ["read_safetensors", "write_safetensors", "SafetensorsFile",
-           "save_pytree", "load_pytree"]
+           "save_pytree", "load_pytree", "open_checkpoint"]
 
 # safetensors dtype -> (numpy dtype of the stored bits, torch dtype)
 _DTYPES = {
@@ -167,3 +169,27 @@ def load_pytree(path, dtype=None, device="cuda") -> dict:
             node = node.setdefault(part, {})
         node[parts[-1]] = tensor.to(device)
     return tree
+
+
+@contextlib.contextmanager
+def open_checkpoint(paths):
+    """Multi-shard safetensors index shared by the checkpoint loaders:
+    yields (index, raw) where index maps tensor name -> reader and
+    raw(name) materializes a CPU tensor (KeyError names the missing
+    tensor).  Readers are closed even when a load fails partway."""
+    if isinstance(paths, (str, Path)):
+        paths = [paths]
+    readers = [SafetensorsFile(path) for path in paths]
+    index = {name: reader for reader in readers for name in reader.keys()}
+
+    def raw(name: str) -> torch.Tensor:
+        reader = index.get(name)
+        if reader is None:
+            raise KeyError(f"Checkpoint is missing tensor: {name}")
+        return reader.get(name)
+
+    try:
+        yield index, raw
+    finally:
+        for reader in readers:
+            reader.close()

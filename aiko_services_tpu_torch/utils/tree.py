@@ -1,7 +1,8 @@
 # Nested-dict parameter trees: the small part of jax.tree_util the port
 # needs (no counterpart file in the JAX package, which uses jax.tree_util).
-# A tree is a dict whose values are trees or leaves; lists and tuples are
-# leaves.
+# A tree is a dict or a list whose entries are trees or leaves (the
+# YOLOv8 tree keeps its repeated blocks in lists, as jax.tree_util
+# walks them); tuples are leaves.
 
 from __future__ import annotations
 
@@ -13,14 +14,16 @@ def tree_map(function, tree):
     if isinstance(tree, dict):
         return {key: tree_map(function, value)
                 for key, value in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(function, value) for value in tree]
     return function(tree)
 
 
 def tree_leaves(tree) -> list:
     """The leaves in insertion order."""
-    if isinstance(tree, dict):
+    if isinstance(tree, (dict, list)):
         leaves = []
-        for value in tree.values():
+        for value in (tree.values() if isinstance(tree, dict) else tree):
             leaves.extend(tree_leaves(value))
         return leaves
     return [tree]

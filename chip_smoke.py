@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's speech-serving, training, LM-serving
-and serving-tier paths on one NVIDIA GPU.
+and serving-tier paths and its remaining model families (switch MoE,
+YOLOv8, TTS) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -99,6 +100,30 @@ result:
          30 frames; goodput, shed rate, admitted p50/p99, 0 frames lost,
          every admitted frame's detections bit-equal to the direct
          replica's
+ 11. the remaining model families:
+     11a a switch-MoE llama32_1b (the published widths, 8 experts,
+         capacity factor 1.25, depth cut to 8 layers, bf16, random
+         weights from a seed) trained through make_train_step at batch
+         4 x 1024: one step's loss against the plain attention path in
+         bf16 (with the share of routes that flip) and loss and
+         attention gradients in f32, then tokens/s, step time, the
+         active-parameter MFU, peak memory, the aux loss and K1/K2/K3
+         launches per step, and one step under torch.profiler;
+     11b on the same weights: closed-batch generate, the decode engine
+         on 32 seeded requests under captured graphs (captured == eager,
+         0 signatures added, the full-slot step against its byte bound
+         with each slot's gathered expert counted), and a small f32 MoE
+         model card == CPU through generate and the engine at capacity
+         factors 1.25, 4 and 0, the gather, capacity and oracle routes
+         each taken;
+     11c yolov8n from an ultralytics-named checkpoint written from a
+         seeded rng: f32 candidates card against CPU and NMS equal, bf16
+         heads within bf16 roundings, then a Detector at 640 px,
+         micro_batch 16, 1 + 4 groups: frames/s, p50, peak memory;
+     11d TextToSpeech card against CPU and seconds of audio a second,
+         make_tts_train_step's loss falling, make_detector_train_step at
+         the yolov8n shape (640 px, bf16, batch 16) and one f32 step of
+         the toy detector card against CPU
 
 The last three lines are the card's nvidia-smi name and power limit, one
 JSON object describing every kernel of the paths, and {"ok": true,
@@ -929,8 +954,8 @@ STEP_PARTS = (
 )
 
 
-def profile_train_step(train_step, params, opt_state, tokens,
-                       smi: str) -> None:
+def profile_train_step(train_step, params, opt_state, tokens, smi: str,
+                       label: str = "6d llama32_1b_step_profile") -> None:
     """One more train step under torch.profiler: the device's busy and
     idle share of its wall time, and where the device time goes."""
     activities = [torch.profiler.ProfilerActivity.CPU,
@@ -955,7 +980,7 @@ def profile_train_step(train_step, params, opt_state, tokens,
         parts[part] += ms
     if busy_ms <= 0:
         raise SystemExit("the profiler recorded no device time")
-    say("6d llama32_1b_step_profile", wall_ms=f"{wall_ms:.1f}",
+    say(label, wall_ms=f"{wall_ms:.1f}",
         device_busy_ms=f"{busy_ms:.1f}",
         idle_share=f"{1 - busy_ms / wall_ms:.3f}",
         device_launches=launches,
@@ -1537,26 +1562,39 @@ def decode_step_bound(engine, smi: str) -> tuple:
     card: the bytes it must move (every layer's weights, the f32 head, the
     embedding rows, the pool blocks the tables name, the K/V it writes)
     over the memory rate, against its operations (2 per weight and token:
-    bf16 layers on the tensor cores, the f32 head on the CUDA cores).
+    bf16 layers on the tensor cores, the f32 head on the CUDA cores).  A
+    switch-MoE layer's experts count as each slot's own expert read once
+    for that slot: the decode step gathers every token's expert weights.
     Returns (bound_ms, bound_by, bytes)."""
     from aiko_services_tpu_torch.decode import TRASH_BLOCK
     from aiko_services_tpu_torch.utils.tree import tree_leaves
     _, peaks = peaks_for(smi)
     params, config, slots = engine.params, engine.config, engine.slots_n
     head = params.get("lm_head", params["embed"])["w"]
-    layer_bytes = sum(leaf.numel() * leaf.element_size()
-                      for leaf in tree_leaves(params["layers"]))
-    layer_weights = sum(leaf.numel() for leaf in tree_leaves(
-        params["layers"]) if leaf.dim() == 3)
+    shared, per_slot = [], []
+    for name, entry in params["layers"].items():
+        for leaf in tree_leaves(entry):
+            if config.n_experts and name in ("w_gate", "w_up", "w_down"):
+                per_slot.append(leaf[:, 0])      # one expert, every layer
+            else:
+                shared.append(leaf)
+
+    def size(leaves, dim=None):
+        return sum(leaf.numel() * (leaf.element_size() if dim is None
+                                   else 1)
+                   for leaf in leaves if dim is None or leaf.dim() == dim)
+
     pool_block = sum(leaf[:, 0].numel() * leaf.element_size()
                      for leaf in engine.pool.values())
     blocks = len(set(engine.tables.ravel().tolist()) - {TRASH_BLOCK})
-    moved = (layer_bytes + head.numel() * head.element_size()
+    moved = (size(shared) + slots * size(per_slot)
+             + head.numel() * head.element_size()
              + slots * config.d_model * params["embed"]["w"].element_size()
              + blocks * pool_block
              + slots * pool_block // engine.blocks.block_size)
+    weights = size(shared, 3) + size(per_slot, 3)
     seconds = {"bytes": moved / peaks["bytes"],
-               "operations": 2 * slots * layer_weights / peaks["bfloat16"]
+               "operations": 2 * slots * weights / peaks["bfloat16"]
                + 2 * slots * head.numel() / peaks["float32"]}
     bound_by = max(seconds, key=seconds.get)
     return seconds[bound_by] * 1e3, bound_by, moved
@@ -2621,8 +2659,819 @@ def phase_serving_tier(smi: str) -> None:
                          f"on the serving tier's path")
 
 
+# -- the remaining model families ------------------------------------------------
+
+# 11a: a switch-MoE llama32_1b: the published widths with 8 experts at
+# the JAX default capacity factor 1.25, depth cut from 16 layers to 8
+# (3.57 G parameters, 7.1 GB in bf16; parameters, gradients and two bf16
+# moments 28.5 GB, the f32 operand copies the expert products keep for
+# the backward 12.9 GB, the f32 head ~6 GB: 16 layers would not fit beside
+# the optimizer state), bf16, batch 4 x 1024 as phase 6, adamw(1e-4), 1 +
+# 5 steps
+M_LAYERS, M_EXPERTS, M_STEPS = 8, 8, 5
+# 11b, on 11a's weights: closed-batch generate of 8 prompts of 32 tokens,
+# 32 new; the engine: 32 requests from default_rng(21), prompts of 16-64
+# tokens, 16-48 new, 8 slots of 32-position blocks, captured graphs
+M_GEN_ROWS, M_GEN_PROMPT, M_GEN_NEW = 8, 32, 32
+M_REQUESTS, M_PROMPT, M_NEW = 32, (16, 64), (16, 48)
+# and in f32 (TF32 off) a small MoE model, card against the CPU, at three
+# capacity factors: 1.25 (tokens drop), n_experts (none drop), 0 (the
+# dense oracle)
+M_SMALL = dict(vocab_size=512, d_model=128, n_layers=2, n_heads=4,
+               n_kv_heads=2, d_ff=256, max_seq_len=128, dtype="float32",
+               n_experts=4)
+M_FACTORS = (("drops", 1.25), ("no_drops", 4.0), ("oracle", 0.0))
+# 11c: yolov8n (ultralytics layout, weights from default_rng(0)) at 640
+# px: a Detector with micro_batch 16 over 16 streams, 1 + 4 groups
+Y_MICRO, Y_GROUPS = 16, 4
+# the raw heads and pre-NMS boxes of a bf16 run, card against the CPU:
+# each of ~25 convolution layers rounds its f32 sums to bf16 (2^-9
+# relative) in its own summation order, and those one-ulp differences
+# compound through the network -> relative norm error <= 5e-2
+YOLO_BF16_TOL = 5e-2
+# f32 (TF32 off) pre-NMS candidates, card against the CPU: the same
+# products summed in another order through ~25 layers -> boxes atol 1e-3
+# px, scores atol 1e-5; NMS on the same candidates identical
+# 11d: TextToSpeech (the default TTSConfig: d_model 256, 4 convs, 30
+# Griffin-Lim iterations) on four prompts, f32: waveforms within the CPU
+# test's atol 1e-4 of the CPU's
+T_PROMPTS = ("hello from the card", "text to speech on an h100",
+             "griffin lim recovers the phase", "four prompts, one element")
+T_TRAIN_STEPS = 20
+# make_detector_train_step at YOLOV8N_SHAPE, 640 px, bf16, batch 16
+DT_BATCH, DT_STEPS = 16, 5
+
+
+def moe_active_params(config) -> int:
+    """Parameters a token reaches in a forward: each layer's attention,
+    router and ONE expert's FFN, and the tied head."""
+    d, hd = config.d_model, config.head_dim
+    attention = (d * (config.n_heads + 2 * config.n_kv_heads) * hd
+                 + config.n_heads * hd * d)
+    expert = 3 * d * config.d_ff
+    return (config.n_layers * (attention + d * config.n_experts + expert)
+            + config.vocab_size * d)
+
+
+def phase_moe_training(smi: str) -> tuple:
+    """11a.  Returns (the trained params, the config, the kernel launches
+    of the measured steps)."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import (
+        LLAMA32_1B, adamw, count_params, init_params, make_train_step)
+    from aiko_services_tpu_torch.models import transformer
+    from aiko_services_tpu_torch.models.optim import (
+        next_token_loss, value_and_grad)
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.utils.tree import tree_map
+
+    torch.cuda.empty_cache()
+    config = replace(LLAMA32_1B, n_layers=M_LAYERS, n_experts=M_EXPERTS)
+    start = time.perf_counter()
+    params = init_params(config, torch.Generator().manual_seed(0),
+                         device="cuda")
+    n_params = count_params(params)
+    active = moe_active_params(config)
+    rng = np.random.default_rng(0)
+
+    def random_tokens():
+        return torch.from_numpy(rng.integers(
+            0, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
+
+    tokens = random_tokens()
+    torch.cuda.synchronize()
+    say("11a moe_setup", layers=config.n_layers, experts=config.n_experts,
+        capacity_factor=config.moe_capacity_factor,
+        d_model=config.d_model, d_ff=config.d_ff, params=n_params,
+        active_params=active, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        init_seconds=f"{time.perf_counter() - start:.1f}")
+
+    # one step's loss (with the aux term) and attention gradients: the
+    # kernels against the plain attention path, in bf16 and in f32
+    def loss_fn(params, tokens):
+        logits, aux = transformer.forward(params, config, tokens[:, :-1],
+                                          return_aux=True)
+        return (next_token_loss(logits, tokens[:, 1:])
+                + config.moe_aux_weight * aux)
+
+    def attention_grads(tree, routes):
+        """(loss, the attention weights' gradients), each layer's chosen
+        experts appended to `routes`."""
+        router = transformer._router
+
+        def recording(*args):
+            chosen = router(*args)
+            routes.append(chosen[0])
+            return chosen
+
+        transformer._router = recording
+        try:
+            loss, grads = value_and_grad(loss_fn, tree, tokens)
+        finally:
+            transformer._router = router
+        return loss.item(), {name: grads["layers"][name]["w"]
+                             for name in ("wq", "wk", "wv", "wo")}
+
+    def kernel_vs_plain(tree):
+        kernel_routes, plain_routes = [], []
+        kernel_loss, kernel_grads = attention_grads(tree, kernel_routes)
+        kernel_attention = transformer.flash_attention
+        transformer.flash_attention = plain_attention
+        try:
+            plain_loss, plain_grads = attention_grads(tree, plain_routes)
+        finally:
+            transformer.flash_attention = kernel_attention
+        errors = {name: relative_error(kernel_grads[name],
+                                       plain_grads[name])
+                  for name in kernel_grads}
+        flipped = float(np.mean([
+            (a != b).float().mean().item()
+            for a, b in zip(kernel_routes, plain_routes)]))
+        return kernel_loss, plain_loss, errors, flipped
+
+    def summary(errors):
+        return json.dumps({key: float(f"{value:.3e}")
+                           for key, value in errors.items()})
+
+    # bf16: the two paths round each layer's attention output to bf16
+    # from differently ordered sums; near-tie routes flip on those ulps,
+    # and a flipped token moves every later token of both experts' queues
+    # against the capacity, so the gradients part by more than the dense
+    # model's (phase 6): the loss (a mean over 4,096 tokens) is held to
+    # phase 6's limit, the gradients and the share of flipped routes are
+    # reported
+    loss_k, loss_p, errors16, flipped16 = kernel_vs_plain(params)
+    if not (np.isfinite(loss_k) and abs(loss_k - loss_p)
+            <= TRAIN_LOSS_ATOL):
+        raise SystemExit(f"11a: bf16 loss {loss_k} (kernels) vs {loss_p} "
+                         f"(plain)")
+    say("11a moe_kernel_vs_plain_bf16", loss_kernel=f"{loss_k:.6f}",
+        loss_plain=f"{loss_p:.6f}", grad_rel_err=summary(errors16),
+        routes_flipped=f"{flipped16:.5f}", ok=True)
+    # f32 (TF32 off): the kernels' f32 versions on the same path and
+    # shapes, where the two paths differ by f32 summation order only and
+    # no route flips: the loss and the gradients within phase 6's limits
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # the cacheless forward computes in its parameters' dtype
+        params32 = tree_map(lambda leaf: leaf.detach().float(), params)
+        loss_k, loss_p, errors32, flipped32 = kernel_vs_plain(params32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+        del params32
+        torch.cuda.empty_cache()
+    if not (np.isfinite(loss_k) and abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL
+            and max(errors32.values()) <= TRAIN_GRAD_REL_TOL):
+        raise SystemExit(f"11a: f32 loss {loss_k} (kernels) vs {loss_p} "
+                         f"(plain), gradients {errors32}")
+    say("11a moe_kernel_vs_plain_f32", loss_kernel=f"{loss_k:.6f}",
+        loss_plain=f"{loss_p:.6f}", grad_rel_err=summary(errors32),
+        routes_flipped=f"{flipped32:.5f}", ok=True)
+
+    # throughput: 1 warm-up step, then M_STEPS measured steps
+    optimizer = adamw(1e-4)
+    opt_state = optimizer.init(params)
+    train_step = make_train_step(config, optimizer)
+    batches = [random_tokens() for _ in range(M_STEPS + 1)]
+    params, opt_state, loss = train_step(params, opt_state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    losses = []
+    for batch in batches[1:]:
+        params, opt_state, loss = train_step(params, opt_state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = {name: kernels.launch_counts[name]
+                for name in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [value.item() for value in losses]
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"11a: losses not finite: {losses}")
+    for name, count in launches.items():
+        if count != config.n_layers * M_STEPS:
+            raise SystemExit(f"11a: {name}: {count} launches in {M_STEPS} "
+                             f"steps, expected {config.n_layers} per step")
+    with torch.no_grad():
+        _, aux = transformer.forward(params, config, batches[-1][:, :-1],
+                                     return_aux=True)
+    tokens_per_s = M_STEPS * TRAIN_BATCH * TRAIN_SEQ / elapsed
+    mfu = 6 * active * tokens_per_s / peaks_for(smi)[1]["bfloat16"]
+    say("11a moe_training", optimizer="adamw(1e-4)", steps=M_STEPS,
+        tokens_per_s=f"{tokens_per_s:.1f}",
+        step_ms=f"{elapsed / M_STEPS * 1e3:.1f}",
+        active_param_mfu=f"{mfu:.4f}",
+        max_memory_allocated_gib=f"{peak / 2**30:.2f}",
+        aux_loss=f"{aux.item():.6f}",
+        launches_per_step=json.dumps({name: count / M_STEPS
+                                      for name, count in launches.items()}),
+        losses=json.dumps([round(value, 4) for value in losses]),
+        card=repr(smi))
+    profile_train_step(train_step, params, opt_state, random_tokens(), smi,
+                       label="11a moe_step_profile")
+    del opt_state, train_step, batches
+    torch.cuda.empty_cache()
+    return params, config, launches
+
+
+def moe_workload(vocab: int) -> tuple:
+    from aiko_services_tpu_torch.utils.padding import bucket_length
+    rng = np.random.default_rng(21)
+    workload = [
+        (rng.integers(1, vocab, size=int(rng.integers(
+            M_PROMPT[0], M_PROMPT[1] + 1))).astype(np.int32),
+         int(rng.integers(M_NEW[0], M_NEW[1] + 1)))
+        for _ in range(M_REQUESTS)]
+    bucket = bucket_length(M_PROMPT[1], minimum=E_BLOCK)
+    return workload, -(-(bucket + M_NEW[1]) // E_BLOCK) * E_BLOCK
+
+
+def full_slots_step_ms(engine, steps: int = 16) -> float:
+    """Median wall milliseconds of an engine step with every slot
+    decoding: E_SLOTS requests admitted (one prefill a tick), then
+    `steps` timed steps (each ends in the host's token readback)."""
+    for index in range(E_SLOTS):
+        engine.submit(("full", index), np.ones((M_PROMPT[0],), np.int32),
+                      E_SLOTS + steps + 2)
+    while engine.step().active < E_SLOTS:
+        pass
+    times = []
+    for _ in range(steps):
+        start = time.perf_counter()
+        engine.step()
+        times.append((time.perf_counter() - start) * 1e3)
+    drain_engine(engine)
+    return statistics.median(times)
+
+
+def phase_moe_serving(params, config, smi: str) -> None:
+    """11b: closed-batch generate and the decode engine on 11a's
+    weights."""
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    from aiko_services_tpu_torch.models import generate
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(rng.integers(
+        1, config.vocab_size, (M_GEN_ROWS, M_GEN_PROMPT)).astype(
+            np.int32)).cuda()
+    generate(params, config, prompt[:, :8], 2)             # warm-up
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out, _ = generate(params, config, prompt, M_GEN_NEW)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    if not (tuple(out.shape) == (M_GEN_ROWS, M_GEN_NEW)
+            and (0 <= out).all() and (out < config.vocab_size).all()):
+        raise SystemExit(f"11b: generate gave {out.shape} {out.dtype}")
+    say("11b moe_generate", rows=M_GEN_ROWS, prompt=M_GEN_PROMPT,
+        new_tokens=M_GEN_NEW,
+        tokens_per_s=f"{M_GEN_ROWS * M_GEN_NEW / elapsed:.1f}",
+        ms_per_token_step=f"{elapsed / M_GEN_NEW * 1e3:.2f}",
+        card=repr(smi))
+    del out
+
+    workload, max_context = moe_workload(config.vocab_size)
+    runs = {}
+    for mode in ("graph", "eager"):
+        engine = DecodeEngine(params, config, decode_slots=E_SLOTS,
+                              kv_block_size=E_BLOCK, max_context=max_context)
+        engine._graphs = mode == "graph"
+        length, index = E_BLOCK, 0
+        while length <= max_context - M_NEW[1]:   # one prompt per bucket
+            engine.submit(("warm", index), np.ones((length,), np.int32), 2)
+            length, index = length * 2, index + 1
+        drain_engine(engine)
+        signatures = engine.compile_count
+        for index, (prompt_row, max_new) in enumerate(workload):
+            engine.submit(index, prompt_row, max_new)
+        torch.cuda.synchronize()
+        tokens, steps = 0, 0
+        start = time.perf_counter()
+        done = {}
+        while engine.has_work():
+            for completion in engine.step().completions:
+                done[completion.request_id] = completion.tokens
+                tokens += completion.stats["tokens"]
+            steps += 1
+        elapsed = time.perf_counter() - start
+        runs[mode] = {"done": done, "tokens": tokens, "elapsed": elapsed,
+                      "steps": steps, "added": engine.compile_count
+                      - signatures, "full_ms": full_slots_step_ms(engine),
+                      "captured": bool(engine._captured)}
+        if mode == "graph":
+            bound_ms, bound_by, moved = decode_step_bound(engine, smi)
+        del engine
+    graph, eager = runs["graph"], runs["eager"]
+    same = (sorted(graph["done"]) == sorted(eager["done"])
+            == list(range(M_REQUESTS))
+            and all(np.array_equal(graph["done"][key], eager["done"][key])
+                    for key in graph["done"]))
+    for key, (_, max_new) in enumerate(workload):
+        tokens = graph["done"][key]
+        if not (tokens.shape == (max_new,) and (0 <= tokens).all()
+                and (tokens < config.vocab_size).all()):
+            raise SystemExit(f"11b: request {key}: tokens {tokens}")
+    full_step_ms = graph["full_ms"]
+    say("11b moe_engine", requests=M_REQUESTS, slots=E_SLOTS,
+        block=E_BLOCK, max_context=max_context,
+        tokens_per_s=f"{graph['tokens'] / graph['elapsed']:.1f}",
+        engine_steps=graph["steps"],
+        full_step_ms_p50=f"{full_step_ms:.3f}",
+        eager_full_step_ms_p50=f"{eager['full_ms']:.3f}",
+        step_bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        step_bound_gib=f"{moved / 2**30:.3f}",
+        captured=graph["captured"], captured_equals_eager=same,
+        signatures_in_window=graph["added"], card=repr(smi))
+    if not same or graph["added"] or not graph["captured"]:
+        raise SystemExit(f"11b: captured == eager {same}, "
+                         f"{graph['added']} signatures added, captured "
+                         f"{graph['captured']}")
+
+
+def phase_moe_f32_card_vs_cpu(smi: str) -> None:
+    """11b, f32 (TF32 off), a small MoE model at three capacity factors:
+    generate and the engine (captured on the card, eager on the CPU)
+    token for token equal, with the gather, capacity and dense-oracle
+    routes each taken."""
+    from collections import Counter
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    from aiko_services_tpu_torch.models import (
+        TransformerConfig, generate, init_params)
+    from aiko_services_tpu_torch.models import transformer
+    from aiko_services_tpu_torch.utils.tree import tree_map
+    routes = Counter()
+    original = {name: getattr(transformer, name)
+                for name in ("_switch_moe", "_switch_moe_gather",
+                             "_switch_moe_dense")}
+
+    def counting(name):
+        def wrapped(*args, **kwargs):
+            routes[name] += 1
+            return original[name](*args, **kwargs)
+        return wrapped
+
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(1, M_SMALL["vocab_size"], (4, 24)).astype(
+        np.int32)
+    requests = [(rng.integers(1, M_SMALL["vocab_size"], size=int(
+        rng.integers(3, 40))).astype(np.int32), int(rng.integers(4, 16)))
+        for _ in range(8)]
+    previous = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in original:
+        setattr(transformer, name, counting(name))
+    results = {}
+    try:
+        for label, factor in M_FACTORS:
+            config = TransformerConfig(**M_SMALL,
+                                       moe_capacity_factor=factor)
+            cpu = init_params(config, torch.Generator().manual_seed(5),
+                              device="cpu")
+            card = tree_map(lambda leaf: leaf.cuda(), cpu)
+            outputs = {}
+            for device, params in (("cpu", cpu), ("cuda", card)):
+                tokens, _ = generate(params, config,
+                                     torch.from_numpy(prompts).to(device),
+                                     12)
+                engine = DecodeEngine(params, config, decode_slots=3,
+                                      kv_block_size=8)
+                for index, (prompt, max_new) in enumerate(requests):
+                    engine.submit(index, prompt, max_new)
+                done, _ = drain_engine(engine)
+                outputs[device] = (tokens.cpu().numpy(),
+                                   [done[index].tokens
+                                    for index in range(len(requests))],
+                                   bool(engine._captured))
+            same_generate = np.array_equal(outputs["cpu"][0],
+                                           outputs["cuda"][0])
+            same_engine = all(np.array_equal(a, b) for a, b in zip(
+                outputs["cpu"][1], outputs["cuda"][1]))
+            results[label] = (same_generate, same_engine,
+                              outputs["cuda"][2])
+    finally:
+        for name, function in original.items():
+            setattr(transformer, name, function)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = previous
+    capacity = (routes["_switch_moe"] - routes["_switch_moe_gather"]
+                - routes["_switch_moe_dense"])
+    say("11b moe_f32_card_vs_cpu",
+        identical=json.dumps({label: value[:2]
+                              for label, value in results.items()}),
+        captured=all(value[2] for value in results.values()),
+        route_calls=json.dumps({"gather": routes["_switch_moe_gather"],
+                                "capacity": capacity,
+                                "oracle": routes["_switch_moe_dense"]}),
+        card=repr(smi))
+    if not all(all(value) for value in results.values()):
+        raise SystemExit(f"11b: f32 card != CPU: {results}")
+    if not (routes["_switch_moe_gather"] and capacity
+            and routes["_switch_moe_dense"]):
+        raise SystemExit(f"11b: a route was not taken: {routes}")
+
+
+def write_yolov8n(path, seed: int = 0) -> None:
+    """An ultralytics-named yolov8n state_dict from a seeded rng (torch
+    (O, I, kh, kw) convolutions with separate BatchNorm tensors, the
+    head's last 1x1 convolutions plain with a bias), as the tests write
+    their tiny one."""
+    from aiko_services_tpu_torch.models import YOLOV8N, write_safetensors
+    config = YOLOV8N
+    rng = np.random.default_rng(seed)
+    tensors = {}
+
+    def conv_bn(stem, c_in, c_out, k):
+        tensors[f"{stem}.conv.weight"] = (rng.standard_normal(
+            (c_out, c_in, k, k)).astype(np.float32)
+            / np.sqrt(c_in * k * k))
+        tensors[f"{stem}.bn.weight"] = rng.uniform(
+            0.5, 1.5, c_out).astype(np.float32)
+        tensors[f"{stem}.bn.bias"] = (
+            rng.standard_normal(c_out).astype(np.float32) * 0.1)
+        tensors[f"{stem}.bn.running_mean"] = (
+            rng.standard_normal(c_out).astype(np.float32) * 0.1)
+        tensors[f"{stem}.bn.running_var"] = rng.uniform(
+            0.5, 2.0, c_out).astype(np.float32)
+
+    def plain(stem, c_in, c_out):
+        tensors[f"{stem}.weight"] = (rng.standard_normal(
+            (c_out, c_in, 1, 1)).astype(np.float32) / np.sqrt(c_in))
+        tensors[f"{stem}.bias"] = (
+            rng.standard_normal(c_out).astype(np.float32) * 0.1)
+
+    def c2f(module, c_in, c_out, n):
+        half = c_out // 2
+        conv_bn(f"model.{module}.cv1", c_in, c_out, 1)
+        conv_bn(f"model.{module}.cv2", (2 + n) * half, c_out, 1)
+        for i in range(n):
+            conv_bn(f"model.{module}.m.{i}.cv1", half, half, 3)
+            conv_bn(f"model.{module}.m.{i}.cv2", half, half, 3)
+
+    w, r = config.width, config.repeats
+    conv_bn("model.0", 3, w[0], 3)
+    conv_bn("model.1", w[0], w[1], 3)
+    c2f(2, w[1], w[1], r[0])
+    conv_bn("model.3", w[1], w[2], 3)
+    c2f(4, w[2], w[2], r[1])
+    conv_bn("model.5", w[2], w[3], 3)
+    c2f(6, w[3], w[3], r[2])
+    conv_bn("model.7", w[3], w[4], 3)
+    c2f(8, w[4], w[4], r[3])
+    conv_bn("model.9.cv1", w[4], w[4] // 2, 1)
+    conv_bn("model.9.cv2", w[4] * 2, w[4], 1)
+    c2f(12, w[4] + w[3], w[3], 1)
+    c2f(15, w[3] + w[2], w[2], 1)
+    conv_bn("model.16", w[2], w[2], 3)
+    c2f(18, w[3] + w[2], w[3], 1)
+    conv_bn("model.19", w[3], w[3], 3)
+    c2f(21, w[4] + w[3], w[4], 1)
+    box_c, cls_c = config.head_box_hidden, config.head_cls_hidden
+    for scale, c_in in enumerate((w[2], w[3], w[4])):
+        conv_bn(f"model.22.cv2.{scale}.0", c_in, box_c, 3)
+        conv_bn(f"model.22.cv2.{scale}.1", box_c, box_c, 3)
+        plain(f"model.22.cv2.{scale}.2", box_c, 4 * config.reg_max)
+        conv_bn(f"model.22.cv3.{scale}.0", c_in, cls_c, 3)
+        conv_bn(f"model.22.cv3.{scale}.1", cls_c, cls_c, 3)
+        plain(f"model.22.cv3.{scale}.2", cls_c, config.n_classes)
+    write_safetensors(path, tensors)
+
+
+def yolo_candidates(params, config, images) -> tuple:
+    """The raw heads and the pre-NMS candidates (boxes, scores, classes)
+    of yolo_detect."""
+    from aiko_services_tpu_torch.models import yolo
+    with torch.no_grad():
+        heads = yolo.yolo_forward(params, config, images)
+        decoded = [yolo._decode_scale(raw, float(stride), config)
+                   for raw, stride in zip(heads, config.strides)]
+    return heads, [torch.cat(parts, dim=1) for parts in zip(*decoded)]
+
+
+def phase_yolo_card_vs_cpu(path, smi: str) -> None:
+    """11c: the checkpoint loaded by both devices; two 640 px images."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import (
+        infer_yolov8_config, load_yolov8_params)
+    from aiko_services_tpu_torch.models.detector import _nms
+    images = torch.from_numpy(np.random.default_rng(4).random(
+        (2, 3, 640, 640), np.float32))
+    config32 = infer_yolov8_config(path, dtype="float32")
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        results = {}
+        for device in ("cpu", "cuda"):
+            params = load_yolov8_params(path, config32, device=device)
+            results[device] = yolo_candidates(params, config32,
+                                              images.to(device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+    (_, (cpu_boxes, cpu_scores, cpu_classes)) = results["cpu"]
+    (_, (boxes, scores, classes)) = results["cuda"]
+    box_err = float((boxes.cpu() - cpu_boxes).abs().max())
+    score_err = float((scores.cpu() - cpu_scores).abs().max())
+    class_agree = float((classes.cpu() == cpu_classes).float().mean())
+    # NMS on the card's candidates, on the card and on the CPU
+    kept = _nms(boxes, scores, classes, config32)
+    kept_cpu = _nms(boxes.cpu(), scores.cpu(), classes.cpu(), config32)
+    same_nms = all(torch.equal(a.cpu(), b) for a, b in zip(kept, kept_cpu))
+    valid = int(kept[3].sum())
+    # bf16: the raw heads and candidate boxes within bf16 roundings
+    config16 = replace(config32, dtype="bfloat16")
+    bf16 = {device: yolo_candidates(
+        load_yolov8_params(path, config16, device=device), config16,
+        images.to(device)) for device in ("cpu", "cuda")}
+    head_err = max(relative_error(card.float(), cpu.float().cuda())
+                   for card, cpu in zip(bf16["cuda"][0], bf16["cpu"][0]))
+    bf16_box_err = relative_error(bf16["cuda"][1][0],
+                                  bf16["cpu"][1][0].cuda())
+    say("11c yolov8n_card_vs_cpu", images=2, candidates=boxes.shape[1],
+        f32_box_max_err_px=f"{box_err:.3e}",
+        f32_score_max_err=f"{score_err:.3e}",
+        f32_class_agreement=f"{class_agree:.5f}",
+        nms_card_equals_cpu=same_nms, valid=valid,
+        bf16_head_rel_err=f"{head_err:.3e}",
+        bf16_box_rel_err=f"{bf16_box_err:.3e}", card=repr(smi))
+    if not (box_err <= 1e-3 and score_err <= 1e-5 and same_nms and valid
+            and head_err <= YOLO_BF16_TOL
+            and bf16_box_err <= YOLO_BF16_TOL):
+        raise SystemExit("11c: yolov8n on the card differs from the CPU")
+
+
+def phase_yolo_serving(path, smi: str) -> None:
+    """11c: a Detector on the ultralytics checkpoint (the architecture
+    read off its shapes), bf16, micro_batch 16 over 16 streams: one
+    warm-up group, then Y_GROUPS measured groups."""
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    generator = torch.Generator(device="cuda").manual_seed(6)
+    images = [torch.rand((1, 3, 640, 640), generator=generator,
+                         device="cuda") for _ in range(Y_MICRO)]
+    process = Process(transport_kind="loopback")
+    try:
+        pipe = create_pipeline(process, {
+            "name": "yolo",
+            "parameters": {"device": "cuda", "metrics_interval": 60.0},
+            "graph": ["(detector)"],
+            "elements": [
+                {"name": "detector", "input": [{"name": "image"}],
+                 "output": [{"name": "detections", "type": "dict"}],
+                 "parameters": {"weights": str(path), "dtype": "bfloat16",
+                                "micro_batch": Y_MICRO},
+                 "deploy": {"local": {"module": MODULE,
+                                      "class_name": "Detector"}}}]})
+        process.run(in_thread=True)
+        replies = queue.Queue()
+        streams = [pipe.create_stream(f"y{index}", queue_response=replies,
+                                      grace_time=600)
+                   for index in range(Y_MICRO)]
+        sent, latency, outputs = {}, [], []
+        torch.cuda.synchronize()
+        for group in range(Y_GROUPS + 1):
+            if group == 1:
+                torch.cuda.reset_peak_memory_stats()
+                start = time.perf_counter()
+            for index, stream in enumerate(streams):
+                sent[stream.stream_id, group] = time.perf_counter()
+                pipe.create_frame(stream, {"image": images[index]})
+            for _ in streams:
+                stream, frame, output = replies.get(timeout=600)
+                arrived = time.perf_counter()
+                if group:
+                    latency.append(arrived
+                                   - sent[stream.stream_id, frame.frame_id])
+                outputs.append(output["detections"])
+        elapsed = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated()
+        config = pipe.elements["detector"].config
+        summary = pipe.telemetry.summary()
+    finally:
+        process.terminate()
+    for detections in outputs:
+        if not (tuple(detections["boxes"].shape)
+                == (1, config.max_detections, 4)
+                and detections["boxes"].is_cuda
+                and torch.isfinite(detections["boxes"]).all()
+                and detections["classes"].dtype == torch.int32):
+            raise SystemExit("11c: a served frame's detections are wrong")
+    frames = Y_MICRO * Y_GROUPS
+    say("11c yolov8n_serving", width=json.dumps(config.width),
+        image=640, micro_batch=Y_MICRO, groups=Y_GROUPS, frames=frames,
+        frames_per_s=f"{frames / elapsed:.1f}",
+        p50_frame_latency_ms=f"{statistics.median(latency) * 1e3:.1f}",
+        fused_groups=summary["fused_groups"],
+        max_memory_allocated_gib=f"{peak / 2**30:.3f}", card=repr(smi))
+    if summary["errors"]:
+        raise SystemExit(f"11c: serving errors: {summary}")
+
+
+def phase_tts(smi: str) -> None:
+    """11d: TextToSpeech on the card against the CPU, seconds of audio a
+    second, and make_tts_train_step's loss falling."""
+    from aiko_services_tpu_torch.models import (
+        TTSConfig, adam, encode_chars, init_tts_params, make_tts_train_step,
+        save_pytree, synthesize)
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    from aiko_services_tpu_torch.utils.padding import bucket_length
+    config = TTSConfig()
+    cpu = init_tts_params(config, torch.Generator().manual_seed(0),
+                          device="cpu")
+    path = ROOT / "build" / "tts_smoke.safetensors"
+    save_pytree(path, cpu)
+    process = Process(transport_kind="loopback")
+    try:
+        pipe = create_pipeline(process, {
+            "name": "tts",
+            "parameters": {"device": "cuda", "metrics_interval": 60.0},
+            "graph": ["(speak)"],
+            "elements": [
+                {"name": "speak", "input": [{"name": "text"}],
+                 "output": [{"name": "audio"}, {"name": "sample_rate"}],
+                 "parameters": {"weights": str(path)},
+                 "deploy": {"local": {"module": MODULE,
+                                      "class_name": "TextToSpeech"}}}]})
+        process.run(in_thread=True)
+        replies = queue.Queue()
+        stream = pipe.create_stream("t", queue_response=replies,
+                                    grace_time=600)
+        audio = {}
+        for rounds in range(2):                      # warm-up, measured
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for text in T_PROMPTS:
+                pipe.create_frame(stream, {"text": text})
+            for _ in T_PROMPTS:
+                _, frame, outputs = replies.get(timeout=600)
+                audio[frame.frame_id % len(T_PROMPTS)] = outputs["audio"]
+            elapsed = time.perf_counter() - start
+    finally:
+        process.terminate()
+    errors = []
+    seconds = 0.0
+    for index, text in enumerate(T_PROMPTS):
+        width = bucket_length(len(text.encode()), minimum=16)
+        expected = synthesize(cpu, config, torch.from_numpy(
+            encode_chars(text, max_len=width)))
+        waveform = audio[index]
+        if not (waveform.is_cuda and waveform.shape == expected.shape):
+            raise SystemExit(f"11d: waveform {waveform.shape} on "
+                             f"{waveform.device}")
+        errors.append(float((waveform.cpu() - expected).abs().max()))
+        seconds += waveform.shape[1] / config.sample_rate
+    # the train step: phoneme templates, 'a' low bands, 's' high bands
+    params = init_tts_params(config, torch.Generator().manual_seed(1),
+                             device="cuda")
+    chars = np.concatenate([encode_chars("aaaaaaaa"),
+                            encode_chars("ssssssss")])
+    target = np.full((2, config.n_mels, chars.shape[1]
+                      * config.frames_per_char), -6.0, np.float32)
+    target[0, 4:16] = 1.5
+    target[1, 60:76] = 1.5
+    optimizer = adam(3e-3)
+    state = optimizer.init(params)
+    step = make_tts_train_step(config, optimizer)
+    chars_t, target_t = (torch.from_numpy(chars).cuda(),
+                         torch.from_numpy(target).cuda())
+    losses = []
+    torch.cuda.synchronize()
+    start_train = time.perf_counter()
+    for _ in range(T_TRAIN_STEPS):
+        params, state, loss = step(params, state, chars_t, target_t)
+        losses.append(loss.item())
+    train_ms = (time.perf_counter() - start_train) / T_TRAIN_STEPS * 1e3
+    say("11d tts", prompts=len(T_PROMPTS),
+        max_abs_err_vs_cpu=f"{max(errors):.3e}",
+        audio_seconds_per_second=f"{seconds / elapsed:.2f}",
+        wall_ms_per_prompt=f"{elapsed / len(T_PROMPTS) * 1e3:.1f}",
+        train_steps=T_TRAIN_STEPS, train_step_ms=f"{train_ms:.2f}",
+        loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+        card=repr(smi))
+    if max(errors) > 1e-4:
+        raise SystemExit(f"11d: TTS waveforms differ from the CPU's by "
+                         f"{max(errors)}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise SystemExit(f"11d: the TTS loss did not fall: {losses}")
+
+
+def detector_targets(rng, batch: int, size: int, classes: int) -> tuple:
+    corner = rng.uniform(0, size * 0.75, (batch, 2))
+    extent = rng.uniform(size * 0.05, size * 0.25, (batch, 2))
+    boxes = np.concatenate([corner, corner + extent], axis=1)
+    return (torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy(rng.integers(0, classes, batch).astype(
+                np.int32)))
+
+
+def phase_detector_training(smi: str) -> None:
+    """11d: make_detector_train_step at YOLOV8N_SHAPE (640 px, bf16,
+    batch 16), and one f32 step at DETECTOR_TOY, card against the CPU:
+    the loss atol 1e-5 and every gradient leaf within 1e-4 of its
+    largest entry (the CPU test's limits: the same products through
+    eight f32 convolutions, summed in another order)."""
+    from aiko_services_tpu_torch.models import (
+        DETECTOR_TOY, YOLOV8N_SHAPE, adamw, init_detector_params,
+        make_detector_train_step)
+    from aiko_services_tpu_torch.models.optim import GradientTransformation
+    from aiko_services_tpu_torch.utils.tree import tree_leaves, tree_map
+    rng = np.random.default_rng(12)
+    config = YOLOV8N_SHAPE
+    params = init_detector_params(config, torch.Generator().manual_seed(0),
+                                  device="cuda")
+    optimizer = adamw(1e-3)
+    state = optimizer.init(params)
+    step = make_detector_train_step(config, optimizer)
+    generator = torch.Generator(device="cuda").manual_seed(2)
+    images = torch.rand((DT_BATCH, 3, config.image_size, config.image_size),
+                        generator=generator, device="cuda")
+    boxes, classes = detector_targets(rng, DT_BATCH, config.image_size,
+                                      config.n_classes)
+    targets = {"box": boxes.cuda(), "class": classes.cuda()}
+    params, state, loss = step(params, state, images, targets)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [loss.item()]
+    start = time.perf_counter()
+    for _ in range(DT_STEPS):
+        params, state, loss = step(params, state, images, targets)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) / DT_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(value) for value in losses]
+    # f32 at DETECTOR_TOY: one step's loss and gradients on both devices
+    # (an optimizer whose state after the step is the gradient tree)
+    toy = DETECTOR_TOY
+    cpu = init_detector_params(toy, torch.Generator().manual_seed(1),
+                               device="cpu")
+    card = tree_map(lambda leaf: leaf.cuda(), cpu)
+    toy_images = torch.from_numpy(np.random.default_rng(3).random(
+        (4, 3, toy.image_size, toy.image_size), np.float32))
+    toy_boxes, toy_classes = detector_targets(rng, 4, toy.image_size,
+                                              toy.n_classes)
+    capture = GradientTransformation(
+        lambda tree: None,
+        lambda grads, state, tree=None: (
+            tree_map(torch.zeros_like, grads), grads))
+    previous = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        toy_runs = {}
+        for device, tree in (("cpu", cpu), ("cuda", card)):
+            toy_step = make_detector_train_step(toy, capture)
+            _, grads, toy_loss = toy_step(
+                tree, None, toy_images.to(device),
+                {"box": toy_boxes.to(device),
+                 "class": toy_classes.to(device)})
+            toy_runs[device] = (toy_loss.item(), tree_leaves(grads))
+    finally:
+        torch.backends.cudnn.allow_tf32 = previous
+    loss_err = abs(toy_runs["cuda"][0] - toy_runs["cpu"][0])
+    # each gradient leaf's largest difference over its largest entry
+    grad_err = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                   for a, b in zip(toy_runs["cuda"][1], toy_runs["cpu"][1]))
+    say("11d detector_training", image=config.image_size, batch=DT_BATCH,
+        dtype=config.dtype, steps=DT_STEPS, step_ms=f"{step_ms:.1f}",
+        images_per_s=f"{DT_BATCH / step_ms * 1e3:.1f}",
+        max_memory_allocated_gib=f"{peak / 2**30:.3f}",
+        losses=json.dumps([round(value, 4) for value in losses]),
+        toy_f32_loss_err=f"{loss_err:.3e}",
+        toy_f32_grad_rel_err=f"{grad_err:.3e}", card=repr(smi))
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"11d: detector losses not finite: {losses}")
+    if loss_err > 1e-5 or grad_err > 1e-4:
+        raise SystemExit(f"11d: the f32 detector step on the card differs "
+                         f"from the CPU's: loss {loss_err}, gradients "
+                         f"{grad_err}")
+
+
+def phase_model_families(smi: str) -> dict:
+    """Phase 11.  Returns the kernel launches of 11a's measured steps."""
+    start = time.perf_counter()
+    params, config, launches = phase_moe_training(smi)
+    phase_moe_serving(params, config, smi)
+    del params
+    torch.cuda.empty_cache()
+    phase_moe_f32_card_vs_cpu(smi)
+    path = ROOT / "build" / "yolov8n_smoke.safetensors"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_yolov8n(path)
+    phase_yolo_card_vs_cpu(path, smi)
+    phase_yolo_serving(path, smi)
+    phase_tts(smi)
+    phase_detector_training(smi)
+    say("11 model_families", wall_s=f"{time.perf_counter() - start:.1f}",
+        card=repr(smi))
+    return launches
+
+
 def main() -> None:
     from aiko_services_tpu_torch.ops import kernels
+    run_start = time.perf_counter()
     smi = phase_card()
     phase_build()
     max_abs_err = {"flash_attention": phase_kernel_checks()}
@@ -2637,6 +3486,10 @@ def main() -> None:
             launches[name] += count
     phase_engine(smi)
     phase_serving_tier(smi)
+    for name, count in phase_model_families(smi).items():
+        launches[name] += count
+    say("run", seconds=f"{time.perf_counter() - run_start:.1f}",
+        card=repr(smi))
     sources = {"flash_attention": ("flash_attention.cu", 75),
                "flash_attention_dq": ("flash_attention_backward.cu", 264),
                "flash_attention_dkv": ("flash_attention_backward.cu", 314)}

@@ -10,7 +10,13 @@
 # (f32 exp and sigmoid of the same inputs, ~1e-7 relative), scores atol
 # 1e-5; NMS on the same candidates must be identical; a bf16 convolution
 # within one bf16 rounding (rtol 2^-7) of the JAX package's, which rounds
-# its f32 sum plus bias once.
+# its f32 sum plus bias once.  The train step: the loss atol 1e-5 (a
+# mean of f32 BCE terms of order 1 over the raw head, which agrees within
+# 1e-4 on values of order 10); every gradient leaf within 1e-4 of its
+# largest entry (the same products back through eight f32 convolutions,
+# summed in another order); the parameters after three adamw(1e-3) steps
+# atol 5e-5 (test_torch_transformer.py's reason: Adam divides each
+# gradient by its own running magnitude).
 
 import ast
 import pathlib
@@ -50,6 +56,8 @@ def _asset_metadata() -> dict:
 _METADATA = _asset_metadata()
 COLORS = np.asarray(_METADATA["colors"], np.float32)
 IMAGE_SIZE = int(_METADATA["config"]["image_size"])
+DETECTOR_LOSS_ATOL = 1e-5
+DETECTOR_GRAD_REL = 1e-4
 
 
 @pytest.fixture(autouse=True)
@@ -272,3 +280,98 @@ def test_detector_element_finds_the_checkpoints_squares():
             assert _iou(detections["boxes"][slot], box) >= 0.7
     finally:
         process.terminate()
+
+
+# -- the train step ---------------------------------------------------------
+
+def _targets(batch: int, seed: int = 4):
+    """Seeded single-object targets: xyxy boxes in pixels (the last one's
+    center lies outside the image, so the cell clips) and classes."""
+    rng = np.random.default_rng(seed)
+    corner = rng.uniform(0, 48, (batch, 2))
+    size = rng.uniform(6, 30, (batch, 2))
+    boxes = np.concatenate([corner, corner + size], axis=1)
+    boxes[-1] = [60.0, -10.0, 90.0, 4.0]
+    classes = rng.integers(0, TOY["n_classes"], batch)
+    return boxes.astype(np.float32), classes.astype(np.int32)
+
+
+def _capture_gradients_jax():
+    """An optax transformation whose state after a step is the step's
+    gradient tree (and whose updates are zero)."""
+    import optax
+    return optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda grads, state, params=None: (
+            jax.tree_util.tree_map(jnp.zeros_like, grads), grads))
+
+
+def _capture_gradients_torch():
+    from aiko_services_tpu_torch.models import optim
+    from aiko_services_tpu_torch.utils.tree import tree_map
+    return optim.GradientTransformation(
+        lambda params: None,
+        lambda grads, state, params=None: (
+            tree_map(torch.zeros_like, grads), grads))
+
+
+def test_detector_train_step_loss_and_gradients_match_jax(toy):
+    jax_config, jax_params, config, params, images = toy
+    boxes, classes = _targets(images.shape[0])
+    jax_step = jax_det.make_detector_train_step(jax_config,
+                                                _capture_gradients_jax())
+    step = torch_det.make_detector_train_step(config,
+                                              _capture_gradients_torch())
+    jax_copy = jax.tree_util.tree_map(jnp.array, jax_params)
+    _, expected_grads, expected_loss = jax_step(
+        jax_copy, jax.tree_util.tree_map(jnp.zeros_like, jax_copy),
+        jnp.asarray(images),
+        {"box": jnp.asarray(boxes), "class": jnp.asarray(classes)})
+    copy = {name: {key: value.clone() for key, value in entry.items()}
+            for name, entry in params.items()}
+    _, grads, loss = step(copy, None, torch.from_numpy(images),
+                          {"box": torch.from_numpy(boxes),
+                           "class": torch.from_numpy(classes)})
+    np.testing.assert_allclose(float(loss), float(expected_loss),
+                               atol=DETECTOR_LOSS_ATOL, rtol=0)
+    for name, entry in expected_grads.items():
+        for key, expected in entry.items():
+            actual = grads[name][key].numpy()
+            scale = float(np.abs(expected).max())
+            np.testing.assert_allclose(
+                actual, np.asarray(expected), rtol=0,
+                atol=DETECTOR_GRAD_REL * scale, err_msg=f"{name}.{key}")
+
+
+def test_detector_train_step_adamw_matches_optax_and_learns(toy):
+    import optax
+    from aiko_services_tpu_torch.models import optim
+    jax_config, jax_params, config, params, images = toy
+    boxes, classes = _targets(images.shape[0])
+    jax_optimizer = optax.adamw(1e-3)
+    jax_copy = jax.tree_util.tree_map(jnp.array, jax_params)
+    jax_state = jax_optimizer.init(jax_copy)
+    jax_step = jax_det.make_detector_train_step(jax_config, jax_optimizer)
+    optimizer = optim.adamw(1e-3)
+    copy = {name: {key: value.clone() for key, value in entry.items()}
+            for name, entry in params.items()}
+    state = optimizer.init(copy)
+    step = torch_det.make_detector_train_step(config, optimizer)
+    jax_targets = {"box": jnp.asarray(boxes), "class": jnp.asarray(classes)}
+    targets = {"box": torch.from_numpy(boxes),
+               "class": torch.from_numpy(classes)}
+    losses = []
+    for _ in range(3):
+        jax_copy, jax_state, expected = jax_step(
+            jax_copy, jax_state, jnp.asarray(images), jax_targets)
+        copy, state, loss = step(copy, state, torch.from_numpy(images),
+                                 targets)
+        np.testing.assert_allclose(float(loss), float(expected),
+                                   atol=DETECTOR_LOSS_ATOL, rtol=0)
+        losses.append(float(loss))
+    for name, entry in jax_copy.items():
+        for key, expected in entry.items():
+            np.testing.assert_allclose(copy[name][key].detach().numpy(),
+                                       np.asarray(expected), atol=5e-5,
+                                       rtol=0, err_msg=f"{name}.{key}")
+    assert losses[-1] < losses[0]

@@ -479,3 +479,99 @@ def test_two_engines_capture_from_two_threads(cuda):
     for together, solo in zip(results, alone):
         for index in solo:
             np.testing.assert_array_equal(together[index], solo[index])
+
+
+# -- the model families of the MoE / YOLOv8 / TTS slice ----------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_captured_decode_and_verify_steps_replay_the_eager_steps(
+        cuda, dtype):
+    """A switch-MoE model (4 experts, capacity factor 1.25) in the
+    engine: the captured decode step (the weight gather, 1 < E) and the
+    speculative verify windows (4 = E: capacity dispatch) against the same
+    engine run eagerly, identical tokens and a bit-identical pool.  No
+    MoE path syncs with the host inside a capture."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.decode import DecodeEngine
+    from aiko_services_tpu_torch.models import TransformerConfig, init_params
+    config = TransformerConfig(vocab_size=256, d_model=64, n_layers=2,
+                               n_heads=4, n_kv_heads=2, d_ff=128,
+                               max_seq_len=128, dtype=dtype, n_experts=4)
+    draft_config = replace(config, n_layers=1)
+    params = init_params(config, torch.Generator().manual_seed(0),
+                         device=cuda)
+    draft = init_params(draft_config, torch.Generator().manual_seed(1),
+                        device=cuda)
+    rng = np.random.default_rng(4)
+    requests = [(rng.integers(1, 256, size=int(rng.integers(3, 30)))
+                 .astype(np.int32), int(rng.integers(2, 20)))
+                for _ in range(10)]
+    runs = {}
+    for graphs in (True, False):
+        for speculative in (False, True):
+            options = ({"draft_params": draft, "draft_config": draft_config,
+                        "spec_k": 3} if speculative else {})
+            engine = DecodeEngine(params, config, decode_slots=3,
+                                  kv_block_size=8, **options)
+            engine._graphs = graphs
+            for index, (prompt, max_new) in enumerate(requests):
+                engine.submit(index, prompt, max_new)
+            done = _drain(engine, {})
+            assert bool(engine._captured) == graphs
+            runs[graphs, speculative] = (done, {
+                name: leaf.clone() for name, leaf in engine.pool.items()})
+    for speculative in (False, True):
+        graph_done, graph_pool = runs[True, speculative]
+        eager_done, eager_pool = runs[False, speculative]
+        for index in range(len(requests)):
+            np.testing.assert_array_equal(graph_done[index],
+                                          eager_done[index])
+        for name in graph_pool:
+            assert torch.equal(graph_pool[name][:, 1:],
+                               eager_pool[name][:, 1:])
+
+
+def test_moe_bf16_train_step_launches_the_kernels(cuda):
+    """The switch-MoE train step in bf16: K1 once a layer in the forward,
+    K2 and K3 once a layer in the backward (no remat), a finite loss with
+    the aux term, and the loss falls on a fixed batch."""
+    from aiko_services_tpu_torch.models import (
+        TransformerConfig, adamw, init_params, make_train_step)
+    config = TransformerConfig(vocab_size=512, d_model=256, n_layers=3,
+                               n_heads=4, n_kv_heads=2, d_ff=512,
+                               max_seq_len=256, dtype="bfloat16",
+                               n_experts=4)
+    params = init_params(config, torch.Generator().manual_seed(0),
+                         device=cuda)
+    optimizer = adamw(1e-3)
+    state = optimizer.init(params)
+    step = make_train_step(config, optimizer)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 512, (2, 129))).to(cuda)
+    kernels.reset_launch_counts()
+    params, state, loss = step(params, state, tokens)
+    torch.cuda.synchronize()
+    assert {name: kernels.launch_counts[name] for name in kernels.KERNELS} \
+        == {name: config.n_layers for name in kernels.KERNELS}
+    losses = [float(loss)]
+    for _ in range(4):
+        params, state, loss = step(params, state, tokens)
+        losses.append(float(loss))
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def test_yolov8n_sppf_pool_in_bf16_is_reduce_window(cuda):
+    """The SPPF's pool at yolov8n's P5 shape (640 px: 20 x 20 x 128) in
+    bf16 on the card: reduce_window(max, 5x5, stride 1, "SAME", -inf),
+    computed here as a max over the 25 shifted views of the input padded
+    with -inf; a max selects, so the two agree exactly."""
+    from aiko_services_tpu_torch.models.yolo import _max_pool5
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, 20, 20, 128)).astype(np.float32) - 1.0).to(cuda, torch.bfloat16)
+    padded = torch.nn.functional.pad(x.float().cpu(), (0, 0, 2, 2, 2, 2),
+                                     value=float("-inf"))
+    expected = torch.stack([padded[:, i:i + 20, j:j + 20]
+                            for i in range(5) for j in range(5)]).amax(0)
+    actual = _max_pool5(x)
+    assert actual.dtype == torch.bfloat16 and actual.is_cuda
+    assert torch.equal(actual.float().cpu(), expected)

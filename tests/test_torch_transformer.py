@@ -174,7 +174,8 @@ def test_init_params_tree_matches_jax_and_is_seeded(lm):
 
 
 def test_constructors_default_to_cuda():
-    from aiko_services_tpu_torch.models import asr, layers, load_pytree
+    from aiko_services_tpu_torch.models import (
+        asr, layers, load_pytree, tts, yolo)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
     asset = (pathlib.Path(__file__).parent / "assets"
@@ -188,6 +189,12 @@ def test_constructors_default_to_cuda():
         "params_from_numpy": lambda: params_from_numpy(
             {"w": np.zeros(3, np.float32)}),
         "load_pytree": lambda: load_pytree(asset),
+        "init_yolo_params": lambda: yolo.init_yolo_params(
+            yolo.YOLOV8N, torch.Generator()),
+        "load_yolov8_params": lambda: yolo.load_yolov8_params(
+            asset, yolo.YOLOV8N),
+        "init_tts_params": lambda: tts.init_tts_params(
+            tts.TTSConfig(d_model=32), torch.Generator()),
     }
     for name, construct in constructors.items():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -224,7 +231,7 @@ def _gateway(**options) -> None:
 
 def _foreign_checkpoint(directory, name: str) -> str:
     """A checkpoint holding one tensor under a foreign naming convention
-    (HuggingFace Llama, ultralytics YOLOv8)."""
+    (HuggingFace Llama)."""
     from aiko_services_tpu_torch.models import write_safetensors
     path = directory / "foreign.safetensors"
     write_safetensors(path, {name: np.zeros(2, np.float32)})
@@ -237,9 +244,6 @@ UNPORTED = {
         p, c, t, activation_specs=True),
     "sharded_train_step": lambda c, p, t, d: torch_lm.make_train_step(
         c, optim.adam(1e-3), sharded=True),
-    "n_experts": lambda c, p, t, d: torch_lm.init_params(
-        torch_lm.TransformerConfig(**CONFIG, n_experts=4),
-        torch.Generator(), device="cpu"),
     "sequence_parallel": lambda c, p, t, d: torch_lm.make_train_step(
         torch_lm.TransformerConfig(**CONFIG, sequence_parallel=True),
         optim.adam(1e-3)),
@@ -250,9 +254,6 @@ UNPORTED = {
     "hf_llama_weights": lambda c, p, t, d: _element(
         "LMGenerate", {**CONFIG, "weights": _foreign_checkpoint(
             d, "model.embed_tokens.weight")}),
-    "ultralytics_detector_weights": lambda c, p, t, d: _element(
-        "Detector", {"weights": _foreign_checkpoint(
-            d, "model.0.conv.weight")}),
 }
 
 
@@ -262,6 +263,77 @@ def test_unported_options_raise(lm, option, tmp_path):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         UNPORTED[option](torch_config, _port_params(numpy_params),
                          torch.from_numpy(tokens), tmp_path)
+
+
+def _moe_trains(tmp_path) -> None:
+    """A switch-MoE config trains (aux loss in the step) and generates;
+    tests/test_torch_moe.py holds it against the JAX package."""
+    config = torch_lm.TransformerConfig(**CONFIG, n_experts=4)
+    params = torch_lm.init_params(config, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    assert tuple(params["layers"]["w_gate"]["w"].shape) == (2, 4, 64, 128)
+    optimizer = optim.adam(1e-2)
+    state = optimizer.init(params)
+    step = torch_lm.make_train_step(config, optimizer)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (4, 16)).astype(np.int32))
+    losses = []
+    for _ in range(4):
+        params, state, loss = step(params, state, tokens)
+        losses.append(float(loss))
+    assert losses[-1] < losses[0]
+    out, _ = torch_lm.generate(params, config, tokens[:, :5], 3)
+    assert tuple(out.shape) == (4, 3)
+
+
+def _ultralytics_detector_runs(tmp_path) -> None:
+    """The Detector reads an ultralytics-named checkpoint's architecture
+    off its shapes and detects; tests/test_torch_yolo.py holds it against
+    the JAX package."""
+    import queue
+    from aiko_services_tpu_torch.models import yolo
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    from test_torch_yolo import TINY, write_ultralytics_yolo
+    path = tmp_path / "yolo.safetensors"
+    write_ultralytics_yolo(path, yolo.YoloV8Config(**TINY))
+    process = Process(transport_kind="loopback")
+    try:
+        pipeline = create_pipeline(process, {
+            "name": "ported",
+            "graph": ["(node)"],
+            "parameters": {"device": "cpu"},
+            "elements": [
+                {"name": "node", "input": [{"name": "image"}],
+                 "output": [{"name": "detections"}],
+                 "parameters": {"weights": str(path), "image_size": 64,
+                                "max_detections": 8, "dtype": "float32"},
+                 "deploy": {"local": {
+                     "module": "aiko_services_tpu_torch.elements",
+                     "class_name": "Detector"}}}],
+        })
+        process.run(in_thread=True)
+        responses = queue.Queue()
+        stream = pipeline.create_stream("s", queue_response=responses)
+        pipeline.create_frame(stream, {"image": np.zeros(
+            (1, 3, 64, 64), np.float32)})
+        _, _, outputs = responses.get(timeout=60)
+    finally:
+        process.terminate()
+    assert tuple(outputs["detections"]["boxes"].shape) == (1, 8, 4)
+
+
+# options the port once refused and now runs, under the ids of the
+# refusal cases they replace
+PORTED = {
+    "n_experts": _moe_trains,
+    "ultralytics_detector_weights": _ultralytics_detector_runs,
+}
+
+
+@pytest.mark.parametrize("option", sorted(PORTED))
+def test_formerly_unported_options_run(option, tmp_path):
+    PORTED[option](tmp_path)
 
 
 def test_dense_reduces_bf16_products_in_f32(monkeypatch):
