@@ -22,12 +22,18 @@
 # models/tts.py; the Detector loads ultralytics YOLOv8 checkpoints
 # (models/yolo.py) as well as the native detector's.
 #
+# LMForward and the closed-batch LMGenerate take the long-context path:
+# `sequence_parallel: true` with a `sharding` block whose axes hold "seq"
+# runs the ring (or Ulysses) prefill and the sequence-parallel decode on
+# the element's mesh, the KV cache's length padded to divide the seq
+# axis and the prompt left-padded to a multiple of it.
+#
 # Not ported yet, and raising NotImplementedError naming it: HuggingFace
-# Llama and whisper checkpoints.  `sequence_parallel` and a `sharding`
-# block raise at construction.
+# Llama and whisper checkpoints.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import replace
 
@@ -42,10 +48,11 @@ from ..models import (
     load_yolov8_params, quantize_weights_int8, synthesize, yolo_detect)
 from ..models import configs as model_configs
 from ..ops.device import as_device_array
+from ..parallel.mesh import use_mesh
 from ..pipeline import (
     AsyncHostElement, ComputeElement, PipelineElement, StreamEvent)
 from ..utils import get_logger, truthy
-from ..utils.padding import bucket_length
+from ..utils.padding import bucket_length, pad_axis_to
 
 __all__ = ["LMForward", "LMGenerate", "SpeechToText", "TextToSpeech",
            "Detector", "DetectionsPublish", "TokensToText", "TextToTokens"]
@@ -102,9 +109,11 @@ def _host(value) -> np.ndarray:
 
 
 def _transformer_config(element) -> TransformerConfig:
-    if truthy(element.get_parameter("sequence_parallel", False)):
-        raise _not_ported(element, "sequence-parallel attention "
-                                   "(`sequence_parallel`)")
+    # sequence_parallel: long-context attention over the element mesh's
+    # "seq" axis (ring prefill + sp decode); requires the element's
+    # sharding block to name a seq axis
+    sequence_parallel = truthy(
+        element.get_parameter("sequence_parallel", False))
     # "int8" halves KV-cache memory and read bandwidth
     kv_dtype = str(element.get_parameter("kv_dtype", "") or "")
     preset = element.get_parameter("preset")
@@ -113,6 +122,8 @@ def _transformer_config(element) -> TransformerConfig:
         dtype = element.get_parameter("dtype")
         if dtype:
             config = replace(config, dtype=str(dtype))
+        if sequence_parallel:
+            config = replace(config, sequence_parallel=True)
         if kv_dtype:
             config = replace(config, kv_dtype=kv_dtype)
         return config
@@ -125,6 +136,7 @@ def _transformer_config(element) -> TransformerConfig:
         d_ff=int(element.get_parameter("d_ff", 1536)),
         max_seq_len=int(element.get_parameter("max_seq_len", 2048)),
         dtype=str(element.get_parameter("dtype", "bfloat16")),
+        sequence_parallel=sequence_parallel,
         kv_dtype=kv_dtype,
     )
 
@@ -188,6 +200,10 @@ class LMForward(ComputeElement):
         _refuse_llama_weights(self)
 
     def configure(self):
+        # a meshed LM's state spec defaults, in the JAX package, to the
+        # family's megatron tree filtered to the mesh (param_specs, ROADMAP
+        # item 4b); on a mesh whose only axis above 1 is "seq" that filter
+        # replicates every leaf, which is what no state spec places
         if not hasattr(self, "config"):
             self.config = _transformer_config(self)
 
@@ -311,6 +327,17 @@ class LMGenerate(ComputeElement):
             self._detections_handler = None
         super().stop()
 
+    def _sp_cache(self, batch: int, max_len: int):
+        """KV cache laid out for sequence-parallel decode: length sharded
+        over the element mesh's seq axis (padded to divide it)."""
+        from ..models import init_sp_cache
+        if self.mesh is None or "seq" not in self.mesh.axis_names:
+            raise ValueError(
+                f"{self.definition.name}: sequence_parallel needs a "
+                "sharding block whose axes include 'seq'")
+        return init_sp_cache(self.config, batch, max_len, self.mesh,
+                             device=self.device)
+
     def _encode_prompts(self, stream, text):
         """Text prompts -> left-padded (B, W) int32 token matrix plus the
         post-template prompt strings."""
@@ -342,23 +369,40 @@ class LMGenerate(ComputeElement):
                 raise ValueError("LMGenerate needs tokens or text input")
             tokens, formatted = self._encode_prompts(stream, text)
         tokens = as_device_array(tokens, torch.int32, self.device)
-        if truthy(self.get_parameter("stream_tokens", False, stream)):
-            # streamed serving path: publish token chunks to /out as
-            # they decode (reference capability: Ollama streaming)
-            chunk = int(self.get_parameter("stream_chunk", 8, stream))
-            blocks = []
-            for offset, block in generate_stream(
-                    self.state, self.config, tokens, max_new, chunk=chunk):
-                blocks.append(block)
-                payload = block.tolist()
-                if self.tokenizer is not None:
-                    payload = [self.tokenizer.decode(row)
-                               for row in block]
-                self.publish_out("tokens",
-                                 [stream.stream_id, offset, payload])
-            out = np.concatenate(blocks, axis=1)
-        else:
-            out, _ = generate(self.state, self.config, tokens, max_new)
+        pad = ((self.tokenizer.pad_id or 0)
+               if self.tokenizer is not None else 0)
+        batch = tokens.shape[0]
+        if self.config.sequence_parallel:
+            tokens = self._sp_tokens(tokens, pad)
+        # sequence_parallel: ring prefill + sp decode run on the AMBIENT
+        # mesh, and the cache must be seq-sharded
+        mesh_scope = (use_mesh(self.mesh) if self.mesh is not None
+                      else contextlib.nullcontext())
+        with mesh_scope:
+            cache = (self._sp_cache(tokens.shape[0],
+                                    tokens.shape[1] + max_new)
+                     if self.config.sequence_parallel else None)
+            if truthy(self.get_parameter("stream_tokens", False, stream)):
+                # streamed serving path: publish token chunks to /out as
+                # they decode (reference capability: Ollama streaming)
+                chunk = int(self.get_parameter("stream_chunk", 8, stream))
+                blocks = []
+                for offset, block in generate_stream(
+                        self.state, self.config, tokens, max_new,
+                        cache=cache, chunk=chunk):
+                    block = block[:batch]  # drop batch-padding rows
+                    blocks.append(block)
+                    payload = block.tolist()
+                    if self.tokenizer is not None:
+                        payload = [self.tokenizer.decode(row)
+                                   for row in block]
+                    self.publish_out("tokens",
+                                     [stream.stream_id, offset, payload])
+                out = np.concatenate(blocks, axis=1)
+            else:
+                out, _ = generate(self.state, self.config, tokens, max_new,
+                                  cache=cache)
+                out = out[:batch]
         result = {"generated": out}
         if formatted is not None:
             result["prompt"] = formatted  # post-template (observability)
@@ -366,6 +410,30 @@ class LMGenerate(ComputeElement):
             result["text"] = [self.tokenizer.decode(row)
                               for row in _host(out)]
         return StreamEvent.OKAY, result
+
+    def _sp_tokens(self, tokens, pad: int):
+        """The prompt as the sequence-parallel path takes it.  The ring
+        prefill shards the prompt over the seq axis: LEFT-pad it up to a
+        seq multiple with the SAME pad id as the batch left-padding (pad
+        tokens are causally attended, so a divergent id would change
+        generation for widths not divisible by the seq axis).  The
+        seq-sharded cache also shards BATCH over the data axis: ragged
+        batches gain dummy rows, sliced off the output."""
+        seq_size = (self.mesh.shape.get("seq", 1)
+                    if self.mesh is not None else 1)
+        width = tokens.shape[1]
+        target = ((width + seq_size - 1) // seq_size) * seq_size
+        if target != width:
+            pad_block = torch.full((tokens.shape[0], target - width), pad,
+                                   dtype=torch.int32, device=tokens.device)
+            tokens = torch.cat([pad_block, tokens], dim=1)
+        data_size = (self.mesh.shape.get("data", 1)
+                     if self.mesh is not None else 1)
+        extra = (-tokens.shape[0]) % data_size
+        if extra:
+            tokens = pad_axis_to(tokens, 0, tokens.shape[0] + extra,
+                                 pad_value=pad)
+        return tokens
 
     # -- continuous batching (decode/ engine) ------------------------------
     #
@@ -384,6 +452,11 @@ class LMGenerate(ComputeElement):
         if engine is not None:
             return engine
         self._ensure_ready()
+        if self.mesh is not None or self.config.sequence_parallel:
+            raise ValueError(
+                f"{self.definition.name}: continuous mode runs the paged "
+                f"decode engine single-device; drop the sharding mesh / "
+                f"sequence_parallel or use the closed-batch path")
         from ..decode import DecodeEngine
         telemetry = getattr(self.pipeline, "telemetry", None)
         registry = (telemetry.registry if telemetry is not None
@@ -494,6 +567,11 @@ class LMGenerate(ComputeElement):
         if engine is not None:
             return engine
         self._ensure_ready()
+        if self.mesh is not None or self.config.sequence_parallel:
+            raise ValueError(
+                f"{self.definition.name}: role=prefill runs the paged "
+                f"prefill engine single-device; drop the sharding mesh "
+                f"/ sequence_parallel")
         from ..decode import PrefillEngine
         telemetry = getattr(self.pipeline, "telemetry", None)
         registry = (telemetry.registry if telemetry is not None
@@ -1017,13 +1095,15 @@ class LMGenerate(ComputeElement):
         """Fused micro-batch hook for the decode stage: greedy generation
         over the whole coalesced group.  The chained path runs instead
         whenever process_frame does per-frame host work the kernel cannot
-        reproduce: text prompts / tokenizer decode, token streaming."""
+        reproduce: text prompts / tokenizer decode, token streaming,
+        sequence-parallel padding, meshed placement."""
         if type(self).process_frame is not LMGenerate.process_frame:
             # a subclass overriding process_frame must not have its
             # override silently bypassed by the inherited fused kernel
             return None
         self._ensure_ready()  # configure(): config + tokenizer exist
-        if (self.tokenizer is not None
+        if (self.mesh is not None or self.config.sequence_parallel
+                or self.tokenizer is not None
                 or truthy(self.get_parameter(
                     "stream_tokens", False, stream))
                 or self.engine_managed(stream)

@@ -3,8 +3,8 @@ from .asr import (                                            # noqa: F401
     make_asr_train_step, transcribe, transcribe_audio, transcribe_rescore,
     count_params)
 from .transformer import (                                    # noqa: F401
-    TransformerConfig, init_params, forward, init_cache, decode_step,
-    generate, generate_stream, make_train_step, quantize_weights_int8,
+    TransformerConfig, init_params, forward, init_cache, init_sp_cache,
+    cache_specs, param_specs, decode_step, generate, generate_stream, make_train_step, quantize_weights_int8,
     REMAT_POLICIES, resolve_remat_policy, init_paged_pool, paged_prefill,
     paged_decode_step, paged_verify_step, paged_prefill_chunk, f32_head)
 from .tokenizer import BPETokenizer, train_bpe                # noqa: F401

@@ -33,9 +33,17 @@
 # are plain matmuls, as the JAX package's are einsums outside any Pallas
 # kernel.
 #
-# Not ported yet, and raising NotImplementedError when asked for:
-# sequence parallelism and sharding (activation_specs, sharded=True,
-# param_specs).
+# The long-context path (sequence_parallel=True) runs on the ambient mesh
+# (parallel.use_mesh) with a "seq" axis: the cacheless prefill -- scoring
+# and the train step, whose backward is the ring's -- through
+# ring_attention or ulysses_attention (sp_mechanism), the cached prefill
+# at pos 0 the same way over the fresh K/V, and cached decode through
+# sp_decode_attention over the cache, its length sharded over "seq"
+# (cache_specs(sequence_parallel=True)).
+#
+# Not ported yet, and raising NotImplementedError naming ROADMAP Queue A
+# item 4b: the parameter-sharding axes (param_specs, activation_specs,
+# sharded=True).
 
 from __future__ import annotations
 
@@ -49,7 +57,10 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from ..ops.device import resolve_device
-from ..parallel.attention import flash_attention
+from ..parallel.attention import (
+    flash_attention, ring_attention, sp_decode_attention, ulysses_attention)
+from ..parallel.mesh import PartitionSpec as P
+from ..parallel.mesh import ambient_mesh
 from ..utils.tree import tree_map
 from .asr import _layer_count, _stack, count_params
 from .layers import (
@@ -58,11 +69,11 @@ from .layers import (
 from .optim import apply_updates, next_token_loss, value_and_grad
 
 __all__ = ["TransformerConfig", "init_params", "forward", "init_cache",
-           "decode_step", "generate", "generate_stream", "make_train_step",
-           "count_params", "quantize_weights_int8", "REMAT_POLICIES",
-           "resolve_remat_policy", "init_paged_pool", "paged_prefill",
-           "paged_decode_step", "paged_verify_step", "paged_prefill_chunk",
-           "f32_head"]
+           "init_sp_cache", "cache_specs", "param_specs", "decode_step", "generate",
+           "generate_stream", "make_train_step", "count_params",
+           "quantize_weights_int8", "REMAT_POLICIES", "resolve_remat_policy",
+           "init_paged_pool", "paged_prefill", "paged_decode_step",
+           "paged_verify_step", "paged_prefill_chunk", "f32_head"]
 
 
 @dataclass(frozen=True)
@@ -77,9 +88,18 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
-    # the JAX package's long-context path (ring / Ulysses attention over a
-    # "seq" mesh axis): not yet ported
+    # True: the long-context path.  Prefill attention shards over the
+    # ambient mesh's "seq" axis (mechanism below) and cached DECODE runs
+    # sp_decode_attention with the cache length sharded over "seq" (lay
+    # the cache out with cache_specs(sequence_parallel=True)).  Needs an
+    # ambient mesh (parallel.use_mesh) whose "seq" axis divides the
+    # sequence length (prefill) and the cache length (decode); cached
+    # prefill needs pos=0.
     sequence_parallel: bool = False
+    # "ring": K/V shards rotate around the ring (any head count; causal
+    # hops skipped).  "ulysses": all-to-all swaps sequence sharding for
+    # head sharding and runs flash attention on each head group --
+    # fewer exchanges when n_heads divides by the seq axis.
     sp_mechanism: str = "ring"
     # > 0: a switch (top-1) mixture-of-experts FFN with n_experts experts
     n_experts: int = 0
@@ -122,12 +142,14 @@ class TransformerConfig:
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to the torch port")
+    return NotImplementedError(
+        f"{what} is not yet ported to the torch port (ROADMAP Queue A "
+        f"item 4b: the parameter-sharding axes)")
 
 
-def _require_ported(config: TransformerConfig) -> None:
-    if config.sequence_parallel:
-        raise _not_ported("sequence-parallel attention")
+def param_specs(config: TransformerConfig, lm_head: bool = False) -> dict:
+    """The megatron TP + FSDP spec tree: not ported (item 4b)."""
+    raise _not_ported("param_specs (tensor-parallel / FSDP placement)")
 
 
 # -- parameters -------------------------------------------------------------
@@ -175,7 +197,6 @@ def init_params(config: TransformerConfig, generator: torch.Generator,
     caller), cast to config.dtype and placed on `device`.  The draws
     follow the JAX package's distributions, not its numbers: embedding
     N(0, 0.02^2), dense weights N(0, 1/in_features), norm scales 1."""
-    _require_ported(config)
     device = resolve_device(device)
     embed = (torch.randn((config.vocab_size, config.d_model),
                          generator=generator, dtype=torch.float32)
@@ -227,7 +248,6 @@ def quantize_weights_int8(params: dict, config: TransformerConfig) -> dict:
     MoE router and expert weights, whose products bypass dense(): with
     n_experts > 0 only wq, wk, wv and wo are quantized.  Not for
     training."""
-    _require_ported(config)
     dense_keys = (_DENSE_QUANT_KEYS[:4] if config.n_experts > 0
                   else _DENSE_QUANT_KEYS)
     layers = dict(params["layers"])
@@ -260,6 +280,35 @@ def init_cache(config: TransformerConfig, batch: int,
                 "v_scale": torch.zeros(scale_shape, device=device)}
     return {"k": torch.zeros(shape, dtype=config.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=config.torch_dtype, device=device)}
+
+
+def init_sp_cache(config: TransformerConfig, batch: int, max_len: int,
+                  mesh=None, device="cuda") -> dict:
+    """init_cache laid out for sequence-parallel decode: the length padded
+    up to a multiple of the seq axis of `mesh` (default: the ambient
+    mesh), which sp_decode_attention cuts it along
+    (cache_specs(sequence_parallel=True))."""
+    mesh = mesh if mesh is not None else ambient_mesh()
+    if mesh is None or "seq" not in mesh.axis_names:
+        raise ValueError("the sequence-parallel cache needs a mesh with a "
+                         f"'seq' axis, got {mesh!r}")
+    size = mesh.shape["seq"]
+    return init_cache(config, batch, max_len=-(-max_len // size) * size,
+                      device=device)
+
+
+def cache_specs(sequence_parallel: bool = False,
+                quantized: bool = False) -> dict:
+    """Cache layout (layers, batch, kv_heads, len, head_dim): batch on
+    "data", heads on "model"; with sequence_parallel the cache LENGTH
+    also shards over "seq", so long-context decode spreads the cache over
+    the mesh (sp_decode_attention).  quantized=True adds the int8 cache's
+    per-position scale planes (same layout, head_dim collapsed)."""
+    seq = "seq" if sequence_parallel else None
+    spec = P(None, "data", "model", seq, None)
+    if quantized:
+        return {"k": spec, "k_scale": spec, "v": spec, "v_scale": spec}
+    return {"k": spec, "v": spec}
 
 
 def _quantize_kv(x):
@@ -315,10 +364,28 @@ def _dequantized(codes, scale, dtype):
     return (codes.float() * scale).to(dtype)
 
 
+def _sp_prefill(config: TransformerConfig, q, k, v):
+    """Causal sequence-parallel attention on the ambient mesh, K/V heads
+    expanded: the ring or Ulysses (config.sp_mechanism)."""
+    repeats = config.n_heads // config.n_kv_heads
+    k, v = repeat_kv(k, repeats), repeat_kv(v, repeats)
+    if config.sp_mechanism == "ulysses":
+        return ulysses_attention(q, k, v, causal=True)
+    return ring_attention(q, k, v, causal=True)
+
+
 def _cached_attention(config: TransformerConfig, q, k, v, layer_cache,
                       pos: int):
     """Write the new K/V at `pos` (quantized when the cache is int8),
-    then masked attention of q over the whole cache buffer."""
+    then masked attention of q over the whole cache buffer.  With
+    sequence_parallel: a multi-token window (the cached PREFILL, pos 0
+    only) attends over its fresh K/V through ring or Ulysses, and one
+    token (decode) through sp_decode_attention over the cache."""
+    if config.sequence_parallel and q.shape[2] > 1 and pos != 0:
+        raise ValueError(
+            "sequence-parallel cached prefill requires pos == 0 "
+            f"(got pos={pos}); multi-token cached decode at "
+            "pos > 0 is not supported on this path")
     cache_k, cache_v = layer_cache["k"], layer_cache["v"]
     quantized = cache_k.dtype == torch.int8
     if quantized:
@@ -328,6 +395,10 @@ def _cached_attention(config: TransformerConfig, q, k, v, layer_cache,
         _write_at(layer_cache["v_scale"], v_scale, pos)
     _write_at(cache_k, k, pos)
     _write_at(cache_v, v, pos)
+    if config.sequence_parallel:
+        if q.shape[2] > 1:
+            return _sp_prefill(config, q, k, v)
+        return sp_decode_attention(q, cache_k, cache_v, pos)
     if quantized:
         k_eff = _dequantized(cache_k, layer_cache["k_scale"], q.dtype)
         v_eff = _dequantized(cache_v, layer_cache["v_scale"], q.dtype)
@@ -357,11 +428,14 @@ def _attention(config: TransformerConfig, layer, h, cos, sin,
                layer_cache=None, pos: int = 0):
     """Self-attention: project, rotate, then either the causal prefill
     over the whole sequence (no cache: flash attention, K/V heads
-    expanded) or the cached path at `pos`."""
+    expanded; ring or Ulysses with sequence_parallel) or the cached path
+    at `pos`."""
     batch, length, _ = h.shape
     q, k, v = _project_qkv(config, layer, h, cos, sin)
     if layer_cache is not None:
         out = _cached_attention(config, q, k, v, layer_cache, pos)
+    elif config.sequence_parallel:
+        out = _sp_prefill(config, q, k, v)
     else:
         repeats = config.n_heads // config.n_kv_heads
         # the kernels take contiguous (B, H, L, D) tensors only
@@ -550,7 +624,6 @@ def forward(params: dict, config: TransformerConfig, tokens,
             "by rematerializing")
     if activation_specs:
         raise _not_ported("activation sharding (activation_specs)")
-    _require_ported(config)
     pos = int(pos)
     context_fn = resolve_remat_policy(remat_policy)
     h = _embed(params, config, tokens)
@@ -914,7 +987,6 @@ def make_train_step(config: TransformerConfig, optimizer,
     params and opt_state in place (the JAX step donates both)."""
     if sharded:
         raise _not_ported("the sharded train step (sharded=True)")
-    _require_ported(config)
     resolve_remat_policy(remat_policy)  # fail fast on typos
 
     def loss_fn(params, tokens):

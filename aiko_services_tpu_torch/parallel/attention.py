@@ -1,8 +1,8 @@
-# Flash attention: hand-written Hopper kernels and their plain versions.
+# Flash attention: hand-written Hopper kernels and their plain versions,
+# and the sequence-parallel attentions built on them.
 #
-# Counterpart of aiko_services_tpu/parallel/attention.py (the attention
-# functions only; ring and Ulysses sequence parallelism are not ported
-# yet).  All take q/k/v shaped (batch, heads, seq, head_dim).
+# Counterpart of aiko_services_tpu/parallel/attention.py.  All take q/k/v
+# shaped (batch, heads, seq, head_dim).
 #
 #   attention_reference       -- plain softmax attention, the oracle
 #   flash_attention           -- the model's attention call; returns O and
@@ -12,6 +12,24 @@
 #                                kernel's _flash_impl returns them
 #   flash_attention_backward  -- dQ, dK, dV from the forward's residuals,
 #                                as _flash_bwd_impl returns them
+#   ring_attention            -- sequence parallel over a mesh's "seq"
+#                                axis: K/V shards rotate around the ring,
+#                                each executed hop one forward kernel (and
+#                                one dQ + one dK/dV in the backward)
+#   ulysses_attention         -- sequence parallel by all-to-all: each
+#                                device attends its head group over the
+#                                whole sequence through flash_attention
+#   sp_decode_attention       -- cached decode with the cache length
+#                                sharded over "seq" (plain torch, as the
+#                                JAX package's einsums are)
+#
+# The sequence-parallel functions run on a Mesh (parallel/mesh.py; the
+# ambient one when mesh=None).  One process drives every device of the
+# axis: a function cuts its global (B, H, L, D) inputs into one
+# contiguous shard per device of the axis, moves each there, runs the
+# shard's work there and gathers the result on the inputs' device.  A
+# "ppermute" between two devices is a copy; between two shards on one
+# device (a mesh that names a device more than once) it moves nothing.
 #
 # The forward and backward take their plain PyTorch versions ONLY for
 # tensors on the CPU.  For CUDA tensors they launch the kernels in
@@ -29,11 +47,13 @@ import math
 import torch
 
 from ..ops import kernels
+from .mesh import PartitionSpec, ambient_mesh, named_sharding
 
 __all__ = ["attention_reference", "flash_attention",
            "flash_attention_forward", "flash_attention_plain",
            "flash_attention_backward", "flash_attention_backward_plain",
-           "flash_attention_dq_plain", "flash_attention_dkv_plain"]
+           "flash_attention_dq_plain", "flash_attention_dkv_plain",
+           "ring_attention", "ulysses_attention", "sp_decode_attention"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -377,3 +397,267 @@ def flash_attention(q, k, v, causal: bool = False, sm_scale=None,
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale),
                                  int(q_offset))
+
+
+# -- sequence parallelism: the shards --------------------------------------
+
+def _resolve_mesh(mesh, what: str):
+    mesh = mesh if mesh is not None else ambient_mesh()
+    if mesh is None:
+        raise ValueError(f"{what} needs a mesh: pass mesh= or call it "
+                         f"inside parallel.use_mesh(mesh)")
+    return mesh
+
+
+def _axis(mesh, axis_name: str, length: int, what: str) -> list:
+    """The devices of `axis_name`; ValueError unless `length` (the
+    sharded sequence) divides by their number."""
+    devices = mesh.axis_devices(axis_name)
+    if length % len(devices):
+        raise ValueError(f"{what}: sequence length ({length}) must be "
+                         f"divisible by mesh axis '{axis_name}' size "
+                         f"({len(devices)})")
+    return devices
+
+
+def _split(x, devices: list) -> list:
+    """(B, H, L, D) -> one contiguous (B, H, L/n, D) shard per device."""
+    local = x.shape[2] // len(devices)
+    return [x[:, :, index * local:(index + 1) * local].to(device)
+            .contiguous() for index, device in enumerate(devices)]
+
+
+def _gather(shards: list, device, dim: int = 2):
+    return torch.cat([shard.to(device) for shard in shards], dim=dim)
+
+
+def _rotate(shards: list, devices: list) -> list:
+    """The ring's ppermute: device i receives what device i - 1 held."""
+    return [tuple(x.to(device) for x in shards[index - 1])
+            for index, device in enumerate(devices)]
+
+
+# -- ring attention ----------------------------------------------------------
+
+# Test hook: when set to a callable, it is called with the hop's step once
+# per EXECUTED forward hop -- hops skipped under causal masking never
+# call it.  Tests use it to show that the masked-hop skip is real.
+_RING_HOP_CALLBACK = None
+
+
+def _merge_softmax_partials(out, lse, out_blk, lse_blk):
+    """Associative merge of two normalized attention partials via their
+    per-row logsumexp, in f32: the exact online-softmax combination."""
+    lse_new = torch.logaddexp(lse, lse_blk)
+    w_old = torch.exp(lse - lse_new)[..., None]
+    w_blk = torch.exp(lse_blk - lse_new)[..., None]
+    return out.float() * w_old + out_blk.float() * w_blk, lse_new
+
+
+def _skipped(causal: bool, step: int, index: int) -> bool:
+    """Device `index` holds the K/V of shard (index - step) mod n at hop
+    `step`: entirely in the future of its queries, so fully masked, when
+    the index wrapped (index < step)."""
+    return causal and index < step
+
+
+def _ring_forward(q_shards, k_shards, v_shards, devices, causal: bool,
+                  sm_scale: float):
+    """Per-shard (O in q's dtype, merged LSE f32).  Q stays put, K/V
+    rotate n - 1 hops; step 0 (the diagonal block) is causal, every
+    executed later hop holds strictly-past keys and runs dense, all with
+    q_offset 0.  Partials accumulate in f32 and are cast once."""
+    outs, lses = [None] * len(devices), [None] * len(devices)
+    kv = list(zip(k_shards, v_shards))
+    for step in range(len(devices)):
+        if step:
+            kv = _rotate(kv, devices)
+        for index, (k_blk, v_blk) in enumerate(kv):
+            if _skipped(causal, step, index):
+                # the JAX package merges a zero partial with LSE -1e30:
+                # weights exactly 1 and 0, the same result as no merge
+                continue
+            out_blk, lse_blk = flash_attention_forward(
+                q_shards[index], k_blk, v_blk, causal=causal and step == 0,
+                sm_scale=sm_scale)
+            if _RING_HOP_CALLBACK is not None:
+                _RING_HOP_CALLBACK(step)
+            if step == 0:
+                outs[index], lses[index] = out_blk.float(), lse_blk
+            else:
+                outs[index], lses[index] = _merge_softmax_partials(
+                    outs[index], lses[index], out_blk, lse_blk)
+    dtype = q_shards[0].dtype
+    return [out.to(dtype) for out in outs], lses
+
+
+def _ring_backward(q_shards, k_shards, v_shards, out_shards, lse_shards,
+                   dout_shards, devices, causal: bool, sm_scale: float):
+    """The second ring: each K/V shard travels with f32 dK/dV
+    accumulators, every executed hop runs the backward kernels against
+    the forward's GLOBAL O and merged LSE (so a hop's partial gradients
+    are the global attention's restricted to that shard), and one last
+    rotation returns each accumulator to its home device."""
+    count = len(devices)
+    dq = [torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+          for q in q_shards]
+    kv = [(k, v, torch.zeros(k.shape, dtype=torch.float32, device=k.device),
+           torch.zeros(v.shape, dtype=torch.float32, device=v.device))
+          for k, v in zip(k_shards, v_shards)]
+    for step in range(count):
+        if step:
+            kv = _rotate(kv, devices)
+        for index in range(count):
+            if _skipped(causal, step, index):
+                continue
+            k_blk, v_blk, dk_blk, dv_blk = kv[index]
+            dq_h, dk_h, dv_h = flash_attention_backward(
+                q_shards[index], k_blk, v_blk, out_shards[index],
+                lse_shards[index], dout_shards[index],
+                causal=causal and step == 0, sm_scale=sm_scale)
+            dq[index] = dq[index] + dq_h.float()
+            kv[index] = (k_blk, v_blk, dk_blk + dk_h.float(),
+                         dv_blk + dv_h.float())
+    # shard s sits on device (s + n - 1) mod n after the loop
+    kv = _rotate(kv, devices)
+    return ([grad.to(q.dtype) for grad, q in zip(dq, q_shards)],
+            [entry[2].to(k.dtype) for entry, k in zip(kv, k_shards)],
+            [entry[3].to(v.dtype) for entry, v in zip(kv, v_shards)])
+
+
+class _RingAttention(torch.autograd.Function):
+    """The JAX package's custom_vjp around _ring: the forward keeps each
+    shard's q, k, v, O and merged LSE, the backward runs the second
+    ring.  devices, causal and sm_scale get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, devices, causal: bool, sm_scale: float):
+        shards = [_split(x, devices) for x in (q, k, v)]
+        outs, lses = _ring_forward(*shards, devices, causal, sm_scale)
+        ctx.save_for_backward(*shards[0], *shards[1], *shards[2], *outs,
+                              *lses)
+        ctx.devices, ctx.causal, ctx.sm_scale = devices, causal, sm_scale
+        ctx.home = q.device
+        return _gather(outs, q.device)
+
+    @staticmethod
+    def backward(ctx, dout):
+        count = len(ctx.devices)
+        saved = ctx.saved_tensors
+        q_shards, k_shards, v_shards, outs, lses = (
+            list(saved[part * count:(part + 1) * count])
+            for part in range(5))
+        dq, dk, dv = _ring_backward(
+            q_shards, k_shards, v_shards, outs, lses,
+            _split(dout, ctx.devices), ctx.devices, ctx.causal,
+            ctx.sm_scale)
+        return (_gather(dq, ctx.home), _gather(dk, ctx.home),
+                _gather(dv, ctx.home), None, None, None)
+
+
+def ring_attention(q, k, v, mesh=None, axis_name: str = "seq",
+                   causal: bool = True, sm_scale=None):
+    """Sequence-parallel attention over mesh axis `axis_name` (the
+    ambient mesh when mesh=None): (B, H, L, D) in and out,
+    differentiable in q, k and v.
+
+    Each device of the axis keeps its query shard; K/V shards rotate
+    n - 1 hops around the ring, and each executed hop is one
+    flash_attention_forward (the forward kernel on CUDA) whose (O, LSE)
+    merges into the shard's running partial.  Under causal masking the
+    hop that brings device i the K/V of a later shard is skipped -- no
+    launch -- so device i runs i + 1 hops, n(n + 1)/2 in all."""
+    devices = _axis(_resolve_mesh(mesh, "ring_attention"), axis_name,
+                    q.shape[2], "ring_attention")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _RingAttention.apply(q, k, v, devices, bool(causal),
+                                float(sm_scale))
+
+
+# -- Ulysses (all-to-all) sequence parallelism -------------------------------
+
+def ulysses_attention(q, k, v, mesh=None, axis_name: str = "seq",
+                      causal: bool = False, sm_scale=None):
+    """DeepSpeed-Ulysses style: the all-to-all swaps sequence sharding
+    for head sharding -- device i receives head group i over the whole
+    sequence -- flash_attention (differentiable: the backward kernels in
+    training) runs on each (B, H/n, L, D) group, and the second
+    all-to-all swaps back.  The head count must divide by the axis
+    size."""
+    mesh = _resolve_mesh(mesh, "ulysses_attention")
+    devices = _axis(mesh, axis_name, q.shape[2], "ulysses_attention")
+    axis_size, heads = len(devices), q.shape[1]
+    if heads % axis_size != 0:
+        raise ValueError(
+            f"ulysses_attention: heads ({heads}) must be divisible by "
+            f"mesh axis '{axis_name}' size ({axis_size}); use "
+            f"ring_attention for head counts smaller than the axis")
+    group = heads // axis_size
+    outs = []
+    for index, device in enumerate(devices):
+        heads_slice = slice(index * group, (index + 1) * group)
+        q_i, k_i, v_i = (x[:, heads_slice].to(device).contiguous()
+                         for x in (q, k, v))
+        outs.append(flash_attention(q_i, k_i, v_i, causal=causal,
+                                    sm_scale=sm_scale))
+    return _gather(outs, q.device, dim=1)
+
+
+# -- sequence-parallel decode attention --------------------------------------
+
+def sp_decode_attention(q, cache_k, cache_v, pos, mesh=None,
+                        axis_name: str = "seq", sm_scale=None,
+                        batch_axis: str = "data", head_axis: str = "model"):
+    """KV-cached decode with the cache length sharded over `axis_name`:
+    q (B, H, Lq, D) replicated, cache (B, Hkv, Lc, D) with Hkv dividing
+    H.  Each device attends q over its local cache shard (positions past
+    pos + i masked), GQA contracting the grouped q heads against the
+    un-expanded shard; the partials merge exactly with one max over the
+    shards (the pmax) and ONE sum of the fused [num, den] (the psum).
+    Plain torch: the JAX package computes it as einsums outside any
+    Pallas kernel.  q's and the cache's specs shard batch on
+    `batch_axis` and heads on `head_axis` where the mesh has them."""
+    mesh = _resolve_mesh(mesh, "sp_decode_attention")
+    names = mesh.axis_names
+    b_ax = batch_axis if batch_axis in names else None
+    h_ax = head_axis if head_axis in names else None
+    named_sharding(mesh, PartitionSpec(b_ax, h_ax, None, None)).shard_shape(
+        tuple(q.shape))
+    named_sharding(mesh, PartitionSpec(b_ax, h_ax, axis_name, None)) \
+        .shard_shape(tuple(cache_k.shape))
+    devices = mesh.axis_devices(axis_name)
+    batch, kv_heads, cache_len, head_dim = cache_k.shape
+    q_len, heads = q.shape[2], q.shape[1]
+    groups = heads // kv_heads
+    local_len = cache_len // len(devices)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(head_dim)
+    scores, values = [], []
+    for index, device in enumerate(devices):
+        window = slice(index * local_len, (index + 1) * local_len)
+        q_grouped = q.to(device).reshape(batch, kv_heads, groups, q_len,
+                                         head_dim)
+        k_local = cache_k[:, :, window].to(device)
+        k_pos = index * local_len + torch.arange(local_len, device=device)
+        q_pos = torch.as_tensor(pos, device=device) + torch.arange(
+            q_len, device=device)
+        s = torch.matmul(q_grouped.float(),
+                         k_local.float()[:, :, None].transpose(-1, -2)) \
+            * sm_scale                                 # (B, Hkv, G, Lq, Lk)
+        scores.append(s.masked_fill(k_pos[None, :] > q_pos[:, None],
+                                    _NEG_INF))
+        values.append(cache_v[:, :, window].to(device))
+    home = q.device
+    m_global = torch.stack([s.amax(dim=-1).to(home) for s in scores]) \
+        .amax(dim=0)                                   # (B, Hkv, G, Lq)
+    fused = None
+    for s, v_local in zip(scores, values):
+        p = torch.exp(s - m_global.to(s.device)[..., None])
+        num = torch.matmul(p, v_local.float()[:, :, None])
+        den = p.sum(dim=-1, keepdim=True)
+        part = torch.cat([num, den], dim=-1).to(home)
+        fused = part if fused is None else fused + part
+    num, den = fused[..., :head_dim], fused[..., head_dim:]
+    out = (num / torch.clamp_min(den, 1e-30)).to(q.dtype)
+    return out.reshape(batch, heads, q_len, head_dim)

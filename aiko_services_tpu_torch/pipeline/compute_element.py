@@ -17,10 +17,22 @@
 # package sees.  Outputs stay on the device (torch.Tensor in the swag), so
 # a downstream ComputeElement never touches the host.
 #
-# Not ported yet: the mesh (`sharding` block), which raises.
+# The `sharding` block names the element's device mesh
+# (parallel/mesh.py): its axes over the device list (default_devices(),
+# or its [start, end) "devices" range), the spec of its state and of
+# each input.  State and inputs are placed through shard_pytree on the
+# mesh's first device, which becomes the element's device, and the mesh
+# is the ambient mesh of the thread while compute runs, so the model's
+# sequence-parallel attention shards over its "seq" axis.  An input
+# whose dimension does not divide by its axes fails that check and is
+# placed without its spec, with one warning (the JAX package replicates
+# it; here every placed tensor is whole on the mesh's first device
+# anyway).  Only "seq" may exceed 1: any other axis raises
+# NotImplementedError naming ROADMAP Queue A item 4b.
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import time
 
@@ -28,6 +40,8 @@ import numpy as np
 import torch
 
 from ..ops.device import as_device_array, resolve_device
+from ..parallel.mesh import (
+    default_devices, get_mesh, named_sharding, shard_pytree, use_mesh)
 from ..utils import get_logger
 from ..utils.padding import bucket_length, pad_axis_to  # noqa: F401
 from ..utils.tree import tree_map
@@ -40,11 +54,20 @@ __all__ = ["ComputeElement", "bucket_length", "pad_axis_to"]
 _LOGGER = get_logger("compute_element")
 
 
+class ShardingNotPorted(DefinitionError, NotImplementedError):
+    """A sharding block naming a mesh axis the port does not have yet."""
+
+
 class ComputeElement(PipelineElement):
     """PipelineElement whose math is a PyTorch function on one device.
 
     Definition parameters understood by the engine:
-      device:          "cuda" (default), "cuda:N" or "cpu"
+      device:          "cuda" (default), "cuda:N" or "cpu"; with a
+                       sharding block, the type of the mesh's devices
+      sharding:        {"axes": {"data": 1, "seq": 4},
+                        "devices": [start, end),
+                        "state": <spec or tree of specs>,
+                        "inputs": {input_name: spec}}
       bucket_axes:     {input_name: axis_index} -- pad that axis to a bucket
       bucket_min:      minimum bucket size (default 16)
       buckets:         explicit bucket ladder, e.g. [128, 512, 2048]
@@ -60,11 +83,16 @@ class ComputeElement(PipelineElement):
 
     def __init__(self, process, pipeline, definition):
         super().__init__(process, pipeline, definition)
-        if definition.sharding:
-            raise DefinitionError(
-                f"{definition.name}: the `sharding` block (device mesh) is "
-                f"not yet ported to the torch port")
-        self.device = resolve_device(self.get_parameter("device", "cuda"))
+        sharding = dict(definition.sharding or {})
+        self.mesh = self._create_mesh(sharding) if sharding else None
+        if self.mesh is None:
+            self.device = resolve_device(
+                self.get_parameter("device", "cuda"))
+        else:
+            self.device = self.mesh.home
+        self._state_spec = sharding.get("state")
+        self._input_specs = dict(sharding.get("inputs", {}))
+        self._indivisible_warned: set = set()
         self._bucket_axes = dict(
             self.get_parameter("bucket_axes", {}) or {})
         self._bucket_min = int(self.get_parameter("bucket_min", 16))
@@ -77,6 +105,26 @@ class ComputeElement(PipelineElement):
         self._ready = False
         self._accepts_lengths = False
         self._group_kernel_fn = None
+
+    def _create_mesh(self, sharding: dict):
+        """The element's mesh over the device list, or its [start, end)
+        "devices" range (a pipeline stage pinned to a sub-slice)."""
+        name = self.definition.name
+        devices = default_devices()
+        device_range = sharding.get("devices")
+        if device_range:
+            devices = devices[int(device_range[0]):int(device_range[1])]
+        try:
+            mesh = get_mesh(sharding.get("axes"), devices)
+        except NotImplementedError as error:
+            raise ShardingNotPorted(f"{name}: {error}") from error
+        wanted = resolve_device(self.get_parameter(
+            "device", mesh.home.type)).type
+        if wanted != mesh.home.type:
+            raise DefinitionError(
+                f"{name}: device {wanted!r} but the mesh's devices are "
+                f"{mesh.home.type!r}")
+        return mesh
 
     # -- the compute contract (override these) -----------------------------
 
@@ -107,7 +155,10 @@ class ComputeElement(PipelineElement):
             return
         self.configure()
         if self.state is None:  # restore_state may have installed it
-            self.state = self.setup()
+            state = self.setup()
+            if state is not None and self.mesh is not None:
+                state = shard_pytree(state, self.mesh, self._state_spec)
+            self.state = state
         signature = inspect.signature(self.compute)
         self._accepts_lengths = "lengths" in signature.parameters
         self._ready = True
@@ -141,8 +192,27 @@ class ComputeElement(PipelineElement):
                 if isinstance(value, np.ndarray):
                     value = torch.from_numpy(np.ascontiguousarray(value))
                 value = as_device_array(value, value.dtype, self.device)
+                spec = self._input_specs.get(name)
+                if self.mesh is not None and spec is not None:
+                    value = self._place_input(name, value, spec)
             placed[name] = value
         return placed, padding
+
+    def _place_input(self, name: str, value, spec):
+        try:
+            return shard_pytree(value, self.mesh, spec)
+        except ValueError:
+            # dim not divisible by its mesh axis: drop the spec rather
+            # than fail the frame, and say so once -- the definition's
+            # spec is wrong for this input
+            if name not in self._indivisible_warned:
+                self._indivisible_warned.add(name)
+                _LOGGER.warning(
+                    "%s: input '%s' shape %s not divisible by mesh axes "
+                    "%s; its spec is ignored", self.definition.name, name,
+                    tuple(value.shape), named_sharding(self.mesh,
+                                                       spec).spec)
+            return shard_pytree(value, self.mesh, None)
 
     def _unpad(self, outputs: dict, inputs: dict, padding: dict) -> dict:
         """Slice bucket padding back off: any output tensor whose bucketed
@@ -176,8 +246,10 @@ class ComputeElement(PipelineElement):
         bucket padding and `lengths` masks depend on pre-padding sizes,
         blocking_metrics promises an in-window synchronize, and a custom
         process_frame override means compute() alone would not reproduce
-        the element's behavior."""
-        if self._bucket_axes or self._blocking_metrics:
+        the element's behavior.  A meshed element computes under its
+        ambient mesh, which only process_frame installs."""
+        if (self._bucket_axes or self.mesh is not None
+                or self._blocking_metrics):
             return None
         if (type(self).process_frame is not ComputeElement.process_frame
                 or type(self).compute is ComputeElement.compute):
@@ -223,9 +295,13 @@ class ComputeElement(PipelineElement):
         allocates a second copy of the parameters."""
         self.configure()
         if state is not None:
-            self.state = tree_map(
-                lambda leaf: torch.as_tensor(leaf, device=self.device),
-                state)
+            if self.mesh is not None:
+                state = shard_pytree(state, self.mesh, self._state_spec)
+            else:
+                state = tree_map(
+                    lambda leaf: torch.as_tensor(leaf, device=self.device),
+                    state)
+            self.state = state
         self._ensure_ready()
 
     def process_frame(self, stream: Stream, **inputs) -> tuple:
@@ -240,8 +316,13 @@ class ComputeElement(PipelineElement):
                 for name, axis in self._bucket_axes.items()
                 if name in inputs}
         try:
-            # record_function: per-element spans in torch.profiler traces
-            with torch.profiler.record_function(
+            # record_function: per-element spans in torch.profiler traces.
+            # The element's mesh is the AMBIENT mesh of this thread while
+            # it computes, so the model's sequence-parallel attention (ring,
+            # Ulysses, sp decode) runs on it with mesh=None
+            mesh_scope = (use_mesh(self.mesh) if self.mesh is not None
+                          else contextlib.nullcontext())
+            with mesh_scope, torch.profiler.record_function(
                     f"element:{self.definition.name}"):
                 outputs = self._call(dynamic, placed)
         except TypeError as error:

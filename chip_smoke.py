@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's speech-serving, training, LM-serving
-and serving-tier paths and its remaining model families (switch MoE,
-YOLOv8, TTS) on one NVIDIA GPU.
+and serving-tier paths, its remaining model families (switch MoE,
+YOLOv8, TTS) and its long-context (sequence-parallel) path on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -124,6 +125,28 @@ result:
          make_tts_train_step's loss falling, make_detector_train_step at
          the yolov8n shape (640 px, bf16, batch 16) and one f32 step of
          the toy detector card against CPU
+ 12. long context: sequence parallelism over a {"seq": 4} mesh that
+     names cuda:0 four times (a ring hop between two shards on one card
+     moves no bytes), llama32_1b at its published widths, bf16, seeded:
+     12a the ring at (1, 32, 8192, 64), causal at n = 4 and 8 and dense
+         at n = 4: O against one K1 call and the plain version, dQ/dK/dV
+         (K2/K3 per hop) against the plain gradients, executed hops and
+         launches = n(n+1)/2 (n^2 dense); the ring forward + backward
+         timed against one K1 + K2 + K3 call;
+     12b forward with sequence_parallel on a 1 x 8192 prompt, ring and
+         Ulysses, against the non-SP forward: logits, equal argmaxes, ms
+         and tokens/s;
+     12d generate with the SP cache (ring cached prefill, sp decode) on
+         a 4,096-token prompt, 32 new tokens: tokens/s, agreement with
+         non-SP generate; a small f32 LM's SP tokens card == CPU;
+     12c make_train_step with sequence_parallel, adamw, 1 x 8192, 1 + 3
+         steps: loss against the non-SP step, step ms, tokens/s, MFU,
+         peak memory, K1/K2/K3 launches a step;
+     12e (tokens (lm)) after examples/pipeline_longcontext.json:
+         TokenSource -> LMForward sequence_parallel on a data 1 x seq 4
+         sharding block, 4 frames of 1 x 8192 held against a direct
+         forward; an LMGenerate frame whose 1,021-token prompt is
+         left-padded to the seq axis, against a direct generate
 
 The last three lines are the card's nvidia-smi name and power limit, one
 JSON object describing every kernel of the paths, and {"ok": true,
@@ -3469,6 +3492,589 @@ def phase_model_families(smi: str) -> dict:
     return launches
 
 
+# -- phase 12: long context on the card ---------------------------------
+#
+# Sequence parallelism over a {"seq": 4} mesh that names cuda:0 four
+# times (also {"seq": 8} in 12a): every hop launches the kernels at the
+# shard's shape on the one card, and a ring "ppermute" between two shards
+# on one device moves no bytes -- times here cover the kernels and the
+# merges, not an interconnect.  llama32_1b at its published widths and
+# full depth, bf16, seeded weights and tokens.
+
+SP_SIZE = 4
+SP_SEQ = 8192                 # 12a, 12b and 12c
+SP_HEAD_CHUNK = 8             # heads per plain-reference chunk: 2 GiB of
+                              # f32 scores at L 8192
+SP_PROMPT, SP_NEW = 4096, 32  # 12d
+SP_TRAIN_STEPS = 3            # 12c: 1 + 3 steps
+# 12a holds the ring's O against the plain version and against one K1
+# call by its relative error over the whole tensor: at L 8192 a typical
+# |O| is about sqrt(e / L) ~ 2e-2, as large as BF16_TOL's atol, so the
+# elementwise check alone would pass a hop merged with wrong weights.
+# The ring rounds P and O to bf16 (2^-9 relative each) from f32 sums
+# merged in another order -> the limit the gradients of one call take
+RING_O_REL_TOL = GRAD_REL_TOL
+# 12b holds the SP logits against the non-SP forward's only against
+# gross faults (a ring hop over the wrong keys moves logits by whole
+# units and the argmax of most positions): each layer rounds its
+# attention output to bf16 from differently ordered f32 sums, as 8a's
+# cached path does (7.35e-2 there on 16 tokens), through 16 layers
+SP_LOGITS_GROSS_TOL = 1.0
+SP_ARGMAX_FLOOR = 0.9
+# 12e: the element and a direct forward run the same kernels on the same
+# inputs, and every launch is bitwise repeatable (phase 2)
+SP_ELEMENT_TOL = 1e-3
+# 12d's small f32 LM, card == CPU
+SP_F32 = dict(vocab_size=1024, d_model=256, n_layers=2, n_heads=4,
+              n_kv_heads=2, d_ff=512, max_seq_len=1024, dtype="float32")
+SP_F32_PROMPT, SP_F32_NEW = 256, 16
+# examples/pipeline_longcontext.json's lm widths (its model: 2 axis is
+# ROADMAP Queue A item 4b, so the mesh here is data 1 x seq 4)
+LONGCONTEXT = dict(vocab_size=8192, d_model=512, n_layers=8, n_heads=8,
+                   n_kv_heads=4, d_ff=1536, max_seq_len=16384)
+LONGCONTEXT_FRAMES, LONGCONTEXT_SEQ = 4, 8192
+LEFT_PAD_PROMPT, LEFT_PAD_NEW = 1021, 16
+
+
+def seq_mesh(size: int = SP_SIZE):
+    from aiko_services_tpu_torch.parallel import create_mesh
+    return create_mesh({"seq": size}, devices=["cuda:0"] * size)
+
+
+def launch_counts() -> dict:
+    from aiko_services_tpu_torch.ops import kernels
+    return {name: kernels.launch_counts[name] for name in kernels.KERNELS}
+
+
+def add_launches(total: dict, more: dict) -> None:
+    for name, count in more.items():
+        total[name] += count
+
+
+def plain_attention_chunks(q, k, v, dout, causal: bool) -> list:
+    """[O, dQ, dK, dV] of the plain f32 version on the whole sequence,
+    SP_HEAD_CHUNK heads at a time (heads are independent)."""
+    from aiko_services_tpu_torch.parallel.attention import (
+        flash_attention_backward_plain, flash_attention_plain)
+    parts = []
+    for start in range(0, q.shape[1], SP_HEAD_CHUNK):
+        heads = slice(start, start + SP_HEAD_CHUNK)
+        qs, ks, vs, ds = (x[:, heads].float().contiguous()
+                          for x in (q, k, v, dout))
+        out, lse = flash_attention_plain(qs, ks, vs, causal=causal)
+        parts.append((out, *flash_attention_backward_plain(
+            qs, ks, vs, out, lse, ds, causal=causal)))
+    return [torch.cat(column, dim=1) for column in zip(*parts)]
+
+
+def ring_pass(q, k, v, dout, size: int, causal: bool) -> tuple:
+    """(O, [dQ, dK, dV], executed hops, launches) of ring_attention
+    forward and backward on a {"seq": size} mesh over cuda:0."""
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import attention
+    inputs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    hops = []
+    kernels.reset_launch_counts()
+    attention._RING_HOP_CALLBACK = hops.append
+    try:
+        out = attention.ring_attention(*inputs, seq_mesh(size),
+                                       causal=causal)
+    finally:
+        attention._RING_HOP_CALLBACK = None
+    grads = torch.autograd.grad(out, inputs, dout)
+    torch.cuda.synchronize()
+    return out.detach(), grads, len(hops), launch_counts()
+
+
+def phase_ring_kernels(smi: str) -> None:
+    """12a: the ring at kernel level, (1, 32, 8192, 64) bf16: O against
+    one K1 call on the whole sequence and against the plain version,
+    dQ/dK/dV (K2/K3 per hop) against the plain gradients, executed hops
+    and launches, at n = 4 (causal and not) and n = 8 (causal); then the
+    ring forward + backward timed against one K1 + K2 + K3 call."""
+    from aiko_services_tpu_torch.parallel.attention import (
+        flash_attention_backward, flash_attention_forward, ring_attention)
+    q, k, v = random_qkv(1, 32, SP_SEQ, SP_SEQ, 64, torch.bfloat16,
+                         seed=1200)
+    dout = random_qkv(1, 32, SP_SEQ, 1, 64, torch.bfloat16, seed=1201)[0]
+    for causal in (True, False):
+        plain_out, *plain_grads = plain_attention_chunks(q, k, v, dout,
+                                                         causal)
+        single_out, single_lse = flash_attention_forward(q, k, v,
+                                                         causal=causal)
+        single_grads = flash_attention_backward(
+            q, k, v, single_out, single_lse, dout, causal=causal)
+        single_rel = {name: relative_error(got, want) for name, got, want
+                      in zip(("dq", "dk", "dv"), single_grads, plain_grads)}
+        del single_grads, single_lse
+        for size in ((SP_SIZE, 8) if causal else (SP_SIZE,)):
+            out, grads, hops, launches = ring_pass(q, k, v, dout, size,
+                                                   causal)
+            expected_hops = size * (size + 1) // 2 if causal else size ** 2
+            if hops != expected_hops or set(launches.values()) != {
+                    expected_hops}:
+                raise SystemExit(f"12a: ring n={size} causal={causal} ran "
+                                 f"{hops} hops, launches {launches}; "
+                                 f"expected {expected_hops} each")
+            rel = {name: relative_error(got, want) for name, got, want
+                   in zip(("dq", "dk", "dv"), grads, plain_grads)}
+            o_plain = (out.float() - plain_out).abs().max().item()
+            o_k1 = (out.float() - single_out.float()).abs().max().item()
+            o_rel = {"plain": relative_error(out, plain_out),
+                     "one_k1": relative_error(out, single_out)}
+            say("12a ring_vs_plain", shape=f"1x32x{SP_SEQ}x64",
+                dtype="bfloat16", causal=causal, seq_axis=size,
+                executed_hops=hops, launches=json.dumps(launches),
+                o_max_abs_err_vs_plain=f"{o_plain:.3e}",
+                o_rel_err_vs_plain=f"{o_rel['plain']:.3e}",
+                o_max_abs_err_vs_one_k1=f"{o_k1:.3e}",
+                o_rel_err_vs_one_k1=f"{o_rel['one_k1']:.3e}",
+                o_rel_limit=RING_O_REL_TOL,
+                grad_rel_err=json.dumps({key: float(f"{value:.3e}")
+                                         for key, value in rel.items()}),
+                grad_max_abs_err=json.dumps({
+                    name: float(f"{(got.float() - want).abs().max():.3e}")
+                    for name, got, want in zip(("dq", "dk", "dv"), grads,
+                                               plain_grads)}),
+                one_call_grad_rel_err=json.dumps({
+                    key: float(f"{value:.3e}")
+                    for key, value in single_rel.items()}),
+                grad_limit=TRAIN_GRAD_REL_TOL, card=repr(smi))
+            torch.testing.assert_close(out.float(), plain_out,
+                                       atol=BF16_TOL, rtol=BF16_TOL)
+            torch.testing.assert_close(out.float(), single_out.float(),
+                                       atol=BF16_TOL, rtol=BF16_TOL)
+            if max(o_rel.values()) > RING_O_REL_TOL:
+                raise SystemExit(f"12a: ring n={size} causal={causal} O "
+                                 f"relative errors {o_rel} exceed "
+                                 f"{RING_O_REL_TOL}")
+            if max(rel.values()) > TRAIN_GRAD_REL_TOL:
+                raise SystemExit(f"12a: ring n={size} causal={causal} "
+                                 f"gradients {rel} exceed "
+                                 f"{TRAIN_GRAD_REL_TOL}")
+            del out, grads
+        del plain_out, plain_grads, single_out
+        torch.cuda.empty_cache()
+
+    mesh = seq_mesh()
+    inputs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+    def ring_step():
+        out = ring_attention(*inputs, mesh, causal=True)
+        torch.autograd.grad(out, inputs, dout)
+
+    def one_call_step():
+        out, lse = flash_attention_forward(q, k, v, causal=True)
+        flash_attention_backward(q, k, v, out, lse, dout, causal=True)
+
+    ring_ms = cuda_ms(ring_step, warmup=2, runs=10)
+    one_call_ms = cuda_ms(one_call_step, warmup=2, runs=10)
+    say("12a ring_timing", shape=f"1x32x{SP_SEQ}x64", causal=True,
+        seq_axis=SP_SIZE, ring_fwd_bwd_ms=f"{ring_ms:.4f}",
+        one_k1_k2_k3_ms=f"{one_call_ms:.4f}",
+        ring_over_one_call=f"{ring_ms / one_call_ms:.3f}",
+        note="shards_share_one_card_no_interconnect", card=repr(smi))
+
+
+def phase_sp_prefill(params, config, smi: str) -> dict:
+    """12b: forward with sequence_parallel on a 1 x 8192 prompt, ring and
+    then Ulysses (32 heads / 4), against the non-SP forward: logits max
+    abs difference, equal-argmax share, ms and tokens/s of each."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import forward
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import use_mesh
+    tokens = torch.from_numpy(np.random.default_rng(1202).integers(
+        0, config.vocab_size, (1, SP_SEQ)).astype(np.int32)).cuda()
+    mesh = seq_mesh()
+
+    def timed(run_config) -> tuple:
+        with use_mesh(mesh), torch.no_grad():
+            logits = forward(params, run_config, tokens)
+            torch.cuda.synchronize()
+            seconds = []
+            for _ in range(2):
+                start = time.perf_counter()
+                forward(params, run_config, tokens)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - start)
+        return logits, statistics.median(seconds) * 1e3
+
+    dense, dense_ms = timed(config)
+    dense_argmax = dense.argmax(-1)
+    say("12b prefill_non_sp", tokens=SP_SEQ, ms=f"{dense_ms:.1f}",
+        tokens_per_s=f"{SP_SEQ / dense_ms * 1e3:.1f}", card=repr(smi))
+    launches = {name: 0 for name in kernels.KERNELS}
+    for mechanism, per_layer in (("ring", SP_SIZE * (SP_SIZE + 1) // 2),
+                                 ("ulysses", SP_SIZE)):
+        sp_config = replace(config, sequence_parallel=True,
+                            sp_mechanism=mechanism)
+        kernels.reset_launch_counts()
+        logits, ms = timed(sp_config)
+        counted = launch_counts()
+        add_launches(launches, counted)
+        if counted["flash_attention"] != 3 * config.n_layers * per_layer:
+            raise SystemExit(f"12b: {mechanism} launched {counted}, "
+                             f"expected {per_layer} K1 a layer a forward")
+        if not (logits.shape == dense.shape
+                and torch.isfinite(logits).all()):
+            raise SystemExit(f"12b: {mechanism} logits "
+                             f"{tuple(logits.shape)} not finite")
+        error = (logits - dense).abs().max().item()
+        same = (logits.argmax(-1) == dense_argmax).float().mean().item()
+        say("12b prefill_sp", mechanism=mechanism, seq_axis=SP_SIZE,
+            tokens=SP_SEQ, ms=f"{ms:.1f}",
+            tokens_per_s=f"{SP_SEQ / ms * 1e3:.1f}",
+            logits_max_abs_diff_vs_non_sp=f"{error:.3e}",
+            same_argmax_share=f"{same:.4f}",
+            k1_launches_per_forward=counted["flash_attention"] // 3,
+            note="shards_share_one_card_no_interconnect", card=repr(smi))
+        if error > SP_LOGITS_GROSS_TOL or same < SP_ARGMAX_FLOOR:
+            raise SystemExit(f"12b: {mechanism} logits differ from the "
+                             f"non-SP forward by {error:.3e} (argmax "
+                             f"share {same:.4f})")
+        del logits
+    del dense
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sp_generate(params, config, smi: str) -> dict:
+    """12d: generate with the SP cache (ring cached prefill at pos 0,
+    then sp_decode_attention over the seq-sharded cache) on a 4,096-token
+    prompt, 32 new tokens, against non-SP generate; then a small f32 LM
+    whose SP tokens on the card equal the CPU's."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import (
+        TransformerConfig, generate, init_params, init_sp_cache)
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import create_mesh, use_mesh
+    from aiko_services_tpu_torch.utils.tree import tree_map
+    prompt = torch.from_numpy(np.random.default_rng(1203).integers(
+        0, config.vocab_size, (1, SP_PROMPT)).astype(np.int32)).cuda()
+    sp_config = replace(config, sequence_parallel=True)
+    mesh = seq_mesh()
+    dense, _ = generate(params, config, prompt, SP_NEW)
+    with use_mesh(mesh):
+        generate(params, sp_config, prompt, 2, cache=init_sp_cache(
+            sp_config, 1, SP_PROMPT + SP_SIZE, mesh, "cuda"))   # warm-up
+        cache = init_sp_cache(sp_config, 1, SP_PROMPT + SP_NEW, mesh,
+                              "cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        tokens, cache = generate(params, sp_config, prompt, SP_NEW,
+                                 cache=cache)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+    launches = launch_counts()
+    if not (tokens.shape == (1, SP_NEW) and tokens.dtype == torch.int32
+            and int(tokens.min()) >= 0
+            and int(tokens.max()) < config.vocab_size):
+        raise SystemExit(f"12d: SP tokens {tokens.tolist()}")
+    if launches["flash_attention"] != config.n_layers * SP_SIZE * (
+            SP_SIZE + 1) // 2:
+        raise SystemExit(f"12d: the SP prefill launched {launches}")
+    agree = (tokens == dense).float().mean().item()
+    first_diff = next((index for index in range(SP_NEW)
+                       if tokens[0, index] != dense[0, index]), None)
+    # greedy decoding diverges for good after its first flip: the gap
+    # between the two best logits there says whether it was a near-tie
+    gap = None
+    if first_diff is not None:
+        gap = round(top2_gap(params, config, prompt[0].cpu().numpy(),
+                             dense[0].cpu().numpy(), first_diff), 4)
+    say("12d generate_sp", prompt=SP_PROMPT, new_tokens=SP_NEW,
+        seq_axis=SP_SIZE, cache_len=SP_PROMPT + SP_NEW,
+        tokens_per_s=f"{SP_NEW / elapsed:.1f}",
+        seconds=f"{elapsed:.3f}", prefill_k1_launches=launches[
+            "flash_attention"],
+        token_agreement_with_non_sp=f"{agree:.4f}",
+        first_differing_position=first_diff,
+        non_sp_top2_logit_gap_there=gap,
+        note="shards_share_one_card_no_interconnect", card=repr(smi))
+
+    small = TransformerConfig(**SP_F32, sequence_parallel=True)
+    cpu_params = init_params(small, torch.Generator().manual_seed(12),
+                             device="cpu")
+    small_prompt = torch.from_numpy(np.random.default_rng(1204).integers(
+        0, small.vocab_size, (2, SP_F32_PROMPT)).astype(np.int32))
+    cache_len = SP_F32_PROMPT + SP_F32_NEW
+    cpu_mesh = create_mesh({"seq": SP_SIZE}, devices=["cpu"] * SP_SIZE)
+    with use_mesh(cpu_mesh):
+        expected, _ = generate(cpu_params, small, small_prompt, SP_F32_NEW,
+                               cache=init_sp_cache(small, 2, cache_len,
+                                                   cpu_mesh, "cpu"))
+    with use_mesh(mesh):
+        actual, card_cache = generate(
+            tree_map(lambda leaf: leaf.cuda(), cpu_params), small,
+            small_prompt.cuda(), SP_F32_NEW,
+            cache=init_sp_cache(small, 2, cache_len, mesh, "cuda"))
+    same = torch.equal(actual.cpu(), expected)
+    say("12d generate_sp_f32_card_vs_cpu", rows=2, prompt=SP_F32_PROMPT,
+        new_tokens=SP_F32_NEW, seq_axis=SP_SIZE, d_model=small.d_model,
+        layers=small.n_layers, identical=same,
+        cache_on_card=card_cache["k"].is_cuda)
+    if not (same and card_cache["k"].is_cuda):
+        raise SystemExit(f"12d: f32 SP tokens on the card "
+                         f"{actual.cpu().tolist()} differ from the CPU's "
+                         f"{expected.tolist()}")
+    return launches
+
+
+def phase_sp_training(params, config, smi: str) -> dict:
+    """12c: make_train_step with sequence_parallel (the ring's backward:
+    K2/K3 per hop), adamw, batch 1 x 8192, 1 + 3 steps; the first step's
+    loss against the non-SP step's on the same weights and tokens."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import (
+        adamw, count_params, make_train_step)
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import use_mesh
+    from aiko_services_tpu_torch.utils.tree import tree_map
+    rng = np.random.default_rng(1205)
+    batches = [torch.from_numpy(rng.integers(
+        0, config.vocab_size, (1, SP_SEQ + 1))).cuda()
+        for _ in range(SP_TRAIN_STEPS + 1)]
+    n_params = count_params(params)
+    dense_params = tree_map(torch.clone, params)
+    optimizer = adamw(1e-4)
+    dense_state = optimizer.init(dense_params)
+    _, _, dense_loss = make_train_step(config, optimizer)(
+        dense_params, dense_state, batches[0])
+    dense_loss = dense_loss.item()
+    del dense_params, dense_state
+    torch.cuda.empty_cache()
+    sp_config = replace(config, sequence_parallel=True)
+    state = optimizer.init(params)
+    train_step = make_train_step(sp_config, optimizer)
+    with use_mesh(seq_mesh()):
+        params, state, loss = train_step(params, state, batches[0])
+        first_loss = loss.item()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        losses = []
+        for batch in batches[1:]:
+            params, state, loss = train_step(params, state, batch)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        profile_train_step(train_step, params, state, batches[0], smi,
+                           label="12c sp_step_profile")
+    losses = [value.item() for value in losses]
+    hops = SP_SIZE * (SP_SIZE + 1) // 2
+    if set(launches.values()) != {config.n_layers * hops * SP_TRAIN_STEPS}:
+        raise SystemExit(f"12c: {launches} in {SP_TRAIN_STEPS} steps, "
+                         f"expected {hops} hops x {config.n_layers} layers "
+                         f"a step for each kernel")
+    tokens_per_s = SP_TRAIN_STEPS * SP_SEQ / elapsed
+    mfu = 6 * n_params * tokens_per_s / peaks_for(smi)[1]["bfloat16"]
+    say("12c train_sp", optimizer="adamw(1e-4)", batch=f"1x{SP_SEQ}",
+        seq_axis=SP_SIZE, loss_sp=f"{first_loss:.6f}",
+        loss_non_sp=f"{dense_loss:.6f}",
+        loss_abs_diff=f"{abs(first_loss - dense_loss):.3e}",
+        loss_limit=TRAIN_LOSS_ATOL, steps=SP_TRAIN_STEPS,
+        step_ms=f"{elapsed / SP_TRAIN_STEPS * 1e3:.1f}",
+        tokens_per_s=f"{tokens_per_s:.1f}", train_mfu=f"{mfu:.4f}",
+        max_memory_allocated_gib=f"{peak / 2**30:.2f}",
+        launches_per_step=json.dumps({name: count / SP_TRAIN_STEPS
+                                      for name, count in launches.items()}),
+        losses=json.dumps([round(value, 4) for value in losses]),
+        note="shards_share_one_card_no_interconnect", card=repr(smi))
+    if not (np.isfinite([first_loss, *losses]).all()
+            and abs(first_loss - dense_loss) <= TRAIN_LOSS_ATOL):
+        raise SystemExit(f"12c: SP loss {first_loss} vs non-SP "
+                         f"{dense_loss}")
+    del state, train_step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def longcontext_definition() -> dict:
+    """(tokens (lm)) after examples/pipeline_longcontext.json, on the
+    card: TokenSource -> LMForward with sequence_parallel on a data 1 x
+    seq 4 mesh, the example's bucket_axes and input spec."""
+    return {
+        "name": "pipeline_longcontext",
+        "graph": ["(tokens (lm))"],
+        "parameters": {"device": "cuda"},
+        "elements": [
+            {"name": "tokens",
+             "output": [{"name": "tokens",
+                         "type": f"i32[1,{LONGCONTEXT_SEQ}]"}],
+             "parameters": {"data_sources": [[1, LONGCONTEXT_SEQ]],
+                            "count": LONGCONTEXT_FRAMES,
+                            "vocab_size": LONGCONTEXT["vocab_size"]},
+             "deploy": {"local": {"module": MODULE,
+                                  "class_name": "TokenSource"}}},
+            {"name": "lm",
+             "input": [{"name": "tokens",
+                        "type": f"i32[1,{LONGCONTEXT_SEQ}]"}],
+             "output": [{"name": "logits"}, {"name": "nll"}],
+             "parameters": {**LONGCONTEXT, "sequence_parallel": True,
+                            "bucket_axes": {"tokens": 1},
+                            "bucket_min": 32, "seed": 12},
+             "sharding": {"axes": {"data": 1, "seq": SP_SIZE},
+                          "inputs": {"tokens": ["data", None]}},
+             "deploy": {"local": {"module": MODULE,
+                                  "class_name": "LMForward"}}},
+        ],
+    }
+
+
+def phase_sp_element(smi: str) -> dict:
+    """12e: the long-context graph's 4 frames, each frame's logits and
+    NLL against a direct forward on the element's weights and mesh; then
+    an LMGenerate frame whose 1,021-token prompt is left-padded to a
+    multiple of the seq axis, against a direct generate."""
+    from aiko_services_tpu_torch.models import (
+        forward, generate, init_sp_cache)
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import (
+        set_default_devices, use_mesh)
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    set_default_devices(["cuda:0"] * SP_SIZE)
+    launches = {name: 0 for name in kernels.KERNELS}
+    processes = []
+    try:
+        process = Process(transport_kind="loopback")
+        processes.append(process)
+        pipeline = create_pipeline(process, longcontext_definition())
+        element = pipeline.elements["lm"]
+        process.run(in_thread=True)
+        element._ensure_ready()
+        responses = queue.Queue()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        pipeline.create_stream("s1", queue_response=responses)
+        frames = {}
+        for _ in range(LONGCONTEXT_FRAMES):
+            _, frame, outputs = responses.get(timeout=300)
+            frames[frame.frame_id] = outputs
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        add_launches(launches, launch_counts())
+        # the source seeds emission i with default_rng(i); each frame is
+        # held against the direct forward of every emission and must
+        # match one of them
+        direct = []
+        for index in range(LONGCONTEXT_FRAMES):
+            tokens = torch.from_numpy(np.random.default_rng(index).integers(
+                0, LONGCONTEXT["vocab_size"], (1, LONGCONTEXT_SEQ),
+                dtype=np.int32)).cuda()
+            with use_mesh(element.mesh), torch.no_grad():
+                logits = forward(element.state, element.config, tokens)
+                log_probs = torch.log_softmax(logits[:, :-1], dim=-1)
+                nll = -torch.gather(log_probs, -1, tokens[:, 1:].long()[
+                    ..., None])[..., 0].mean(-1)
+            direct.append((logits, nll))
+            del log_probs
+        worst = 0.0
+        for frame_id, outputs in sorted(frames.items()):
+            got = outputs["logits"]
+            if not (got.is_cuda and got.shape == direct[0][0].shape
+                    and torch.isfinite(got).all()):
+                raise SystemExit(f"12e: frame {frame_id} logits "
+                                 f"{tuple(got.shape)} on {got.device}")
+            worst = max(worst, min(
+                max((got - logits).abs().max().item(),
+                    (outputs["nll"] - nll).abs().max().item())
+                for logits, nll in direct))
+        del direct
+        per_frame = launches["flash_attention"] / LONGCONTEXT_FRAMES
+        say("12e longcontext_element", frames=LONGCONTEXT_FRAMES,
+            tokens=LONGCONTEXT_SEQ, mesh=json.dumps(dict(
+                element.mesh.shape)), d_model=LONGCONTEXT["d_model"],
+            layers=LONGCONTEXT["n_layers"],
+            frames_per_s=f"{LONGCONTEXT_FRAMES / elapsed:.2f}",
+            tokens_per_s=f"{LONGCONTEXT_FRAMES * LONGCONTEXT_SEQ
+                            / elapsed:.1f}",
+            max_abs_diff_vs_direct_forward=f"{worst:.3e}",
+            k1_launches_per_frame=per_frame, card=repr(smi))
+        if worst > SP_ELEMENT_TOL or per_frame != LONGCONTEXT[
+                "n_layers"] * SP_SIZE * (SP_SIZE + 1) // 2:
+            raise SystemExit(f"12e: element vs direct forward {worst:.3e}, "
+                             f"{per_frame} K1 a frame")
+
+        process = Process(transport_kind="loopback")
+        processes.append(process)
+        pipeline = create_pipeline(process, {
+            "name": "longcontext_generate", "graph": ["(lm)"],
+            "parameters": {"device": "cuda"},
+            "elements": [{
+                "name": "lm", "input": [{"name": "tokens"}],
+                "output": [{"name": "generated"}],
+                "parameters": {**LONGCONTEXT, "sequence_parallel": True,
+                               "max_new_tokens": LEFT_PAD_NEW,
+                               "seed": 12},
+                "sharding": {"axes": {"data": 1, "seq": SP_SIZE},
+                             "inputs": {"tokens": ["data", None]}},
+                "deploy": {"local": {"module": MODULE,
+                                     "class_name": "LMGenerate"}}}]})
+        generator = pipeline.elements["lm"]
+        process.run(in_thread=True)
+        prompt = np.random.default_rng(1206).integers(
+            1, LONGCONTEXT["vocab_size"], (1, LEFT_PAD_PROMPT),
+            dtype=np.int32)
+        responses = queue.Queue()
+        stream = pipeline.create_stream("s1", queue_response=responses)
+        kernels.reset_launch_counts()
+        pipeline.create_frame(stream, {"tokens": prompt})
+        _, _, outputs = responses.get(timeout=300)
+        add_launches(launches, launch_counts())
+        width = -(-LEFT_PAD_PROMPT // SP_SIZE) * SP_SIZE
+        padded = torch.zeros((1, width), dtype=torch.int32, device="cuda")
+        padded[:, width - LEFT_PAD_PROMPT:] = torch.from_numpy(prompt)
+        config = generator.config
+        with use_mesh(generator.mesh):
+            expected, _ = generate(generator.state, config, padded,
+                                   LEFT_PAD_NEW, cache=init_sp_cache(
+                                       config, 1, width + LEFT_PAD_NEW,
+                                       generator.mesh, "cuda"))
+        got = torch.as_tensor(outputs["generated"]).cpu()
+        same = torch.equal(got, expected.cpu())
+        say("12e longcontext_generate_left_pad", prompt=LEFT_PAD_PROMPT,
+            padded_to=width, new_tokens=LEFT_PAD_NEW, identical=same)
+        if not same:
+            raise SystemExit(f"12e: LMGenerate {got.tolist()} differs "
+                             f"from the direct generate on the left-padded "
+                             f"prompt {expected.tolist()}")
+    finally:
+        set_default_devices(None)
+        stop_processes(processes)
+    return launches
+
+
+def phase_long_context(smi: str) -> dict:
+    """Phase 12.  Returns the kernel launches of its main-path runs
+    (12b's SP forwards, 12c's measured steps, 12d's SP generate, 12e's
+    frames); 12a's ring checks are reported on their own lines."""
+    from aiko_services_tpu_torch.models import LLAMA32_1B, init_params
+    from aiko_services_tpu_torch.ops import kernels
+    start = time.perf_counter()
+    phase_ring_kernels(smi)
+    params = init_params(LLAMA32_1B, torch.Generator().manual_seed(12),
+                         device="cuda")
+    launches = {name: 0 for name in kernels.KERNELS}
+    add_launches(launches, phase_sp_prefill(params, LLAMA32_1B, smi))
+    add_launches(launches, phase_sp_generate(params, LLAMA32_1B, smi))
+    add_launches(launches, phase_sp_training(params, LLAMA32_1B, smi))
+    del params
+    torch.cuda.empty_cache()
+    add_launches(launches, phase_sp_element(smi))
+    if min(launches.values()) == 0:
+        raise SystemExit(f"12: a kernel never launched on the long-context "
+                         f"paths: {launches}")
+    say("12 long_context", wall_s=f"{time.perf_counter() - start:.1f}",
+        launches=json.dumps(launches), card=repr(smi))
+    return launches
+
+
 def main() -> None:
     from aiko_services_tpu_torch.ops import kernels
     run_start = time.perf_counter()
@@ -3487,6 +4093,8 @@ def main() -> None:
     phase_engine(smi)
     phase_serving_tier(smi)
     for name, count in phase_model_families(smi).items():
+        launches[name] += count
+    for name, count in phase_long_context(smi).items():
         launches[name] += count
     say("run", seconds=f"{time.perf_counter() - run_start:.1f}",
         card=repr(smi))

@@ -575,3 +575,98 @@ def test_yolov8n_sppf_pool_in_bf16_is_reduce_window(cuda):
     actual = _max_pool5(x)
     assert actual.dtype == torch.bfloat16 and actual.is_cuda
     assert torch.equal(actual.float().cpu(), expected)
+
+
+# -- sequence parallelism on the card ----------------------------------------
+#
+# A {"seq": 4} mesh over cuda:0 four times: every hop launches the kernels
+# at the shard's shape on the one card.  bf16 against the plain attention
+# of the whole sequence in f32: outputs atol/rtol 2e-2 as above (each hop
+# rounds P to bf16; the partials merge in f32); gradients per-tensor
+# relative error <= 5e-2, the limit phase 6 of chip_smoke.py holds
+# gradients through chained kernels to (each executed hop adds its bf16
+# dQ/dK/dV roundings to the f32 accumulators).
+
+def _seq_mesh(cuda, size=4):
+    from aiko_services_tpu_torch.parallel import create_mesh
+    return create_mesh({"seq": size}, devices=[cuda] * size)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_on_cuda_matches_plain(cuda, causal):
+    from aiko_services_tpu_torch.parallel import (
+        attention_reference, ring_attention)
+    q, k, v = _qkv((1, 4, 512, 64), (1, 4, 512, 64), torch.bfloat16, cuda,
+                   seed=3)
+    inputs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = ring_attention(*inputs, _seq_mesh(cuda), causal=causal)
+    hops = 10 if causal else 16
+    assert kernels.launch_counts["flash_attention"] == hops
+    assert out.grad_fn is not None and out.is_cuda
+    dout = torch.randn_like(out)
+    grads = torch.autograd.grad(out, inputs, dout)
+    assert kernels.launch_counts["flash_attention_dq"] == hops
+    assert kernels.launch_counts["flash_attention_dkv"] == hops
+    plain = [x.float().requires_grad_(True) for x in (q, k, v)]
+    expected = attention_reference(*plain, causal=causal)
+    expected_grads = torch.autograd.grad(expected, plain, dout.float())
+    torch.testing.assert_close(out.float(), expected, atol=2e-2, rtol=2e-2)
+    for actual, wanted in zip(grads, expected_grads):
+        assert _relative_error(actual, wanted) <= 5e-2
+
+
+def test_ring_hop_count_on_cuda(cuda):
+    from aiko_services_tpu_torch.parallel import attention
+    q, k, v = _qkv((1, 2, 256, 64), (1, 2, 256, 64), torch.bfloat16, cuda)
+    hops = []
+    attention._RING_HOP_CALLBACK = hops.append
+    try:
+        attention.ring_attention(q, k, v, _seq_mesh(cuda, 8), causal=True)
+    finally:
+        attention._RING_HOP_CALLBACK = None
+    assert len(hops) == 36
+
+
+def test_ulysses_attention_on_cuda_matches_plain(cuda):
+    from aiko_services_tpu_torch.parallel import (
+        attention_reference, ulysses_attention)
+    q, k, v = _qkv((1, 8, 512, 64), (1, 8, 512, 64), torch.bfloat16, cuda,
+                   seed=4)
+    kernels.reset_launch_counts()
+    out = ulysses_attention(q, k, v, _seq_mesh(cuda), causal=True)
+    assert kernels.launch_counts["flash_attention"] == 4
+    expected = attention_reference(q.float(), k.float(), v.float(),
+                                   causal=True)
+    torch.testing.assert_close(out.float(), expected, atol=2e-2, rtol=2e-2)
+
+
+def test_ring_and_ulysses_across_cards_equal_one_card(cuda):
+    """A mesh over distinct cards (cuda:0..n-1, n <= 4) moves the shards
+    between cards and gives, bit for bit, what the same mesh over cuda:0
+    n times gives: the same kernels on the same shards.  Needs two cards
+    or more (run it on a machine with several)."""
+    from aiko_services_tpu_torch.parallel import (
+        create_mesh, ring_attention, sp_decode_attention, ulysses_attention)
+    count = min(torch.cuda.device_count(), 4)
+    if count < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    meshes = [create_mesh({"seq": count}, devices=devices) for devices in (
+        [f"cuda:{index}" for index in range(count)], ["cuda:0"] * count)]
+    q, k, v = _qkv((1, 8, 256 * count, 64), (1, 8, 256 * count, 64),
+                   torch.bfloat16, cuda, seed=5)
+    dout = torch.randn_like(q)
+    cache = torch.randn((1, 2, 64 * count, 64), device=cuda)
+    results = []
+    for mesh in meshes:
+        inputs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = ring_attention(*inputs, mesh, causal=True)
+        grads = torch.autograd.grad(out, inputs, dout)
+        decode = sp_decode_attention(q[:, :, :1].float(), cache, cache, 99,
+                                     mesh=mesh)
+        results.append((out, *grads,
+                        ulysses_attention(q, k, v, mesh, causal=True),
+                        decode))
+    for across, one in zip(*results):
+        assert across.device == one.device == torch.device("cuda", 0)
+        assert torch.equal(across, one)

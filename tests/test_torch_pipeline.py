@@ -153,7 +153,17 @@ def test_serving_grammars_check_definitions(parameter, good, bad, code):
 
 
 def test_sharding_block_is_not_ported():
+    """The sharding block runs on a seq axis
+    (tests/test_torch_sequence_parallel.py); a data axis above 1 is a
+    parameter-sharding axis, ROADMAP Queue A item 4b, and refused."""
+    from aiko_services_tpu_torch.parallel import set_default_devices
     definition = _definition()
     definition["elements"][0]["sharding"] = {"axes": {"data": -1}}
-    with pytest.raises(DefinitionError, match="not yet ported"):
-        create_pipeline(Process(transport_kind="loopback"), definition)
+    set_default_devices(["cpu"] * 2)
+    try:
+        with pytest.raises(DefinitionError, match="not yet ported"):
+            create_pipeline(Process(transport_kind="loopback"), definition)
+        with pytest.raises(NotImplementedError, match="item 4b"):
+            create_pipeline(Process(transport_kind="loopback"), definition)
+    finally:
+        set_default_devices(None)

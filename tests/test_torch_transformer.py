@@ -238,15 +238,23 @@ def _foreign_checkpoint(directory, name: str) -> str:
     return str(path)
 
 
+def _sp_mesh(axes: dict):
+    from aiko_services_tpu_torch.parallel import create_mesh
+    return create_mesh(axes, devices=["cpu"] * int(np.prod(
+        list(axes.values()))))
+
+
 # what the port does not have yet raises, never runs something else
 UNPORTED = {
     "activation_specs": lambda c, p, t, d: torch_lm.forward(
         p, c, t, activation_specs=True),
     "sharded_train_step": lambda c, p, t, d: torch_lm.make_train_step(
         c, optim.adam(1e-3), sharded=True),
-    "sequence_parallel": lambda c, p, t, d: torch_lm.make_train_step(
-        torch_lm.TransformerConfig(**CONFIG, sequence_parallel=True),
-        optim.adam(1e-3)),
+    # sequence parallelism runs (PORTED below); on a mesh that also
+    # shards the model axis, as examples/pipeline_longcontext.json asks,
+    # it waits for the parameter-sharding axes (ROADMAP Queue A item 4b)
+    "sequence_parallel": lambda c, p, t, d: _sp_mesh({"seq": 2,
+                                                      "model": 2}),
     # the serving gateway runs; its elastic fleet and its SLO autopilot
     # (ROADMAP Queue A item 8) are what it does not have yet
     "autoscale": lambda c, p, t, d: _gateway(autoscale="min_replicas=1"),
@@ -323,10 +331,32 @@ def _ultralytics_detector_runs(tmp_path) -> None:
     assert tuple(outputs["detections"]["boxes"].shape) == (1, 8, 4)
 
 
+def _sequence_parallel_trains(tmp_path) -> None:
+    """A sequence-parallel config trains through the ring on a seq mesh;
+    tests/test_torch_sequence_parallel.py holds it against the JAX
+    package."""
+    from aiko_services_tpu_torch.parallel import use_mesh
+    config = torch_lm.TransformerConfig(**CONFIG, sequence_parallel=True)
+    params = torch_lm.init_params(config, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    optimizer = optim.adam(1e-2)
+    state = optimizer.init(params)
+    step = torch_lm.make_train_step(config, optimizer)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (2, 17)).astype(np.int32))
+    losses = []
+    with use_mesh(_sp_mesh({"seq": 4})):
+        for _ in range(3):
+            params, state, loss = step(params, state, tokens)
+            losses.append(float(loss))
+    assert losses[-1] < losses[0]
+
+
 # options the port once refused and now runs, under the ids of the
 # refusal cases they replace
 PORTED = {
     "n_experts": _moe_trains,
+    "sequence_parallel": _sequence_parallel_trains,
     "ultralytics_detector_weights": _ultralytics_detector_runs,
 }
 
