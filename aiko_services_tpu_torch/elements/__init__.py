@@ -3,6 +3,9 @@ from .ml import (                                             # noqa: F401
     DetectionsPublish, TokensToText, TextToTokens)
 from .common_io import (                                      # noqa: F401
     DataSource, DataTarget, Sample, expand_data_sources)
+from .text_io import (                                        # noqa: F401
+    TextReadFile, TextSource, TextTransform, TextSample, TextWriteFile,
+    TextOutput)
 from .compute import (                                        # noqa: F401
     ArraySource, TokenSource, MultiModalSource, ToHost)
 from .audio_io import (                                       # noqa: F401

@@ -22,11 +22,17 @@
 # models/tts.py; the Detector loads ultralytics YOLOv8 checkpoints
 # (models/yolo.py) as well as the native detector's.
 #
-# LMForward and the closed-batch LMGenerate take the long-context path:
-# `sequence_parallel: true` with a `sharding` block whose axes hold "seq"
-# runs the ring (or Ulysses) prefill and the sequence-parallel decode on
-# the element's mesh, the KV cache's length padded to divide the seq
-# axis and the prompt left-padded to a multiple of it.
+# LMForward, the closed-batch LMGenerate and SpeechToText run on the
+# element's mesh (the `sharding` block): their state spec defaults to the
+# family's megatron tree filtered to the mesh (param_specs with the
+# untied head's entry, quantized_param_specs under `weight_dtype: int8`,
+# asr_param_specs), an explicit `state` spec winning, so the model runs
+# its sharded path.  `sequence_parallel: true` with a "seq" axis runs the
+# ring (or Ulysses) prefill and the sequence-parallel decode, the KV
+# cache's length padded to divide the seq axis and the prompt
+# left-padded to a multiple of it.  The decode and prefill engines
+# (`continuous: true`, `role: prefill`) stay on one device and refuse a
+# mesh, as the JAX package's do.
 #
 # Not ported yet, and raising NotImplementedError naming it: HuggingFace
 # Llama and whisper checkpoints.
@@ -48,7 +54,7 @@ from ..models import (
     load_yolov8_params, quantize_weights_int8, synthesize, yolo_detect)
 from ..models import configs as model_configs
 from ..ops.device import as_device_array
-from ..parallel.mesh import use_mesh
+from ..parallel.mesh import filter_specs, sharded_leaves, unshard, use_mesh
 from ..pipeline import (
     AsyncHostElement, ComputeElement, PipelineElement, StreamEvent)
 from ..utils import get_logger, truthy
@@ -141,6 +147,27 @@ def _transformer_config(element) -> TransformerConfig:
     )
 
 
+def _default_state_spec(element, spec_factory) -> None:
+    """A meshed model element's state spec defaults to the family's
+    megatron spec tree filtered to the element's mesh, not full
+    replication (an 8B replicated on every position would not fit); an
+    explicit sharding.state in the definition wins."""
+    if element.mesh is not None and element._state_spec is None:
+        element._state_spec = filter_specs(spec_factory(), element.mesh)
+
+
+def _default_lm_state_spec(element, config) -> None:
+    from ..models import param_specs, quantized_param_specs
+    if str(element.get_parameter("weight_dtype", "") or "") == "int8":
+        # the quantized tree carries w_scale planes the plain specs
+        # don't know about
+        _default_state_spec(
+            element, lambda: quantized_param_specs(config, lm_head=True))
+    else:
+        _default_state_spec(
+            element, lambda: param_specs(config, lm_head=True))
+
+
 def _refuse_llama_weights(element) -> None:
     if _weights_named(element.get_parameter("weights"),
                       ("model.embed_tokens.weight",)):
@@ -153,17 +180,22 @@ def _load_transformer_params(element, config: TransformerConfig):
     framework's save_pytree layout; absent -> seeded random init.
     weight_dtype "int8": weight-only serving quantization."""
     weights = element.get_parameter("weights")
+    weight_dtype = str(element.get_parameter("weight_dtype", "") or "")
     if weights:
         paths = weights if isinstance(weights, list) else [weights]
-        params = load_pytree(paths[0], dtype=config.dtype,
-                             device=element.device)
+        # a meshed element reads each tensor straight into its shards
+        # (int8 quantizes whole tensors first)
+        placed = element.mesh is not None and not weight_dtype
+        params = load_pytree(
+            paths[0], dtype=config.dtype, device=element.device,
+            mesh=element.mesh if placed else None,
+            specs=element._state_spec if placed else None)
     else:
         params = init_params(
             config,
             torch.Generator().manual_seed(
                 int(element.get_parameter("seed", 0))),
             device=element.device)
-    weight_dtype = str(element.get_parameter("weight_dtype", "") or "")
     if weight_dtype == "int8":
         params = quantize_weights_int8(params, config)
     elif weight_dtype:
@@ -200,12 +232,9 @@ class LMForward(ComputeElement):
         _refuse_llama_weights(self)
 
     def configure(self):
-        # a meshed LM's state spec defaults, in the JAX package, to the
-        # family's megatron tree filtered to the mesh (param_specs, ROADMAP
-        # item 4b); on a mesh whose only axis above 1 is "seq" that filter
-        # replicates every leaf, which is what no state spec places
         if not hasattr(self, "config"):
             self.config = _transformer_config(self)
+            _default_lm_state_spec(self, self.config)
 
     def setup(self):
         params = _load_transformer_params(self, self.config)
@@ -216,6 +245,7 @@ class LMForward(ComputeElement):
     def compute(self, state, tokens):
         with torch.no_grad():
             logits = forward(state, self.config, tokens)
+            tokens = unshard(tokens)
             log_probs = torch.log_softmax(logits[:, :-1], dim=-1)
             # jnp.take_along_axis(mode="clip"): out-of-vocab ids clamp
             targets = tokens[:, 1:].long().clamp(0, logits.shape[-1] - 1)
@@ -294,6 +324,7 @@ class LMGenerate(ComputeElement):
         if not hasattr(self, "config"):
             self.config = _transformer_config(self)
             self.tokenizer = _tokenizer_for(self)
+            _default_lm_state_spec(self, self.config)
 
     def setup(self):
         return _load_transformer_params(self, self.config)
@@ -379,9 +410,13 @@ class LMGenerate(ComputeElement):
         mesh_scope = (use_mesh(self.mesh) if self.mesh is not None
                       else contextlib.nullcontext())
         with mesh_scope:
+            # sharded parameters: generate lays its cache out over their
+            # mesh by cache_specs (padded to the seq axis)
+            sharded = next(sharded_leaves(self.state), None) is not None
             cache = (self._sp_cache(tokens.shape[0],
                                     tokens.shape[1] + max_new)
-                     if self.config.sequence_parallel else None)
+                     if self.config.sequence_parallel and not sharded
+                     else None)
             if truthy(self.get_parameter("stream_tokens", False, stream)):
                 # streamed serving path: publish token chunks to /out as
                 # they decode (reference capability: Ollama streaming)
@@ -1166,6 +1201,8 @@ class SpeechToText(ComputeElement):
         if _weights_named(self.get_parameter("weights"),
                           ("model.encoder.conv1.weight",)):
             raise _not_ported(self, "HuggingFace whisper checkpoints")
+        from ..models import asr_param_specs
+        _default_state_spec(self, lambda: asr_param_specs(self.config))
 
     def setup(self):
         weights = self.get_parameter("weights")
@@ -1202,6 +1239,8 @@ class SpeechToText(ComputeElement):
         scheduler's program cache entry)."""
         if type(self).process_frame is not SpeechToText.process_frame:
             return None  # subclass override must run, not be bypassed
+        if self.mesh is not None:
+            return None  # meshed inputs need host-side placement
         self._ensure_ready()
         max_tokens = int(self.get_parameter("max_tokens", 32, stream))
 

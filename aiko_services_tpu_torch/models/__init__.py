@@ -1,10 +1,11 @@
 from .asr import (                                            # noqa: F401
     AsrConfig, init_asr_params, encode_audio, decode_tokens, asr_forward,
     make_asr_train_step, transcribe, transcribe_audio, transcribe_rescore,
-    count_params)
+    count_params, asr_param_specs)
 from .transformer import (                                    # noqa: F401
     TransformerConfig, init_params, forward, init_cache, init_sp_cache,
-    cache_specs, param_specs, decode_step, generate, generate_stream, make_train_step, quantize_weights_int8,
+    cache_specs, param_specs, quantized_param_specs, decode_step, generate,
+    generate_stream, make_train_step, quantize_weights_int8,
     REMAT_POLICIES, resolve_remat_policy, init_paged_pool, paged_prefill,
     paged_decode_step, paged_verify_step, paged_prefill_chunk, f32_head)
 from .tokenizer import BPETokenizer, train_bpe                # noqa: F401

@@ -12,6 +12,17 @@
 # plain XLA in the JAX package.  make_asr_train_step trains through the
 # same flash_attention, whose backward runs the hand-written dQ and dK/dV
 # kernels on CUDA; its update is written into the parameters in place.
+#
+# asr_param_specs lays the tree out megatron-style (q/k/v and the first
+# MLP weight column-parallel over "model" and row-cut over "fsdp", the
+# output projections and the second MLP weight the other way round, the
+# token table's model dimension over "fsdp").  With Sharded leaves
+# (parallel.shard_pytree) encode_audio, decode_tokens, asr_forward and
+# transcribe run on the shards: each model shard attends over its heads
+# (the encoder and the teacher-forced decoder through flash_attention, so
+# the forward kernel runs once per model shard), the dense layers are
+# column- and row-parallel (models/layers.py), the batch splits over
+# "data", and the results come back whole on the mesh's home device.
 
 from __future__ import annotations
 
@@ -25,11 +36,16 @@ import torch.nn.functional as F
 from ..ops.audio import full_f32_convolution, log_mel_spectrogram
 from ..ops.device import resolve_device
 from ..parallel.attention import flash_attention
-from ..utils.tree import tree_leaves
-from .layers import dense, f32_reduction, init_dense, init_norm, layer_norm
+from ..parallel.collectives import map_shards
+from ..parallel.mesh import PartitionSpec as P
+from ..parallel.mesh import check_layout, leaf_layout, sharded_leaves
+from .layers import (
+    ShardedCall, column_parallel, dense, f32_reduction, init_dense,
+    init_norm, layer_norm, row_parallel)
 from .optim import apply_updates, next_token_loss, value_and_grad
 
-__all__ = ["AsrConfig", "init_asr_params", "transcribe_audio",
+__all__ = ["AsrConfig", "init_asr_params", "asr_param_specs",
+           "transcribe_audio",
            "transcribe_rescore", "encode_audio", "decode_tokens",
            "asr_forward", "make_asr_train_step", "transcribe",
            "count_params"]
@@ -91,7 +107,13 @@ def _layer_count(stacked: dict) -> int:
 
 
 def count_params(params) -> int:
-    return sum(int(leaf.numel()) for leaf in tree_leaves(params))
+    """The global element count (a Sharded leaf counts its whole
+    shape, not its blocks)."""
+    if isinstance(params, dict):
+        return sum(count_params(value) for value in params.values())
+    if isinstance(params, list):
+        return sum(count_params(value) for value in params)
+    return int(params.numel())
 
 
 def init_asr_params(config: AsrConfig, generator: torch.Generator,
@@ -141,6 +163,33 @@ def init_asr_params(config: AsrConfig, generator: torch.Generator,
         "dec_positions": normal((config.max_text_len, d), 0.01),
         "dec_layers": _stack(dec),
         "dec_norm": norm(),
+    }
+
+
+def asr_param_specs(config: AsrConfig) -> dict:
+    """Megatron TP on "model" + FSDP on "fsdp" for the whisper tree
+    (stacked layers carry a leading None); norms, convolutions and
+    positions replicate."""
+    attention = {"wq": {"w": P(None, "fsdp", "model")},
+                 "wk": {"w": P(None, "fsdp", "model")},
+                 "wv": {"w": P(None, "fsdp", "model")},
+                 "wo": {"w": P(None, "model", "fsdp")}}
+    mlp = {"w1": {"w": P(None, "fsdp", "model")},
+           "w2": {"w": P(None, "model", "fsdp")}}
+    norm = {"scale": P(None, None)}
+    return {
+        "conv1": {"w": P(None, None, None), "b": P(None)},
+        "conv2": {"w": P(None, None, None), "b": P(None)},
+        "enc_positions": P(None, None),
+        "enc_layers": {"attn_norm": norm, "attn": attention,
+                       "mlp_norm": norm, "mlp": mlp},
+        "enc_norm": {"scale": P(None)},
+        "token_embed": {"w": P(None, "fsdp")},
+        "dec_positions": P(None, None),
+        "dec_layers": {"self_norm": norm, "self": attention,
+                       "cross_norm": norm, "cross": attention,
+                       "mlp_norm": norm, "mlp": mlp},
+        "dec_norm": {"scale": P(None)},
     }
 
 
@@ -194,15 +243,25 @@ def _conv1d(params, x, stride: int):
     return out.to(x.dtype).transpose(1, 2)
 
 
-def encode_audio(params: dict, config: AsrConfig, mel):
-    """mel (B, n_mels, frames) -> encoder memory (B, frames//2, d)."""
+def _encoder_input(conv1, conv2, positions, config: AsrConfig, mel):
+    """The convolution stem and positions: mel (B, n_mels, frames) ->
+    (B, frames//2, d)."""
     x = mel.to(config.torch_dtype).transpose(1, 2)     # (B, T, mels)
-    x = _gelu(_conv1d(params["conv1"], x, stride=1))
-    x = _gelu(_conv1d(params["conv2"], x, stride=2))
+    x = _gelu(_conv1d(conv1, x, stride=1))
+    x = _gelu(_conv1d(conv2, x, stride=2))
     # whisper-style fixed context window: audio beyond max_frames post-conv
     # positions is truncated (callers chunk longer audio -- AudioFraming)
     x = x[:, :config.max_frames]
-    x = x + params["enc_positions"][:x.shape[1]]
+    return x + positions[:x.shape[1]]
+
+
+def encode_audio(params: dict, config: AsrConfig, mel):
+    """mel (B, n_mels, frames) -> encoder memory (B, frames//2, d)."""
+    call = _asr_call(params, config)
+    if call is not None:
+        return call.gather_home(_sharded_encode(call, params, mel))
+    x = _encoder_input(params["conv1"], params["conv2"],
+                       params["enc_positions"], config, mel)
     layers = params["enc_layers"]
     for index in range(_layer_count(layers)):
         layer = _layer(layers, index)
@@ -228,6 +287,11 @@ def _logits(params: dict, h):
 
 def decode_tokens(params: dict, config: AsrConfig, tokens, memory):
     """tokens (B, T) + encoder memory -> logits (B, T, vocab) f32."""
+    call = _asr_call(params, config)
+    if call is not None:
+        memory_grid = call.split_batch(memory)
+        return call.gather_home(_sharded_decode(
+            call, params, call.split_batch(tokens), memory_grid))
     h = _embed(params, tokens)
     h = h + params["dec_positions"][:tokens.shape[1]]
     layers = params["dec_layers"]
@@ -373,6 +437,9 @@ def transcribe(params: dict, config: AsrConfig, mel, max_tokens: int = 32):
     incremental KV-cached decode loop of max_tokens steps (no early exit,
     as the JAX package's scan: stopping would cost a host sync per
     step)."""
+    call = _asr_call(params, config)
+    if call is not None:
+        return _sharded_transcribe(call, params, mel, max_tokens)
     memory = encode_audio(params, config, mel)
     cross_k, cross_v = _cross_kv(params, config, memory)
     batch = mel.shape[0]
@@ -398,3 +465,181 @@ def transcribe_audio(params: dict, config: AsrConfig, audio,
     log-mel frontend, then transcribe(), on audio's device."""
     mel = log_mel_spectrogram(audio, n_mels=config.n_mels)
     return transcribe(params, config, mel, max_tokens=max_tokens)
+
+
+# -- the sharded path ---------------------------------------------------------
+#
+# The per-position counterparts of encode_audio, decode_tokens and
+# transcribe on a tree laid out by asr_param_specs: the same functions
+# of the same weights.  Per layer, one psum over fsdp for the fused
+# q/k/v (and w1) partials, one psum over model plus one all_gather over
+# fsdp after each output projection and after w2; the logits take one
+# psum over fsdp.
+
+
+def _asr_call(params: dict, config: AsrConfig) -> ShardedCall | None:
+    """The call's view of the mesh of the tree's Sharded leaves, or None
+    for a whole tree.  Every leaf must have asr_param_specs' layout."""
+    leaf = next(sharded_leaves(params), None)
+    if leaf is None:
+        return None
+    call = ShardedCall(leaf.mesh)
+    wq = leaf_layout(params["enc_layers"]["attn"]["wq"]["w"], leaf.mesh)
+    call.cut = {"model": call.size["model"] if "model" in wq[2] else 1,
+                "fsdp": call.size["fsdp"] if "fsdp" in wq[1] else 1,
+                "expert": 1}
+    check_layout(params, asr_param_specs(config), leaf.mesh, call.cut,
+                 "sharded whisper: params")
+    if config.n_heads % call.cut["model"]:
+        raise ValueError(f"n_heads ({config.n_heads}) must divide by the "
+                         f"model axis ({call.cut['model']}): each model "
+                         f"shard takes whole heads")
+    call.heads = config.n_heads // call.cut["model"]
+    call.config = config
+    return call
+
+
+def _norm(params, x):
+    return map_shards(layer_norm, params, x)
+
+
+def _add(a, b):
+    return map_shards(torch.add, a, b)
+
+
+def _mlp(call: ShardedCall, mlp, x):
+    hidden, = column_parallel(call, [mlp["w1"]], x)
+    return row_parallel(call, mlp["w2"], map_shards(_gelu, hidden))
+
+
+def _sharded_attend(call: ShardedCall, attention, x, memory, causal: bool):
+    """_attend on each model shard's heads."""
+    if x is memory:
+        q, k, v = column_parallel(
+            call, [attention["wq"], attention["wk"], attention["wv"]], x)
+    else:
+        q, = column_parallel(call, [attention["wq"]], x)
+        k, v = column_parallel(call, [attention["wk"], attention["wv"]],
+                               memory)
+    heads = call.heads
+    out = map_shards(lambda q, k, v: _merge_heads(flash_attention(
+        _split_heads(q, heads), _split_heads(k, heads),
+        _split_heads(v, heads), causal=causal)), q, k, v)
+    return row_parallel(call, attention["wo"], out)
+
+
+def _sharded_embed(call: ShardedCall, grids, tokens):
+    return call.all_gather(map_shards(
+        lambda table, t: _embed({"token_embed": table}, t),
+        grids["token_embed"], tokens), "fsdp")
+
+
+def _sharded_logits(call: ShardedCall, grids, h):
+    normed = call.slice_axis(_norm(grids["dec_norm"], h), "fsdp")
+    return call.psum(map_shards(
+        lambda table, x: _logits({"token_embed": table}, x),
+        grids["token_embed"], normed), "fsdp")
+
+
+def _sharded_encode(call: ShardedCall, params: dict, mel):
+    config = call.config
+    grids = call.dicts(params)
+    x = map_shards(lambda c1, c2, positions, m: _encoder_input(
+        c1, c2, positions, config, m), grids["conv1"], grids["conv2"],
+        grids["enc_positions"], call.split_batch(mel))
+    for index in range(_layer_count(params["enc_layers"])):
+        layer = call.layer(grids["enc_layers"], index)
+        normed = _norm(layer["attn_norm"], x)
+        x = _add(x, _sharded_attend(call, layer["attn"], normed, normed,
+                                    causal=False))
+        x = _add(x, _mlp(call, layer["mlp"],
+                         _norm(layer["mlp_norm"], x)))
+    return _norm(grids["enc_norm"], x)
+
+
+def _sharded_decode(call: ShardedCall, params: dict, tokens, memory):
+    grids = call.dicts(params)
+    length = next(t for t in tokens.flat if t is not None).shape[1]
+    h = map_shards(lambda h, positions: h + positions[:length],
+                   _sharded_embed(call, grids, tokens),
+                   grids["dec_positions"])
+    for index in range(_layer_count(params["dec_layers"])):
+        layer = call.layer(grids["dec_layers"], index)
+        normed = _norm(layer["self_norm"], h)
+        h = _add(h, _sharded_attend(call, layer["self"], normed, normed,
+                                    causal=True))
+        h = _add(h, _sharded_attend(call, layer["cross"],
+                                    _norm(layer["cross_norm"], h), memory,
+                                    causal=False))
+        h = _add(h, _mlp(call, layer["mlp"], _norm(layer["mlp_norm"], h)))
+    return _sharded_logits(call, grids, h)
+
+
+@torch.no_grad()
+def _sharded_transcribe(call: ShardedCall, params: dict, mel,
+                        max_tokens: int):
+    """transcribe() on the shards: the encoder once, each layer's cross
+    K/V once per model shard, then max_tokens cached decode steps whose
+    self K/V caches hold each shard's heads."""
+    config, heads = call.config, call.heads
+    grids = call.dicts(params)
+    memory = _sharded_encode(call, params, mel)
+    layers = _layer_count(params["dec_layers"])
+    dec = [call.layer(grids["dec_layers"], index) for index in range(layers)]
+    cross = []
+    for layer in dec:
+        k, v = column_parallel(call, [layer["cross"]["wk"],
+                                      layer["cross"]["wv"]], memory)
+        cross.append(map_shards(lambda k, v: (_split_heads(k, heads),
+                                              _split_heads(v, heads)), k, v))
+    caches = map_shards(lambda kv: (
+        torch.zeros((layers,) + kv[0].shape[:2] + (max_tokens,)
+                    + kv[0].shape[3:], dtype=config.torch_dtype,
+                    device=kv[0].device),
+        torch.zeros((layers,) + kv[0].shape[:2] + (max_tokens,)
+                    + kv[0].shape[3:], dtype=config.torch_dtype,
+                    device=kv[0].device)), cross[0])
+    batch = mel.shape[0]
+    tokens = _start_tokens(config, batch, max_tokens, call.home)
+    finished = torch.zeros((batch,), dtype=torch.bool, device=call.home)
+    mask = (torch.arange(max_tokens, device=call.home)[None, None, None, :])
+    scale = 1.0 / np.sqrt(config.head_dim)
+    for index in range(max_tokens):
+        token = call.split_batch(tokens[:, index:index + 1])
+        h = map_shards(lambda h, positions: h + positions[
+            min(index, positions.shape[0] - 1)][None, None],
+            _sharded_embed(call, grids, token), grids["dec_positions"])
+        for layer_index, layer in enumerate(dec):
+            x = _norm(layer["self_norm"], h)
+            q, k, v = column_parallel(call, [layer["self"]["wq"],
+                                             layer["self"]["wk"],
+                                             layer["self"]["wv"]], x)
+
+            def self_attend(q, k, v, cache, layer_index=layer_index):
+                self_k, self_v = cache[0][layer_index], cache[1][layer_index]
+                self_k[:, :, index] = _split_heads(k, heads)[:, :, 0]
+                self_v[:, :, index] = _split_heads(v, heads)[:, :, 0]
+                scores = torch.einsum(
+                    "bhqd,bhkd->bhqk", _split_heads(q, heads).float(),
+                    self_k.float()) * scale
+                scores = scores.masked_fill(mask.to(q.device) > index,
+                                            _NEG_INF)
+                att = torch.softmax(scores, dim=-1).to(self_v.dtype)
+                with f32_reduction():
+                    return _merge_heads(torch.einsum("bhqk,bhkd->bhqd",
+                                                     att, self_v))
+            h = _add(h, row_parallel(call, layer["self"]["wo"], map_shards(
+                self_attend, q, k, v, caches)))
+            qc, = column_parallel(call, [layer["cross"]["wq"]],
+                                  _norm(layer["cross_norm"], h))
+            h = _add(h, row_parallel(call, layer["cross"]["wo"], map_shards(
+                lambda q, kv: _merge_heads(_attend_cached(
+                    _split_heads(q, heads), kv[0], kv[1])),
+                qc, cross[layer_index])))
+            h = _add(h, _mlp(call, layer["mlp"],
+                             _norm(layer["mlp_norm"], h)))
+        logits = call.gather_home(_sharded_logits(call, grids, h))
+        next_token = _greedy_next(config, logits[:, 0], finished)
+        tokens[:, index + 1] = next_token
+        finished = finished | (next_token == config.eot_token)
+    return tokens[:, 1:]

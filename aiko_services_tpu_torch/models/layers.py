@@ -2,7 +2,9 @@
 #
 # Counterpart of aiko_services_tpu/models/layers.py: the layers the ASR
 # model and the LM use (dense, rms_norm, layer_norm, rotary, swiglu,
-# repeat_kv, conv2d and the initialisers).
+# repeat_kv, conv2d and the initialisers), and the megatron dense layers
+# on shards (column_parallel, row_parallel over a ShardedCall), the part
+# of XLA's partitioning of `dense` the sharded models need.
 #
 # Conventions, as in the JAX package: weights stored (in_features,
 # out_features) so forward is x @ w; attention heads live in the
@@ -19,10 +21,14 @@ import torch.nn.functional as F
 
 from ..ops.audio import full_f32_convolution
 from ..ops.device import counted_flags
+from ..parallel.collectives import (
+    all_gather, axis_index, map_shards, psum)
+from ..parallel.mesh import Sharded
 
 __all__ = ["dense", "rms_norm", "layer_norm", "rotary_embedding",
            "apply_rotary", "swiglu", "repeat_kv", "init_dense", "init_norm",
-           "conv2d", "init_conv", "f32_reduction"]
+           "conv2d", "init_conv", "f32_reduction", "ShardedCall",
+           "column_parallel", "row_parallel"]
 
 
 def _reduction_flags() -> tuple:
@@ -190,3 +196,207 @@ def conv2d(params: dict, x, stride: int = 1, padding="SAME"):
     else:
         out = F.conv2d(nchw, weight, bias, stride=stride)
     return out.permute(0, 2, 3, 1)
+
+
+# -- dense layers on shards ---------------------------------------------------
+#
+# Megatron tensor parallelism with FSDP, the layout of the models'
+# param_specs: a column-parallel weight (in, out) has its rows (the
+# contraction) cut over "fsdp" and its columns over "model"; a row-parallel
+# one (in, out) its rows over "model" and its columns over "fsdp".  The
+# activation going into either is whole (replicated over fsdp and model)
+# for the column-parallel layer and cut by "model" for the row-parallel
+# one.  Each position contracts its slice of the activation with its
+# block, and the partial sums meet in ONE collective: column-parallel,
+# a psum over fsdp gives the position its model block of the output;
+# row-parallel, a psum over model then an all_gather over fsdp give the
+# whole output.  No weight moves, so the bytes a decode step's
+# collectives carry depend on the activations' widths and not on the
+# weights' sizes.  With fsdp and model of size 1 both are the plain dense.
+#
+# Each position's partial is the plain dense of its block (bf16 products
+# round to bf16 first; int8 codes give an f32 product times the scale,
+# rounded only after the sum); the psum adds partials in f32 and rounds
+# once; a bias is added once, after the sum.
+
+
+class ShardedCall:
+    """One sharded model call's view of its mesh: the axis sizes, the
+    per-position axis indices, and its parameter leaves as grids
+    (parallel/collectives.py) of per-position tensors and of per-position
+    parameter dicts."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.size = {name: mesh.size(name)
+                     for name in ("data", "fsdp", "expert", "seq", "model")}
+        self.index = {name: axis_index(mesh, name) for name in self.size}
+        # the sizes the parameters are cut by (a model sets those of
+        # axes its leaves are whole over to 1)
+        self.cut = dict(self.size)
+        self.home = mesh.home
+        # whether the call's batch is cut over "data" (split_batch)
+        self.split = False
+
+    def grid(self, leaf):
+        """A leaf as a grid: a Sharded's blocks, or the whole tensor on
+        each position's device (one copy per device)."""
+        if isinstance(leaf, Sharded):
+            if leaf.mesh is not self.mesh:
+                raise ValueError(
+                    f"a sharded call's leaves must share one mesh: "
+                    f"{leaf.mesh!r} is not {self.mesh!r}")
+            return leaf.shards
+        return map_shards(lambda device: leaf.to(device), self.mesh.devices)
+
+    def dicts(self, node):
+        """A parameter tree with each dict of leaves (a layer's {"w",
+        "w_scale", "b"}, a norm's {"scale"}) as a grid of per-position
+        dicts; positions whose tensors are the same share the dict."""
+        if not isinstance(node, dict):
+            return self.grid(node)
+        if node and not any(isinstance(value, dict)
+                            for value in node.values()):
+            names = list(node)
+            return map_shards(lambda *tensors: dict(zip(names, tensors)),
+                              *[self.grid(node[name]) for name in names])
+        return {key: self.dicts(value) for key, value in node.items()}
+
+    def layer(self, stacked, index: int):
+        """Layer `index` of a stacked dict-grid tree (views)."""
+        if isinstance(stacked, dict):
+            return {key: self.layer(value, index)
+                    for key, value in stacked.items()}
+        return map_shards(lambda entry: (
+            {name: tensor[index] for name, tensor in entry.items()}
+            if isinstance(entry, dict) else entry[index]), stacked)
+
+    def splits(self, batch: int) -> bool:
+        """Whether a batch of `batch` rows splits over "data": when it
+        divides (otherwise every data block computes the whole batch, as
+        GSPMD replicates an array it cannot cut)."""
+        return self.size["data"] > 1 and batch % self.size["data"] == 0
+
+    def split_batch(self, tensor, dim: int = 0):
+        """A whole tensor as a grid of its data blocks along `dim` (the
+        whole tensor on every position when the batch does not divide by
+        "data"); sets self.split."""
+        self.split = self.splits(tensor.shape[dim])
+        if not self.split:
+            return self.grid(tensor)
+        block = tensor.shape[dim] // self.size["data"]
+        return map_shards(lambda index, device: tensor.narrow(
+            dim, index * block, block).to(device),
+            self.index["data"], self.mesh.devices)
+
+    def psum(self, grid, axis_name: str):
+        """psum over an axis the parameters are cut by (the identity
+        over one they are whole on)."""
+        if self.cut[axis_name] == 1:
+            return grid
+        return psum(grid, self.mesh, axis_name)
+
+    def all_gather(self, grid, axis_name: str, dim: int = -1):
+        if self.cut[axis_name] == 1:
+            return grid
+        return all_gather(grid, self.mesh, axis_name, dim=dim)
+
+    def slice_axis(self, grid, axis_name: str, dim: int = -1):
+        """Each position's block of `dim` along `axis_name` (an activation
+        whole on every position, cut to the position's slice)."""
+        parts = self.cut[axis_name]
+        if parts == 1:
+            return grid
+
+        def cut(x, index):
+            width = x.shape[dim] // parts
+            return x.narrow(dim, index * width, width)
+        return map_shards(cut, grid, self.index[axis_name])
+
+    def gather_home(self, grid, dim: int = 0):
+        """The whole tensor on the home device: the data blocks of
+        `grid` concatenated along `dim` when split_batch split the batch
+        over "data", else position 0's entry."""
+        if not self.split:
+            return grid[(0,) * self.mesh.devices.ndim].to(self.home)
+        axis = self.mesh.axis_names.index("data")
+        entries = []
+        for index in range(self.size["data"]):
+            position = [0] * self.mesh.devices.ndim
+            position[axis] = index
+            entries.append(grid[tuple(position)].to(self.home))
+        return torch.cat(entries, dim=dim)
+
+
+def _dense_partial(params: dict, x):
+    """x @ w of one block, without the bias: x's dtype, or f32 (times
+    the scale) for int8 codes."""
+    w = params["w"]
+    if w.dtype == torch.int8:
+        return torch.matmul(x.float(), w.float()) * params["w_scale"].float()
+    return dense({"w": w}, x)
+
+
+def _finish(out, bias, x_dtype):
+    """Add the bias block (None: no bias) in f32 after the sum; one
+    rounding to the activation's dtype."""
+    if bias is not None:
+        return (out.float() + bias.float()).to(x_dtype)
+    return out.to(x_dtype)
+
+
+def _bias_block(call: ShardedCall, weight, axis_name: str, width: int):
+    """Each position's block of a whole (replicated) bias along
+    `axis_name`, None without one: a grid that varies only where the
+    bias does, so the positions that share a sum share its result."""
+    parts = call.cut[axis_name]
+
+    def block(params, index):
+        bias = params.get("b")
+        if bias is None or parts == 1 or bias.shape[-1] == width:
+            return bias
+        return bias[..., index * width:(index + 1) * width]
+    return map_shards(block, weight, call.index[axis_name])
+
+
+def column_parallel(call: ShardedCall, weights: list, x) -> list:
+    """x @ w for each param-dict grid of `weights` (rows over fsdp,
+    columns over model), their partials fused into one psum over fsdp.
+    x: a grid of whole activations (..., in).  Returns one grid per
+    weight of the position's model block of the output (..., out/M)."""
+    x_slice = call.slice_axis(x, "fsdp")
+
+    def partials(x_part, *params):
+        outs = [_dense_partial(entry, x_part) for entry in params]
+        dtype = (torch.float32 if any(out.dtype == torch.float32
+                                      for out in outs) else outs[0].dtype)
+        return torch.cat([out.to(dtype) for out in outs], dim=-1)
+
+    summed = call.psum(map_shards(partials, x_slice, *weights), "fsdp")
+    widths = [next(entry for entry in grid.flat if entry is not None)["w"]
+              .shape[-1] for grid in weights]
+    dtype = next(entry for entry in x.flat if entry is not None).dtype
+    results = []
+    for number, weight in enumerate(weights):
+        start, width = sum(widths[:number]), widths[number]
+        results.append(map_shards(
+            lambda total, bias, start=start, width=width: _finish(
+                total[..., start:start + width], bias, dtype),
+            summed, _bias_block(call, weight, "model", width)))
+    return results
+
+
+def row_parallel(call: ShardedCall, weight, x):
+    """x @ w for a param-dict grid (rows over model, columns over fsdp):
+    x is each position's model block of the activation (..., in/M); the
+    partials psum over model, the bias block is added, and the fsdp
+    blocks gather into the whole output on every position."""
+    partial = map_shards(lambda x_part, params: _dense_partial(params, x_part),
+                         x, weight)
+    summed = call.psum(partial, "model")
+    dtype = next(entry for entry in x.flat if entry is not None).dtype
+    width = next(entry for entry in summed.flat
+                 if entry is not None).shape[-1]
+    done = map_shards(lambda total, bias: _finish(total, bias, dtype),
+                      summed, _bias_block(call, weight, "fsdp", width))
+    return call.all_gather(done, "fsdp")

@@ -14,6 +14,12 @@
 #   next_token_loss  -- the f32 next-token cross-entropy of the LM and ASR
 #                       train steps
 #
+# Sharded parameters (parallel.shard_pytree) train where they lie: the
+# tree utilities walk their distinct blocks, so the moments take each
+# block's shape and device and the elementwise update needs no
+# collective; value_and_grad sums the gradients of a block's replicas
+# that lie on different devices (collectives.sum_replica_grads).
+#
 # Departures from optax: learning rates are floats (no schedules), and
 # update() writes the new moments into the state's tensors in place (the
 # optimizer state is donated in the JAX train steps, so no caller holds the
@@ -26,6 +32,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import sum_replica_grads
+from ..parallel.mesh import sharded_leaves
 from ..utils.tree import tree_leaves, tree_map
 
 __all__ = ["GradientTransformation", "adam", "adamw", "value_and_grad",
@@ -109,6 +117,8 @@ def value_and_grad(loss_fn: Callable, params, *arguments):
         leaf.requires_grad_(True)
     loss = loss_fn(params, *arguments)
     loss.backward()
+    for sharded in sharded_leaves(params):
+        sum_replica_grads(sharded)
     grads = []
     for leaf in leaves:
         grads.append(leaf.grad if leaf.grad is not None

@@ -41,15 +41,28 @@
 # sp_decode_attention over the cache, its length sharded over "seq"
 # (cache_specs(sequence_parallel=True)).
 #
-# Not ported yet, and raising NotImplementedError naming ROADMAP Queue A
-# item 4b: the parameter-sharding axes (param_specs, activation_specs,
-# sharded=True).
+# The parameter-sharding axes: param_specs / quantized_param_specs lay
+# the tree out megatron-style (TP on "model", FSDP on "fsdp", experts on
+# "expert"), cache_specs the cache (batch on "data", KV heads on "model",
+# length on "seq"), and parallel.shard_pytree cuts them into Sharded
+# leaves.  forward, generate, generate_stream, decode_step and the train
+# step take such a tree as they take a whole one: with any Sharded leaf
+# among the parameters, tokens or cache, they run the SHARDED path --
+# explicit per-position code over the mesh's positions
+# (parallel/collectives.py), each model shard running this module's own
+# attention on its heads (the flash kernels, the ring or Ulysses over
+# its "seq" line, the cached and sequence-parallel decode), the dense
+# layers column- and row-parallel (models/layers.py) and the MoE FFN on
+# its local experts, with the batch split over "data".  The logits come
+# back whole on the mesh's home device.  Global-view semantics hold: the
+# sharded call computes the unsharded one's function (in another
+# summation order).
 
 from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -58,18 +71,24 @@ from torch.utils.checkpoint import (
 
 from ..ops.device import resolve_device
 from ..parallel.attention import (
-    flash_attention, ring_attention, sp_decode_attention, ulysses_attention)
+    flash_attention, ring_attention, sp_decode_attention, sp_decode_shards,
+    ulysses_attention)
+from ..parallel.collectives import map_shards, psum
 from ..parallel.mesh import PartitionSpec as P
-from ..parallel.mesh import ambient_mesh
+from ..parallel.mesh import (
+    Sharded, ambient_mesh, check_layout, filter_specs, leaf_layout,
+    shard_pytree, sharded_leaves, unshard, use_mesh)
 from ..utils.tree import tree_map
 from .asr import _layer_count, _stack, count_params
 from .layers import (
-    apply_rotary, dense, f32_reduction, init_dense, init_norm, repeat_kv,
-    rms_norm, rotary_embedding, swiglu)
+    ShardedCall, apply_rotary, column_parallel, dense, f32_reduction,
+    init_dense, init_norm, repeat_kv, rms_norm, rotary_embedding,
+    row_parallel, swiglu)
 from .optim import apply_updates, next_token_loss, value_and_grad
 
 __all__ = ["TransformerConfig", "init_params", "forward", "init_cache",
-           "init_sp_cache", "cache_specs", "param_specs", "decode_step", "generate",
+           "init_sp_cache", "cache_specs", "param_specs",
+           "quantized_param_specs", "decode_step", "generate",
            "generate_stream", "make_train_step", "count_params",
            "quantize_weights_int8", "REMAT_POLICIES", "resolve_remat_policy",
            "init_paged_pool", "paged_prefill", "paged_decode_step",
@@ -141,15 +160,64 @@ class TransformerConfig:
         return getattr(torch, self.dtype)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to the torch port (ROADMAP Queue A "
-        f"item 4b: the parameter-sharding axes)")
-
-
 def param_specs(config: TransformerConfig, lm_head: bool = False) -> dict:
-    """The megatron TP + FSDP spec tree: not ported (item 4b)."""
-    raise _not_ported("param_specs (tensor-parallel / FSDP placement)")
+    """Megatron TP on "model" + FSDP on "fsdp" (+ EP on "expert" for the
+    MoE weights); stacked-layer leaves carry a leading None for the layer
+    axis.  wq, wk, wv, w_gate and w_up cut their output columns over
+    "model", wo and w_down their input rows; "fsdp" takes the other
+    dimension, and the model dimension of embed and lm_head.
+    lm_head=True adds the untied head's spec."""
+    layer = {
+        "attn_norm": {"scale": P(None, None)},
+        "wq": {"w": P(None, "fsdp", "model")},
+        "wk": {"w": P(None, "fsdp", "model")},
+        "wv": {"w": P(None, "fsdp", "model")},
+        "wo": {"w": P(None, "model", "fsdp")},
+        "mlp_norm": {"scale": P(None, None)},
+    }
+    if config.n_experts > 0:
+        layer["router"] = {"w": P(None, None, None)}
+        layer["w_gate"] = {"w": P(None, "expert", "fsdp", "model")}
+        layer["w_up"] = {"w": P(None, "expert", "fsdp", "model")}
+        layer["w_down"] = {"w": P(None, "expert", "model", "fsdp")}
+    else:
+        layer["w_gate"] = {"w": P(None, "fsdp", "model")}
+        layer["w_up"] = {"w": P(None, "fsdp", "model")}
+        layer["w_down"] = {"w": P(None, "model", "fsdp")}
+    specs = {
+        "embed": {"w": P(None, "fsdp")},
+        "layers": layer,
+        "norm_out": {"scale": P(None)},
+    }
+    if lm_head:
+        specs["lm_head"] = {"w": P(None, "fsdp")}
+    return specs
+
+
+def quantized_param_specs(config: TransformerConfig,
+                          lm_head: bool = False) -> dict:
+    """param_specs + a spec per w_scale plane: its weight's layout with
+    the quantization axis (kept as 1) unsharded -- -2 for the dense
+    per-output-channel scales, -1 for the embed / lm_head per-row
+    scales."""
+    def scale_spec(spec: P, axis: int) -> P:
+        entries = list(tuple(spec))
+        entries[axis] = None
+        return P(*entries)
+
+    specs = param_specs(config, lm_head=lm_head)
+    dense_keys = (_DENSE_QUANT_KEYS[:4] if config.n_experts > 0
+                  else _DENSE_QUANT_KEYS)
+    layer = dict(specs["layers"])
+    for key in dense_keys:
+        layer[key] = dict(layer[key])
+        layer[key]["w_scale"] = scale_spec(layer[key]["w"], -2)
+    specs["layers"] = layer
+    for name in ("embed", "lm_head"):
+        if name in specs:
+            specs[name] = dict(specs[name])
+            specs[name]["w_scale"] = scale_spec(specs[name]["w"], -1)
+    return specs
 
 
 # -- parameters -------------------------------------------------------------
@@ -410,18 +478,37 @@ def _cached_attention(config: TransformerConfig, q, k, v, layer_cache,
     return _masked_attention(config, q, k_eff, v_eff, q_pos, k_pos)
 
 
+def _heads(config: TransformerConfig, q, k, v, cos, sin):
+    """Projections (B, L, H * hd) -> rotated q (B, H, L, hd) and k,
+    unrotated v (B, Hkv, L, hd)."""
+    batch, length, _ = q.shape
+    hd = config.head_dim
+    q = q.reshape(batch, length, config.n_heads, hd).transpose(1, 2)
+    k = k.reshape(batch, length, config.n_kv_heads, hd).transpose(1, 2)
+    v = v.reshape(batch, length, config.n_kv_heads, hd).transpose(1, 2)
+    return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
+
+
 def _project_qkv(config: TransformerConfig, layer, h, cos, sin):
     """h (B, L, d_model) -> rotated q (B, H, L, hd) and k, unrotated v
     (B, Hkv, L, hd)."""
-    batch, length, _ = h.shape
-    hd = config.head_dim
-    q = dense(layer["wq"], h).reshape(
-        batch, length, config.n_heads, hd).transpose(1, 2)
-    k = dense(layer["wk"], h).reshape(
-        batch, length, config.n_kv_heads, hd).transpose(1, 2)
-    v = dense(layer["wv"], h).reshape(
-        batch, length, config.n_kv_heads, hd).transpose(1, 2)
-    return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
+    return _heads(config, dense(layer["wq"], h), dense(layer["wk"], h),
+                  dense(layer["wv"], h), cos, sin)
+
+
+def _flash(config: TransformerConfig, q, k, v):
+    """Causal flash attention, K/V heads expanded; the kernels take
+    contiguous (B, H, L, D) tensors only."""
+    repeats = config.n_heads // config.n_kv_heads
+    return flash_attention(q.contiguous(),
+                           repeat_kv(k, repeats).contiguous(),
+                           repeat_kv(v, repeats).contiguous(), causal=True)
+
+
+def _merge_heads(out):
+    """(B, H, L, hd) -> (B, L, H * hd)."""
+    batch, _, length, _ = out.shape
+    return out.transpose(1, 2).reshape(batch, length, -1)
 
 
 def _attention(config: TransformerConfig, layer, h, cos, sin,
@@ -430,21 +517,14 @@ def _attention(config: TransformerConfig, layer, h, cos, sin,
     over the whole sequence (no cache: flash attention, K/V heads
     expanded; ring or Ulysses with sequence_parallel) or the cached path
     at `pos`."""
-    batch, length, _ = h.shape
     q, k, v = _project_qkv(config, layer, h, cos, sin)
     if layer_cache is not None:
         out = _cached_attention(config, q, k, v, layer_cache, pos)
     elif config.sequence_parallel:
         out = _sp_prefill(config, q, k, v)
     else:
-        repeats = config.n_heads // config.n_kv_heads
-        # the kernels take contiguous (B, H, L, D) tensors only
-        out = flash_attention(q.contiguous(),
-                              repeat_kv(k, repeats).contiguous(),
-                              repeat_kv(v, repeats).contiguous(),
-                              causal=True)
-    out = out.transpose(1, 2).reshape(batch, length, -1)
-    return dense(layer["wo"], out)
+        out = _flash(config, q, k, v)
+    return dense(layer["wo"], _merge_heads(out))
 
 
 def _embed(params: dict, config: TransformerConfig, tokens):
@@ -482,7 +562,7 @@ def _one_hot(index, classes: int):
         classes, device=index.device)).float()
 
 
-def _router(config: TransformerConfig, layer, x):
+def _router(config: TransformerConfig, layer, x, with_probs: bool = False):
     """Top-1 router: (best (B, L) the chosen experts, mask1 (B, L, E) its
     one-hot, weight (B, L, 1) its router probability, aux the Switch
     load-balancing loss E * sum_e mean(mask1_e) * mean(prob_e)).  Logits
@@ -496,22 +576,68 @@ def _router(config: TransformerConfig, layer, x):
     fraction = mask1.mean(dim=(0, 1))
     prob_mass = router_probs.mean(dim=(0, 1))
     aux = config.n_experts * torch.sum(fraction * prob_mass)
+    if with_probs:
+        return best, mask1, weight, aux, router_probs
     return best, mask1, weight, aux
+
+
+def _gated(gate, up):
+    """SwiGLU's hidden activation, in the operands' dtype."""
+    return torch.nn.functional.silu(gate) * up
+
+
+def _oracle_mix(expert_out, mask1, shape):
+    """The oracle's mix: expert_out (E, BL, D) f32 of every expert on
+    every token, mask1 (B, L, E) the router's one-hots over the same
+    experts -> each token's own expert's output, (B, L, D) f32."""
+    mask = mask1.reshape(-1, mask1.shape[-1]).transpose(0, 1)[..., None]
+    return torch.sum(expert_out * mask, dim=0).reshape(shape)
+
+
+def _capacity(config: TransformerConfig, length: int) -> int:
+    """C = min(L, max(1, ceil(cf * L / E))) tokens per expert and row."""
+    return min(length, max(1, math.ceil(
+        config.moe_capacity_factor * length / config.n_experts)))
+
+
+def _dispatch(mask1, weight, capacity: int) -> tuple:
+    """The capacity dispatch of the router's one-hots mask1 (B, L, E)
+    and probabilities weight (B, L, 1): (disp, combine), both (B, L, E,
+    C) f32 -- disp the 0/1 place of each kept token in its expert's
+    queue, combine the same weighted by the router probability."""
+    # each token's 1-based place in its expert's queue, per batch row
+    # (an f32 cumsum of 0/1 values: exact below 2^24)
+    position = torch.cumsum(mask1, dim=1) * mask1
+    keep = mask1 * (position <= capacity)                    # (B, L, E)
+    # a dropped token's index is 0, and keep zeroes its row
+    disp = keep[..., None] * _one_hot(
+        ((position - 1.0) * keep).to(torch.int64), capacity)  # (B, L, E, C)
+    return disp, disp * weight[..., None]
+
+
+def _expert_inputs(x, disp):
+    """x (B, L, D) gathered into its experts' queues, (E, B, C, D): one
+    nonzero term per sum, so exact in x's dtype."""
+    return torch.einsum("bld,blec->ebcd", x, disp.to(x.dtype))
+
+
+def _combined(expert_out, combine):
+    """The experts' outputs (E, B, C, D) f32 scattered back to their
+    tokens, weighted: (B, L, D) f32."""
+    return torch.einsum("ebcd,blec->bld", expert_out, combine)
 
 
 def _switch_moe_dense(config: TransformerConfig, layer, x):
     """The oracle: every expert computes every token, the router's one-hot
     picks the winner.  Exact (no capacity drops), E x the dense FFN."""
     _, mask1, weight, aux = _router(config, layer, x)
-    batch, length, d_model = x.shape
-    rows = x.reshape(batch * length, d_model)
+    rows = x.reshape(-1, x.shape[-1])
     gate = _f32_matmul(rows, layer["w_gate"]["w"])           # (E, BL, F)
     up = _f32_matmul(rows, layer["w_up"]["w"])
-    expert_out = _f32_matmul(torch.nn.functional.silu(gate) * up,
+    expert_out = _f32_matmul(_gated(gate, up),
                              layer["w_down"]["w"])           # (E, BL, D)
-    mask = mask1.reshape(batch * length, -1).transpose(0, 1)[..., None]
-    mixed = torch.sum(expert_out * mask, dim=0).reshape(x.shape)
-    return (mixed * weight).to(x.dtype), aux
+    return (_oracle_mix(expert_out, mask1, x.shape) * weight).to(
+        x.dtype), aux
 
 
 def _switch_moe(config: TransformerConfig, layer, x):
@@ -530,27 +656,17 @@ def _switch_moe(config: TransformerConfig, layer, x):
     experts = config.n_experts
     if length < experts and config.moe_decode_gather:
         return _switch_moe_gather(config, layer, x)
-    capacity = min(length, max(1, math.ceil(
-        config.moe_capacity_factor * length / experts)))
+    capacity = _capacity(config, length)
     _, mask1, weight, aux = _router(config, layer, x)
-    # each token's 1-based place in its expert's queue, per batch row
-    # (an f32 cumsum of 0/1 values: exact below 2^24)
-    position = torch.cumsum(mask1, dim=1) * mask1
-    keep = mask1 * (position <= capacity)                    # (B, L, E)
-    # a dropped token's index is 0, and keep zeroes its row
-    disp = keep[..., None] * _one_hot(
-        ((position - 1.0) * keep).to(torch.int64), capacity)  # (B, L, E, C)
-    # one nonzero term per sum: exact in x's dtype
-    expert_in = torch.einsum("bld,blec->ebcd", x, disp.to(x.dtype))
-    expert_in = expert_in.reshape(experts, batch * capacity, d_model)
+    disp, combine = _dispatch(mask1, weight, capacity)
+    expert_in = _expert_inputs(x, disp).reshape(
+        experts, batch * capacity, d_model)
     gate = _f32_matmul(expert_in, layer["w_gate"]["w"])      # (E, BC, F)
     up = _f32_matmul(expert_in, layer["w_up"]["w"])
-    hidden = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+    hidden = _gated(gate, up).to(x.dtype)
     expert_out = _f32_matmul(hidden, layer["w_down"]["w"]).reshape(
         experts, batch, capacity, d_model)                   # f32
-    combine = disp * weight[..., None]                       # (B, L, E, C)
-    out = torch.einsum("ebcd,blec->bld", expert_out, combine)
-    return out.to(x.dtype), aux
+    return _combined(expert_out, combine).to(x.dtype), aux
 
 
 def _switch_moe_gather(config: TransformerConfig, layer, x):
@@ -562,9 +678,8 @@ def _switch_moe_gather(config: TransformerConfig, layer, x):
     w_up = layer["w_up"]["w"][best]
     w_down = layer["w_down"]["w"][best]                      # (B, L, F, D)
     rows = x[..., None, :]                                   # (B, L, 1, D)
-    gate = _f32_matmul(rows, w_gate)
-    up = _f32_matmul(rows, w_up)
-    hidden = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+    hidden = _gated(_f32_matmul(rows, w_gate),
+                    _f32_matmul(rows, w_up)).to(x.dtype)
     out = _f32_matmul(hidden, w_down)[..., 0, :]             # (B, L, D)
     return (out * weight).to(x.dtype), aux
 
@@ -578,16 +693,21 @@ def _mlp_block(config: TransformerConfig, layer, mlp_in):
     return out, torch.zeros((), dtype=torch.float32, device=mlp_in.device)
 
 
-def _lm_head(params: dict, config: TransformerConfig, h):
-    """Output norm + f32 logits; an untied head when the tree carries
-    one, the tied embedding otherwise.  An int8 head's per-row scales
-    apply to the result (they factor out of the contraction)."""
-    h = rms_norm(params["norm_out"], h, config.norm_eps)
-    head = params.get("lm_head", params["embed"])
+def _head_logits(head: dict, h):
+    """f32 logits of normed h against a head (or its block of the model
+    dimension): an int8 head's per-row scales apply to the result (they
+    factor out of the contraction)."""
     logits = torch.einsum("bld,vd->blv", h.float(), head["w"].float())
     if head["w"].dtype == torch.int8:
         logits = logits * head["w_scale"][:, 0]
     return logits
+
+
+def _lm_head(params: dict, config: TransformerConfig, h):
+    """Output norm + f32 logits; an untied head when the tree carries
+    one, the tied embedding otherwise."""
+    return _head_logits(params.get("lm_head", params["embed"]),
+                        rms_norm(params["norm_out"], h, config.norm_eps))
 
 
 def _layer_step(config: TransformerConfig, layer, h, cos, sin,
@@ -622,10 +742,15 @@ def forward(params: dict, config: TransformerConfig, tokens,
             "remat_policy is only meaningful on the cache-less "
             "(training/scoring) path; incremental decode saves nothing "
             "by rematerializing")
-    if activation_specs:
-        raise _not_ported("activation sharding (activation_specs)")
     pos = int(pos)
     context_fn = resolve_remat_policy(remat_policy)
+    mesh = _call_mesh(params, tokens, cache, activation_specs)
+    if mesh is not None:
+        # one scope for the whole call: the dense blocks' own scopes
+        # then only count
+        with f32_reduction():
+            return _sharded_forward(mesh, params, config, tokens, cache,
+                                    pos, return_aux, context_fn)
     h = _embed(params, config, tokens)
     positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = rotary_embedding(positions, config.head_dim,
@@ -645,6 +770,446 @@ def forward(params: dict, config: TransformerConfig, tokens,
                                 use_reentrant=False, context_fn=context_fn)
         aux_sum = aux_sum + aux
     logits = _lm_head(params, config, h)
+    if cache is not None:
+        return logits, cache
+    if return_aux:
+        return logits, aux_sum / max(config.n_layers, 1)
+    return logits
+
+
+# -- the sharded path --------------------------------------------------------
+#
+# Explicit per-position code over the mesh (parallel/collectives.py): each
+# position holds its blocks of the parameters (param_specs' layout), its
+# data block of the batch and its block of the cache (cache_specs), and
+# runs this module's own functions on them with the shard's config (its
+# heads: n_heads / model, n_kv_heads / model, head_dim kept).  Between
+# the steps, the collectives of a megatron layer -- per layer, counted in
+# tests/test_torch_sharding.py:
+#   q/k/v   one psum over fsdp (the three partials fused)
+#   wo      one psum over model, one all_gather over fsdp
+#   gate/up one psum over fsdp (fused)
+#   w_down  one psum over model, one all_gather over fsdp
+# so a decode step issues 2 per layer on a model-only mesh (6 with fsdp),
+# plus one all_gather over fsdp after the embedding gather and one psum
+# over fsdp for the logits.  The MoE FFN adds one psum over expert (its
+# local experts' outputs), the sequence-parallel attention the ring's,
+# Ulysses' or the sp decode's exchanges along each "seq" line.
+
+
+def _call_mesh(params, tokens, cache, activation_specs: bool):
+    """The mesh a call runs sharded on: that of its Sharded leaves
+    (parameters, tokens, cache), else -- activation_specs=True, the JAX
+    package's batch-on-"data" constraint -- the ambient mesh when it has
+    an axis above 1; None for the whole-tensor path."""
+    for tree in (params, tokens, cache):
+        for leaf in sharded_leaves(tree):
+            return leaf.mesh
+    if activation_specs:
+        mesh = ambient_mesh()
+        if mesh is not None and any(size > 1
+                                    for size in mesh.shape.values()):
+            return mesh
+    return None
+
+
+def _call_layout(mesh, params, config: TransformerConfig) -> ShardedCall:
+    """The call's view of the mesh, with `cut` the sizes the parameter
+    tree is cut by over model, fsdp and expert (1 for whole leaves);
+    every leaf is checked against param_specs' layout."""
+    call = ShardedCall(mesh)
+    wq = leaf_layout(params["layers"]["wq"]["w"], mesh)
+    call.cut = {"model": call.size["model"] if "model" in wq[2] else 1,
+                "fsdp": call.size["fsdp"] if "fsdp" in wq[1] else 1,
+                "expert": 1}
+    if config.n_experts > 0:
+        gate = leaf_layout(params["layers"]["w_gate"]["w"], mesh)
+        if "expert" in gate[1]:
+            call.cut["expert"] = call.size["expert"]
+    quantized = "w_scale" in params["layers"]["wq"]
+    specs = (quantized_param_specs if quantized else param_specs)(
+        config, lm_head="lm_head" in params)
+    check_layout(params, specs, mesh, call.cut, "sharded transformer: params")
+    model = call.cut["model"]
+    heads, kv_heads = config.n_heads, config.n_kv_heads
+    group = heads // kv_heads
+    local_heads = heads // model if heads % model == 0 else 0
+    # each model shard takes whole query heads; the KV heads split with
+    # them when they divide by the axis, else (fewer KV heads than
+    # shards) every shard's query heads share one KV head, which it takes
+    # from the gathered K/V projections and a cache whole over "model"
+    call.kv_whole = kv_heads % model != 0
+    call.group = group
+    if not local_heads or (call.kv_whole and group % local_heads):
+        raise ValueError(
+            f"n_heads ({heads}) must divide by the model axis ({model}), "
+            f"and n_kv_heads ({kv_heads}) too unless each shard's query "
+            f"heads fall in one KV group: each model shard takes whole "
+            f"heads")
+    call.local = replace(config, d_model=config.head_dim * local_heads,
+                         n_heads=local_heads,
+                         n_kv_heads=1 if call.kv_whole
+                         else kv_heads // model)
+    return call
+
+
+def _cache_spec(call: ShardedCall, config: TransformerConfig,
+                split: bool) -> P:
+    return filter_specs(P(None, "data" if split else None,
+                          "model" if call.cut["model"] > 1
+                          and not call.kv_whole else None,
+                          "seq" if config.sequence_parallel else None,
+                          None), call.mesh)
+
+
+def _token_grid(call: ShardedCall, tokens):
+    """The tokens' data blocks (ShardedCall.split_batch); tokens already
+    cut over "data" keep their blocks."""
+    if isinstance(tokens, Sharded):
+        if (call.splits(tokens.shape[0])
+                and leaf_layout(tokens, call.mesh)[:2] == (("data",), ())):
+            call.split = True
+            return call.grid(tokens)
+        tokens = unshard(tokens)
+    return call.split_batch(tokens)
+
+
+def _placed_cache(call: ShardedCall, cache: dict,
+                  config: TransformerConfig):
+    """(the cache laid out by cache_specs, the caller's whole cache to
+    copy the writes back into or None)."""
+    spec = _cache_spec(call, config, call.split)
+    if any(True for _ in sharded_leaves(cache)):
+        check_layout(cache, {name: spec for name in cache}, call.mesh,
+                     call.size, "sharded transformer: cache")
+        return cache, None
+    placed = shard_pytree(cache, call.mesh, {name: spec for name in cache})
+    return placed, cache
+
+
+def _sharded_cache(mesh, params, config: TransformerConfig, batch: int,
+                   max_len: int) -> dict:
+    """A zeroed cache laid out by cache_specs for a sharded call (its
+    length padded to divide the seq axis on the sequence-parallel
+    path)."""
+    call = _call_layout(mesh, params, config)
+    if config.sequence_parallel:
+        size = call.size["seq"]
+        max_len = -(-max_len // size) * size
+    return shard_pytree(init_cache(config, batch, max_len=max_len,
+                                   device=mesh.home),
+                        mesh, {name: _cache_spec(call, config,
+                                                 call.splits(batch))
+                               for name in ("k", "k_scale", "v",
+                                            "v_scale")})
+
+
+def _on_seq_lines(call: ShardedCall, function, *grids):
+    """function(per-grid lists of the line's entries, the line's 1-D
+    mesh) once per line of positions along "seq"; its result goes to
+    every position of the line (lines seeing the same entries share
+    it)."""
+    mesh = call.mesh
+    if "seq" not in mesh.axis_names:
+        raise ValueError(f"the sequence-parallel path needs a mesh with a "
+                         f"'seq' axis, got axes {mesh.axis_names}")
+    axis = mesh.axis_names.index("seq")
+    out = np.empty(mesh.devices.shape, dtype=object)
+    made: dict = {}
+    for position in np.ndindex(mesh.devices.shape):
+        if position[axis] != 0 or not mesh.local[position]:
+            continue
+        line = []
+        for index in range(mesh.devices.shape[axis]):
+            at = list(position)
+            at[axis] = index
+            line.append(tuple(at))
+        entries = [[grid[at] for at in line] for grid in grids]
+        key = tuple(id(entry) for column in entries for entry in column)
+        if key not in made:
+            made[key] = function(entries, mesh.line("seq", position))
+        result = made[key]
+        for at in line:
+            out[at] = result.to(mesh.devices[at])
+    return out
+
+
+def _write_window(layer_cache: dict, k, v, pos: int, offset: int,
+                  total: int) -> None:
+    """The part of K/V written at `pos` (its start clamped into the whole
+    cache of length `total`, as _write_at clamps it) that falls into this
+    block, [offset, offset + local length)."""
+    length, local = k.shape[2], layer_cache["k"].shape[2]
+    start = max(0, min(pos, total - length))
+    low, high = max(start, offset), min(start + length, offset + local)
+    if low < high:
+        layer_cache["k"][:, :, low - offset:high - offset] = \
+            k[:, :, low - start:high - start]
+        layer_cache["v"][:, :, low - offset:high - offset] = \
+            v[:, :, low - start:high - start]
+
+
+def _sharded_attend(call: ShardedCall, qkv, layer_cache, pos: int):
+    """Each model shard's attention over its heads -> (B, L, H/M * hd)
+    per position: flash attention, the cached path, or -- on the
+    sequence-parallel path -- the ring / Ulysses / sp decode over the
+    position's "seq" line."""
+    local = call.local
+    if not local.sequence_parallel:
+        if layer_cache is None:
+            out = map_shards(lambda t: _flash(local, *t), qkv)
+        else:
+            out = map_shards(lambda t, c: _cached_attention(
+                local, *t, c, pos), qkv, layer_cache)
+        return map_shards(_merge_heads, out)
+
+    def prefill(entries, line):
+        with use_mesh(line):
+            return _sp_prefill(local, *entries[0][0])
+
+    if layer_cache is None:
+        return map_shards(_merge_heads, _on_seq_lines(call, prefill, qkv))
+    length = next(t for t in qkv.flat if t is not None)[0].shape[2]
+    if length > 1 and pos != 0:
+        raise ValueError(
+            "sequence-parallel cached prefill requires pos == 0 "
+            f"(got pos={pos}); multi-token cached decode at "
+            "pos > 0 is not supported on this path")
+    parts = call.size["seq"]
+
+    def write(t, c, index):
+        local_len = c["k"].shape[2]
+        _write_window(c, t[1], t[2], pos, index * local_len,
+                      local_len * parts)
+        return c
+    written = map_shards(write, qkv, layer_cache, call.index["seq"])
+    if length > 1:
+        return map_shards(_merge_heads, _on_seq_lines(call, prefill, qkv))
+
+    def decode(entries, line):
+        queries, caches = entries
+        return sp_decode_shards([t[0] for t in queries],
+                                [c["k"] for c in caches],
+                                [c["v"] for c in caches], pos,
+                                queries[0][0].device)
+    return map_shards(_merge_heads, _on_seq_lines(call, decode, qkv,
+                                                  written))
+
+
+def _sharded_moe(call: ShardedCall, layer, x):
+    """The switch FFN on each position's local experts (E / expert) with
+    their fsdp / model blocks: the router and the dispatch (the helpers
+    of the unsharded FFN) are computed per data block, each position runs
+    its experts' share, and the experts' outputs meet in one psum over
+    "expert"."""
+    config = call.local
+    experts = config.n_experts
+    local_experts = experts // call.cut["expert"]
+    expert_index = (call.index["expert"] if call.cut["expert"] > 1
+                    else map_shards(lambda device: 0, call.mesh.devices))
+    routed = map_shards(lambda p, x: _router(config, {"router": p}, x,
+                                             with_probs=True),
+                        layer["router"], x)
+    # each expert block widened to f32 once, shared by every data block
+    # (the unsharded products widen the whole weight per call)
+    w_gate, w_up, w_down = (map_shards(lambda p: p["w"].float(), layer[name])
+                            for name in ("w_gate", "w_up", "w_down"))
+
+    def own(tensor, index, dim=0):
+        return tensor.narrow(dim, index * local_experts, local_experts)
+
+    def gate_up(rows, wg, wu):
+        return torch.cat([torch.matmul(rows, wg), torch.matmul(rows, wu)],
+                         -1)
+
+    def hidden(parts, cast: bool = True):
+        """The gate/up partials summed over fsdp -> SwiGLU's hidden (in
+        the activation's dtype, or f32 for the oracle)."""
+        def gated(both, x):
+            out = _gated(*torch.chunk(both, 2, dim=-1))
+            return out.to(x.dtype) if cast else out
+        return map_shards(gated, call.psum(parts, "fsdp"), x)
+
+    def down(hid, wd, pick=None):
+        """The w_down products, psummed over model, gathered over fsdp."""
+        if pick is None:
+            partial = map_shards(lambda h, w: torch.matmul(h.float(), w),
+                                 hid, wd)
+        else:
+            partial = map_shards(lambda h, w, p: torch.matmul(
+                h.float(), w[p[0]])[..., 0, :], hid, wd, pick)
+        return call.all_gather(call.psum(partial, "model"), "fsdp")
+
+    x_part = call.slice_axis(x, "fsdp")
+    length = next(t for t in x.flat if t is not None).shape[1]
+    if config.moe_capacity_factor <= 0:
+        hid = hidden(map_shards(lambda x_part, wg, wu: gate_up(
+            x_part.reshape(-1, x_part.shape[-1]).float(), wg, wu),
+            x_part, w_gate, w_up), cast=False)
+        mixed = call.psum(map_shards(
+            lambda out, r, x, index: _oracle_mix(out, own(r[1], index, 2),
+                                                 x.shape),
+            down(hid, w_down), routed, x, expert_index), "expert")
+        out = map_shards(lambda m, r, x: (m * r[2]).to(x.dtype), mixed,
+                         routed, x)
+    elif length < experts and config.moe_decode_gather:
+        def chosen(r, index):
+            local = r[0] - index * local_experts
+            valid = (local >= 0) & (local < local_experts)
+            return local.clamp(0, local_experts - 1), valid
+        picks = map_shards(chosen, routed, expert_index)
+        hid = hidden(map_shards(
+            lambda x_part, wg, wu, pick: gate_up(
+                x_part[..., None, :].float(), wg[pick[0]], wu[pick[0]]),
+            x_part, w_gate, w_up, picks))
+        mine = call.psum(map_shards(lambda d, pick: d * pick[1][..., None],
+                                    down(hid, w_down, picks), picks),
+                         "expert")
+        out = map_shards(lambda o, r, x: (o * r[2]).to(x.dtype), mine,
+                         routed, x)
+    else:
+        capacity = _capacity(config, length)
+
+        def dispatch(r, x):
+            disp, combine = _dispatch(r[1], r[2], capacity)
+            return combine, _expert_inputs(x, disp)
+        dispatched = map_shards(dispatch, routed, x)
+        expert_in = call.slice_axis(map_shards(
+            lambda d, index: own(d[1], index), dispatched, expert_index),
+            "fsdp")
+        hid = hidden(map_shards(lambda ein, wg, wu: gate_up(
+            ein.reshape(ein.shape[0], -1, ein.shape[-1]).float(), wg, wu),
+            expert_in, w_gate, w_up))
+
+        def combine(expert_out, d, x, index):
+            return _combined(expert_out.reshape(
+                local_experts, x.shape[0], capacity, x.shape[-1]),
+                own(d[0], index, dim=2))
+        mine = call.psum(map_shards(combine, down(hid, w_down), dispatched,
+                                    x, expert_index), "expert")
+        out = map_shards(lambda o, x: o.to(x.dtype), mine, x)
+    return out, _sharded_aux(call, routed)
+
+
+def _sharded_aux(call: ShardedCall, routed):
+    """The load-balancing loss over the WHOLE batch: each data block's
+    sums of the router's one-hots and probabilities, psummed over
+    "data" when the batch is split there."""
+    sums = map_shards(lambda r: torch.stack([r[1].sum(dim=(0, 1)),
+                                            r[4].sum(dim=(0, 1))]), routed)
+    if call.split:
+        sums = psum(sums, call.mesh, "data")
+    total = next(t for t in sums.flat if t is not None).to(call.home)
+    rows = next(r for r in routed.flat if r is not None)[1]
+    count = rows.shape[0] * rows.shape[1] * (call.size["data"]
+                                             if call.split else 1)
+    fraction, prob_mass = total / count
+    return call.local.n_experts * torch.sum(fraction * prob_mass)
+
+
+def _whole_kv(call: ShardedCall, q, k, v, layer_cache):
+    """Fewer KV heads than model shards: the K/V projections' model
+    blocks gather (one all_gather over model), and each position keeps
+    the one KV head its query heads use -- of the projections and of the
+    cache, which is whole over "model"."""
+    config = call.local
+    both = call.all_gather(map_shards(lambda k, v: torch.cat([k, v], -1),
+                                      k, v), "model")
+    hd = config.head_dim
+
+    def head(index):
+        return (index * config.n_heads) // call.group
+
+    def pick(kv, m, which):
+        # the gather interleaves the shards' [k | v] blocks
+        whole = kv.unflatten(-1, (call.cut["model"], 2, -1))[..., which, :]
+        return whole.flatten(-2).narrow(-1, head(m) * hd, hd)
+
+    k = map_shards(lambda kv, m: pick(kv, m, 0), both, call.index["model"])
+    v = map_shards(lambda kv, m: pick(kv, m, 1), both, call.index["model"])
+    if layer_cache is not None:
+        layer_cache = map_shards(lambda c, m: {
+            name: tensor.narrow(1, head(m), 1)
+            for name, tensor in c.items()}, layer_cache,
+            call.index["model"])
+    return q, k, v, layer_cache
+
+
+def _sharded_layer(call: ShardedCall, layer, h, rope, layer_cache,
+                   pos: int):
+    """One transformer layer on the shards: (h grid, aux)."""
+    local = call.local
+    eps = local.norm_eps
+    normed = map_shards(lambda p, x: rms_norm(p, x, eps),
+                        layer["attn_norm"], h)
+    q, k, v = column_parallel(call, [layer["wq"], layer["wk"], layer["wv"]],
+                              normed)
+    if call.kv_whole:
+        q, k, v, layer_cache = _whole_kv(call, q, k, v, layer_cache)
+    qkv = map_shards(lambda q, k, v, r: _heads(local, q, k, v, *r),
+                     q, k, v, rope)
+    out = _sharded_attend(call, qkv, layer_cache, pos)
+    h = map_shards(torch.add, h, row_parallel(call, layer["wo"], out))
+    normed = map_shards(lambda p, x: rms_norm(p, x, eps),
+                        layer["mlp_norm"], h)
+    if local.n_experts > 0:
+        mlp, aux = _sharded_moe(call, layer, normed)
+    else:
+        gate, up = column_parallel(call, [layer["w_gate"], layer["w_up"]],
+                                   normed)
+        mlp = row_parallel(call, layer["w_down"], map_shards(
+            _gated, gate, up))
+        aux = torch.zeros((), dtype=torch.float32, device=call.home)
+    return map_shards(torch.add, h, mlp), aux.to(call.home)
+
+
+def _sharded_forward(mesh, params, config: TransformerConfig, tokens,
+                     cache, pos: int, return_aux: bool, context_fn):
+    """forward() on the mesh: the same results, computed on the shards."""
+    call = _call_layout(mesh, params, config)
+    grids = call.dicts(params)
+    token_grid = _token_grid(call, tokens)
+    whole_cache = None
+    if cache is not None:
+        cache, whole_cache = _placed_cache(call, cache, config)
+        cache_grid = call.dicts(cache)
+    h = call.all_gather(map_shards(
+        lambda table, t: _embed({"embed": table}, config, t),
+        grids["embed"], token_grid), "fsdp")
+    length = tokens.shape[1]
+
+    def rope(device):
+        cos, sin = rotary_embedding(
+            pos + torch.arange(length, device=device), config.head_dim,
+            config.rope_theta)
+        return cos[None, None], sin[None, None]
+    rotary = map_shards(rope, mesh.devices)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=call.home)
+    for index in range(config.n_layers):
+        layer = call.layer(grids["layers"], index)
+        layer_cache = (None if cache is None
+                       else call.layer(cache_grid, index))
+        if context_fn is None or cache is not None:
+            h, aux = _sharded_layer(call, layer, h, rotary, layer_cache,
+                                    pos)
+        else:
+            h, aux = checkpoint(_sharded_layer, call, layer, h, rotary,
+                                None, pos, use_reentrant=False,
+                                context_fn=context_fn)
+        aux_sum = aux_sum + aux
+    normed = map_shards(lambda p, x: rms_norm(p, x, config.norm_eps),
+                        grids["norm_out"], h)
+    # the head's model dimension is cut over fsdp: each block's logits
+    # (an int8 block's row scales applied) are partial sums
+    logits = call.psum(map_shards(
+        _head_logits, grids.get("lm_head", grids["embed"]),
+        call.slice_axis(normed, "fsdp")), "fsdp")
+    logits = call.gather_home(logits)
+    if whole_cache is not None:
+        with torch.no_grad():
+            for name, leaf in whole_cache.items():
+                leaf.copy_(unshard(cache[name]))
+        cache = whole_cache
     if cache is not None:
         return logits, cache
     if return_aux:
@@ -672,9 +1237,15 @@ def decode_step(params, config: TransformerConfig, cache, token, pos):
     return _greedy(logits), logits, cache
 
 
-def _prompt_cache(config, prompt, max_new_tokens: int, cache):
+def _prompt_cache(params, config, prompt, max_new_tokens: int, cache):
+    """The caller's cache, else a new one: laid out by cache_specs over
+    the parameters' mesh when they are sharded."""
     if cache is not None:
         return cache
+    mesh = _call_mesh(params, prompt, None, False)
+    if mesh is not None:
+        return _sharded_cache(mesh, params, config, prompt.shape[0],
+                              prompt.shape[1] + max_new_tokens)
     return init_cache(config, prompt.shape[0],
                       max_len=prompt.shape[1] + max_new_tokens,
                       device=prompt.device)
@@ -687,10 +1258,10 @@ def generate(params, config: TransformerConfig, prompt,
     new token.  Returns (tokens (B, max_new_tokens) int32, cache).  A
     caller-supplied cache is written in place."""
     batch, prompt_len = prompt.shape
-    cache = _prompt_cache(config, prompt, max_new_tokens, cache)
+    cache = _prompt_cache(params, config, prompt, max_new_tokens, cache)
     logits, cache = forward(params, config, prompt, cache=cache, pos=0)
     out = torch.zeros((batch, max_new_tokens), dtype=torch.int32,
-                      device=prompt.device)
+                      device=logits.device)
     out[:, :1] = _greedy(logits)
     del logits
     for step in range(1, max_new_tokens):
@@ -727,7 +1298,7 @@ def generate_stream(params, config: TransformerConfig, prompt,
     chunks as they decode -- the prefill's token first, then chunks of
     up to `chunk` steps.  The chunks concatenate to generate()'s tokens."""
     prompt_len = prompt.shape[1]
-    cache = _prompt_cache(config, prompt, max_new_tokens, cache)
+    cache = _prompt_cache(params, config, prompt, max_new_tokens, cache)
     token, cache = _prefill_step(params, config, prompt, cache)
     yield 0, token.cpu().numpy()
     produced = 1
@@ -984,14 +1555,21 @@ def make_train_step(config: TransformerConfig, optimizer,
     """Returns train_step(params, opt_state, tokens) -> (params, opt_state,
     loss): next-token cross-entropy in f32 over tokens[:, :-1] ->
     tokens[:, 1:], plus moe_aux_weight * aux.  The update is written into
-    params and opt_state in place (the JAX step donates both)."""
-    if sharded:
-        raise _not_ported("the sharded train step (sharded=True)")
+    params and opt_state in place (the JAX step donates both).
+
+    Sharded parameters (shard_pytree with param_specs) train where they
+    lie: the forward runs the sharded path, autograd carries each
+    block's gradient back through the collectives, the optimizer state
+    takes its parameter's blocks and the update is elementwise, so no
+    weight is ever gathered.  sharded=True adds activation_specs: with an
+    ambient mesh and whole parameters, the step runs data-parallel on
+    it."""
     resolve_remat_policy(remat_policy)  # fail fast on typos
 
     def loss_fn(params, tokens):
         logits, aux = forward(params, config, tokens[:, :-1],
-                              return_aux=True, remat_policy=remat_policy)
+                              activation_specs=sharded, return_aux=True,
+                              remat_policy=remat_policy)
         return (next_token_loss(logits, tokens[:, 1:])
                 + config.moe_aux_weight * aux)
 

@@ -3,11 +3,15 @@
 # Counterpart of aiko_services_tpu/models/weights.py (the container, the
 # save/load of parameter trees and the multi-shard index the YOLOv8 loader
 # reads through; the HuggingFace whisper/llama name maps are not ported
-# yet).  The container is parsed in numpy: 8-byte
-# little-endian header length, JSON header of {name: {dtype, shape,
-# data_offsets}}, flat data buffer, read through mmap.  numpy has no
-# bfloat16, so BF16 tensors are read as their raw uint16 bits and viewed
-# as torch.bfloat16 (the JAX package used ml_dtypes).
+# yet).  load_pytree with a mesh and a spec tree places each tensor into
+# its shards as it is read (parallel.shard_pytree leaf by leaf), so a
+# sharded model never holds a second whole copy of its weights;
+# save_pytree gathers Sharded leaves (parallel.unshard) before it
+# writes.  The container is parsed in numpy: 8-byte little-endian header
+# length, JSON header of {name: {dtype, shape, data_offsets}}, flat data
+# buffer, read through mmap.  numpy has no bfloat16, so BF16 tensors are
+# read as their raw uint16 bits and viewed as torch.bfloat16 (the JAX
+# package used ml_dtypes).
 
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.device import resolve_device
+from ..parallel.mesh import Sharded, _spec_leaf, shard_pytree, unshard
 
 __all__ = ["read_safetensors", "write_safetensors", "SafetensorsFile",
            "save_pytree", "load_pytree", "open_checkpoint"]
@@ -146,28 +151,54 @@ def save_pytree(path, tree, metadata: dict = None) -> None:
             for key, value in node.items():
                 walk(value, f"{prefix}.{key}" if prefix else str(key))
         else:
-            flat[prefix] = node
+            flat[prefix] = unshard(node) if isinstance(node, Sharded) \
+                else node
 
     walk(tree, "")
     write_safetensors(path, flat, metadata)
 
 
-def load_pytree(path, dtype=None, device="cuda") -> dict:
+def _spec_at(specs, parts: list):
+    """The spec shard_pytree would give the leaf at `parts`: a spec where
+    the tree has a subtree broadcasts over it, a missing entry
+    replicates."""
+    node = specs
+    for part in parts:
+        if _spec_leaf(node):
+            return node
+        if not isinstance(node, dict):
+            return None
+        node = node.get(part)
+    return node if _spec_leaf(node) else None
+
+
+def load_pytree(path, dtype=None, device="cuda", mesh=None,
+                specs=None) -> dict:
     """Inverse of save_pytree: a nested dict of tensors on `device`
     (CUDA unless the caller asks for the CPU); dtype (a name such as
-    "bfloat16", or a torch.dtype) casts every floating-point leaf."""
-    device = resolve_device(device)
+    "bfloat16", or a torch.dtype) casts every floating-point leaf.  With
+    a mesh, each tensor is placed by its spec in `specs` (a spec tree as
+    shard_pytree takes it; None replicates) as soon as it is read."""
+    if mesh is None:
+        device = resolve_device(device)
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     tree: dict = {}
-    for name, tensor in read_safetensors(path).items():
-        if dtype is not None and tensor.is_floating_point():
-            tensor = tensor.to(dtype)
-        node = tree
-        parts = name.split(".")
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = tensor.to(device)
+    reader = SafetensorsFile(path)
+    try:
+        for name in reader.keys():
+            tensor = reader.get(name)
+            if dtype is not None and tensor.is_floating_point():
+                tensor = tensor.to(dtype)
+            node = tree
+            parts = name.split(".")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = (
+                tensor.to(device) if mesh is None
+                else shard_pytree(tensor, mesh, _spec_at(specs, parts)))
+    finally:
+        reader.close()
     return tree
 
 

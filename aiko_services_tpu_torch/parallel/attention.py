@@ -53,7 +53,8 @@ __all__ = ["attention_reference", "flash_attention",
            "flash_attention_forward", "flash_attention_plain",
            "flash_attention_backward", "flash_attention_backward_plain",
            "flash_attention_dq_plain", "flash_attention_dkv_plain",
-           "ring_attention", "ulysses_attention", "sp_decode_attention"]
+           "ring_attention", "ulysses_attention", "sp_decode_attention",
+           "sp_decode_shards"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -627,18 +628,34 @@ def sp_decode_attention(q, cache_k, cache_v, pos, mesh=None,
     named_sharding(mesh, PartitionSpec(b_ax, h_ax, axis_name, None)) \
         .shard_shape(tuple(cache_k.shape))
     devices = mesh.axis_devices(axis_name)
-    batch, kv_heads, cache_len, head_dim = cache_k.shape
-    q_len, heads = q.shape[2], q.shape[1]
+    local_len = cache_k.shape[2] // len(devices)
+    windows = [slice(index * local_len, (index + 1) * local_len)
+               for index in range(len(devices))]
+    return sp_decode_shards(
+        [q.to(device) for device in devices],
+        [cache_k[:, :, window].to(device)
+         for window, device in zip(windows, devices)],
+        [cache_v[:, :, window].to(device)
+         for window, device in zip(windows, devices)],
+        pos, q.device, sm_scale)
+
+
+def sp_decode_shards(q_shards: list, k_shards: list, v_shards: list, pos,
+                     home, sm_scale=None):
+    """sp_decode_attention on shards that already lie on their devices:
+    q (B, H, Lq, D) once per device, device i's contiguous window i of
+    the cache (B, Hkv, Lc/n, D).  Each device attends over its window
+    (positions past pos + i masked), the partials merge with one max and
+    one sum of the fused [num, den] on `home`, where the output lands."""
+    batch, kv_heads, local_len, head_dim = k_shards[0].shape
+    q_len, heads = q_shards[0].shape[2], q_shards[0].shape[1]
     groups = heads // kv_heads
-    local_len = cache_len // len(devices)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
-    scores, values = [], []
-    for index, device in enumerate(devices):
-        window = slice(index * local_len, (index + 1) * local_len)
-        q_grouped = q.to(device).reshape(batch, kv_heads, groups, q_len,
-                                         head_dim)
-        k_local = cache_k[:, :, window].to(device)
+    scores = []
+    for index, (q, k_local) in enumerate(zip(q_shards, k_shards)):
+        device = k_local.device
+        q_grouped = q.reshape(batch, kv_heads, groups, q_len, head_dim)
         k_pos = index * local_len + torch.arange(local_len, device=device)
         q_pos = torch.as_tensor(pos, device=device) + torch.arange(
             q_len, device=device)
@@ -647,17 +664,15 @@ def sp_decode_attention(q, cache_k, cache_v, pos, mesh=None,
             * sm_scale                                 # (B, Hkv, G, Lq, Lk)
         scores.append(s.masked_fill(k_pos[None, :] > q_pos[:, None],
                                     _NEG_INF))
-        values.append(cache_v[:, :, window].to(device))
-    home = q.device
     m_global = torch.stack([s.amax(dim=-1).to(home) for s in scores]) \
         .amax(dim=0)                                   # (B, Hkv, G, Lq)
     fused = None
-    for s, v_local in zip(scores, values):
+    for s, v_local in zip(scores, v_shards):
         p = torch.exp(s - m_global.to(s.device)[..., None])
         num = torch.matmul(p, v_local.float()[:, :, None])
         den = p.sum(dim=-1, keepdim=True)
         part = torch.cat([num, den], dim=-1).to(home)
         fused = part if fused is None else fused + part
     num, den = fused[..., :head_dim], fused[..., head_dim:]
-    out = (num / torch.clamp_min(den, 1e-30)).to(q.dtype)
+    out = (num / torch.clamp_min(den, 1e-30)).to(q_shards[0].dtype)
     return out.reshape(batch, heads, q_len, head_dim)

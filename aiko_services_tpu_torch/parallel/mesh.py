@@ -9,24 +9,35 @@
 #
 # Axis convention (the "How to Scale Your Model" recipe):
 #   data  -- batch-axis data parallelism
-#   fsdp  -- parameter sharding axis (zero-style, all-gather on use)
+#   fsdp  -- parameter sharding axis (each contraction reduced as partial
+#            sums over it; the train step's gradients follow)
 #   model -- tensor parallelism (megatron-style matmul sharding)
 #   seq   -- sequence/context parallelism (ring attention / Ulysses)
 #   expert - expert parallelism for MoE layers
 #
-# Only the seq axis is ported: a mesh with any other axis above 1 raises
-# NotImplementedError naming ROADMAP Queue A item 4b (the parameter
-# sharding axes, which need an SPMD partitioner of the port's own).
+# Placement: shard_pytree cuts every leaf whose spec names an axis above 1
+# into the blocks the spec names, and puts each block on its mesh
+# position's device -- a Sharded leaf: the global shape and dtype, its
+# NamedSharding and an object grid of local tensors over the mesh's
+# shape.  Positions that hold the same block on the same torch device
+# share one tensor, so a mesh that names one card eight times keeps one
+# copy of a replicated block, not eight.  A leaf that no axis cuts stays
+# one whole tensor on the mesh's first local device (its `home`), as
+# before.  unshard() gathers a Sharded leaf back into one tensor.  The
+# model code computes on the shards (parallel/collectives.py moves data
+# between them); GSPMD's global view holds: a sharded call computes what
+# the unsharded one computes.
 #
-# One process drives every device of a mesh.  A torch tensor lives on one
-# device, so a placed tensor stays whole on the mesh's first device (its
-# `home`); the sequence-parallel functions cut it into per-device shards
-# where they run (parallel/attention.py) and gather the results home.
+# One process drives every device of a mesh, except on a mesh from
+# parallel.distributed.global_mesh, which spans the job's processes: there
+# each process holds the shards of its own devices (the others are None)
+# and the collectives run over torch.distributed.
 #
 # The device list defaults to every CUDA device.  set_default_devices
 # installs another, which may name one device more than once: the
-# counterpart of XLA's forced host device count, so that a {"seq": 4}
-# mesh runs four shards on one card (or on the CPU in the tests).
+# counterpart of XLA's forced host device count, so that a {"fsdp": 2,
+# "model": 4} mesh runs eight shards on one card (or on the CPU in the
+# tests).
 
 from __future__ import annotations
 
@@ -39,18 +50,17 @@ import numpy as np
 import torch
 
 __all__ = [
-    "MESH_AXIS_ORDER", "Mesh", "PartitionSpec", "NamedSharding",
+    "MESH_AXIS_ORDER", "Mesh", "PartitionSpec", "NamedSharding", "Sharded",
     "create_mesh", "get_mesh", "named_sharding", "partition_spec",
     "shard_pytree", "tree_shardings", "filter_specs", "default_devices",
-    "set_default_devices", "use_mesh", "ambient_mesh",
+    "set_default_devices", "use_mesh", "ambient_mesh", "unshard",
+    "sharded_leaves", "spec_layout", "leaf_layout", "check_layout",
 ]
 
 # Ordering matters for interconnect locality: innermost (fastest-varying)
 # axes get the most tightly coupled devices.  model/seq want the most
 # bandwidth, so they are last (minor-most) in the device grid.
 MESH_AXIS_ORDER = ("data", "fsdp", "expert", "pipeline", "seq", "model")
-# the axes whose size may exceed 1 in this port
-_PORTED_AXES = ("seq",)
 
 _MESH_CACHE: dict = {}
 _MESH_LOCK = threading.Lock()
@@ -72,20 +82,44 @@ class PartitionSpec(tuple):
 
 class Mesh:
     """A grid of torch.devices (a numpy object array) with one name per
-    grid axis."""
+    grid axis.  `processes`, on a mesh that spans a job's processes
+    (parallel.distributed.global_mesh), is the grid of each position's
+    rank; None when this process drives every position."""
 
-    def __init__(self, grid: np.ndarray, axis_names: tuple):
+    def __init__(self, grid: np.ndarray, axis_names: tuple,
+                 processes: np.ndarray | None = None, rank: int = 0):
         self.devices = grid
         self.axis_names = tuple(axis_names)
+        self.processes = processes
+        self.rank = rank
+        self.local = (np.ones(grid.shape, dtype=bool) if processes is None
+                      else processes == rank)
+        # torch.distributed process groups by member ranks, and the
+        # position groups of each set of axes (collectives)
+        self.process_groups: dict = {}
+        self.group_cache: dict = {}
 
     @property
     def shape(self) -> OrderedDict:
         return OrderedDict(zip(self.axis_names, self.devices.shape))
 
+    def size(self, axis_name: str) -> int:
+        """The axis's size; 1 for an axis the mesh does not have."""
+        return self.shape.get(axis_name, 1)
+
     @property
     def home(self) -> torch.device:
-        """The first device: where placed tensors and results live."""
-        return self.devices.flat[0]
+        """The first local device: where placed tensors and results
+        live."""
+        return self.devices[self.local].flat[0]
+
+    def line(self, axis_name: str, position: tuple) -> "Mesh":
+        """The 1-D mesh of the positions along `axis_name` through
+        `position` (a grid index), named `axis_name`."""
+        axis = self.axis_names.index(axis_name)
+        index = list(position)
+        index[axis] = slice(None)
+        return Mesh(self.devices[tuple(index)].copy(), (axis_name,))
 
     def axis_devices(self, axis_name: str) -> list:
         """The devices along `axis_name`, in axis order, at index 0 of
@@ -163,15 +197,12 @@ def create_mesh(axes: dict | None = None, devices=None) -> Mesh:
     if not device_list:
         raise ValueError("create_mesh: no devices (no CUDA device, and no "
                          "list installed by set_default_devices)")
-    unported = {name: size for name, size in canonical
-                if size > 1 and name not in _PORTED_AXES}
-    if unported:
-        raise NotImplementedError(
-            f"mesh axes {unported} are not yet ported to the torch port: "
-            f"only the 'seq' axis may exceed 1 (ROADMAP Queue A item 4b: "
-            f"the parameter-sharding axes data, fsdp, model and expert)")
+    # equal devices become one object: the shard code shares work and
+    # tensors between positions by identity
+    canonical_devices: dict = {}
     grid = np.empty(len(device_list), dtype=object)
-    grid[:] = device_list
+    grid[:] = [canonical_devices.setdefault(str(device), device)
+               for device in device_list]
     return Mesh(grid.reshape(shape), names)
 
 
@@ -272,13 +303,190 @@ def named_sharding(mesh: Mesh, spec) -> NamedSharding:
     return NamedSharding(mesh, partition_spec(spec))
 
 
-def _place(leaf, sharding: NamedSharding) -> torch.Tensor:
+class Sharded:
+    """A tensor cut into blocks over a mesh: `shape` and `dtype` are the
+    global tensor's, `sharding` its NamedSharding, and `shards` an object
+    array of the mesh's shape whose entry at each position is that
+    position's block, on that position's device (None where the position
+    belongs to another process).  Positions holding the same block on
+    the same device share one tensor: `unique()` lists each once, and
+    the parameter-tree utilities (utils/tree.py) walk those, so an
+    optimizer updates each block once."""
+
+    def __init__(self, shape, dtype, sharding: NamedSharding,
+                 shards: np.ndarray):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.sharding = sharding
+        self.shards = shards
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.sharding.mesh
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.home
+
+    def numel(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    def unique(self) -> list:
+        """Each distinct local tensor once, in grid order."""
+        seen, out = set(), []
+        for tensor in self.shards.flat:
+            if tensor is not None and id(tensor) not in seen:
+                seen.add(id(tensor))
+                out.append(tensor)
+        return out
+
+    def rebuild(self, tensors: list) -> "Sharded":
+        """A Sharded of the same sharding whose distinct blocks are
+        `tensors` (in unique() order), shared as this one's are."""
+        by_id = {id(old): new for old, new in zip(self.unique(), tensors)}
+        grid = np.empty(self.shards.shape, dtype=object)
+        for index, tensor in np.ndenumerate(self.shards):
+            grid[index] = None if tensor is None else by_id[id(tensor)]
+        first = tensors[0]
+        return Sharded(self.shape, first.dtype, self.sharding, grid)
+
+    def map(self, function) -> "Sharded":
+        return self.rebuild([function(tensor) for tensor in self.unique()])
+
+    @property
+    def addressable_shards(self) -> list:
+        """The local blocks, one per local position, in grid order."""
+        return [tensor for tensor in self.shards.flat if tensor is not None]
+
+    def block(self, position: tuple) -> tuple:
+        """The index of the block position `position` holds, per
+        dimension."""
+        return _block_index(self.sharding, position, len(self.shape))
+
+    def __repr__(self) -> str:
+        return (f"Sharded(shape={tuple(self.shape)}, dtype={self.dtype}, "
+                f"spec={self.sharding.spec})")
+
+
+def _entry_names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _block_index(sharding: NamedSharding, position: tuple,
+                 ndim: int) -> tuple:
+    """Per dimension, the block of the dimension's axes that `position`
+    holds (axes listed together count major first, as in JAX)."""
+    mesh = sharding.mesh
+    blocks = []
+    for dim in range(ndim):
+        entry = sharding.spec[dim] if dim < len(sharding.spec) else None
+        index = 0
+        for name in _entry_names(entry):
+            axis = mesh.axis_names.index(name)
+            index = index * mesh.devices.shape[axis] + position[axis]
+        blocks.append(index)
+    return tuple(blocks)
+
+
+def spec_layout(spec, mesh: Mesh, ndim: int, sizes=None) -> tuple:
+    """Per dimension, the axes of `spec` that cut it: those the mesh has
+    with a size above 1 (in `sizes`, when given, in place of the mesh's
+    own).  Two leaves with one layout are placed alike."""
+    sizes = dict(mesh.shape) if sizes is None else sizes
+    entries = tuple(partition_spec(spec)) if spec is not None else ()
+    layout = tuple(tuple(name for name in _entry_names(entry)
+                         if name in mesh.shape and sizes.get(name, 1) > 1)
+                   for entry in entries)
+    return layout + ((),) * (ndim - len(layout))
+
+
+def leaf_layout(leaf, mesh: Mesh) -> tuple:
+    """The layout of a placed leaf: its spec's for a Sharded, no cut for
+    a whole tensor."""
+    spec = leaf.sharding.spec if isinstance(leaf, Sharded) else None
+    return spec_layout(spec, mesh, leaf.ndim)
+
+
+def check_layout(tree, specs, mesh: Mesh, sizes: dict, what: str) -> None:
+    """ValueError unless every leaf of `tree` is cut as its spec in
+    `specs` (a spec tree; a missing entry means whole) cuts it over the
+    axes `sizes` names above 1."""
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            check_layout(value, specs.get(key) if isinstance(specs, dict)
+                         else None, mesh, sizes, f"{what}/{key}")
+        return
+    wanted = spec_layout(specs, mesh, tree.ndim, sizes)
+    if leaf_layout(tree, mesh) != wanted:
+        raise ValueError(f"{what} is cut {leaf_layout(tree, mesh)}; the "
+                         f"sharded path takes the model's spec layout "
+                         f"({wanted} on this mesh)")
+
+
+def sharded_leaves(tree):
+    """The Sharded leaves of a tree of dicts and lists."""
+    if isinstance(tree, Sharded):
+        yield tree
+    elif isinstance(tree, (dict, list)):
+        for value in (tree.values() if isinstance(tree, dict) else tree):
+            yield from sharded_leaves(value)
+
+
+@torch.no_grad()
+def _place(leaf, sharding: NamedSharding):
     """One leaf checked against its sharding (ValueError when a dimension
-    does not divide) and moved to the mesh's home device."""
+    does not divide): whole on the mesh's home device when no axis of its
+    spec exceeds 1, else a Sharded of its blocks."""
+    if isinstance(leaf, Sharded):
+        if (leaf.mesh is sharding.mesh and leaf_layout(leaf, leaf.mesh)
+                == spec_layout(sharding.spec, leaf.mesh, leaf.ndim)):
+            return leaf  # already placed so
+        leaf = unshard(leaf)
     tensor = (leaf if isinstance(leaf, torch.Tensor)
               else torch.as_tensor(np.asarray(leaf)))
-    sharding.shard_shape(tuple(tensor.shape))
-    return tensor.to(sharding.mesh.home)
+    local_shape = sharding.shard_shape(tuple(tensor.shape))
+    mesh = sharding.mesh
+    if sharding.is_fully_replicated:
+        return tensor.to(mesh.home)
+    grid = np.empty(mesh.devices.shape, dtype=object)
+    made: dict = {}
+    for position, device in np.ndenumerate(mesh.devices):
+        if not mesh.local[position]:
+            continue
+        block = _block_index(sharding, position, tensor.ndim)
+        key = (block, id(device))
+        if key not in made:
+            index = tuple(slice(start * size, (start + 1) * size)
+                          for start, size in zip(block, local_shape))
+            made[key] = tensor[index].to(device).clone(
+                memory_format=torch.contiguous_format)
+        grid[position] = made[key]
+    return Sharded(tensor.shape, tensor.dtype, sharding, grid)
+
+
+def unshard(leaf) -> torch.Tensor:
+    """A Sharded leaf gathered into one tensor on its mesh's home device
+    (a plain tensor passes through).  Every block must be local."""
+    if not isinstance(leaf, Sharded):
+        return leaf
+    mesh = leaf.mesh
+    if not mesh.local.all():
+        raise ValueError("unshard needs every block in this process; a "
+                         "mesh over several processes holds only its own")
+    out = torch.empty(leaf.shape, dtype=leaf.dtype, device=mesh.home)
+    local_shape = leaf.sharding.shard_shape(tuple(leaf.shape))
+    for position, tensor in np.ndenumerate(leaf.shards):
+        index = tuple(slice(start * size, (start + 1) * size)
+                      for start, size in zip(leaf.block(position),
+                                             local_shape))
+        out[index] = tensor.detach().to(mesh.home)
+    return out
 
 
 def _spec_leaf(entry) -> bool:
@@ -337,11 +545,11 @@ def tree_shardings(tree, mesh: Mesh, specs):
 
 
 def shard_pytree(tree, mesh: Mesh, specs):
-    """Check a tree of tensors (or arrays) against per-leaf PartitionSpecs
-    (tree_shardings' semantics) and move each leaf WHOLE to the mesh's
-    home device.  It cuts nothing: the spec only decides whether a leaf
-    passes (ValueError when a dimension does not divide by its axes).
-    The sequence-parallel functions cut their operands where they run."""
+    """Place a tree of tensors (or arrays) by per-leaf PartitionSpecs
+    (tree_shardings' semantics): a leaf whose spec names an axis above 1
+    becomes a Sharded of its blocks, each on its position's device; any
+    other leaf moves whole to the mesh's home device.  ValueError when a
+    dimension does not divide by its axes."""
     return _walk(tree, mesh, specs, _place)
 
 

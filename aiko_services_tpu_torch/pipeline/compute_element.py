@@ -18,17 +18,20 @@
 # a downstream ComputeElement never touches the host.
 #
 # The `sharding` block names the element's device mesh
-# (parallel/mesh.py): its axes over the device list (default_devices(),
-# or its [start, end) "devices" range), the spec of its state and of
-# each input.  State and inputs are placed through shard_pytree on the
-# mesh's first device, which becomes the element's device, and the mesh
-# is the ambient mesh of the thread while compute runs, so the model's
-# sequence-parallel attention shards over its "seq" axis.  An input
-# whose dimension does not divide by its axes fails that check and is
-# placed without its spec, with one warning (the JAX package replicates
-# it; here every placed tensor is whole on the mesh's first device
-# anyway).  Only "seq" may exceed 1: any other axis raises
-# NotImplementedError naming ROADMAP Queue A item 4b.
+# (parallel/mesh.py): its axes -- any of data, fsdp, expert, seq and
+# model -- over the device list (default_devices(), or its [start, end)
+# "devices" range), the spec of its state and of each input.  State and
+# inputs are placed through shard_pytree: a leaf whose spec cuts it
+# becomes a Sharded of its blocks, one per mesh position (an input with a
+# "data" spec arrives with its batch split over the data axis), any
+# other leaf lies whole on the mesh's first device, which is the
+# element's device.  The port's model functions take Sharded leaves as
+# they take tensors; other compute functions gather one with
+# parallel.unshard.  The mesh is the ambient mesh of the thread while
+# compute runs, so the model's sequence-parallel attention shards over
+# its "seq" axis.  An input whose dimension does not divide by its axes
+# is placed without its spec, with one warning (the JAX package
+# replicates it).
 
 from __future__ import annotations
 
@@ -54,17 +57,13 @@ __all__ = ["ComputeElement", "bucket_length", "pad_axis_to"]
 _LOGGER = get_logger("compute_element")
 
 
-class ShardingNotPorted(DefinitionError, NotImplementedError):
-    """A sharding block naming a mesh axis the port does not have yet."""
-
-
 class ComputeElement(PipelineElement):
     """PipelineElement whose math is a PyTorch function on one device.
 
     Definition parameters understood by the engine:
       device:          "cuda" (default), "cuda:N" or "cpu"; with a
                        sharding block, the type of the mesh's devices
-      sharding:        {"axes": {"data": 1, "seq": 4},
+      sharding:        {"axes": {"data": 2, "fsdp": 2, "model": 2},
                         "devices": [start, end),
                         "state": <spec or tree of specs>,
                         "inputs": {input_name: spec}}
@@ -114,10 +113,7 @@ class ComputeElement(PipelineElement):
         device_range = sharding.get("devices")
         if device_range:
             devices = devices[int(device_range[0]):int(device_range[1])]
-        try:
-            mesh = get_mesh(sharding.get("axes"), devices)
-        except NotImplementedError as error:
-            raise ShardingNotPorted(f"{name}: {error}") from error
+        mesh = get_mesh(sharding.get("axes"), devices)
         wanted = resolve_device(self.get_parameter(
             "device", mesh.home.type)).type
         if wanted != mesh.home.type:

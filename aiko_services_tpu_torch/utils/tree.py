@@ -2,11 +2,18 @@
 # needs (no counterpart file in the JAX package, which uses jax.tree_util).
 # A tree is a dict or a list whose entries are trees or leaves (the
 # YOLOv8 tree keeps its repeated blocks in lists, as jax.tree_util
-# walks them); tuples are leaves.
+# walks them); tuples are leaves.  A Sharded leaf (parallel/mesh.py)
+# counts as the node of its distinct blocks: tree_leaves lists each block
+# once and tree_map rebuilds the Sharded around the mapped blocks, so an
+# optimizer's elementwise update runs on the shards as they lie.
 
 from __future__ import annotations
 
 __all__ = ["tree_map", "tree_leaves"]
+
+
+def _is_sharded(node) -> bool:
+    return hasattr(node, "unique") and hasattr(node, "sharding")
 
 
 def tree_map(function, tree):
@@ -16,6 +23,8 @@ def tree_map(function, tree):
                 for key, value in tree.items()}
     if isinstance(tree, list):
         return [tree_map(function, value) for value in tree]
+    if _is_sharded(tree):
+        return tree.map(function)
     return function(tree)
 
 
@@ -26,4 +35,6 @@ def tree_leaves(tree) -> list:
         for value in (tree.values() if isinstance(tree, dict) else tree):
             leaves.extend(tree_leaves(value))
         return leaves
+    if _is_sharded(tree):
+        return tree.unique()
     return [tree]

@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port's speech-serving, training, LM-serving
 and serving-tier paths, its remaining model families (switch MoE,
-YOLOv8, TTS) and its long-context (sequence-parallel) path on one
-NVIDIA GPU.
+YOLOv8, TTS), its long-context (sequence-parallel) path and its
+parameter-sharding axes (tensor, FSDP, data and expert parallelism) on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -147,6 +148,38 @@ result:
          sharding block, 4 frames of 1 x 8192 held against a direct
          forward; an LMGenerate frame whose 1,021-token prompt is
          left-padded to the seq axis, against a direct generate
+ 13. the parameter-sharding axes, on meshes that name cuda:0 several
+     times (a collective between two shards on one card moves no bytes,
+     so every time is one card's):
+     13a examples/pipeline_llm_8b.json as shipped: llama3_8b at full
+         width (bf16, weights from a seed) on its fsdp 2 x model 4 mesh,
+         the TextSource prompt, 128 new tokens through the pipeline:
+         tokens/s, decode-step ms, collective calls and KiB a step, peak
+         memory; the last prompt position's logits and the greedy tokens
+         against the unsharded 8B on the same weights, and where the
+         tokens part, the unsharded top-2 gap there; then the same
+         weights as int8 weights and int8 KV on fsdp 2 x model 2;
+     13b f32 at the 8B widths, 2 layers: sharded and unsharded generate
+         give identical tokens on fsdp 2 x model 4, and with int8
+         weights and int8 KV on fsdp 2 x model 2;
+     13c llama32_1b at full width, data 2 x fsdp 2 x model 2, batch
+         4 x 1024, adamw, 2 steps of make_train_step(sharded=True): losses
+         and each parameter's change against the unsharded steps, step
+         ms, tokens/s, MFU, K1/K2/K3 launches a step (16 layers x 2 data
+         x 2 model shards); then in f32 at 2 layers, where each step's
+         gradients are held leaf by leaf against the unsharded step's;
+     13d phase 11a's MoE (its depth cut to 4 layers) on data 2 x expert
+         2 x model 2: 2 train steps against the unsharded ones, in bf16
+         and in f32 at 2 layers (gradients too), then f32 generate (2
+         layers) token for token equal to it;
+     13e examples/pipeline_longcontext.json as shipped (data 1 x seq 4 x
+         model 2): each frame against an unsharded forward, K1 launches a
+         frame (the ring's 10 hops per model shard and layer);
+     13f SpeechToText whisper_small, f32, on {"model": 2} with its default
+         asr_param_specs: tokens identical to the element without a mesh;
+     13g K1, and K2 with K3, at every case 13a-13f launched them with
+         that phase 2 did not check (the per-shard shapes), against the
+         plain versions at phase 2's limits
 
 The last three lines are the card's nvidia-smi name and power limit, one
 JSON object describing every kernel of the paths, and {"ok": true,
@@ -156,7 +189,9 @@ JSON object describing every kernel of the paths, and {"ok": true,
 from __future__ import annotations
 
 import ast
+import contextlib
 import json
+import math
 import pathlib
 import queue
 import re
@@ -389,46 +424,69 @@ KERNEL_CASES = {
 }
 
 
-def phase_kernel_checks() -> float:
-    """Every case against the plain f32 version, and a second launch on
-    the same inputs bitwise equal to the first (one owner block per
-    output tile, no atomics); returns the O max abs error at the serving
-    shape."""
+def plain_by_heads(function, batch: int, q_len: int, k_len: int, heads: int,
+                   *tensors) -> list:
+    """function(*tensors) of a plain f32 version, taken over as many heads
+    at a time as keep its f32 scores within 1 GiB (heads are independent,
+    so the result is the whole call's); returns its outputs, each
+    concatenated over the heads."""
+    chunk = max(1, 2 ** 30 // (4 * batch * q_len * k_len))
+    parts = []
+    for start in range(0, heads, chunk):
+        picked = [tensor[:, start:start + chunk].contiguous()
+                  for tensor in tensors]
+        result = function(*picked)
+        parts.append(result if isinstance(result, tuple) else (result,))
+    return [torch.cat(column, dim=1) for column in zip(*parts)]
+
+
+def check_forward_case(case: str, spec: tuple, seed: int,
+                       phase: str) -> float:
+    """One K1 case (B, H, Lq, Lk, D, dtype, causal, q_offset[, sm_scale])
+    against the plain f32 version, and a second launch on the same inputs
+    bitwise equal to the first (one owner block per output tile, no
+    atomics); returns O's max abs error."""
     from aiko_services_tpu_torch.parallel.attention import (
         flash_attention_forward, flash_attention_plain)
+    batch, heads, q_len, k_len, dim, dtype, causal, q_offset, *scale = spec
+    sm_scale = scale[0] if scale else None
+    q, k, v = random_qkv(batch, heads, q_len, k_len, dim, dtype, seed=seed)
+    out, lse = flash_attention_forward(q, k, v, causal=causal,
+                                       sm_scale=sm_scale, q_offset=q_offset)
+    repeat = flash_attention_forward(q, k, v, causal=causal,
+                                     sm_scale=sm_scale, q_offset=q_offset)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, repeat[0]) and torch.equal(lse, repeat[1])):
+        raise SystemExit(f"{case}: two launches on the same inputs differ")
+    del repeat
+    ref_out, ref_lse = plain_by_heads(
+        lambda q, k, v: flash_attention_plain(
+            q.float(), k.float(), v.float(), causal=causal,
+            sm_scale=sm_scale, q_offset=q_offset),
+        batch, q_len, k_len, heads, q, k, v)
+    out_error = (out.float() - ref_out).abs().max().item()
+    lse_error = (lse - ref_lse).abs().max().item()
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), ref_out, atol=BF16_TOL,
+                                   rtol=BF16_TOL)
+    else:
+        torch.testing.assert_close(out, ref_out, atol=F32_ATOL, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+    say(phase, case=case, shape=f"{batch}x{heads}x{q_len}x{k_len}x{dim}",
+        dtype=str(dtype).replace("torch.", ""), causal=causal,
+        q_offset=q_offset, o_max_abs_err=f"{out_error:.3e}",
+        lse_max_abs_err=f"{lse_error:.3e}", bitwise_repeat=True, ok=True)
+    return out_error
+
+
+def phase_kernel_checks() -> float:
+    """Every case of KERNEL_CASES (check_forward_case); returns the O max
+    abs error at the serving shape."""
     serving_error = None
     for index, (case, spec) in enumerate(KERNEL_CASES.items()):
-        batch, heads, q_len, k_len, dim, dtype, causal, q_offset = spec
-        q, k, v = random_qkv(batch, heads, q_len, k_len, dim, dtype,
-                             seed=index)
-        out, lse = flash_attention_forward(q, k, v, causal=causal,
-                                           q_offset=q_offset)
-        repeat = flash_attention_forward(q, k, v, causal=causal,
-                                         q_offset=q_offset)
-        torch.cuda.synchronize()
-        if not (torch.equal(out, repeat[0]) and torch.equal(lse, repeat[1])):
-            raise SystemExit(f"{case}: two launches on the same inputs "
-                             f"differ")
-        del repeat
-        ref_out, ref_lse = flash_attention_plain(
-            q.float(), k.float(), v.float(), causal=causal,
-            q_offset=q_offset)
-        out_error = (out.float() - ref_out).abs().max().item()
-        lse_error = (lse - ref_lse).abs().max().item()
-        if dtype == torch.bfloat16:
-            torch.testing.assert_close(out.float(), ref_out, atol=BF16_TOL,
-                                       rtol=BF16_TOL)
-        else:
-            torch.testing.assert_close(out, ref_out, atol=F32_ATOL, rtol=0)
-        torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
-        say("2 kernel_vs_plain", case=case,
-            shape=f"{batch}x{heads}x{q_len}x{k_len}x{dim}",
-            dtype=str(dtype).replace("torch.", ""), causal=causal,
-            q_offset=q_offset, o_max_abs_err=f"{out_error:.3e}",
-            lse_max_abs_err=f"{lse_error:.3e}", bitwise_repeat=True,
-            ok=True)
+        error = check_forward_case(case, spec, index, "2 kernel_vs_plain")
         if case == "serving_encoder_bf16":
-            serving_error = out_error
+            serving_error = error
     return serving_error
 
 
@@ -456,57 +514,64 @@ def relative_error(actual, expected) -> float:
             / expected.float().norm()).item()
 
 
-def phase_backward_checks() -> dict:
-    """K2 and K3 against the plain f32 backward on the same inputs and
-    the same dO, and a second launch on the same inputs bitwise equal to
-    the first (one owner block per output tile, no atomics); returns the
-    max abs errors at the training shape."""
+def check_backward_case(case: str, spec: tuple, seed: int,
+                        phase: str) -> dict:
+    """K2 and K3 at one case (B, H, Lq, Lk, D, dtype, causal, q_offset[,
+    sm_scale]) against the plain f32 backward on the same inputs and the
+    same dO, and a second launch on the same inputs bitwise equal to the
+    first; returns each gradient's max abs and relative error."""
     from aiko_services_tpu_torch.parallel.attention import (
         flash_attention_backward, flash_attention_backward_plain,
         flash_attention_forward)
+    batch, heads, q_len, k_len, dim, dtype, causal, q_offset, *scale = spec
+    options = dict(causal=causal, q_offset=q_offset,
+                   sm_scale=scale[0] if scale else None)
+    q, k, v = random_qkv(batch, heads, q_len, k_len, dim, dtype, seed=seed)
+    dout = random_qkv(batch, heads, q_len, 1, dim, dtype,
+                      seed=seed + 100)[0]
+    out, lse = flash_attention_forward(q, k, v, **options)
+    grads = flash_attention_backward(q, k, v, out, lse, dout, **options)
+    repeat = flash_attention_backward(q, k, v, out, lse, dout, **options)
+    torch.cuda.synchronize()
+    if not all(torch.equal(first, second)
+               for first, second in zip(grads, repeat)):
+        raise SystemExit(f"{case}: two launches on the same inputs differ")
+    del repeat
+    expected = plain_by_heads(
+        lambda q, k, v, out, lse, dout: flash_attention_backward_plain(
+            q.float(), k.float(), v.float(), out.float(), lse, dout.float(),
+            **options),
+        batch, q_len, k_len, heads, q, k, v, out, lse, dout)
+    fields = {}
+    for name, got, want in zip(("dq", "dk", "dv"), grads, expected):
+        if got.dtype != dtype or got.shape != want.shape:
+            raise SystemExit(f"{case}: {name} is {got.dtype} "
+                             f"{tuple(got.shape)}")
+        error = relative_error(got, want)
+        fields[f"{name}_max_abs_err"] = (got.float() - want).abs().max(
+            ).item()
+        fields[f"{name}_rel_err"] = error
+        if dtype == torch.bfloat16 and error > GRAD_REL_TOL:
+            raise SystemExit(f"{case}: {name} relative error "
+                             f"{error:.3e} > {GRAD_REL_TOL}")
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=GRAD_F32_ATOL,
+                                       rtol=0)
+    say(phase, case=case, shape=f"{batch}x{heads}x{q_len}x{k_len}x{dim}",
+        dtype=str(dtype).replace("torch.", ""), causal=causal,
+        q_offset=q_offset,
+        **{key: f"{value:.3e}" for key, value in fields.items()},
+        bitwise_repeat=True, ok=True)
+    return fields
+
+
+def phase_backward_checks() -> dict:
+    """Every case of BACKWARD_CASES (check_backward_case); returns the
+    max abs errors at the training shape."""
     errors = None
     for index, (case, spec) in enumerate(BACKWARD_CASES.items()):
-        batch, heads, q_len, k_len, dim, dtype, causal, q_offset = spec
-        q, k, v = random_qkv(batch, heads, q_len, k_len, dim, dtype,
-                             seed=100 + index)
-        dout = random_qkv(batch, heads, q_len, 1, dim, dtype,
-                          seed=200 + index)[0]
-        out, lse = flash_attention_forward(q, k, v, causal=causal,
-                                           q_offset=q_offset)
-        grads = flash_attention_backward(q, k, v, out, lse, dout,
-                                         causal=causal, q_offset=q_offset)
-        repeat = flash_attention_backward(q, k, v, out, lse, dout,
-                                          causal=causal, q_offset=q_offset)
-        torch.cuda.synchronize()
-        if not all(torch.equal(first, second)
-                   for first, second in zip(grads, repeat)):
-            raise SystemExit(f"{case}: two launches on the same inputs "
-                             f"differ")
-        del repeat
-        expected = flash_attention_backward_plain(
-            q.float(), k.float(), v.float(), out.float(), lse, dout.float(),
-            causal=causal, q_offset=q_offset)
-        fields = {}
-        for name, got, want in zip(("dq", "dk", "dv"), grads, expected):
-            if got.dtype != dtype or got.shape != want.shape:
-                raise SystemExit(f"{case}: {name} is {got.dtype} "
-                                 f"{tuple(got.shape)}")
-            error = relative_error(got, want)
-            fields[f"{name}_max_abs_err"] = (got.float() - want).abs().max(
-                ).item()
-            fields[f"{name}_rel_err"] = error
-            if dtype == torch.bfloat16 and error > GRAD_REL_TOL:
-                raise SystemExit(f"{case}: {name} relative error "
-                                 f"{error:.3e} > {GRAD_REL_TOL}")
-            if dtype == torch.float32:
-                torch.testing.assert_close(got, want, atol=GRAD_F32_ATOL,
-                                           rtol=0)
-        say("2b backward_vs_plain", case=case,
-            shape=f"{batch}x{heads}x{q_len}x{k_len}x{dim}",
-            dtype=str(dtype).replace("torch.", ""), causal=causal,
-            q_offset=q_offset,
-            **{key: f"{value:.3e}" for key, value in fields.items()},
-            bitwise_repeat=True, ok=True)
+        fields = check_backward_case(case, spec, 100 + index,
+                                     "2b backward_vs_plain")
         if case == "lm_training_bf16":
             errors = {"flash_attention_dq": fields["dq_max_abs_err"],
                       "flash_attention_dkv": max(fields["dk_max_abs_err"],
@@ -3528,8 +3593,8 @@ SP_ELEMENT_TOL = 1e-3
 SP_F32 = dict(vocab_size=1024, d_model=256, n_layers=2, n_heads=4,
               n_kv_heads=2, d_ff=512, max_seq_len=1024, dtype="float32")
 SP_F32_PROMPT, SP_F32_NEW = 256, 16
-# examples/pipeline_longcontext.json's lm widths (its model: 2 axis is
-# ROADMAP Queue A item 4b, so the mesh here is data 1 x seq 4)
+# examples/pipeline_longcontext.json's lm widths on a data 1 x seq 4
+# mesh (phase 13e runs the example's own seq x model mesh)
 LONGCONTEXT = dict(vocab_size=8192, d_model=512, n_layers=8, n_heads=8,
                    n_kv_heads=4, d_ff=1536, max_seq_len=16384)
 LONGCONTEXT_FRAMES, LONGCONTEXT_SEQ = 4, 8192
@@ -4075,6 +4140,745 @@ def phase_long_context(smi: str) -> dict:
     return launches
 
 
+# -- phase 13: the parameter-sharding axes on the card ----------------------
+#
+# Tensor parallelism on "model", FSDP on "fsdp", data and expert
+# parallelism: every mesh names cuda:0 several times (set_default_devices,
+# as phase 12 does), so a collective between two shards moves no bytes
+# across an interconnect and every time here is one card's.  The
+# collective counter (parallel.collectives) counts what each step issues.
+
+PIPELINE_8B = ROOT / "examples" / "pipeline_llm_8b.json"
+LONGCONTEXT_JSON = ROOT / "examples" / "pipeline_longcontext.json"
+SHARD_DECODE_STEPS = 16       # 13a: decode steps timed on the element
+SHARD_F32_LAYERS = 2          # 13b, 13d's f32 generate: depth cut
+SHARD_F32_PROMPT, SHARD_F32_NEW = 16, 16
+SHARD_TRAIN_STEPS = 2         # 13c, 13d
+SHARD_LR = 1e-4
+SHARD_MOE_PROMPT, SHARD_MOE_NEW = 16, 8
+# 13d trains phase 11a's MoE at half its depth: at 8 layers the sharded
+# step beside the unsharded result peaked at 75.69 of 79.18 GiB (each
+# data block's dispatch buffers and f32 expert products)
+SHARD_MOE_LAYERS = M_LAYERS // 2
+# 13a: the sharded 8B against the unsharded one in bf16 -- each layer's
+# row-parallel partial sums are rounded to bf16 before the psum (the
+# unsharded product rounds once), through 32 layers; held only against
+# gross faults (a missing psum or a shard of the wrong block moves the
+# logits by their whole span).  Where the greedy tokens part, the
+# unsharded top-2 gap there is printed beside the sharded logits'
+# distance (both runs fed the unsharded tokens); the exact token check
+# of each arm's weights and KV format is 13b's, in f32.
+SHARD_LOGITS_GROSS_FRACTION = 0.25
+# 13c/13d, bf16 at full width: the loss within phase 6a's TRAIN_LOSS_ATOL
+# (16 layers of bf16 roundings taken in another order).  Each parameter's
+# change over the steps, sharded against unsharded, is printed as
+# ||d_sharded - d_whole|| / ||d_whole|| (its worst leaf): adamw's first
+# steps move each entry by about lr times the sign of its gradient, so a
+# bf16 gradient near its noise floor flips its entry's move, and the
+# gate is SHARD_BF16_UPDATE_REL_TOL, below a step that skips the update
+# (1) or negates it (2).
+SHARD_LOSS_ATOL = TRAIN_LOSS_ATOL
+SHARD_BF16_UPDATE_REL_TOL = 0.5
+# 13c/13d, f32 at SHARD_F32_LAYERS layers (full width): the gradients
+# each step hands the optimizer, leaf by leaf, relative to the unsharded
+# step's (the same products, their partial sums added in another order:
+# ~1e-6 relative, where a missing psum or a gradient off by a factor
+# gives O(1)), and each parameter's change over the steps (a sign flip
+# only where a gradient is within its f32 noise of zero); the loss atol
+# 1e-5 (f32 sums of ~12 over 2 layers)
+SHARD_F32_GRAD_REL_TOL = 1e-4
+SHARD_F32_UPDATE_REL_TOL = 1e-2
+SHARD_F32_LOSS_ATOL = 1e-5
+
+
+def shard_mesh(axes: dict):
+    from aiko_services_tpu_torch.parallel import create_mesh
+    count = int(np.prod(list(axes.values())))
+    return create_mesh(axes, devices=["cuda:0"] * count)
+
+
+def port_definition(path: pathlib.Path) -> dict:
+    """An example as shipped, with the port's runtime and element
+    modules."""
+    definition = json.loads(path.read_text())
+    definition["runtime"] = "torch"
+    for element in definition["elements"]:
+        element["deploy"]["local"]["module"] = MODULE
+    return definition
+
+
+def unsharded(tree):
+    from aiko_services_tpu_torch.parallel import unshard
+    if isinstance(tree, dict):
+        return {key: unsharded(value) for key, value in tree.items()}
+    return unshard(tree)
+
+
+def first_difference(a, b) -> int:
+    """The first column where two token matrices differ, -1 if none."""
+    differ = (torch.as_tensor(a).cpu() != torch.as_tensor(b).cpu()).any(0)
+    return int(differ.nonzero()[0, 0]) if differ.any() else -1
+
+
+def forced_step_logits(params, config, prompt, forced, steps: int) -> list:
+    """The f32 logits of the first `steps` generated positions, each
+    decode step fed the token `forced` holds there (so two runs see the
+    same inputs): the prefill's last position, then one cached step
+    each."""
+    from aiko_services_tpu_torch.models import forward
+    from aiko_services_tpu_torch.models import transformer
+    cache = transformer._prompt_cache(params, config, prompt, steps, None)
+    with torch.no_grad():
+        logits, cache = forward(params, config, prompt, cache=cache)
+        out = [logits[0, -1].float()]
+        for step in range(1, steps):
+            logits, cache = forward(params, config,
+                                    forced[:, step - 1:step], cache=cache,
+                                    pos=prompt.shape[1] + step - 1)
+            out.append(logits[0, -1].float())
+    return out
+
+
+def phase_8b_arm(smi: str, axes: dict, whole=None) -> tuple:
+    """One arm of 13a: the 8B example's pipeline on `axes`, then its
+    element's decode steps timed and counted, and the sharded logits and
+    greedy tokens against the unsharded 8B.  With `whole` (the first
+    arm's weights, unsharded), the arm serves them as int8 weights and
+    KV through the element's restore_state instead of drawing its own.
+    Returns (the pipeline run's kernel launches, the weights unsharded)."""
+    quantized = whole is not None
+    from aiko_services_tpu_torch.models import (
+        forward, generate, quantize_weights_int8)
+    from aiko_services_tpu_torch.models import transformer
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import (
+        collective_totals, reset_collective_counts, set_default_devices)
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    label = "13a llama3_8b_int8" if quantized else "13a llama3_8b"
+    definition = port_definition(PIPELINE_8B)
+    lm = next(element for element in definition["elements"]
+              if element["name"] == "lm")
+    count = int(np.prod(list(axes.values())))
+    lm["sharding"]["axes"] = axes
+    lm["sharding"]["devices"] = [0, count]
+    if quantized:
+        lm["parameters"].update(weight_dtype="int8", kv_dtype="int8")
+    prompt_text = definition["elements"][0]["parameters"][
+        "data_sources"][0]
+    max_new = int(lm["parameters"]["max_new_tokens"])
+    set_default_devices(["cuda:0"] * count)
+    process = Process(transport_kind="loopback")
+    try:
+        start = time.perf_counter()
+        pipeline = create_pipeline(process, definition)
+        element = pipeline.elements["lm"]
+        if quantized:
+            element.configure()
+            element.restore_state(quantize_weights_int8(whole,
+                                                        element.config))
+            del whole
+        element._ensure_ready()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - start
+        process.run(in_thread=True)
+        torch.cuda.reset_peak_memory_stats()
+        responses = queue.Queue()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        pipeline.create_stream("s1", queue_response=responses)
+        _, _, outputs = responses.get(timeout=600)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        generated = torch.as_tensor(outputs["generated"]).cpu()
+        if generated.shape != (1, max_new) or not outputs["text"]:
+            raise SystemExit(f"{label}: generated {tuple(generated.shape)}"
+                             f", text {outputs['text']!r}")
+        config, state = element.config, element.state
+        tokens = torch.from_numpy(element._encode_prompts(
+            None, prompt_text)[0]).cuda()
+        # decode steps on the element's sharded state: ms and collectives
+        cache = transformer._prompt_cache(state, config, tokens,
+                                          SHARD_DECODE_STEPS + 1, None)
+        with torch.no_grad():
+            logits, cache = forward(state, config, tokens, cache=cache)
+        token = logits[:, -1:].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        reset_collective_counts()
+        start = time.perf_counter()
+        for step in range(SHARD_DECODE_STEPS):
+            token, _, cache = transformer.decode_step(
+                state, config, cache, token, tokens.shape[1] + step)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - start) / SHARD_DECODE_STEPS * 1e3
+        calls, size = collective_totals()
+        del cache
+        # the unsharded 8B on the same weights
+        whole = unsharded(state)
+        with torch.no_grad():
+            sharded_last = forward(state, config, tokens)[0, -1]
+            whole_last = forward(whole, config, tokens)[0, -1]
+        reference, _ = generate(whole, config, tokens, max_new)
+        parting = first_difference(generated, reference)
+        parting_fields = {}
+        if parting >= 0:
+            ours = forced_step_logits(state, config, tokens, reference,
+                                      parting + 1)
+            theirs = forced_step_logits(whole, config, tokens, reference,
+                                        parting + 1)
+            top = torch.topk(theirs[parting], 2).values
+            distance = (ours[parting] - theirs[parting]).abs().max()
+            parting_fields = dict(
+                parting_logits_max_abs_diff=f"{distance.item():.3e}",
+                parting_unsharded_top2_gap=f"{(top[0] - top[1]).item():.3e}")
+        torch.cuda.empty_cache()
+    finally:
+        process.terminate()
+        set_default_devices(None)
+    diff = (sharded_last - whole_last).abs().max().item()
+    span = whole_last.abs().max().item()
+    fields = dict(
+        mesh=json.dumps(axes), weights="int8" if quantized else config.dtype,
+        kv=config.kv_dtype or config.dtype, layers=config.n_layers,
+        d_model=config.d_model,
+        heads=f"{config.n_heads}/{config.n_kv_heads}",
+        vocab=config.vocab_size, prompt_tokens=tokens.shape[1],
+        new_tokens=max_new, setup_s=f"{setup_s:.1f}",
+        tokens_per_s=f"{max_new / elapsed:.2f}",
+        decode_step_ms=f"{step_ms:.2f}",
+        collective_calls_per_step=calls / SHARD_DECODE_STEPS,
+        collective_kib_per_step=f"{size / SHARD_DECODE_STEPS / 1024:.1f}",
+        max_memory_allocated_gib=f"{peak / 2**30:.2f}",
+        last_logits_max_abs_diff_vs_unsharded=f"{diff:.3e}",
+        logits_span=f"{span:.3e}",
+        greedy_first_difference=parting, **parting_fields,
+        card=repr(smi))
+    say(label, **fields)
+    if not np.isfinite(diff) or diff > SHARD_LOGITS_GROSS_FRACTION * span:
+        raise SystemExit(f"{label}: sharded logits differ from the "
+                         f"unsharded 8B by {diff} (span {span})")
+    return launches, whole
+
+
+def phase_8b_f32(smi: str) -> None:
+    """13b: f32 at the 8B widths, 2 layers: the sharded and unsharded
+    generate give identical tokens, with f32 weights and KV on fsdp 2 x
+    model 4 (13a's first arm) and with int8 weights and int8 KV on fsdp 2
+    x model 2 (its second)."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import (
+        LLAMA3_8B, generate, init_params, param_specs,
+        quantize_weights_int8, quantized_param_specs)
+    from aiko_services_tpu_torch.parallel import (
+        collective_totals, filter_specs, reset_collective_counts,
+        shard_pytree)
+    for quantized, axes in ((False, {"fsdp": 2, "model": 4}),
+                            (True, {"fsdp": 2, "model": 2})):
+        config = replace(LLAMA3_8B, n_layers=SHARD_F32_LAYERS,
+                         dtype="float32", kv_dtype="int8" if quantized
+                         else "")
+        params = init_params(config, torch.Generator().manual_seed(13),
+                             device="cuda")
+        specs = param_specs
+        if quantized:
+            params = quantize_weights_int8(params, config)
+            specs = quantized_param_specs
+        mesh = shard_mesh(axes)
+        sharded = shard_pytree(params, mesh, filter_specs(
+            specs(config, lm_head="lm_head" in params), mesh))
+        prompt = torch.from_numpy(np.random.default_rng(13).integers(
+            1, config.vocab_size, (2, SHARD_F32_PROMPT),
+            dtype=np.int32)).cuda()
+        expected, _ = generate(params, config, prompt, SHARD_F32_NEW)
+        reset_collective_counts()
+        got, _ = generate(sharded, config, prompt, SHARD_F32_NEW)
+        calls, size = collective_totals()
+        del params, sharded
+        torch.cuda.empty_cache()
+        same = torch.equal(got.cpu(), expected.cpu())
+        label = ("13b llama3_8b_widths_f32_int8" if quantized
+                 else "13b llama3_8b_widths_f32")
+        say(label, layers=config.n_layers, mesh=json.dumps(axes),
+            weights="int8" if quantized else "float32",
+            kv=config.kv_dtype or "float32", prompt=SHARD_F32_PROMPT,
+            new_tokens=SHARD_F32_NEW, identical=same,
+            collective_calls=calls, collective_mib=f"{size / 2**20:.2f}",
+            card=repr(smi))
+        if not same:
+            raise SystemExit(f"{label}: sharded f32 tokens {got.tolist()} "
+                             f"differ from the unsharded "
+                             f"{expected.tolist()}")
+
+
+def leaf_items(tree, prefix: str = ""):
+    """(path, leaf) of a nested dict, in order."""
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            yield from leaf_items(value, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", value
+
+
+def worst_relative(got_tree, want_tree, base_tree=None) -> tuple:
+    """(the worst leaf, its ||got - want|| / ||want||) over the leaves of
+    two trees (Sharded leaves unsharded); with `base_tree`, of the changes
+    got - base against want - base."""
+    from aiko_services_tpu_torch.parallel import unshard
+    worst = ("", 0.0)
+    wants = dict(leaf_items(want_tree))
+    bases = dict(leaf_items(base_tree)) if base_tree is not None else {}
+    for name, leaf in leaf_items(got_tree):
+        got = unshard(leaf).float()
+        want = wants[name].to(got.device).float()
+        if name in bases:
+            base = bases[name].to(got.device).float()
+            got, want = got - base, want - base
+        scale = want.norm().item()
+        error = ((got - want).norm().item() / scale if scale
+                 else 0.0 if not got.any() else float("inf"))
+        if not error <= worst[1]:
+            worst = (name, error)
+    return worst
+
+
+def recording(optimizer, record):
+    """`optimizer`, calling record(step, grads) with the gradients each
+    train step hands it, before it updates."""
+    from aiko_services_tpu_torch.models.optim import GradientTransformation
+    steps = iter(range(1 << 30))
+
+    def update(grads, state, params=None):
+        record(next(steps), grads)
+        return optimizer.update(grads, state, params)
+    return GradientTransformation(optimizer.init, update)
+
+
+def sharded_vs_whole_training(smi: str, label: str, config, axes: dict,
+                              steps: int, seed: int) -> dict:
+    """A sharded train step on `axes` against the unsharded one on the
+    same weights and batches: losses, each parameter's change over the
+    steps, step ms, tokens/s, MFU and K1/K2/K3 launches a step.  An f32
+    config also holds each step's gradients, leaf by leaf, against the
+    unsharded step's."""
+    from aiko_services_tpu_torch.models import (
+        adamw, count_params, init_params, make_train_step, param_specs)
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import (
+        collective_totals, filter_specs, reset_collective_counts,
+        shard_pytree, sharded_leaves)
+    f32 = config.dtype == "float32"
+    rng = np.random.default_rng(seed)
+    batches = [torch.from_numpy(rng.integers(
+        0, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
+        for _ in range(steps)]
+    params = init_params(config, torch.Generator().manual_seed(seed),
+                         device="cuda")
+    n_params = count_params(params)
+    mesh = shard_mesh(axes)
+    sharded = copy_replicated(shard_pytree(
+        params, mesh, filter_specs(param_specs(config), mesh)))
+    before = tree_to(params, "cpu")
+    whole_grads = []
+    optimizer = recording(adamw(SHARD_LR), lambda step, grads: (
+        whole_grads.append(tree_to(grads, "cpu")) if f32 else None))
+    state = optimizer.init(params)
+    step = make_train_step(config, optimizer)
+    whole_losses = []
+    for batch in batches:
+        params, state, loss = step(params, state, batch)
+        whole_losses.append(loss.item())
+    # the unsharded result waits on the host while the sharded tree trains
+    del state, step
+    params = tree_to(params, "cpu")
+    torch.cuda.empty_cache()
+    grad_errors = []
+    optimizer = recording(adamw(SHARD_LR), lambda step, grads: (
+        grad_errors.append(worst_relative(grads, whole_grads[step]))
+        if f32 else None))
+    state = optimizer.init(sharded)
+    step = make_train_step(config, optimizer, sharded=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    reset_collective_counts()
+    losses, times = [], []
+    for batch in batches:
+        start = time.perf_counter()
+        sharded, state, loss = step(sharded, state, batch)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    launches = launch_counts()
+    calls, size = collective_totals()
+    peak = torch.cuda.max_memory_allocated()
+    update_leaf, update_error = worst_relative(sharded, params, before)
+    # on one card the data replicas of a block are one tensor (they share
+    # a device), so this holds by construction; the sum of the data
+    # blocks' gradients is held by the f32 gradient check
+    replicas_one_tensor = all(
+        len({leaf.block(position) for position in np.ndindex(
+            leaf.shards.shape)}) == len(leaf.unique())
+        for leaf in sharded_leaves(sharded))
+    del sharded, state, step, params, before, whole_grads
+    torch.cuda.empty_cache()
+    loss_diff = max(abs(a - b) for a, b in zip(losses, whole_losses))
+    step_s = statistics.median(times)
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    mfu = 6 * n_params * tokens_per_s / peaks_for(smi)[1][config.dtype]
+    grad_leaf, grad_error = max(grad_errors, key=lambda item: item[1],
+                                default=("", 0.0))
+    say(label, mesh=json.dumps(axes), dtype=config.dtype,
+        layers=config.n_layers, experts=config.n_experts, steps=steps,
+        losses=json.dumps([round(value, 6) for value in losses]),
+        unsharded_losses=json.dumps([round(value, 6)
+                                     for value in whole_losses]),
+        loss_max_abs_diff=f"{loss_diff:.3e}",
+        update_rel_err=f"{update_error:.3e}", update_worst_leaf=update_leaf,
+        data_replicas_one_tensor=replicas_one_tensor,
+        **(dict(grad_rel_err=f"{grad_error:.3e}", grad_worst_leaf=grad_leaf)
+           if f32 else {}),
+        step_ms=f"{step_s * 1e3:.1f}", tokens_per_s=f"{tokens_per_s:.1f}",
+        train_mfu=f"{mfu:.4f}",
+        launches_per_step=json.dumps({name: count / steps for name, count
+                                      in launches.items()}),
+        collective_calls_per_step=calls / steps,
+        collective_mib_per_step=f"{size / steps / 2**20:.1f}",
+        max_memory_allocated_gib=f"{peak / 2**30:.2f}", card=repr(smi))
+    limits = ((SHARD_F32_LOSS_ATOL, SHARD_F32_UPDATE_REL_TOL) if f32
+              else (SHARD_LOSS_ATOL, SHARD_BF16_UPDATE_REL_TOL))
+    if not (np.isfinite(losses).all() and loss_diff <= limits[0]
+            and update_error <= limits[1]
+            and grad_error <= SHARD_F32_GRAD_REL_TOL):
+        raise SystemExit(f"{label}: losses {losses} vs unsharded "
+                         f"{whole_losses} (limit {limits[0]}); parameter "
+                         f"change {update_error:.3e} relative at "
+                         f"{update_leaf} (limit {limits[1]}); gradient "
+                         f"{grad_error:.3e} relative at {grad_leaf} (limit "
+                         f"{SHARD_F32_GRAD_REL_TOL})")
+    return launches
+
+
+def tree_to(tree, device):
+    """A copy of a tree of tensors on `device`."""
+    if isinstance(tree, dict):
+        return {key: tree_to(value, device) for key, value in tree.items()}
+    return tree.detach().to(device, copy=True)
+
+
+def copy_replicated(tree):
+    """The tree with every whole (replicated) leaf cloned: shard_pytree
+    hands back a replicated leaf that already lies on the mesh's home
+    device as the very tensor it was given."""
+    from aiko_services_tpu_torch.parallel import Sharded
+    if isinstance(tree, dict):
+        return {key: copy_replicated(value) for key, value in tree.items()}
+    return tree if isinstance(tree, Sharded) else tree.clone()
+
+
+def phase_sharded_training(smi: str) -> dict:
+    """13c: llama32_1b at full width on data 2 x fsdp 2 x model 2, in
+    bf16 and (depth cut to SHARD_F32_LAYERS) in f32."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import LLAMA32_1B
+    axes = {"data": 2, "fsdp": 2, "model": 2}
+    launches = {}
+    for config in (LLAMA32_1B, replace(LLAMA32_1B,
+                                       n_layers=SHARD_F32_LAYERS,
+                                       dtype="float32")):
+        arm = sharded_vs_whole_training(
+            smi, f"13c llama32_1b_sharded_train_step_{config.dtype}",
+            config, axes, SHARD_TRAIN_STEPS, 13)
+        expected = config.n_layers * 2 * 2 * SHARD_TRAIN_STEPS
+        if any(count != expected for count in arm.values()):
+            raise SystemExit(f"13c: launches {arm} in {SHARD_TRAIN_STEPS} "
+                             f"steps, expected {expected} of each (layers "
+                             f"x data x model)")
+        for name, count in arm.items():
+            launches[name] = launches.get(name, 0) + count
+    return launches
+
+
+def phase_expert_parallel(smi: str) -> dict:
+    """13d: phase 11a's MoE on data 2 x expert 2 x model 2: train steps
+    against the unsharded steps in bf16 and (depth cut to
+    SHARD_F32_LAYERS) in f32, then f32 generate token for token equal to
+    the unsharded one."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import (
+        LLAMA32_1B, generate, init_params, param_specs)
+    from aiko_services_tpu_torch.parallel import filter_specs, shard_pytree
+    axes = {"data": 2, "expert": 2, "model": 2}
+    config = replace(LLAMA32_1B, n_layers=SHARD_MOE_LAYERS,
+                     n_experts=M_EXPERTS)
+    f32 = replace(config, n_layers=SHARD_F32_LAYERS, dtype="float32")
+    launches = {}
+    for arm in (config, f32):
+        for name, count in sharded_vs_whole_training(
+                smi, f"13d moe_expert_parallel_train_step_{arm.dtype}",
+                arm, axes, SHARD_TRAIN_STEPS, 14).items():
+            launches[name] = launches.get(name, 0) + count
+    params = init_params(f32, torch.Generator().manual_seed(15),
+                         device="cuda")
+    mesh = shard_mesh(axes)
+    sharded = shard_pytree(params, mesh, filter_specs(param_specs(f32),
+                                                      mesh))
+    prompt = torch.from_numpy(np.random.default_rng(15).integers(
+        1, f32.vocab_size, (4, SHARD_MOE_PROMPT), dtype=np.int32)).cuda()
+    expected, _ = generate(params, f32, prompt, SHARD_MOE_NEW)
+    got, _ = generate(sharded, f32, prompt, SHARD_MOE_NEW)
+    del params, sharded
+    torch.cuda.empty_cache()
+    same = torch.equal(got.cpu(), expected.cpu())
+    say("13d moe_expert_parallel_generate_f32", mesh=json.dumps(axes),
+        layers=f32.n_layers, experts=f32.n_experts,
+        new_tokens=SHARD_MOE_NEW, identical=same, card=repr(smi))
+    if not same:
+        raise SystemExit(f"13d: sharded MoE tokens {got.tolist()} differ "
+                         f"from the unsharded {expected.tolist()}")
+    return launches
+
+
+def phase_longcontext_as_shipped(smi: str) -> dict:
+    """13e: examples/pipeline_longcontext.json as shipped, data 1 x seq 4
+    x model 2: each frame's logits and NLL against a direct unsharded
+    forward on the element's weights."""
+    from aiko_services_tpu_torch.models import forward
+    from aiko_services_tpu_torch.parallel import (
+        reset_collective_counts, collective_counts, set_default_devices)
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    definition = port_definition(LONGCONTEXT_JSON)
+    source, lm = definition["elements"]
+    axes = lm["sharding"]["axes"]
+    count = int(np.prod(list(axes.values())))
+    frames_wanted = int(source["parameters"]["count"])
+    length = int(source["parameters"]["data_sources"][0][1])
+    # TokenSource draws emission i from default_rng(seed + i) over its
+    # vocab_size (8192 unless the definition sets one)
+    vocab = int(source["parameters"].get("vocab_size", 8192))
+    set_default_devices(["cuda:0"] * count)
+    process = Process(transport_kind="loopback")
+    try:
+        pipeline = create_pipeline(process, definition)
+        element = pipeline.elements["lm"]
+        process.run(in_thread=True)
+        element._ensure_ready()
+        responses = queue.Queue()
+        torch.cuda.synchronize()
+        from aiko_services_tpu_torch.ops import kernels
+        kernels.reset_launch_counts()
+        reset_collective_counts()
+        start = time.perf_counter()
+        pipeline.create_stream("s1", queue_response=responses)
+        frames = {}
+        for _ in range(frames_wanted):
+            _, frame, outputs = responses.get(timeout=600)
+            frames[frame.frame_id] = outputs
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        launches = launch_counts()
+        collectives = collective_counts()
+        whole = unsharded(element.state)
+        config = element.config
+        from dataclasses import replace
+        dense = replace(config, sequence_parallel=False)
+        worst = 0.0
+        for index in range(frames_wanted):
+            tokens = torch.from_numpy(np.random.default_rng(index).integers(
+                0, vocab, (1, length), dtype=np.int32)).cuda()
+            with torch.no_grad():
+                logits = forward(whole, dense, tokens)
+                log_probs = torch.log_softmax(logits[:, :-1], dim=-1)
+                nll = -torch.gather(log_probs, -1, tokens[:, 1:].long()[
+                    ..., None])[..., 0].mean(-1)
+            worst_frame = min(
+                max((outputs["logits"] - logits).abs().max().item(),
+                    (outputs["nll"] - nll).abs().max().item())
+                for outputs in frames.values())
+            worst = max(worst, worst_frame)
+            del logits, log_probs
+        del whole
+        torch.cuda.empty_cache()
+    finally:
+        process.terminate()
+        set_default_devices(None)
+    per_frame = launches["flash_attention"] / frames_wanted
+    expected_k1 = (config.n_layers * axes["model"]
+                   * axes["seq"] * (axes["seq"] + 1) // 2)
+    say("13e longcontext_as_shipped", mesh=json.dumps(axes),
+        frames=frames_wanted, tokens=length,
+        frames_per_s=f"{frames_wanted / elapsed:.2f}",
+        max_abs_diff_vs_unsharded_forward=f"{worst:.3e}",
+        k1_launches_per_frame=per_frame,
+        collectives=json.dumps(collectives), card=repr(smi))
+    if worst > SHARD_LONGCONTEXT_TOL or per_frame != expected_k1:
+        raise SystemExit(f"13e: element vs unsharded forward {worst:.3e}, "
+                         f"{per_frame} K1 a frame (expected "
+                         f"{expected_k1})")
+    return launches
+
+
+# 13e: the ring over each model shard's heads against the unsharded
+# dense forward in bf16: different kernels on the same inputs (the ring's
+# merged partials against one K1 call) and the row-parallel partial sums
+# rounded to bf16 before the psum, through 8 layers -- phase 12b's gross
+# bound on the logits
+SHARD_LONGCONTEXT_TOL = SP_LOGITS_GROSS_TOL
+
+
+def phase_sharded_speech(smi: str) -> int:
+    """13f: SpeechToText whisper_small (f32, so the tokens are exact) on
+    {"model": 2} with its default asr_param_specs, against the element
+    without a mesh on the same frames.  Returns the sharded run's K1
+    launches."""
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import set_default_devices
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+
+    def serve(sharding):
+        element = {"name": "asr", "input": [{"name": "audio"}],
+                   "output": [{"name": "tokens"}],
+                   "parameters": {"preset": "whisper_small",
+                                  "dtype": "float32", "max_frames": 500,
+                                  "max_tokens": 16, "seed": 16},
+                   "deploy": {"local": {"module": MODULE,
+                                        "class_name": "SpeechToText"}}}
+        if sharding:
+            element["sharding"] = sharding
+        process = Process(transport_kind="loopback")
+        try:
+            pipeline = create_pipeline(process, {
+                "name": "asr13", "graph": ["(asr)"],
+                "parameters": {"device": "cuda"}, "elements": [element]})
+            process.run(in_thread=True)
+            pipeline.elements["asr"]._ensure_ready()
+            responses = queue.Queue()
+            stream = pipeline.create_stream("s1", queue_response=responses)
+            kernels.reset_launch_counts()
+            rng = np.random.default_rng(16)
+            for _ in range(2):
+                pipeline.create_frame(stream, {"audio": rng.standard_normal(
+                    (2, SAMPLE_RATE * 5)).astype(np.float32) * 0.1})
+            out = {}
+            for _ in range(2):
+                _, frame, outputs = responses.get(timeout=300)
+                out[frame.frame_id] = outputs["tokens"].cpu()
+            torch.cuda.synchronize()
+            return out, launch_counts(), pipeline.elements["asr"]
+        finally:
+            process.terminate()
+
+    set_default_devices(["cuda:0"] * 2)
+    try:
+        sharded, launches, element = serve({"axes": {"model": 2}})
+        cut = type(element.state["enc_layers"]["attn"]["wq"]["w"]).__name__
+    finally:
+        set_default_devices(None)
+    whole, _, _ = serve(None)
+    torch.cuda.empty_cache()
+    same = all(torch.equal(sharded[key], whole[key]) for key in whole)
+    say("13f whisper_small_model_parallel", mesh=json.dumps({"model": 2}),
+        dtype="float32", frames=2, wq=cut, identical=same,
+        k1_launches=launches["flash_attention"], card=repr(smi))
+    if not same or cut != "Sharded":
+        raise SystemExit(f"13f: sharded tokens {sharded} differ from the "
+                         f"unsharded element's {whole} (wq {cut})")
+    return launches["flash_attention"]
+
+
+@contextlib.contextmanager
+def recorded_kernel_cases(forward: set, backward: set):
+    """Within the block, every K1 launch adds its case (B, H, Lq, Lk, D,
+    dtype, causal, q_offset, sm_scale) to `forward`, and every K2/K3 pair
+    its case to `backward`: the record is taken at the module names every
+    path reaches the kernels through, and the wrappers (and their launch
+    counts) stay as they are."""
+    from aiko_services_tpu_torch.parallel import attention
+    forward_kernel = attention.flash_attention_forward
+    backward_kernel = attention.flash_attention_backward
+
+    def case(q, k, causal, sm_scale, q_offset):
+        if sm_scale is None:
+            sm_scale = 1.0 / math.sqrt(q.shape[-1])
+        return (*q.shape[:3], k.shape[2], q.shape[3], q.dtype, bool(causal),
+                int(q_offset), float(sm_scale))
+
+    def forward_recorded(q, k, v, causal=False, sm_scale=None, q_offset=0):
+        if q.device.type == "cuda":
+            forward.add(case(q, k, causal, sm_scale, q_offset))
+        return forward_kernel(q, k, v, causal=causal, sm_scale=sm_scale,
+                              q_offset=q_offset)
+
+    def backward_recorded(q, k, v, out, lse, dout, causal=False,
+                          sm_scale=None, q_offset=0):
+        if q.device.type == "cuda":
+            backward.add(case(q, k, causal, sm_scale, q_offset))
+        return backward_kernel(q, k, v, out, lse, dout, causal=causal,
+                               sm_scale=sm_scale, q_offset=q_offset)
+
+    attention.flash_attention_forward = forward_recorded
+    attention.flash_attention_backward = backward_recorded
+    try:
+        yield
+    finally:
+        attention.flash_attention_forward = forward_kernel
+        attention.flash_attention_backward = backward_kernel
+
+
+def phase_shard_kernel_checks(forward: set, backward: set) -> None:
+    """13g: K1, and K2 with K3, at every case phase 13 launched them with
+    (the per-shard shapes, in f32 and bf16) that phase 2 did not check,
+    against the plain versions at phase 2's limits."""
+    def checked(cases):
+        return {(*spec, 1.0 / math.sqrt(spec[4])) for spec in cases}
+    new_forward = sorted(forward - checked(KERNEL_CASES.values()), key=str)
+    new_backward = sorted(backward - checked(BACKWARD_CASES.values()),
+                          key=str)
+    if not new_forward or not new_backward:
+        raise SystemExit(f"13g: phase 13 launched no new K1 ({forward}) "
+                         f"or K2/K3 ({backward}) case")
+    for index, spec in enumerate(new_forward):
+        check_forward_case(f"13_{index}", spec, 1300 + index,
+                           "13g kernel_vs_plain")
+    for index, spec in enumerate(new_backward):
+        check_backward_case(f"13_{index}", spec, 1400 + index,
+                            "13g backward_vs_plain")
+    say("13g shard_kernel_checks", k1_cases=len(new_forward),
+        k2_k3_cases=len(new_backward), ok=True)
+
+
+def phase_parameter_sharding(smi: str) -> dict:
+    """Phase 13.  Returns the kernel launches of its main-path runs."""
+    from aiko_services_tpu_torch.ops import kernels
+    start = time.perf_counter()
+    launches = {name: 0 for name in kernels.KERNELS}
+    forward, backward = set(), set()
+    with recorded_kernel_cases(forward, backward):
+        served, whole = phase_8b_arm(smi, {"data": 1, "fsdp": 2, "seq": 1,
+                                           "model": 4})
+        add_launches(launches, served)
+        served, whole = phase_8b_arm(smi, {"data": 1, "fsdp": 2, "seq": 1,
+                                           "model": 2}, whole)
+        add_launches(launches, served)
+        del whole
+        torch.cuda.empty_cache()
+        phase_8b_f32(smi)
+        add_launches(launches, phase_sharded_training(smi))
+        add_launches(launches, phase_expert_parallel(smi))
+        add_launches(launches, phase_longcontext_as_shipped(smi))
+        launches["flash_attention"] += phase_sharded_speech(smi)
+    if min(launches.values()) == 0:
+        raise SystemExit(f"13: a kernel never launched on the sharded "
+                         f"paths: {launches}")
+    phase_shard_kernel_checks(forward, backward)
+    say("13 parameter_sharding", wall_s=f"{time.perf_counter() - start:.1f}",
+        launches=json.dumps(launches), card=repr(smi))
+    return launches
+
+
 def main() -> None:
     from aiko_services_tpu_torch.ops import kernels
     run_start = time.perf_counter()
@@ -4095,6 +4899,8 @@ def main() -> None:
     for name, count in phase_model_families(smi).items():
         launches[name] += count
     for name, count in phase_long_context(smi).items():
+        launches[name] += count
+    for name, count in phase_parameter_sharding(smi).items():
         launches[name] += count
     say("run", seconds=f"{time.perf_counter() - run_start:.1f}",
         card=repr(smi))

@@ -1,6 +1,6 @@
-# The port's device mesh (parallel/mesh.py) and sequence-parallel
-# attention (ring, Ulysses, sp decode) against the JAX package's, on the
-# CPU.  JAX runs on its virtual 8-device CPU mesh (tests/conftest.py) with
+# The port's device mesh (parallel/mesh.py: the axes, shard_pytree's
+# blocks) and sequence-parallel attention (ring, Ulysses, sp decode)
+# against the JAX package's, on the CPU.  JAX runs on its virtual 8-device CPU mesh (tests/conftest.py) with
 # its Pallas kernels in interpret mode, as tests/test_parallel.py runs
 # them; the port's mesh names the CPU eight times (set_default_devices),
 # its counterpart of the forced host device count, and its kernels take
@@ -98,10 +98,32 @@ class TestMesh:
     @pytest.mark.parametrize("axes", [{"model": 2}, {"data": 2},
                                       {"seq": 2, "model": 2},
                                       {"fsdp": 2}, {"expert": 2}])
-    def test_parameter_sharding_axes_raise_naming_4b(self, axes):
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            torch_mesh.create_mesh(axes, devices=["cpu"] * int(
-                np.prod(list(axes.values()))))
+    def test_parameter_sharding_axes_cut_as_jax(self, axes):
+        """Every parameter-sharding axis builds a mesh, and a leaf cut
+        over it (dimension 0 by the first axis, dimension 1 by the last)
+        has JAX's shard shapes and values, each block on its device."""
+        count = int(np.prod(list(axes.values())))
+        names = list(axes)
+        spec = (names[0], names[-1] if len(names) > 1 else None)
+        mesh = torch_mesh.create_mesh(axes, devices=["cpu"] * count)
+        jax_mesh = jax_create_mesh(axes, devices=jax.devices()[:count])
+        array = np.arange(64, dtype=np.float32).reshape(8, 8)
+        placed = torch_mesh.shard_pytree(torch.from_numpy(array), mesh,
+                                         P(*spec))
+        expected = jax.device_put(array, jax.sharding.NamedSharding(
+            jax_mesh, jax.sharding.PartitionSpec(*spec)))
+        assert isinstance(placed, torch_mesh.Sharded)
+        blocks = {tuple(part.indices(8)[:2] for part in shard.index):
+                  np.asarray(shard.data)
+                  for shard in expected.addressable_shards}
+        for position, block in np.ndenumerate(placed.shards):
+            assert block.device == mesh.devices[position]
+            index = tuple((start * size, (start + 1) * size)
+                          for start, size in zip(placed.block(position),
+                                                 block.shape))
+            np.testing.assert_array_equal(block.numpy(), blocks[index])
+        np.testing.assert_array_equal(torch_mesh.unshard(placed).numpy(),
+                                      array)
 
     def test_filter_specs(self):
         mesh = torch_mesh.create_mesh({"data": 1, "seq": 4},
@@ -341,3 +363,52 @@ def test_sp_decode_matches_jax(q_len, heads, kv_heads, pos):
         q_t, k_t.repeat_interleave(repeats, 1)[:, :, :pos + q_len],
         v_t.repeat_interleave(repeats, 1)[:, :, :pos + q_len], causal=True)
     np.testing.assert_allclose(actual.numpy(), oracle.numpy(), **ORACLE_TOL)
+
+
+def test_sp_decode_composes_with_tp():
+    """JAX test_sp_decode_composes_with_tp: sp decode on data 2 x seq 2 x
+    model 2 (the batch on data, the heads on model where the mesh has
+    them), against JAX's and the plain attention over the written
+    positions."""
+    axes = {"data": 2, "seq": 2, "model": 2}
+    jax_mesh = jax_create_mesh(axes)
+    mesh = torch_mesh.create_mesh(axes)
+    _, k, v = _qkv(batch=2, heads=2, seq=32, dim=8, seed=6)
+    q = np.random.default_rng(2).standard_normal((2, 2, 1, 8),
+                                                 dtype=np.float32)
+    expected = np.asarray(jax_attention.sp_decode_attention(
+        q, k, v, 19, mesh=jax_mesh))
+    q_t, k_t, v_t = _torch(q, k, v)
+    actual = torch_attention.sp_decode_attention(q_t, k_t, v_t, 19,
+                                                 mesh=mesh)
+    np.testing.assert_allclose(actual.numpy(), expected, **TOL)
+    oracle = torch_attention.attention_reference(
+        q_t, k_t[:, :, :20], v_t[:, :, :20], causal=True)
+    np.testing.assert_allclose(actual.numpy(), oracle.numpy(), **ORACLE_TOL)
+
+
+class TestShardPytreeOnParameterAxes:
+    """JAX TestShardPytreeSemantics on its data 2 x model 4 mesh: an axis
+    list broadcasts over a collection, a partial tree replicates the
+    leaves it leaves out; the cut leaves are Sharded."""
+
+    def _mesh(self):
+        return torch_mesh.create_mesh({"data": 2, "model": 4})
+
+    def test_axis_list_broadcasts_over_collection(self):
+        tree = {"a": [torch.zeros(4, 8), torch.zeros(4, 8)]}
+        out = torch_mesh.shard_pytree(tree, self._mesh(),
+                                      {"a": ["data", None]})
+        for leaf in out["a"]:
+            assert leaf.sharding.spec == P("data", None)
+            assert {tuple(block.shape) for block in leaf.unique()} == {
+                (2, 8)}
+
+    def test_partial_tree_missing_leaves_replicate(self):
+        tree = {"w": torch.zeros(4, 8), "b": torch.zeros(8)}
+        out = torch_mesh.shard_pytree(tree, self._mesh(),
+                                      {"w": P(None, "model")})
+        assert out["w"].sharding.spec == P(None, "model")
+        assert not isinstance(out["b"], torch_mesh.Sharded)
+        assert torch_mesh.tree_shardings(tree, self._mesh(), {
+            "w": P(None, "model")})["b"].is_fully_replicated

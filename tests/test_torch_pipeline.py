@@ -152,18 +152,21 @@ def test_serving_grammars_check_definitions(parameter, good, bad, code):
                         _definition(parameters={parameter: bad}))
 
 
-def test_sharding_block_is_not_ported():
-    """The sharding block runs on a seq axis
-    (tests/test_torch_sequence_parallel.py); a data axis above 1 is a
-    parameter-sharding axis, ROADMAP Queue A item 4b, and refused."""
+def test_sharding_block_runs_on_a_data_axis():
+    """The sharding block takes every mesh axis: the transcription
+    element on a data axis over two devices (its state spec defaults to
+    asr_param_specs filtered to the mesh) transcribes every tone as the
+    element without one does."""
     from aiko_services_tpu_torch.parallel import set_default_devices
     definition = _definition()
     definition["elements"][0]["sharding"] = {"axes": {"data": -1}}
     set_default_devices(["cpu"] * 2)
     try:
-        with pytest.raises(DefinitionError, match="not yet ported"):
-            create_pipeline(Process(transport_kind="loopback"), definition)
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            create_pipeline(Process(transport_kind="loopback"), definition)
+        texts, tokens, _ = _serve(definition)
     finally:
         set_default_devices(None)
+    assert texts == list(LABELS.values()), texts
+    plain_texts, plain_tokens, _ = _serve(_definition())
+    assert texts == plain_texts
+    for got, want in zip(tokens, plain_tokens):
+        np.testing.assert_array_equal(got, want)

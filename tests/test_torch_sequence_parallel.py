@@ -27,6 +27,7 @@ import dataclasses
 import queue
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
@@ -248,19 +249,62 @@ def test_int8_kv_cache_with_sp_raises():
 
 @pytest.mark.parametrize("call", ["param_specs", "activation_specs",
                                   "sharded_train_step"])
-def test_parameter_sharding_raises_naming_4b(lm, call):
-    _, numpy_params = lm
-    config = torch_lm.TransformerConfig(**CONFIG)
-    calls = {
-        "param_specs": lambda: torch_lm.param_specs(config),
-        "activation_specs": lambda: torch_lm.forward(
-            params_from_numpy(numpy_params, device="cpu"), config,
-            torch.from_numpy(_tokens((1, 8))), activation_specs=True),
-        "sharded_train_step": lambda: torch_lm.make_train_step(
-            config, optim.adamw(1e-3), sharded=True),
-    }
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        calls[call]()
+def test_parameter_sharding_matches_jax(lm, call):
+    """The parameter-sharding entry points next to the long-context path:
+    param_specs (and its quantized and MoE forms) are JAX's spec trees;
+    forward(activation_specs=True) and make_train_step(sharded=True) on
+    an ambient data 2 x seq 4 mesh, with sequence parallelism, give JAX's
+    logits and loss (TOL) -- and without a mesh activation_specs changes
+    nothing."""
+    jax_params, numpy_params = lm
+    jax_config, config = _configs(sequence_parallel=True)
+    tokens = _tokens((2, 17))
+    if call == "param_specs":
+        def as_tuples(tree):
+            if isinstance(tree, dict):
+                return {key: as_tuples(value) for key, value in tree.items()}
+            return tuple(tree)
+        for changes in ({}, {"n_experts": 4}):
+            jax_c, port_c = _configs(**changes)
+            for lm_head in (False, True):
+                assert as_tuples(torch_lm.param_specs(port_c, lm_head)) == \
+                    as_tuples(jax_lm.param_specs(jax_c, lm_head))
+                assert as_tuples(torch_lm.quantized_param_specs(
+                    port_c, lm_head)) == as_tuples(
+                        jax_lm.quantized_param_specs(jax_c, lm_head))
+        return
+    jax_mesh = jax_create_mesh({"data": 2, "seq": 4})
+    mesh = torch_mesh.create_mesh({"data": 2, "seq": 4})
+    params = params_from_numpy(numpy_params, device="cpu")
+    if call == "activation_specs":
+        dense_config = _configs()[1]
+        whole = torch_lm.forward(params, dense_config,
+                                 torch.from_numpy(tokens))
+        np.testing.assert_array_equal(torch_lm.forward(
+            params, dense_config, torch.from_numpy(tokens),
+            activation_specs=True).numpy(), whole.numpy())
+        with jax.set_mesh(jax_mesh):
+            expected = np.asarray(jax_lm.forward(
+                jax_params, jax_config, tokens[:, :16],
+                activation_specs=True))
+        with torch_mesh.use_mesh(mesh):
+            actual = torch_lm.forward(params, config,
+                                      torch.from_numpy(tokens[:, :16]),
+                                      activation_specs=True)
+        np.testing.assert_allclose(actual.numpy(), expected, **TOL)
+        return
+    with jax.set_mesh(jax_mesh):
+        step = jax_lm.make_train_step(jax_config, optax.adamw(1e-3),
+                                      sharded=True)
+        copied = jax.tree_util.tree_map(jnp.array, jax_params)
+        _, _, expected = step(copied, optax.adamw(1e-3).init(copied),
+                              tokens)
+    optimizer = optim.adamw(1e-3)
+    with torch_mesh.use_mesh(mesh):
+        _, _, loss = torch_lm.make_train_step(
+            config, optimizer, sharded=True)(
+                params, optimizer.init(params), torch.from_numpy(tokens))
+    np.testing.assert_allclose(float(loss), float(expected), atol=1e-5)
 
 
 def test_cache_specs_match_jax():

@@ -246,15 +246,6 @@ def _sp_mesh(axes: dict):
 
 # what the port does not have yet raises, never runs something else
 UNPORTED = {
-    "activation_specs": lambda c, p, t, d: torch_lm.forward(
-        p, c, t, activation_specs=True),
-    "sharded_train_step": lambda c, p, t, d: torch_lm.make_train_step(
-        c, optim.adam(1e-3), sharded=True),
-    # sequence parallelism runs (PORTED below); on a mesh that also
-    # shards the model axis, as examples/pipeline_longcontext.json asks,
-    # it waits for the parameter-sharding axes (ROADMAP Queue A item 4b)
-    "sequence_parallel": lambda c, p, t, d: _sp_mesh({"seq": 2,
-                                                      "model": 2}),
     # the serving gateway runs; its elastic fleet and its SLO autopilot
     # (ROADMAP Queue A item 8) are what it does not have yet
     "autoscale": lambda c, p, t, d: _gateway(autoscale="min_replicas=1"),
@@ -352,9 +343,89 @@ def _sequence_parallel_trains(tmp_path) -> None:
     assert losses[-1] < losses[0]
 
 
+def _tp_fsdp_params(config):
+    """llama-style params and the same cut by param_specs over data 2 x
+    fsdp 2 x model 2; tests/test_torch_sharding.py holds the sharded
+    paths against the JAX package."""
+    from aiko_services_tpu_torch.parallel import (
+        filter_specs, shard_pytree)
+    mesh = _sp_mesh({"data": 2, "fsdp": 2, "model": 2})
+    whole = torch_lm.init_params(config, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    sharded = shard_pytree(torch_lm.init_params(
+        config, torch.Generator().manual_seed(0), device="cpu"), mesh,
+        filter_specs(torch_lm.param_specs(config), mesh))
+    return whole, sharded, mesh
+
+
+def _activation_specs_run(tmp_path) -> None:
+    """forward(activation_specs=True) splits the batch over the ambient
+    mesh's data axis and gives the unsharded logits."""
+    from aiko_services_tpu_torch.parallel import use_mesh
+    config = torch_lm.TransformerConfig(**CONFIG)
+    params = torch_lm.init_params(config, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (4, 16)).astype(np.int32))
+    whole = torch_lm.forward(params, config, tokens)
+    with use_mesh(_sp_mesh({"data": 2, "model": 2})):
+        split = torch_lm.forward(params, config, tokens,
+                                 activation_specs=True)
+    np.testing.assert_allclose(split.numpy(), whole.numpy(), atol=1e-5)
+
+
+def _sharded_train_step_runs(tmp_path) -> None:
+    """make_train_step(sharded=True) trains a tree cut by param_specs
+    where it lies, step for step as the unsharded tree trains."""
+    config = torch_lm.TransformerConfig(**CONFIG)
+    whole, sharded, _ = _tp_fsdp_params(config)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (4, 16)).astype(np.int32))
+    optimizer = optim.adam(1e-3)
+    losses = {}
+    for name, params, sharded_step in (("whole", whole, False),
+                                       ("sharded", sharded, True)):
+        state = optimizer.init(params)
+        step = torch_lm.make_train_step(config, optimizer,
+                                        sharded=sharded_step)
+        losses[name] = []
+        for _ in range(3):
+            params, state, loss = step(params, state, tokens)
+            losses[name].append(float(loss))
+    assert losses["sharded"][-1] < losses["sharded"][0]
+    np.testing.assert_allclose(losses["sharded"], losses["whole"],
+                               atol=1e-5)
+
+
+def _sequence_parallel_with_model_axis_runs(tmp_path) -> None:
+    """Sequence parallelism composes with tensor parallelism, as
+    examples/pipeline_longcontext.json asks: the ring over each model
+    shard's heads on seq 2 x model 2 gives the dense logits."""
+    from aiko_services_tpu_torch.parallel import (
+        filter_specs, shard_pytree, use_mesh)
+    config = torch_lm.TransformerConfig(**CONFIG)
+    sp_config = torch_lm.TransformerConfig(**CONFIG, sequence_parallel=True)
+    params = torch_lm.init_params(config, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (2, 16)).astype(np.int32))
+    mesh = _sp_mesh({"seq": 2, "model": 2})
+    sharded = shard_pytree(params, mesh, filter_specs(
+        torch_lm.param_specs(config), mesh))
+    with use_mesh(mesh):
+        ringed = torch_lm.forward(sharded, sp_config, tokens)
+    np.testing.assert_allclose(
+        ringed.numpy(), torch_lm.forward(params, config, tokens).numpy(),
+        atol=2e-3, rtol=2e-3)
+
+
 # options the port once refused and now runs, under the ids of the
 # refusal cases they replace
 PORTED = {
+    "activation_specs": _activation_specs_run,
+    "sharded_train_step": _sharded_train_step_runs,
+    "sequence_parallel_with_model_axis":
+        _sequence_parallel_with_model_axis_runs,
     "n_experts": _moe_trains,
     "sequence_parallel": _sequence_parallel_trains,
     "ultralytics_detector_weights": _ultralytics_detector_runs,
