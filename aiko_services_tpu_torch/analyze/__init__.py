@@ -8,9 +8,10 @@
 #           AIKO2xx  tensor-spec flow: dtype/rank/dim clashes and
 #                    symbolic-dim conflicts propagated
 #                    producer->consumer, sharding axes vs the mesh
-#   eval    AIKO207+ abstract interpretation (jax.eval_shape in the
-#                    JAX package): not ported yet -- asking for it
-#                    raises
+#   eval    AIKO207+ abstract interpretation: element device programs
+#                    dry-run on the meta device against declared specs
+#                    (no allocation, no kernel launch, no device;
+#                    jax.eval_shape in the JAX package)
 #   actor   AIKO3xx  AST safety lint over deployed element modules:
 #                    blocking calls on the event loop, shared-state
 #                    mutation, group_kernel on async elements
@@ -56,9 +57,7 @@ __all__ = [
 ]
 
 CHEAP_PASSES = ("graph", "policy")
-# the `eval` pass is not ported yet (it dry-runs element programs under
-# jax.eval_shape in the JAX package); analyze_definition refuses it
-ALL_PASSES = ("graph", "policy", "actor")
+ALL_PASSES = ("graph", "policy", "actor", "eval")
 
 
 def _lint_ignores(definition) -> dict:
@@ -127,10 +126,6 @@ def analyze_definition(source, passes=ALL_PASSES,
     from ..pipeline.definition import (
         DefinitionError, PipelineDefinition, parse_pipeline_definition)
 
-    if "eval" in passes:
-        raise ValueError(
-            "the `eval` analysis pass is not yet ported to the torch port; "
-            f"run passes from {ALL_PASSES}")
     report = AnalysisReport()
     if isinstance(source, PipelineDefinition):
         definition = source
@@ -149,15 +144,26 @@ def analyze_definition(source, passes=ALL_PASSES,
             return report
 
     with _definition_dir_importable(source):
+        graph_report = None
         if "graph" in passes:
             from .graph_flow import run_graph_pass
-            report.extend(run_graph_pass(definition))
+            graph_report = run_graph_pass(definition)
+            report.extend(graph_report)
         if "policy" in passes:
             from .policies import run_policy_pass
             report.extend(run_policy_pass(definition))
         if "actor" in passes:
             from .actor_lint import run_actor_pass
             report.extend(run_actor_pass(definition))
+        if "eval" in passes:
+            if graph_report is None:
+                from .graph_flow import run_graph_pass
+                graph_report = run_graph_pass(definition)
+            from .shape_eval import run_eval_pass
+            report.extend(run_eval_pass(
+                definition, graph_report.input_specs,
+                graph_report.output_specs,
+                graph_report.symbol_bindings))
 
     ignores = _lint_ignores(definition)
     pipeline_wide = ignores.get("", frozenset())

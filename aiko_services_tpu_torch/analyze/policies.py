@@ -268,7 +268,7 @@ def check_faults_spec(spec) -> list:
 
 
 # The grammars of subsystems the torch port does not have yet (tune/,
-# serve/autoscale.py, serve/autopilot.py: ROADMAP Queue A item 8) keep
+# serve/autoscale.py, serve/autopilot.py: ROADMAP Queue A item 1) keep
 # their signature and rule code and refuse any spec, so a definition
 # that carries one fails at construction with a DefinitionError naming
 # the rule, never with an ImportError.

@@ -1,11 +1,15 @@
-# Source and boundary elements for compute pipelines: seeded tensor and
-# token sources, the multi-modal (audio + image) source that drives the
-# config-5 graph, and the device -> host boundary.
+# Source, toy compute and boundary elements for compute pipelines: seeded
+# tensor and token sources, the multi-modal (audio + image) source that
+# drives the config-5 graph, the two smallest ComputeElements (JaxScale,
+# JaxMLP: examples/pipeline_compute.json names them, so they keep the JAX
+# package's class names) and the device -> host boundary.
 #
-# Counterpart of aiko_services_tpu/elements/compute.py (ArraySource,
-# TokenSource, MultiModalSource, ToHost; the JaxScale / JaxMLP toy
-# compute elements are not ported yet).  The host paths are the JAX
-# package's numpy code, so both packages emit the same frames.  With
+# Counterpart of aiko_services_tpu/elements/compute.py.  The host paths
+# are the JAX package's numpy code, so both packages emit the same
+# frames.  JaxMLP draws its weights from a torch.Generator seeded with
+# `seed` (jax.random's numbers cannot be reproduced); it computes what the
+# JAX element computes on the same weights (gelu is jax.nn.gelu's tanh
+# approximation).  With
 # `on_device: true` MultiModalSource synthesizes its batch on the
 # element's device (the `device` parameter, CUDA unless the definition
 # asks for the CPU): the tones are the same f32 formula, the images come
@@ -17,12 +21,15 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.device import resolve_device
+from ..parallel.mesh import Sharded, unshard
 from ..pipeline import ComputeElement, StreamEvent
 from .common_io import DataSource
 
-__all__ = ["ArraySource", "TokenSource", "MultiModalSource", "ToHost"]
+__all__ = ["ArraySource", "TokenSource", "MultiModalSource", "JaxScale",
+           "JaxMLP", "ToHost"]
 
 
 class ArraySource(DataSource):
@@ -126,6 +133,56 @@ class MultiModalSource(DataSource):
         image = torch.stack([synthesize_image_on_device(shape, seed, device)
                              for seed in seeds])
         return {"audio": audio, "image": image}
+
+
+class JaxScale(ComputeElement):
+    """tensor -> tensor * scale + offset: a stateless ComputeElement.
+    scale/offset are dynamic parameters, so live updates (dashboard, EC
+    share, stream overrides) apply to the next frame."""
+
+    def dynamic_parameters(self, stream):
+        return {"scale": float(self.get_parameter("scale", 2.0, stream)),
+                "offset": float(self.get_parameter("offset", 0.0, stream))}
+
+    def compute(self, state, tensor, scale, offset):
+        return {"tensor": tensor * scale + offset}
+
+
+class JaxMLP(ComputeElement):
+    """Two-layer MLP over the last axis: a stateful ComputeElement whose
+    params live on the element's mesh (definition "sharding" block).
+    Weights N(0, 1/fan_in) from a torch.Generator seeded with `seed`,
+    biases zero, as the JAX element draws them (not its numbers)."""
+
+    def setup(self):
+        features = int(self.get_parameter("features", 16))
+        hidden = int(self.get_parameter("hidden", 32))
+        generator = torch.Generator().manual_seed(
+            int(self.get_parameter("seed", 0)))
+        w1 = torch.randn((features, hidden), generator=generator)
+        w2 = torch.randn((hidden, features), generator=generator)
+        return {
+            "w1": (w1 / np.sqrt(features)).to(self.device),
+            "b1": torch.zeros((hidden,), device=self.device),
+            "w2": (w2 / np.sqrt(hidden)).to(self.device),
+            "b2": torch.zeros((features,), device=self.device),
+        }
+
+    @staticmethod
+    def _mlp(state, tensor):
+        state = {name: leaf.to(tensor.device) for name, leaf in state.items()}
+        hidden = F.gelu(tensor @ state["w1"] + state["b1"],
+                        approximate="tanh")
+        return hidden @ state["w2"] + state["b2"]
+
+    def compute(self, state, tensor):
+        if isinstance(tensor, Sharded):
+            # an input cut over the mesh's "data" axis: each block on its
+            # position's device, the output whole on the mesh's home (as
+            # the model paths return theirs)
+            return {"tensor": unshard(tensor.map(
+                lambda block: self._mlp(state, block)))}
+        return {"tensor": self._mlp(state, tensor)}
 
 
 class ToHost(ComputeElement):

@@ -34,8 +34,11 @@
 # (`continuous: true`, `role: prefill`) stay on one device and refuse a
 # mesh, as the JAX package's do.
 #
-# Not ported yet, and raising NotImplementedError naming it: HuggingFace
-# Llama and whisper checkpoints.
+# A `weights` checkpoint in HuggingFace naming loads through the name maps
+# of models/weights.py: Llama-family (model.embed_tokens.weight) for the
+# LM elements, read straight into the element's shards on a mesh, and
+# openai/whisper-* (model.encoder.conv1.weight) for SpeechToText, which
+# then decodes between whisper's own special tokens.
 
 from __future__ import annotations
 
@@ -50,8 +53,8 @@ from ..models import (
     YOLO_VARIANTS, AsrConfig, BPETokenizer, DetectorConfig, TTSConfig,
     TransformerConfig, count_params, detect, encode_chars, forward,
     generate, generate_stream, infer_yolov8_config, init_asr_params,
-    init_detector_params, init_params, init_tts_params, load_pytree,
-    load_yolov8_params, quantize_weights_int8, synthesize, yolo_detect)
+    init_detector_params, init_params, init_tts_params, load_llama_params,
+    load_pytree, load_whisper_params, load_yolov8_params, quantize_weights_int8, synthesize, yolo_detect)
 from ..models import configs as model_configs
 from ..ops.device import as_device_array
 from ..parallel.mesh import filter_specs, sharded_leaves, unshard, use_mesh
@@ -85,16 +88,10 @@ _DETECTOR_PRESETS = {
 _BYTE_OFFSET = 3
 
 
-def _not_ported(element, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{element.definition.name}: {what} is not yet ported to the torch "
-        f"port")
-
-
 def _weights_named(weights, names) -> bool:
     """True when the checkpoint holds any of `names` (a naming
     convention: ultralytics selects the Detector's YOLOv8, HuggingFace
-    names are refused).  Probes the FIRST shard when weights is a list
+    names the Llama and whisper name maps).  Probes the FIRST shard when weights is a list
     (shards share one naming convention)."""
     if not weights:
         return False
@@ -168,16 +165,10 @@ def _default_lm_state_spec(element, config) -> None:
             element, lambda: param_specs(config, lm_head=True))
 
 
-def _refuse_llama_weights(element) -> None:
-    if _weights_named(element.get_parameter("weights"),
-                      ("model.embed_tokens.weight",)):
-        raise _not_ported(element, "loading HuggingFace Llama checkpoints "
-                                   "(load_llama_params)")
-
-
 def _load_transformer_params(element, config: TransformerConfig):
-    """weights parameter: path to a safetensors checkpoint in the
-    framework's save_pytree layout; absent -> seeded random init.
+    """weights parameter: path (or list of shard paths) to a safetensors
+    checkpoint -- HuggingFace Llama naming (probed on the first shard) or
+    the framework's save_pytree layout; absent -> seeded random init.
     weight_dtype "int8": weight-only serving quantization."""
     weights = element.get_parameter("weights")
     weight_dtype = str(element.get_parameter("weight_dtype", "") or "")
@@ -186,10 +177,15 @@ def _load_transformer_params(element, config: TransformerConfig):
         # a meshed element reads each tensor straight into its shards
         # (int8 quantizes whole tensors first)
         placed = element.mesh is not None and not weight_dtype
-        params = load_pytree(
-            paths[0], dtype=config.dtype, device=element.device,
-            mesh=element.mesh if placed else None,
-            specs=element._state_spec if placed else None)
+        mesh = element.mesh if placed else None
+        specs = element._state_spec if placed else None
+        if _weights_named(paths, ("model.embed_tokens.weight",)):
+            params = load_llama_params(paths, config, mesh=mesh,
+                                       specs=specs, device=element.device)
+        else:
+            params = load_pytree(paths[0], dtype=config.dtype,
+                                 device=element.device, mesh=mesh,
+                                 specs=specs)
     else:
         params = init_params(
             config,
@@ -229,7 +225,6 @@ class LMForward(ComputeElement):
 
     def __init__(self, process, pipeline, definition):
         super().__init__(process, pipeline, definition)
-        _refuse_llama_weights(self)
 
     def configure(self):
         if not hasattr(self, "config"):
@@ -277,7 +272,6 @@ class LMGenerate(ComputeElement):
 
     def __init__(self, process, pipeline, definition):
         super().__init__(process, pipeline, definition)
-        _refuse_llama_weights(self)
         # continuous-mode engine state: present (None/empty) from
         # construction so observers can poll without racing the first
         # frame's lazy _ensure_engine()
@@ -1159,6 +1153,30 @@ class LMGenerate(ComputeElement):
 
         return self._cached_group_kernel(max_new, build), self.state
 
+    def eval_kernel(self):
+        """Static-analyzer hook (PipelineElement.eval_kernel): greedy
+        generation as a pure kernel over a `tokens` input, with setup()
+        as the state builder -- the analyzer proves the `generated`
+        shape on the meta device without building the transformer."""
+        if type(self).process_frame is not LMGenerate.process_frame:
+            return None
+        self.configure()
+        if self.config.sequence_parallel:
+            return None  # sp decode needs an ambient mesh to trace
+        if self.disagg_role():
+            # a disagg element's output contract is a handoff record /
+            # adopted completion, not the pure generate() shape
+            return None
+        max_new = int(self.get_parameter("max_new_tokens", 32))
+        config = self.config
+
+        def kernel(state, tokens):
+            out, _ = generate(state, config, tokens.to(torch.int32),
+                              max_new)
+            return {"generated": out}
+
+        return kernel, self.setup
+
 
 class SpeechToText(ComputeElement):
     """audio (B, samples) 16 kHz f32 -> token ids (B, max_tokens) int32.
@@ -1196,19 +1214,32 @@ class SpeechToText(ComputeElement):
                 max_frames=int(self.get_parameter("max_frames", 1500)),
                 dtype=str(self.get_parameter("dtype", "bfloat16")),
             )
-        # HF whisper checkpoints (openai/whisper-* naming) need the
-        # whisper name map, which is not ported yet
-        if _weights_named(self.get_parameter("weights"),
-                          ("model.encoder.conv1.weight",)):
-            raise _not_ported(self, "HuggingFace whisper checkpoints")
+        # HF whisper checkpoints decode between the real special tokens
+        # (<|startoftranscript|> 50258, <|endoftext|> 50257); resolved
+        # HERE (not in setup) so the checkpoint-restore path -- which
+        # skips setup -- still decodes with the right ids
+        self._hf_weights = _weights_named(self.get_parameter("weights"),
+                                          ("model.encoder.conv1.weight",))
+        if self._hf_weights:
+            self.config = replace(
+                self.config,
+                sot_token=int(self.get_parameter("sot_token", 50258)),
+                eot_token=int(self.get_parameter("eot_token", 50257)))
         from ..models import asr_param_specs
         _default_state_spec(self, lambda: asr_param_specs(self.config))
 
     def setup(self):
         weights = self.get_parameter("weights")
         if weights:
-            params = load_pytree(weights, dtype=self.config.dtype,
-                                 device=self.device)
+            # the container's naming was decided in configure()
+            # (restore-safe): HF openai/whisper-* through the whisper name
+            # map, else the framework's save_pytree layout
+            if self._hf_weights:
+                params = load_whisper_params(weights, self.config,
+                                             device=self.device)
+            else:
+                params = load_pytree(weights, dtype=self.config.dtype,
+                                     device=self.device)
         else:
             generator = torch.Generator().manual_seed(
                 int(self.get_parameter("seed", 0)))
@@ -1254,8 +1285,20 @@ class SpeechToText(ComputeElement):
         return self._cached_group_kernel(max_tokens, build), self.state
 
     def eval_kernel(self):
-        """Static-analyzer hook: None until the `eval` pass is ported."""
-        return None
+        """Static-analyzer hook (PipelineElement.eval_kernel): log-mel
+        frontend + transcription as a pure kernel, setup() as the state
+        builder; the meta trace proves the `tokens` contract without
+        building the ASR params (every encoder attention takes K1's
+        meta branch)."""
+        if type(self).process_frame is not SpeechToText.process_frame:
+            return None
+        self.configure()
+        max_tokens = int(self.get_parameter("max_tokens", 32))
+
+        def kernel(state, audio):
+            return {"tokens": self._transcribe(state, audio, max_tokens)}
+
+        return kernel, self.setup
 
 
 class TextToSpeech(ComputeElement):
@@ -1488,3 +1531,17 @@ class Detector(ComputeElement):
 
             self._group_kernel_fn = kernel
         return self._group_kernel_fn, self.state
+
+    def eval_kernel(self):
+        """Static-analyzer hook (PipelineElement.eval_kernel): the
+        detection kernel with setup() as the state builder, so the meta
+        trace proves the detections contract without building the
+        detector's params."""
+        if type(self).process_frame is not Detector.process_frame:
+            return None
+        self.configure()
+
+        def kernel(state, image):
+            return {"detections": self._detect(state, image)}
+
+        return kernel, self.setup

@@ -25,5 +25,6 @@ from .configs import (                                        # noqa: F401
 from .optim import adam, adamw                                # noqa: F401
 from .weights import (                                        # noqa: F401
     read_safetensors, write_safetensors, SafetensorsFile, save_pytree,
-    load_pytree)
+    load_pytree, load_llama_params, llama_name_map, load_whisper_params,
+    whisper_layer_map)
 from .bridge import params_from_numpy, params_to_numpy         # noqa: F401

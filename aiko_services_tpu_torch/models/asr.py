@@ -36,9 +36,9 @@ import torch.nn.functional as F
 from ..ops.audio import full_f32_convolution, log_mel_spectrogram
 from ..ops.device import resolve_device
 from ..parallel.attention import flash_attention
-from ..parallel.collectives import map_shards
+from ..parallel.collectives import conform, map_shards
 from ..parallel.mesh import PartitionSpec as P
-from ..parallel.mesh import check_layout, leaf_layout, sharded_leaves
+from ..parallel.mesh import layout_matches, leaf_layout, sharded_leaves
 from .layers import (
     ShardedCall, column_parallel, dense, f32_reduction, init_dense,
     init_norm, layer_norm, row_parallel)
@@ -257,7 +257,7 @@ def _encoder_input(conv1, conv2, positions, config: AsrConfig, mel):
 
 def encode_audio(params: dict, config: AsrConfig, mel):
     """mel (B, n_mels, frames) -> encoder memory (B, frames//2, d)."""
-    call = _asr_call(params, config)
+    call, params = _asr_call(params, config)
     if call is not None:
         return call.gather_home(_sharded_encode(call, params, mel))
     x = _encoder_input(params["conv1"], params["conv2"],
@@ -287,7 +287,7 @@ def _logits(params: dict, h):
 
 def decode_tokens(params: dict, config: AsrConfig, tokens, memory):
     """tokens (B, T) + encoder memory -> logits (B, T, vocab) f32."""
-    call = _asr_call(params, config)
+    call, params = _asr_call(params, config)
     if call is not None:
         memory_grid = call.split_batch(memory)
         return call.gather_home(_sharded_decode(
@@ -437,7 +437,7 @@ def transcribe(params: dict, config: AsrConfig, mel, max_tokens: int = 32):
     incremental KV-cached decode loop of max_tokens steps (no early exit,
     as the JAX package's scan: stopping would cost a host sync per
     step)."""
-    call = _asr_call(params, config)
+    call, params = _asr_call(params, config)
     if call is not None:
         return _sharded_transcribe(call, params, mel, max_tokens)
     memory = encode_audio(params, config, mel)
@@ -477,26 +477,74 @@ def transcribe_audio(params: dict, config: AsrConfig, audio,
 # psum over fsdp.
 
 
-def _asr_call(params: dict, config: AsrConfig) -> ShardedCall | None:
-    """The call's view of the mesh of the tree's Sharded leaves, or None
-    for a whole tree.  Every leaf must have asr_param_specs' layout."""
+def _asr_call(params: dict, config: AsrConfig) -> tuple:
+    """(the call's view of the mesh of the tree's Sharded leaves, the
+    parameters in the layout it computes on), or (None, params) for a
+    whole tree.  A tree with any leaf cut otherwise than asr_param_specs'
+    layout at the sizes wq is cut by is resharded once, counted, into
+    that layout over the whole mesh (parallel.conform).  When the heads
+    do not divide by the model axis, each shard takes the whole heads
+    its columns touch (call.spans, _spanned)."""
     leaf = next(sharded_leaves(params), None)
     if leaf is None:
-        return None
+        return None, params
     call = ShardedCall(leaf.mesh)
     wq = leaf_layout(params["enc_layers"]["attn"]["wq"]["w"], leaf.mesh)
     call.cut = {"model": call.size["model"] if "model" in wq[2] else 1,
                 "fsdp": call.size["fsdp"] if "fsdp" in wq[1] else 1,
                 "expert": 1}
-    check_layout(params, asr_param_specs(config), leaf.mesh, call.cut,
-                 "sharded whisper: params")
-    if config.n_heads % call.cut["model"]:
-        raise ValueError(f"n_heads ({config.n_heads}) must divide by the "
-                         f"model axis ({call.cut['model']}): each model "
-                         f"shard takes whole heads")
-    call.heads = config.n_heads // call.cut["model"]
+    specs = asr_param_specs(config)
+    if not layout_matches(params, specs, leaf.mesh, call.cut):
+        call.cut = {"model": call.size["model"], "fsdp": call.size["fsdp"],
+                    "expert": 1}
+        params = conform(params, specs, leaf.mesh, call.cut)
+    model, hd = call.cut["model"], config.head_dim
+    call.straddle = config.n_heads % model != 0
+    width = config.n_heads * hd // model
+    call.spans = [(index * width // hd, -(-(index + 1) * width // hd))
+                  for index in range(model)]
     call.config = config
-    return call
+    return call, params
+
+
+def _heads_of(call: ShardedCall, x) -> int:
+    """The heads a position's projection block (..., heads * hd) holds."""
+    return x.shape[-1] // call.config.head_dim
+
+
+def _spanned(call: ShardedCall, grids: list) -> list:
+    """The projections' model blocks as each position computes on them:
+    as they are when the heads divide by the model axis, else -- a
+    shard's columns cut a head -- the whole heads of its span, from one
+    all_gather over model of all the grids (K1 takes whole heads)."""
+    if not call.straddle:
+        return grids
+    model, hd = call.cut["model"], call.config.head_dim
+    widths = [next(t for t in grid.flat if t is not None).shape[-1]
+              for grid in grids]
+    gathered = call.all_gather(map_shards(
+        lambda *blocks: torch.cat(blocks, -1), *grids), "model")
+
+    def span(both, index, number):
+        h0, h1 = call.spans[index]
+        part = torch.split(both.unflatten(-1, (model, -1)), widths,
+                           -1)[number].flatten(-2)
+        return part[..., h0 * hd:h1 * hd]
+    return [map_shards(lambda both, index, number=number: span(
+        both, index, number), gathered, call.index["model"])
+        for number in range(len(grids))]
+
+
+def _own(call: ShardedCall, out):
+    """Each position's own columns of an attention output computed on
+    its span (the row-parallel wo's block)."""
+    if not call.straddle:
+        return out
+    hd = call.config.head_dim
+    width = call.config.n_heads * hd // call.cut["model"]
+    return map_shards(lambda o, index: o.narrow(
+        -1, index * width - call.spans[index][0] * hd, width), out,
+        call.index["model"])
 
 
 def _norm(params, x):
@@ -521,11 +569,12 @@ def _sharded_attend(call: ShardedCall, attention, x, memory, causal: bool):
         q, = column_parallel(call, [attention["wq"]], x)
         k, v = column_parallel(call, [attention["wk"], attention["wv"]],
                                memory)
-    heads = call.heads
+    q, k, v = _spanned(call, [q, k, v])
     out = map_shards(lambda q, k, v: _merge_heads(flash_attention(
-        _split_heads(q, heads), _split_heads(k, heads),
-        _split_heads(v, heads), causal=causal)), q, k, v)
-    return row_parallel(call, attention["wo"], out)
+        _split_heads(q, _heads_of(call, q)),
+        _split_heads(k, _heads_of(call, k)),
+        _split_heads(v, _heads_of(call, v)), causal=causal)), q, k, v)
+    return row_parallel(call, attention["wo"], _own(call, out))
 
 
 def _sharded_embed(call: ShardedCall, grids, tokens):
@@ -581,17 +630,19 @@ def _sharded_transcribe(call: ShardedCall, params: dict, mel,
     """transcribe() on the shards: the encoder once, each layer's cross
     K/V once per model shard, then max_tokens cached decode steps whose
     self K/V caches hold each shard's heads."""
-    config, heads = call.config, call.heads
+    config = call.config
+
+    def split(x):
+        return _split_heads(x, _heads_of(call, x))
     grids = call.dicts(params)
     memory = _sharded_encode(call, params, mel)
     layers = _layer_count(params["dec_layers"])
     dec = [call.layer(grids["dec_layers"], index) for index in range(layers)]
     cross = []
     for layer in dec:
-        k, v = column_parallel(call, [layer["cross"]["wk"],
-                                      layer["cross"]["wv"]], memory)
-        cross.append(map_shards(lambda k, v: (_split_heads(k, heads),
-                                              _split_heads(v, heads)), k, v))
+        k, v = _spanned(call, column_parallel(
+            call, [layer["cross"]["wk"], layer["cross"]["wv"]], memory))
+        cross.append(map_shards(lambda k, v: (split(k), split(v)), k, v))
     caches = map_shards(lambda kv: (
         torch.zeros((layers,) + kv[0].shape[:2] + (max_tokens,)
                     + kv[0].shape[3:], dtype=config.torch_dtype,
@@ -611,16 +662,16 @@ def _sharded_transcribe(call: ShardedCall, params: dict, mel,
             _sharded_embed(call, grids, token), grids["dec_positions"])
         for layer_index, layer in enumerate(dec):
             x = _norm(layer["self_norm"], h)
-            q, k, v = column_parallel(call, [layer["self"]["wq"],
-                                             layer["self"]["wk"],
-                                             layer["self"]["wv"]], x)
+            q, k, v = _spanned(call, column_parallel(
+                call, [layer["self"]["wq"], layer["self"]["wk"],
+                       layer["self"]["wv"]], x))
 
             def self_attend(q, k, v, cache, layer_index=layer_index):
                 self_k, self_v = cache[0][layer_index], cache[1][layer_index]
-                self_k[:, :, index] = _split_heads(k, heads)[:, :, 0]
-                self_v[:, :, index] = _split_heads(v, heads)[:, :, 0]
+                self_k[:, :, index] = split(k)[:, :, 0]
+                self_v[:, :, index] = split(v)[:, :, 0]
                 scores = torch.einsum(
-                    "bhqd,bhkd->bhqk", _split_heads(q, heads).float(),
+                    "bhqd,bhkd->bhqk", split(q).float(),
                     self_k.float()) * scale
                 scores = scores.masked_fill(mask.to(q.device) > index,
                                             _NEG_INF)
@@ -628,14 +679,13 @@ def _sharded_transcribe(call: ShardedCall, params: dict, mel,
                 with f32_reduction():
                     return _merge_heads(torch.einsum("bhqk,bhkd->bhqd",
                                                      att, self_v))
-            h = _add(h, row_parallel(call, layer["self"]["wo"], map_shards(
-                self_attend, q, k, v, caches)))
-            qc, = column_parallel(call, [layer["cross"]["wq"]],
-                                  _norm(layer["cross_norm"], h))
-            h = _add(h, row_parallel(call, layer["cross"]["wo"], map_shards(
-                lambda q, kv: _merge_heads(_attend_cached(
-                    _split_heads(q, heads), kv[0], kv[1])),
-                qc, cross[layer_index])))
+            h = _add(h, row_parallel(call, layer["self"]["wo"], _own(
+                call, map_shards(self_attend, q, k, v, caches))))
+            qc, = _spanned(call, column_parallel(
+                call, [layer["cross"]["wq"]], _norm(layer["cross_norm"], h)))
+            h = _add(h, row_parallel(call, layer["cross"]["wo"], _own(
+                call, map_shards(lambda q, kv: _merge_heads(_attend_cached(
+                    split(q), kv[0], kv[1])), qc, cross[layer_index]))))
             h = _add(h, _mlp(call, layer["mlp"],
                              _norm(layer["mlp_norm"], h)))
         logits = call.gather_home(_sharded_logits(call, grids, h))

@@ -167,7 +167,9 @@ def _nms(boxes, scores, classes, config: DetectorConfig):
         for _ in range(_ROUNDS_PER_CHECK):
             previous = alive
             alive = ~torch.any(dominated & alive[:, None, :], dim=2)
-        if torch.equal(alive, previous):
+        # on the meta device (a shape trace) one check's rounds give
+        # the shapes of any number of them
+        if alive.device.type == "meta" or torch.equal(alive, previous):
             break
     kept = torch.where(alive, top_scores, torch.zeros_like(top_scores))
     final_scores, final_order = _top(kept, config.max_detections)

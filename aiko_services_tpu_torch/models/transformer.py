@@ -73,11 +73,11 @@ from ..ops.device import resolve_device
 from ..parallel.attention import (
     flash_attention, ring_attention, sp_decode_attention, sp_decode_shards,
     ulysses_attention)
-from ..parallel.collectives import map_shards, psum
+from ..parallel.collectives import conform, map_shards, psum
 from ..parallel.mesh import PartitionSpec as P
 from ..parallel.mesh import (
-    Sharded, ambient_mesh, check_layout, filter_specs, leaf_layout,
-    shard_pytree, sharded_leaves, unshard, use_mesh)
+    Sharded, ambient_mesh, assign, filter_specs, layout_matches,
+    leaf_layout, shard_pytree, sharded_leaves, unshard, use_mesh)
 from ..utils.tree import tree_map
 from .asr import _layer_count, _stack, count_params
 from .layers import (
@@ -269,8 +269,10 @@ def init_params(config: TransformerConfig, generator: torch.Generator,
     embed = (torch.randn((config.vocab_size, config.d_model),
                          generator=generator, dtype=torch.float32)
              * 0.02).to(device=device, dtype=config.torch_dtype)
-    # each layer is drawn and stacked on the CPU, then moved once
-    layers = _stack([_init_layer(generator, config, "cpu")
+    # each layer is drawn and stacked on the CPU, then moved once (on
+    # the meta device, a shape trace, nothing is drawn)
+    host = device if device.type == "meta" else torch.device("cpu")
+    layers = _stack([_init_layer(generator, config, host)
                      for _ in range(config.n_layers)])
     return {
         "embed": {"w": embed},
@@ -404,7 +406,7 @@ def _write_at(buffer, update, pos: int) -> None:
 @functools.lru_cache(maxsize=None)
 def _attention_scale(head_dim: int) -> float:
     """1 / sqrt(head_dim) taken in f32, as the JAX package takes it."""
-    return (1.0 / torch.tensor(float(head_dim)).sqrt()).item()
+    return (1.0 / torch.tensor(float(head_dim), device="cpu").sqrt()).item()
 
 
 def _masked_attention(config: TransformerConfig, q, k_eff, v_eff, q_pos,
@@ -443,12 +445,14 @@ def _sp_prefill(config: TransformerConfig, q, k, v):
 
 
 def _cached_attention(config: TransformerConfig, q, k, v, layer_cache,
-                      pos: int):
+                      pos: int, kv_index=None):
     """Write the new K/V at `pos` (quantized when the cache is int8),
     then masked attention of q over the whole cache buffer.  With
     sequence_parallel: a multi-token window (the cached PREFILL, pos 0
     only) attends over its fresh K/V through ring or Ulysses, and one
-    token (decode) through sp_decode_attention over the cache."""
+    token (decode) through sp_decode_attention over the cache.
+    kv_index (a sharded call's straddling shard): the cache's KV head of
+    each query head, in place of the grouped expansion."""
     if config.sequence_parallel and q.shape[2] > 1 and pos != 0:
         raise ValueError(
             "sequence-parallel cached prefill requires pos == 0 "
@@ -472,6 +476,10 @@ def _cached_attention(config: TransformerConfig, q, k, v, layer_cache,
         v_eff = _dequantized(cache_v, layer_cache["v_scale"], q.dtype)
     else:
         k_eff, v_eff = cache_k, cache_v
+    if kv_index is not None:
+        k_eff = k_eff.index_select(1, kv_index)
+        v_eff = v_eff.index_select(1, kv_index)
+        config = replace(config, n_kv_heads=config.n_heads)
     length, max_len = q.shape[2], cache_k.shape[2]
     q_pos = pos + torch.arange(length, device=q.device)[:, None]
     k_pos = torch.arange(max_len, device=q.device)[None, :]
@@ -813,10 +821,13 @@ def _call_mesh(params, tokens, cache, activation_specs: bool):
     return None
 
 
-def _call_layout(mesh, params, config: TransformerConfig) -> ShardedCall:
-    """The call's view of the mesh, with `cut` the sizes the parameter
-    tree is cut by over model, fsdp and expert (1 for whole leaves);
-    every leaf is checked against param_specs' layout."""
+def _call_layout(mesh, params, config: TransformerConfig) -> tuple:
+    """(the call's view of the mesh, the parameters in the layout it
+    computes on).  `cut` holds the sizes the parameter tree is cut by
+    over model, fsdp and expert (1 for whole leaves), read off wq (and
+    the MoE's w_gate); a tree with any leaf cut otherwise than
+    param_specs' layout at those sizes is resharded once, counted, into
+    param_specs' layout over the whole mesh (parallel.conform)."""
     call = ShardedCall(mesh)
     wq = leaf_layout(params["layers"]["wq"]["w"], mesh)
     call.cut = {"model": call.size["model"] if "model" in wq[2] else 1,
@@ -829,7 +840,11 @@ def _call_layout(mesh, params, config: TransformerConfig) -> ShardedCall:
     quantized = "w_scale" in params["layers"]["wq"]
     specs = (quantized_param_specs if quantized else param_specs)(
         config, lm_head="lm_head" in params)
-    check_layout(params, specs, mesh, call.cut, "sharded transformer: params")
+    if not layout_matches(params, specs, mesh, call.cut):
+        call.cut = {"model": call.size["model"], "fsdp": call.size["fsdp"],
+                    "expert": call.size["expert"] if config.n_experts > 0
+                    else 1}
+        params = conform(params, specs, mesh, call.cut)
     model = call.cut["model"]
     heads, kv_heads = config.n_heads, config.n_kv_heads
     group = heads // kv_heads
@@ -840,17 +855,41 @@ def _call_layout(mesh, params, config: TransformerConfig) -> ShardedCall:
     # from the gathered K/V projections and a cache whole over "model"
     call.kv_whole = kv_heads % model != 0
     call.group = group
-    if not local_heads or (call.kv_whole and group % local_heads):
-        raise ValueError(
-            f"n_heads ({heads}) must divide by the model axis ({model}), "
-            f"and n_kv_heads ({kv_heads}) too unless each shard's query "
-            f"heads fall in one KV group: each model shard takes whole "
-            f"heads")
+    call.straddle = bool(not local_heads
+                         or (call.kv_whole and group % local_heads))
+    if call.straddle:
+        # a shard's columns of wq cut a head, or its heads span two KV
+        # groups: it takes the whole heads its columns touch (and their
+        # KV heads) from the gathered projections (_straddle_attend)
+        if config.sequence_parallel:
+            raise ValueError(
+                f"sequence parallelism on a model axis ({model}) whose "
+                f"shards straddle heads (n_heads {heads}, n_kv_heads "
+                f"{kv_heads}) is not supported")
+        call.kv_whole = True
+        call.config = config
+        call.spans = _head_spans(config, model)
+        call.local = config
+        return call, params
     call.local = replace(config, d_model=config.head_dim * local_heads,
                          n_heads=local_heads,
                          n_kv_heads=1 if call.kv_whole
                          else kv_heads // model)
-    return call
+    return call, params
+
+
+def _head_spans(config: TransformerConfig, model: int) -> list:
+    """Per model index: (h0, h1, kv0, kv1), the query heads [h0, h1) that
+    the shard's columns of wq touch, whole, and the KV heads [kv0, kv1)
+    they use."""
+    hd, group = config.head_dim, config.n_heads // config.n_kv_heads
+    width = config.n_heads * hd // model
+    spans = []
+    for index in range(model):
+        h0 = index * width // hd
+        h1 = -(-(index + 1) * width // hd)
+        spans.append((h0, h1, h0 // group, (h1 - 1) // group + 1))
+    return spans
 
 
 def _cache_spec(call: ShardedCall, config: TransformerConfig,
@@ -876,15 +915,23 @@ def _token_grid(call: ShardedCall, tokens):
 
 def _placed_cache(call: ShardedCall, cache: dict,
                   config: TransformerConfig):
-    """(the cache laid out by cache_specs, the caller's whole cache to
-    copy the writes back into or None)."""
-    spec = _cache_spec(call, config, call.split)
-    if any(True for _ in sharded_leaves(cache)):
-        check_layout(cache, {name: spec for name in cache}, call.mesh,
-                     call.size, "sharded transformer: cache")
+    """(the cache laid out as the call computes on it, the caller's cache
+    to copy the writes back into -- None when it is that layout
+    already).  A whole cache is placed; a Sharded one of another layout
+    is resharded, counted (parallel.conform)."""
+    specs = {name: _cache_spec(call, config, call.split) for name in cache}
+    if not any(True for _ in sharded_leaves(cache)):
+        return shard_pytree(cache, call.mesh, specs), cache
+    if layout_matches(cache, specs, call.mesh, call.size):
         return cache, None
-    placed = shard_pytree(cache, call.mesh, {name: spec for name in cache})
-    return placed, cache
+    return conform(cache, specs, call.mesh, call.size), cache
+
+
+def _write_back(original: dict, placed: dict) -> None:
+    """The writes of a call into `placed` copied into the caller's
+    `original` cache (a whole or Sharded tree of another layout)."""
+    for name, leaf in original.items():
+        assign(leaf, unshard(placed[name]))
 
 
 def _sharded_cache(mesh, params, config: TransformerConfig, batch: int,
@@ -892,7 +939,7 @@ def _sharded_cache(mesh, params, config: TransformerConfig, batch: int,
     """A zeroed cache laid out by cache_specs for a sharded call (its
     length padded to divide the seq axis on the sequence-parallel
     path)."""
-    call = _call_layout(mesh, params, config)
+    call, _ = _call_layout(mesh, params, config)
     if config.sequence_parallel:
         size = call.size["seq"]
         max_len = -(-max_len // size) * size
@@ -1135,6 +1182,53 @@ def _whole_kv(call: ShardedCall, q, k, v, layer_cache):
     return q, k, v, layer_cache
 
 
+def _straddle_attend(call: ShardedCall, q, k, v, rope, layer_cache,
+                     pos: int):
+    """Attention on a model axis whose shards' columns of wq cut heads
+    (or whose heads span two KV groups) -> each position's own columns
+    of O, (B, L, H * hd / M).  K1 takes whole heads only, so the shards'
+    q/k/v blocks meet in one all_gather over model, each position runs
+    the whole heads its columns touch (_head_spans; at most two of them
+    partly its own) with their KV heads, on the cache whole over "model"
+    when there is one, and keeps its own columns for the row-parallel
+    wo."""
+    config = call.config
+    hd, model = config.head_dim, call.cut["model"]
+    widths = [next(t for t in grid.flat if t is not None).shape[-1]
+              for grid in (q, k, v)]
+    gathered = call.all_gather(map_shards(
+        lambda q, k, v: torch.cat([q, k, v], -1), q, k, v), "model")
+    caches = (layer_cache if layer_cache is not None
+              else np.full(call.mesh.devices.shape, None, dtype=object))
+
+    def attend(both, r, index, cache):
+        h0, h1, kv0, kv1 = call.spans[index]
+        blocks = both.unflatten(-1, (model, -1))
+        q_all, k_all, v_all = (
+            part.flatten(-2) for part in torch.split(blocks, widths, -1))
+        local = replace(config, d_model=hd * (h1 - h0), n_heads=h1 - h0,
+                        n_kv_heads=kv1 - kv0)
+        qh, kh, vh = _heads(local, q_all[..., h0 * hd:h1 * hd],
+                            k_all[..., kv0 * hd:kv1 * hd],
+                            v_all[..., kv0 * hd:kv1 * hd], *r)
+        kv_index = torch.tensor([head // call.group - kv0
+                                 for head in range(h0, h1)],
+                                device=qh.device)
+        if cache is None:
+            out = flash_attention(
+                qh.contiguous(), kh.index_select(1, kv_index).contiguous(),
+                vh.index_select(1, kv_index).contiguous(), causal=True)
+        else:
+            out = _cached_attention(
+                local, qh, kh, vh, {name: tensor.narrow(1, kv0, kv1 - kv0)
+                                    for name, tensor in cache.items()},
+                pos, kv_index=kv_index)
+        width = config.n_heads * hd // model
+        return _merge_heads(out).narrow(-1, index * width - h0 * hd, width)
+
+    return map_shards(attend, gathered, rope, call.index["model"], caches)
+
+
 def _sharded_layer(call: ShardedCall, layer, h, rope, layer_cache,
                    pos: int):
     """One transformer layer on the shards: (h grid, aux)."""
@@ -1144,11 +1238,14 @@ def _sharded_layer(call: ShardedCall, layer, h, rope, layer_cache,
                         layer["attn_norm"], h)
     q, k, v = column_parallel(call, [layer["wq"], layer["wk"], layer["wv"]],
                               normed)
-    if call.kv_whole:
-        q, k, v, layer_cache = _whole_kv(call, q, k, v, layer_cache)
-    qkv = map_shards(lambda q, k, v, r: _heads(local, q, k, v, *r),
-                     q, k, v, rope)
-    out = _sharded_attend(call, qkv, layer_cache, pos)
+    if call.straddle:
+        out = _straddle_attend(call, q, k, v, rope, layer_cache, pos)
+    else:
+        if call.kv_whole:
+            q, k, v, layer_cache = _whole_kv(call, q, k, v, layer_cache)
+        qkv = map_shards(lambda q, k, v, r: _heads(local, q, k, v, *r),
+                         q, k, v, rope)
+        out = _sharded_attend(call, qkv, layer_cache, pos)
     h = map_shards(torch.add, h, row_parallel(call, layer["wo"], out))
     normed = map_shards(lambda p, x: rms_norm(p, x, eps),
                         layer["mlp_norm"], h)
@@ -1166,7 +1263,7 @@ def _sharded_layer(call: ShardedCall, layer, h, rope, layer_cache,
 def _sharded_forward(mesh, params, config: TransformerConfig, tokens,
                      cache, pos: int, return_aux: bool, context_fn):
     """forward() on the mesh: the same results, computed on the shards."""
-    call = _call_layout(mesh, params, config)
+    call, params = _call_layout(mesh, params, config)
     grids = call.dicts(params)
     token_grid = _token_grid(call, tokens)
     whole_cache = None
@@ -1206,9 +1303,7 @@ def _sharded_forward(mesh, params, config: TransformerConfig, tokens,
         call.slice_axis(normed, "fsdp")), "fsdp")
     logits = call.gather_home(logits)
     if whole_cache is not None:
-        with torch.no_grad():
-            for name, leaf in whole_cache.items():
-                leaf.copy_(unshard(cache[name]))
+        _write_back(whole_cache, cache)
         cache = whole_cache
     if cache is not None:
         return logits, cache
@@ -1237,6 +1332,22 @@ def decode_step(params, config: TransformerConfig, cache, token, pos):
     return _greedy(logits), logits, cache
 
 
+def _conformed(params, config: TransformerConfig, prompt, cache) -> tuple:
+    """(params, cache, the caller's cache to write back into or None):
+    on a sharded call, a parameter tree or a Sharded cache laid out
+    otherwise than the call computes on is resharded once, here at the
+    entry of a generation, not at every step."""
+    mesh = _call_mesh(params, prompt, cache, False)
+    if mesh is None:
+        return params, cache, None
+    call, params = _call_layout(mesh, params, config)
+    if cache is None or not any(True for _ in sharded_leaves(cache)):
+        return params, cache, None
+    call.split = call.splits(prompt.shape[0])
+    cache, caller_cache = _placed_cache(call, cache, config)
+    return params, cache, caller_cache
+
+
 def _prompt_cache(params, config, prompt, max_new_tokens: int, cache):
     """The caller's cache, else a new one: laid out by cache_specs over
     the parameters' mesh when they are sharded."""
@@ -1258,6 +1369,7 @@ def generate(params, config: TransformerConfig, prompt,
     new token.  Returns (tokens (B, max_new_tokens) int32, cache).  A
     caller-supplied cache is written in place."""
     batch, prompt_len = prompt.shape
+    params, cache, caller_cache = _conformed(params, config, prompt, cache)
     cache = _prompt_cache(params, config, prompt, max_new_tokens, cache)
     logits, cache = forward(params, config, prompt, cache=cache, pos=0)
     out = torch.zeros((batch, max_new_tokens), dtype=torch.int32,
@@ -1268,6 +1380,9 @@ def generate(params, config: TransformerConfig, prompt,
         step_logits, cache = forward(params, config, out[:, step - 1:step],
                                      cache=cache, pos=prompt_len + step - 1)
         out[:, step:step + 1] = _greedy(step_logits)
+    if caller_cache is not None:
+        _write_back(caller_cache, cache)
+        cache = caller_cache
     return out, cache
 
 
@@ -1298,6 +1413,7 @@ def generate_stream(params, config: TransformerConfig, prompt,
     chunks as they decode -- the prefill's token first, then chunks of
     up to `chunk` steps.  The chunks concatenate to generate()'s tokens."""
     prompt_len = prompt.shape[1]
+    params, cache, caller_cache = _conformed(params, config, prompt, cache)
     cache = _prompt_cache(params, config, prompt, max_new_tokens, cache)
     token, cache = _prefill_step(params, config, prompt, cache)
     yield 0, token.cpu().numpy()
@@ -1308,6 +1424,8 @@ def generate_stream(params, config: TransformerConfig, prompt,
             params, config, token, cache, prompt_len + produced - 1, size)
         yield produced, block.cpu().numpy()
         produced += size
+    if caller_cache is not None:
+        _write_back(caller_cache, cache)
 
 
 # -- paged KV: the continuous-batching decode substrate ----------------------

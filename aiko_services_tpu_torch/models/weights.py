@@ -1,17 +1,23 @@
 # Weight ingestion: safetensors read/write + checkpoint -> parameter tree.
 #
-# Counterpart of aiko_services_tpu/models/weights.py (the container, the
-# save/load of parameter trees and the multi-shard index the YOLOv8 loader
-# reads through; the HuggingFace whisper/llama name maps are not ported
-# yet).  load_pytree with a mesh and a spec tree places each tensor into
-# its shards as it is read (parallel.shard_pytree leaf by leaf), so a
-# sharded model never holds a second whole copy of its weights;
-# save_pytree gathers Sharded leaves (parallel.unshard) before it
-# writes.  The container is parsed in numpy: 8-byte little-endian header
-# length, JSON header of {name: {dtype, shape, data_offsets}}, flat data
-# buffer, read through mmap.  numpy has no bfloat16, so BF16 tensors are
-# read as their raw uint16 bits and viewed as torch.bfloat16 (the JAX
-# package used ml_dtypes).
+# Counterpart of aiko_services_tpu/models/weights.py: the container, the
+# save/load of parameter trees, the multi-shard index the checkpoint
+# loaders read through, and the HuggingFace name maps (llama_name_map /
+# load_llama_params for Llama-family checkpoints, whisper_layer_map /
+# load_whisper_params for openai/whisper-*).  HF nn.Linear weights are
+# stored (out, in); this framework stores (in, out), so the maps' transpose
+# flags decide the orientation.  Casts and transposes run on torch tensors
+# (a BF16 tensor is read as its raw uint16 bits and viewed as
+# torch.bfloat16 -- numpy has no bfloat16, the JAX package used
+# ml_dtypes); an f32 -> bf16 cast rounds to nearest even, as ml_dtypes'
+# astype does.  load_pytree and load_llama_params with a mesh and a spec
+# tree place each tensor into its shards as it is read
+# (parallel.shard_pytree leaf by leaf; a per-layer leaf is stacked over
+# the layers on the host first), so a sharded model never holds a second
+# whole copy of its weights on the device; save_pytree gathers Sharded
+# leaves (parallel.unshard) before it writes.  The container is parsed
+# in numpy: 8-byte little-endian header length, JSON header of {name:
+# {dtype, shape, data_offsets}}, flat data buffer, read through mmap.
 
 from __future__ import annotations
 
@@ -27,7 +33,9 @@ from ..ops.device import resolve_device
 from ..parallel.mesh import Sharded, _spec_leaf, shard_pytree, unshard
 
 __all__ = ["read_safetensors", "write_safetensors", "SafetensorsFile",
-           "save_pytree", "load_pytree", "open_checkpoint"]
+           "save_pytree", "load_pytree", "open_checkpoint",
+           "load_llama_params", "llama_name_map", "load_whisper_params",
+           "whisper_layer_map"]
 
 # safetensors dtype -> (numpy dtype of the stored bits, torch dtype)
 _DTYPES = {
@@ -224,3 +232,188 @@ def open_checkpoint(paths):
     finally:
         for reader in readers:
             reader.close()
+
+
+def _set_path(tree: dict, parts, value) -> None:
+    node = tree
+    for part in parts[:-1]:
+        node = node.setdefault(part, {})
+    node[parts[-1]] = value
+
+
+def _fetcher(raw, dtype: torch.dtype):
+    """fetch(name, transpose) -> the named tensor, transposed when asked
+    (HF (out, in) -> (in, out)), contiguous and cast to `dtype`."""
+    def fetch(name: str, transpose: bool = False) -> torch.Tensor:
+        tensor = raw(name)
+        if transpose:
+            tensor = tensor.T
+        return tensor.contiguous().to(dtype)
+    return fetch
+
+
+def _stacked_layers(fetch, layer_maps: list, place) -> dict:
+    """The per-layer tensors of `layer_maps` (one {HF name: (path,
+    transpose?)} per layer, all naming the same paths) stacked over the
+    layers on the host, leaf by leaf, each handed to place(path, stacked)
+    before the next is read."""
+    layers: dict = {}
+    for index, (parts, transpose) in enumerate(layer_maps[0].values()):
+        names = [list(mapping)[index] for mapping in layer_maps]
+        stacked = torch.stack([fetch(name, transpose) for name in names])
+        _set_path(layers, parts, place(parts, stacked))
+    return layers
+
+
+# -- HuggingFace Llama naming -> framework parameter tree -------------------
+
+def llama_name_map(layer: int) -> dict:
+    """HF tensor name -> (path under layers, transpose?) for one decoder
+    layer.  HF nn.Linear stores (out, in); this framework stores (in,
+    out) so products read x @ w."""
+    prefix = f"model.layers.{layer}."
+    return {
+        prefix + "input_layernorm.weight": (("attn_norm", "scale"), False),
+        prefix + "post_attention_layernorm.weight": (
+            ("mlp_norm", "scale"), False),
+        prefix + "self_attn.q_proj.weight": (("wq", "w"), True),
+        prefix + "self_attn.k_proj.weight": (("wk", "w"), True),
+        prefix + "self_attn.v_proj.weight": (("wv", "w"), True),
+        prefix + "self_attn.o_proj.weight": (("wo", "w"), True),
+        prefix + "mlp.gate_proj.weight": (("w_gate", "w"), True),
+        prefix + "mlp.up_proj.weight": (("w_up", "w"), True),
+        prefix + "mlp.down_proj.weight": (("w_down", "w"), True),
+    }
+
+
+def load_llama_params(paths, config, mesh=None, specs=None,
+                      device="cuda") -> dict:
+    """The TransformerConfig parameter tree from HF Llama-family
+    safetensors shard(s) (one path or a list; names are disjoint across
+    shards), cast to config.dtype.  The q/k projections are taken as
+    stored (no RoPE permutation), as the JAX package takes them.  An
+    `lm_head.weight` (an untied head) becomes params["lm_head"], placed
+    by the ("embed", "w") spec.  With mesh + specs (param_specs), every
+    leaf is placed into its shards as it is read; else the tree lands on
+    `device` (CUDA unless the caller asks for the CPU)."""
+    if mesh is None or specs is None:
+        mesh, device = None, resolve_device(device)
+
+    def place(parts, tensor):
+        if mesh is None:
+            return tensor.to(device)
+        return shard_pytree(tensor, mesh, _spec_at(specs, list(parts)))
+
+    with open_checkpoint(paths) as (index, raw):
+        fetch = _fetcher(raw, config.torch_dtype)
+        params: dict = {
+            "embed": {"w": place(("embed", "w"),
+                                 fetch("model.embed_tokens.weight"))},
+            "norm_out": {"scale": place(("norm_out", "scale"),
+                                        fetch("model.norm.weight"))},
+        }
+        if "lm_head.weight" in index:
+            # the untied output head: embed's (V, D) layout and spec
+            params["lm_head"] = {"w": place(("embed", "w"),
+                                            fetch("lm_head.weight"))}
+        params["layers"] = _stacked_layers(
+            fetch, [llama_name_map(layer)
+                    for layer in range(config.n_layers)],
+            lambda parts, tensor: place(("layers",) + tuple(parts), tensor))
+    return params
+
+
+# -- HuggingFace Whisper naming -> framework ASR parameter tree -------------
+
+def _attention_map(hf_prefix: str, ours: str) -> dict:
+    """One whisper attention block: q/v/out projections carry biases,
+    k_proj does not (HF WhisperAttention)."""
+    return {
+        hf_prefix + "q_proj.weight": ((ours, "wq", "w"), True),
+        hf_prefix + "q_proj.bias": ((ours, "wq", "b"), False),
+        hf_prefix + "k_proj.weight": ((ours, "wk", "w"), True),
+        hf_prefix + "v_proj.weight": ((ours, "wv", "w"), True),
+        hf_prefix + "v_proj.bias": ((ours, "wv", "b"), False),
+        hf_prefix + "out_proj.weight": ((ours, "wo", "w"), True),
+        hf_prefix + "out_proj.bias": ((ours, "wo", "b"), False),
+    }
+
+
+def whisper_layer_map(layer: int, decoder: bool) -> dict:
+    """HF tensor name -> (path under enc_layers/dec_layers, transpose?)
+    for one whisper transformer layer.  Linear weights are (out, in) in
+    HF and (in, out) here; layer norms carry weight and bias."""
+    side = "decoder" if decoder else "encoder"
+    prefix = f"model.{side}.layers.{layer}."
+    mapping = {
+        prefix + "fc1.weight": (("mlp", "w1", "w"), True),
+        prefix + "fc1.bias": (("mlp", "w1", "b"), False),
+        prefix + "fc2.weight": (("mlp", "w2", "w"), True),
+        prefix + "fc2.bias": (("mlp", "w2", "b"), False),
+        prefix + "final_layer_norm.weight": (("mlp_norm", "scale"), False),
+        prefix + "final_layer_norm.bias": (("mlp_norm", "bias"), False),
+    }
+    if decoder:
+        mapping.update(_attention_map(prefix + "self_attn.", "self"))
+        mapping.update(_attention_map(prefix + "encoder_attn.", "cross"))
+        mapping.update({
+            prefix + "self_attn_layer_norm.weight": (
+                ("self_norm", "scale"), False),
+            prefix + "self_attn_layer_norm.bias": (
+                ("self_norm", "bias"), False),
+            prefix + "encoder_attn_layer_norm.weight": (
+                ("cross_norm", "scale"), False),
+            prefix + "encoder_attn_layer_norm.bias": (
+                ("cross_norm", "bias"), False),
+        })
+    else:
+        mapping.update(_attention_map(prefix + "self_attn.", "attn"))
+        mapping.update({
+            prefix + "self_attn_layer_norm.weight": (
+                ("attn_norm", "scale"), False),
+            prefix + "self_attn_layer_norm.bias": (
+                ("attn_norm", "bias"), False),
+        })
+    return mapping
+
+
+def load_whisper_params(paths, config, device="cuda") -> dict:
+    """The AsrConfig parameter tree from HuggingFace openai/whisper-*
+    safetensors naming, cast to config.dtype, on `device` (CUDA unless
+    the caller asks for the CPU).  HF conv1/conv2 weights are (d_model,
+    in, kernel), this framework's layout already; the position tables
+    are sliced to config.max_frames / config.max_text_len; the output
+    head is tied to model.decoder.embed_tokens."""
+    device = resolve_device(device)
+    with open_checkpoint(paths) as (_index, raw):
+        fetch = _fetcher(raw, config.torch_dtype)
+
+        def get(name, rows=None):
+            tensor = fetch(name)
+            return (tensor if rows is None else tensor[:rows]).to(device)
+
+        def layers(count, decoder):
+            return _stacked_layers(
+                fetch, [whisper_layer_map(layer, decoder)
+                        for layer in range(count)],
+                lambda parts, tensor: tensor.to(device))
+
+        return {
+            "conv1": {"w": get("model.encoder.conv1.weight"),
+                      "b": get("model.encoder.conv1.bias")},
+            "conv2": {"w": get("model.encoder.conv2.weight"),
+                      "b": get("model.encoder.conv2.bias")},
+            "enc_positions": get("model.encoder.embed_positions.weight",
+                                 config.max_frames),
+            "enc_layers": layers(config.enc_layers, decoder=False),
+            "enc_norm": {
+                "scale": get("model.encoder.layer_norm.weight"),
+                "bias": get("model.encoder.layer_norm.bias")},
+            "token_embed": {"w": get("model.decoder.embed_tokens.weight")},
+            "dec_positions": get("model.decoder.embed_positions.weight",
+                                 config.max_text_len),
+            "dec_layers": layers(config.dec_layers, decoder=True),
+            "dec_norm": {
+                "scale": get("model.decoder.layer_norm.weight"),
+                "bias": get("model.decoder.layer_norm.bias")},
+        }

@@ -38,9 +38,19 @@
 # `_flash_dkv_kernel`) or raise: there is no fallback.  Each C entry point
 # chooses its kernel by dtype: bf16 runs on the tensor cores (and must
 # start on a 16-byte boundary), f32 on the f32 CUDA cores.
+#
+# Tensors on the meta device (the analyzer's eval pass traces element
+# programs there: analyze/shape_eval.py) get the forward's output
+# contract -- an empty O in q's dtype and shape and an empty f32 LSE
+# (B, H, Lq) -- and nothing is computed; the forward's operation count,
+# which an aten FLOP counter cannot see, goes to every open
+# count_meta_flops() scope.  Only meta tensors take that branch: it is
+# a shape rule, not a fallback.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import math
 
@@ -49,7 +59,7 @@ import torch
 from ..ops import kernels
 from .mesh import PartitionSpec, ambient_mesh, named_sharding
 
-__all__ = ["attention_reference", "flash_attention",
+__all__ = ["attention_reference", "flash_attention", "count_meta_flops",
            "flash_attention_forward", "flash_attention_plain",
            "flash_attention_backward", "flash_attention_backward_plain",
            "flash_attention_dq_plain", "flash_attention_dkv_plain",
@@ -269,6 +279,44 @@ def _diagonal(causal: bool, q_offset: int, q_len: int, k_len: int) -> int:
     return int(q_offset) + (k_len - q_len) if causal else 0
 
 
+_META_FLOPS: contextvars.ContextVar = contextvars.ContextVar(
+    "aiko_meta_flops", default=())
+
+
+@contextlib.contextmanager
+def count_meta_flops():
+    """A scope that counts the flash-attention forward's operations on
+    meta tensors (4 B H D per visible (query, key) pair: the two
+    products): yields a one-entry list holding the running total."""
+    total = [0]
+    token = _META_FLOPS.set(_META_FLOPS.get() + (total,))
+    try:
+        yield total
+    finally:
+        _META_FLOPS.reset(token)
+
+
+def _visible_pairs(q_len: int, k_len: int, causal: bool,
+                   diagonal: int) -> int:
+    """(query, key) pairs the forward computes: all, or under the causal
+    diagonal k_pos <= q_pos + diagonal."""
+    if not causal:
+        return q_len * k_len
+    return sum(min(max(row + diagonal + 1, 0), k_len)
+               for row in range(q_len))
+
+
+def _meta_forward(q, causal: bool, q_offset: int, k_len: int):
+    batch, heads, q_len, head_dim = q.shape
+    pairs = _visible_pairs(q_len, k_len, causal,
+                           _diagonal(causal, q_offset, q_len, k_len))
+    for total in _META_FLOPS.get():
+        total[0] += 4 * batch * heads * head_dim * pairs
+    return (torch.empty_like(q),
+            torch.empty((batch, heads, q_len), dtype=torch.float32,
+                        device=q.device))
+
+
 def _flash_kernel_forward(q, k, v, causal: bool, sm_scale: float,
                           q_offset: int):
     _check_kernel_inputs(q, k, v)
@@ -324,9 +372,13 @@ def flash_attention_forward(q, k, v, causal: bool = False, sm_scale=None,
 
     The causal diagonal is k_pos <= q_pos + q_offset + (Lk - Lq); keys
     past Lk do not exist.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, and anything else raises."""
+    tensors launch the kernel; meta tensors get the output contract
+    (and the operation count, count_meta_flops); anything else
+    raises."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "meta":
+        return _meta_forward(q, bool(causal), int(q_offset), k.shape[2])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      sm_scale=sm_scale, q_offset=q_offset)

@@ -33,7 +33,12 @@
 # Every collective over an axis whose size exceeds 1 adds one call and
 # its bytes -- the bytes of every participating position's input -- to
 # the counter of its axes (collective_counts); over axes of size 1 it is
-# the identity and counts nothing.  Tests and chip_smoke.py read the
+# the identity and counts nothing.  reshard (a leaf moved from one layout
+# into another, GSPMD's re-partition of an operand the program wants cut
+# otherwise) counts as one call over the axes of both layouts, with the
+# bytes of every source position's block; conform reshards only the
+# leaves of a tree whose layout differs, so a tree already laid out as
+# wanted moves and counts nothing.  Tests and chip_smoke.py read the
 # counter as the JAX tests count collectives in the compiled HLO.
 
 from __future__ import annotations
@@ -43,12 +48,14 @@ import threading
 import numpy as np
 import torch
 
-from .mesh import Mesh
+from .mesh import (
+    Mesh, Sharded, layout_spec, leaf_layout, named_sharding, shard_pytree,
+    spec_layout)
 
 __all__ = ["map_shards", "axis_index", "psum", "all_gather",
            "psum_scatter", "all_to_all", "ppermute", "collective_counts",
            "reset_collective_counts", "collective_totals",
-           "sum_replica_grads"]
+           "sum_replica_grads", "reshard", "conform"]
 
 _COUNTS: dict = {}
 _COUNTS_LOCK = threading.Lock()
@@ -301,3 +308,48 @@ def sum_replica_grads(leaf) -> None:
         for tensor in tensors:
             tensor.grad = _sum(grads, tensor.device)
     _record(replicated, leaf.shards)
+
+
+def reshard(leaf, mesh: Mesh, spec):
+    """`leaf` (a whole tensor or a Sharded of any layout) placed by
+    `spec` over `mesh`: gathered whole (parallel.unshard; every block
+    must be local) and cut again by shard_pytree.  Counted as one
+    collective over the axes of both layouts, with the bytes of every
+    source position's block (a whole source's bytes once)."""
+    sharding = named_sharding(mesh, spec)
+    wanted = spec_layout(sharding.spec, mesh, leaf.ndim)
+    used = {name for names in leaf_layout(leaf, mesh) + wanted
+            for name in names}
+    axes = tuple(name for name in mesh.axis_names if name in used)
+    if isinstance(leaf, Sharded):
+        source = leaf.shards
+    else:
+        source = np.empty(1, dtype=object)
+        source[0] = leaf
+    if axes:
+        _record(axes, source)
+    return shard_pytree(leaf, mesh, sharding.spec)
+
+
+def conform(tree, specs, mesh: Mesh, sizes: dict):
+    """`tree` with every leaf cut as its spec in `specs` (a spec tree; a
+    missing entry means whole) cuts it over the axes `sizes` names above
+    1: a leaf cut otherwise is resharded into that layout, a leaf already
+    so comes back as it is (nothing moves, nothing counts)."""
+    if isinstance(tree, dict):
+        return {key: conform(value, specs.get(key)
+                             if isinstance(specs, dict) else None,
+                             mesh, sizes)
+                for key, value in tree.items()}
+    wanted = spec_layout(specs, mesh, tree.ndim, sizes)
+    if leaf_layout(tree, mesh) == wanted:
+        return tree
+    blocks = tree.unique() if isinstance(tree, Sharded) else [tree]
+    if torch.is_grad_enabled() and any(block.requires_grad
+                                       for block in blocks):
+        # unshard gathers detached blocks: no gradient would reach them
+        raise ValueError(
+            f"a leaf cut {leaf_layout(tree, mesh)} takes a gradient; the "
+            f"sharded path reshards only for inference -- place what "
+            f"trains in the model's spec layout ({wanted} on this mesh)")
+    return reshard(tree, mesh, layout_spec(wanted))

@@ -54,7 +54,8 @@ __all__ = [
     "create_mesh", "get_mesh", "named_sharding", "partition_spec",
     "shard_pytree", "tree_shardings", "filter_specs", "default_devices",
     "set_default_devices", "use_mesh", "ambient_mesh", "unshard",
-    "sharded_leaves", "spec_layout", "leaf_layout", "check_layout",
+    "sharded_leaves", "spec_layout", "leaf_layout", "layout_matches",
+    "layout_spec", "assign",
 ]
 
 # Ordering matters for interconnect locality: innermost (fastest-varying)
@@ -413,20 +414,44 @@ def leaf_layout(leaf, mesh: Mesh) -> tuple:
     return spec_layout(spec, mesh, leaf.ndim)
 
 
-def check_layout(tree, specs, mesh: Mesh, sizes: dict, what: str) -> None:
-    """ValueError unless every leaf of `tree` is cut as its spec in
-    `specs` (a spec tree; a missing entry means whole) cuts it over the
-    axes `sizes` names above 1."""
+def layout_matches(tree, specs, mesh: Mesh, sizes: dict) -> bool:
+    """Whether every leaf of `tree` is cut as its spec in `specs` (a
+    spec tree; a missing entry means whole) cuts it over the axes
+    `sizes` names above 1."""
     if isinstance(tree, dict):
-        for key, value in tree.items():
-            check_layout(value, specs.get(key) if isinstance(specs, dict)
-                         else None, mesh, sizes, f"{what}/{key}")
-        return
-    wanted = spec_layout(specs, mesh, tree.ndim, sizes)
-    if leaf_layout(tree, mesh) != wanted:
-        raise ValueError(f"{what} is cut {leaf_layout(tree, mesh)}; the "
-                         f"sharded path takes the model's spec layout "
-                         f"({wanted} on this mesh)")
+        return all(layout_matches(value, specs.get(key)
+                                  if isinstance(specs, dict) else None,
+                                  mesh, sizes)
+                   for key, value in tree.items())
+    return leaf_layout(tree, mesh) == spec_layout(specs, mesh, tree.ndim,
+                                                  sizes)
+
+
+def layout_spec(layout: tuple) -> PartitionSpec:
+    """The PartitionSpec of a layout (spec_layout's per-dimension axis
+    tuples)."""
+    return PartitionSpec(*(None if not names else names[0]
+                           if len(names) == 1 else names
+                           for names in layout))
+
+
+def assign(target, value) -> None:
+    """Copy the whole tensor `value` into `target` in place: a tensor,
+    or each local block of a Sharded its block of `value`."""
+    with torch.no_grad():
+        if not isinstance(target, Sharded):
+            target.copy_(value)
+            return
+        local_shape = target.sharding.shard_shape(tuple(target.shape))
+        seen = set()
+        for position, block in np.ndenumerate(target.shards):
+            if block is None or id(block) in seen:
+                continue
+            seen.add(id(block))
+            block.copy_(value[tuple(
+                slice(start * size, (start + 1) * size)
+                for start, size in zip(target.block(position),
+                                       local_shape))])
 
 
 def sharded_leaves(tree):

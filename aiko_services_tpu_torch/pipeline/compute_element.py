@@ -268,9 +268,28 @@ class ComputeElement(PipelineElement):
         return self._group_kernel_fn, (self.state, self._dynamic(stream))
 
     def eval_kernel(self):
-        """Static-analyzer hook: None, because the analyzer's `eval` pass
-        (jax.eval_shape in the JAX package) is not ported yet."""
-        return None
+        """Abstract-interpretation hook for the static analyzer
+        (PipelineElement.eval_kernel contract): compute() exposed with
+        its state BUILDER so the analyzer can run setup-then-compute on
+        the meta device -- no parameter allocation, no kernel launch, no
+        device.  Elements whose engine path depends on runtime sizes
+        (bucket padding, `lengths` masks) or a custom process_frame fall
+        out: compute() alone would not reproduce their behavior."""
+        if (type(self).compute is ComputeElement.compute
+                or type(self).process_frame
+                is not ComputeElement.process_frame):
+            return None
+        if self._bucket_axes or "lengths" in inspect.signature(
+                self.compute).parameters:
+            return None
+        self.configure()
+
+        def kernel(state, **batch):
+            dynamic = {key: torch.as_tensor(value) for key, value in
+                       self.dynamic_parameters(None).items()}
+            return self.compute(state, **dynamic, **batch)
+
+        return kernel, self.setup
 
     def _cached_group_kernel(self, key, build):
         """Per-static-parameter-value kernel cache for group_kernel

@@ -215,10 +215,11 @@ class PipelineElement(Actor):
         analyzer (analyze/shape_eval.py): return `(kernel, state_fn)`
         where `kernel(state, **inputs) -> dict` is the element's pure
         device program and `state_fn()` builds its state pytree (None
-        for stateless elements).  Both are ONLY ever called under
-        jax.eval_shape, so nothing allocates, compiles, or touches a
-        device -- the analyzer synthesizes ShapeDtypeStructs from the
-        declared port specs and proves declared outputs match traced
+        for stateless elements).  Both are ONLY ever called on the meta
+        device (the element's device set to meta, inside a
+        torch.device("meta") scope), so nothing allocates, launches, or
+        touches a device -- the analyzer synthesizes meta tensors from
+        the declared port specs and proves declared outputs match traced
         outputs.  Return None (the default) when the element has no
         pure device program (sources, host elements)."""
         return None

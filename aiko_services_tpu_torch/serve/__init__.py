@@ -13,7 +13,7 @@
 # fleet, streams assigned by rendezvous hash.
 #
 # Counterpart of aiko_services_tpu/serve/, host code throughout.  Not
-# ported yet (ROADMAP Queue A item 8): autoscale.py (the elastic fleet)
+# ported yet (ROADMAP Queue A item 1): autoscale.py (the elastic fleet)
 # and autopilot.py (the SLO autopilot); the gateway refuses both.
 
 from .policy import AdmissionPolicy, TokenBucket          # noqa: F401

@@ -46,7 +46,7 @@
 # jax-free there too), with one difference: the elastic fleet
 # (`autoscale=`, `replica_factory=`, enable_autoscale) and the SLO
 # autopilot (`autopilot=`) raise NotImplementedError naming ROADMAP Queue
-# A item 8, where tune/, serve/autoscale.py and serve/autopilot.py are
+# A item 1, where tune/, serve/autoscale.py and serve/autopilot.py are
 # ported; the hooks only they drive (the autoscaler's spawn and floor
 # callbacks, the autopilot's start/stop and journal replay) come with
 # them.
@@ -82,7 +82,7 @@ _RATE_WARMUP = 8
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported to the torch port (ROADMAP Queue A "
-        f"item 8: tune/, serve/autoscale.py and serve/autopilot.py)")
+        f"item 1: tune/, serve/autoscale.py and serve/autopilot.py)")
 
 
 class _LocalResponder:

@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port's speech-serving, training, LM-serving
 and serving-tier paths, its remaining model families (switch MoE,
-YOLOv8, TTS), its long-context (sequence-parallel) path and its
-parameter-sharding axes (tensor, FSDP, data and expert parallelism) on
-one NVIDIA GPU.
+YOLOv8, TTS), its long-context (sequence-parallel) path, its
+parameter-sharding axes (tensor, FSDP, data and expert parallelism),
+HuggingFace checkpoints, the shipped examples and the analyzer's eval
+pass on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -180,6 +181,37 @@ result:
      13g K1, and K2 with K3, at every case 13a-13f launched them with
          that phase 2 did not check (the per-shard shapes), against the
          plain versions at phase 2's limits
+ 14. HuggingFace checkpoints, the shipped examples and the eval pass,
+     on phase 8's seeded config-5 weights (nothing is drawn again):
+     14a whisper_small written as an HF openai/whisper-* file (the name
+         map inverted; the biases the seeded init leaves out as zeros)
+         and served as config 5's asr (max_frames 512, 2 groups of 8 x
+         16 rows): tokens identical to the same element loaded through
+         save_pytree with whisper's sot/eot ids; load seconds, peak
+         memory, K1 launches;
+     14b llama32_1b (tied) written as an HF Llama file and served as
+         config 5's lm: tokens identical to the native-layout load;
+     14c the same file read straight into an LMGenerate on fsdp 2 x
+         model 2: the load's peak below one whole copy plus the largest
+         tensor, logits and tokens held as 13a holds sharded bf16
+         decode; a 2-layer f32 file placed on the mesh: tokens
+         identical to its unsharded load;
+     14d the repaired departures: whisper_small in f32 on model 8 (12
+         heads over 8 shards: whole-head spans) with tokens identical
+         to the unsharded element, K1 launches a shard and the heads
+         computed twice; a llama32_1b forward on weights cut by a
+         non-default spec: logits equal to the default layout's, the
+         reshard's calls and bytes from the collective counter;
+     14e examples/pipeline_multimodal.json (K1 in its ASR),
+         pipeline_compute.json and pipeline_robot_loop.json as shipped
+         with runtime "torch", outputs checked as their JAX tests check
+         them (no cv2 or PIL on the card's machine: the video examples
+         and image file I/O are the CPU tests');
+     14f the analyzer's eval pass over config 5's definition on the
+         meta device: asr, lm and detector traced, no AIKO207/AIKO208,
+         memory_allocated unchanged, element_cost_estimates printed;
+     14g K1 at every case 14a-14e launched it with that phase 2 did not
+         check, against the plain version
 
 The last three lines are the card's nvidia-smi name and power limit, one
 JSON object describing every kernel of the paths, and {"ok": true,
@@ -1190,6 +1222,9 @@ C5_MAX_TOKENS, C5_MAX_NEW, C5_IMAGE = 16, 32, 640
 # ordered sums, and those one-ulp differences (2^-8 relative) pass
 # through 16 residual layers -> atol 1e-1
 LM_CACHE_TOL = 1e-1
+# {"asr" | "lm": (config, parameters on the host)}: phase 8's seeded
+# whisper_small and llama32_1b, which phase 14 writes as HF-named files
+C5_WEIGHTS: dict = {}
 
 
 def config5_definition() -> dict:
@@ -1399,7 +1434,7 @@ def phase_config5(smi: str) -> dict:
     from aiko_services_tpu_torch.ops import kernels
     from aiko_services_tpu_torch.pipeline import create_pipeline
     from aiko_services_tpu_torch.runtime import Process
-    from aiko_services_tpu_torch.utils.tree import tree_leaves
+    from aiko_services_tpu_torch.utils.tree import tree_leaves, tree_map
 
     torch.cuda.empty_cache()
     process = Process(transport_kind="loopback")
@@ -1411,6 +1446,11 @@ def phase_config5(smi: str) -> dict:
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - start
         lm = pipeline.elements["lm"]
+        # phase 14 writes HF-named checkpoints of these same weights
+        C5_WEIGHTS.update({name: (element.config, tree_map(
+            lambda leaf: leaf.detach().cpu(), element.state))
+            for name, element in (("asr", pipeline.elements["asr"]),
+                                  ("lm", lm))})
         phase_lm_cache_vs_kernel(lm.state, lm.config)
         phase_generate_f32_vs_cpu()
         phase_detector_checkpoint()
@@ -4728,11 +4768,12 @@ def phase_longcontext_as_shipped(smi: str) -> dict:
 SHARD_LONGCONTEXT_TOL = SP_LOGITS_GROSS_TOL
 
 
-def phase_sharded_speech(smi: str) -> int:
-    """13f: SpeechToText whisper_small (f32, so the tokens are exact) on
-    {"model": 2} with its default asr_param_specs, against the element
-    without a mesh on the same frames.  Returns the sharded run's K1
-    launches."""
+def sharded_speech(smi: str, label: str, axes: dict,
+                   max_tokens: int = 16) -> tuple:
+    """SpeechToText whisper_small (f32, so the tokens are exact) on
+    `axes` with its default asr_param_specs, against the element without
+    a mesh on the same 2 frames.  Returns (the sharded run's K1
+    launches, the sharded element)."""
     from aiko_services_tpu_torch.ops import kernels
     from aiko_services_tpu_torch.parallel import set_default_devices
     from aiko_services_tpu_torch.pipeline import create_pipeline
@@ -4743,7 +4784,7 @@ def phase_sharded_speech(smi: str) -> int:
                    "output": [{"name": "tokens"}],
                    "parameters": {"preset": "whisper_small",
                                   "dtype": "float32", "max_frames": 500,
-                                  "max_tokens": 16, "seed": 16},
+                                  "max_tokens": max_tokens, "seed": 16},
                    "deploy": {"local": {"module": MODULE,
                                         "class_name": "SpeechToText"}}}
         if sharding:
@@ -4771,22 +4812,31 @@ def phase_sharded_speech(smi: str) -> int:
         finally:
             process.terminate()
 
-    set_default_devices(["cuda:0"] * 2)
+    count = int(np.prod(list(axes.values())))
+    set_default_devices(["cuda:0"] * count)
     try:
-        sharded, launches, element = serve({"axes": {"model": 2}})
+        sharded, launches, element = serve({"axes": axes})
         cut = type(element.state["enc_layers"]["attn"]["wq"]["w"]).__name__
     finally:
         set_default_devices(None)
     whole, _, _ = serve(None)
     torch.cuda.empty_cache()
     same = all(torch.equal(sharded[key], whole[key]) for key in whole)
-    say("13f whisper_small_model_parallel", mesh=json.dumps({"model": 2}),
-        dtype="float32", frames=2, wq=cut, identical=same,
+    say(label, mesh=json.dumps(axes), dtype="float32", frames=2,
+        max_tokens=max_tokens, wq=cut, identical=same,
         k1_launches=launches["flash_attention"], card=repr(smi))
     if not same or cut != "Sharded":
-        raise SystemExit(f"13f: sharded tokens {sharded} differ from the "
-                         f"unsharded element's {whole} (wq {cut})")
-    return launches["flash_attention"]
+        raise SystemExit(f"{label}: sharded tokens {sharded} differ from "
+                         f"the unsharded element's {whole} (wq {cut})")
+    return launches["flash_attention"], element
+
+
+def phase_sharded_speech(smi: str) -> int:
+    """13f: whisper_small on {"model": 2}.  Returns the sharded run's K1
+    launches."""
+    launches, _ = sharded_speech(smi, "13f whisper_small_model_parallel",
+                                 {"model": 2})
+    return launches
 
 
 @contextlib.contextmanager
@@ -4879,6 +4929,576 @@ def phase_parameter_sharding(smi: str) -> dict:
     return launches
 
 
+# -- phase 14: HF checkpoints, the shipped examples, the eval pass ------------
+#
+# Phase 8's config-5 weights (whisper_small and llama32_1b, bf16, seeded)
+# are written as HuggingFace-named safetensors files (the name maps of
+# models/weights.py inverted: a helper here, not a feature of the
+# package) and served from them; the repaired sharding departures run on
+# meshes that name cuda:0 several times; three shipped examples run as
+# shipped with runtime "torch"; the analyzer's eval pass traces config 5
+# on the meta device.
+
+HF_DIR = ROOT / "build" / "hf"
+HF_PROMPT = 16                # 14b/14c: config 5's asr tokens per row
+HF_F32_LAYERS, HF_F32_NEW = 2, 16
+STRADDLE_AXES = {"model": 8}  # 14d: whisper_small's 12 heads over 8
+RESHARD_AXES = {"fsdp": 2, "model": 2}
+EXAMPLE_FRAMES = 2
+
+
+def leaf_at(tree: dict, parts) -> torch.Tensor:
+    for part in parts:
+        tree = tree[part]
+    return tree
+
+
+def write_hf(path, tensors: dict, layer_maps: list) -> None:
+    """`tensors` (HF name -> host tensor) plus every layer of
+    `layer_maps` ([(stacked tree, [{HF name: (path, transpose?)}] per
+    layer)]), each (in, out) weight transposed back to HF's (out, in)."""
+    from aiko_services_tpu_torch.models import write_safetensors
+    tensors = dict(tensors)
+    for stacked, maps in layer_maps:
+        for layer, mapping in enumerate(maps):
+            for name, (parts, transpose) in mapping.items():
+                tensor = leaf_at(stacked, parts)[layer]
+                tensors[name] = (tensor.T if transpose else tensor
+                                 ).contiguous()
+    write_safetensors(path, tensors)
+
+
+def hf_whisper_tree(config, params) -> dict:
+    """`params` with every leaf the HF whisper naming holds: a layer
+    norm's bias, and the q/v/out and fc biases, which this framework's
+    seeded init leaves out, as zeros (the same function)."""
+    from aiko_services_tpu_torch.models import whisper_layer_map
+    from aiko_services_tpu_torch.utils.tree import tree_map
+    tree = tree_map(lambda leaf: leaf, params)
+    for norm in ("enc_norm", "dec_norm"):
+        tree[norm].setdefault("bias", torch.zeros_like(tree[norm]["scale"]))
+    for key, count, decoder in (("enc_layers", config.enc_layers, False),
+                                ("dec_layers", config.dec_layers, True)):
+        for parts, _ in whisper_layer_map(0, decoder).values():
+            owner = leaf_at(tree[key], parts[:-1])
+            if parts[-1] in owner:
+                continue
+            weight = owner["w"] if "w" in owner else owner["scale"]
+            owner[parts[-1]] = torch.zeros(
+                (count, weight.shape[-1]), dtype=weight.dtype)
+    return tree
+
+
+def write_hf_whisper(path, config, params) -> None:
+    from aiko_services_tpu_torch.models import whisper_layer_map
+    write_hf(path, {
+        "model.encoder.conv1.weight": params["conv1"]["w"],
+        "model.encoder.conv1.bias": params["conv1"]["b"],
+        "model.encoder.conv2.weight": params["conv2"]["w"],
+        "model.encoder.conv2.bias": params["conv2"]["b"],
+        "model.encoder.embed_positions.weight": params["enc_positions"],
+        "model.encoder.layer_norm.weight": params["enc_norm"]["scale"],
+        "model.encoder.layer_norm.bias": params["enc_norm"]["bias"],
+        "model.decoder.embed_tokens.weight": params["token_embed"]["w"],
+        "model.decoder.embed_positions.weight": params["dec_positions"],
+        "model.decoder.layer_norm.weight": params["dec_norm"]["scale"],
+        "model.decoder.layer_norm.bias": params["dec_norm"]["bias"],
+    }, [(params["enc_layers"], [whisper_layer_map(layer, False)
+                                for layer in range(config.enc_layers)]),
+        (params["dec_layers"], [whisper_layer_map(layer, True)
+                                for layer in range(config.dec_layers)])])
+
+
+def write_hf_llama(path, config, params) -> None:
+    from aiko_services_tpu_torch.models import llama_name_map
+    tensors = {"model.embed_tokens.weight": params["embed"]["w"],
+               "model.norm.weight": params["norm_out"]["scale"]}
+    if "lm_head" in params:
+        tensors["lm_head.weight"] = params["lm_head"]["w"]
+    write_hf(path, tensors, [(params["layers"], [
+        llama_name_map(layer) for layer in range(config.n_layers)])])
+
+
+def tree_bytes(tree) -> tuple:
+    """(total bytes, largest leaf's bytes) of a tree of tensors."""
+    from aiko_services_tpu_torch.utils.tree import tree_leaves
+    sizes = [leaf.numel() * leaf.element_size()
+             for leaf in tree_leaves(tree)]
+    return sum(sizes), max(sizes)
+
+
+def served_asr(weights: str, sot_eot: tuple) -> tuple:
+    """14a: config 5's asr (phase 5's whisper_small serving parameters,
+    max_frames 512) on `weights`, 2 groups of ROWS x SECONDS frames ->
+    ({frame: tokens}, load s, peak GiB, K1 launches)."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.ops import kernels
+    parameters = {key: value for key, value in WHISPER.items()
+                  if key != "seed"}
+    server = Server(_definition({**parameters, "weights": weights}))
+    try:
+        element = server.pipeline.elements["asr"]
+        element.configure()
+        element.config = replace(element.config, sot_token=sot_eot[0],
+                                 eot_token=sot_eot[1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        element._ensure_ready()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - start
+        kernels.reset_launch_counts()
+        frames = [tones_batch(ROWS, SECONDS, seed=140 + index)
+                  for index in range(2 * WHISPER["micro_batch"])]
+        results = server.serve(frames)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts["flash_attention"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        server.close()
+    tokens = {index: outputs["tokens"].cpu()
+              for index, (outputs, _) in enumerate(results)}
+    return tokens, load_s, peak, launches
+
+
+def lm_definition(weights: str, vocab: int, sharding: dict | None = None,
+                  frames: int = 2) -> dict:
+    """(tokens (lm)): config 5's lm (llama32_1b, bf16, C5_MAX_NEW new
+    tokens) on `weights`, fed `frames` seeded C5_ROWS x HF_PROMPT
+    prompts of ids below `vocab`."""
+    lm = {"name": "lm", "input": [{"name": "tokens"}],
+          "output": [{"name": "generated"}],
+          "parameters": {"preset": "llama32_1b", "dtype": "bfloat16",
+                         "max_new_tokens": C5_MAX_NEW, "weights": weights},
+          "deploy": {"local": {"module": MODULE,
+                               "class_name": "LMGenerate"}}}
+    if sharding:
+        lm["sharding"] = sharding
+    return {
+        "name": "lm14", "graph": ["(tokens (lm))"],
+        "parameters": {"device": "cuda"},
+        "elements": [
+            {"name": "tokens", "output": [{"name": "tokens"}],
+             "parameters": {"data_sources": [[C5_ROWS, HF_PROMPT]],
+                            "count": frames, "seed": 14,
+                            "vocab_size": vocab},
+             "deploy": {"local": {"module": MODULE,
+                                  "class_name": "TokenSource"}}},
+            lm]}
+
+
+def served_lm(definition: dict, frames: int) -> tuple:
+    """({frame: (prompt, generated)}, load s, load peak bytes above the
+    start, the element)."""
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    process = Process(transport_kind="loopback")
+    try:
+        pipeline = create_pipeline(process, definition)
+        element = pipeline.elements["lm"]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        element._ensure_ready()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - start
+        load_peak = torch.cuda.max_memory_allocated() - base
+        process.run(in_thread=True)
+        responses = queue.Queue()
+        pipeline.create_stream("s1", queue_response=responses)
+        out = {}
+        for _ in range(frames):
+            _, frame, outputs = responses.get(timeout=600)
+            out[frame.frame_id] = (
+                torch.as_tensor(outputs["tokens"]).cpu(),
+                torch.as_tensor(outputs["generated"]).cpu())
+        return out, load_s, load_peak, element
+    finally:
+        process.terminate()
+
+
+def phase_hf_whisper(smi: str) -> int:
+    """14a.  Returns the HF arm's K1 launches."""
+    config, params = C5_WEIGHTS["asr"]
+    params = hf_whisper_tree(config, params)
+    hf, native = HF_DIR / "whisper_small.safetensors", \
+        HF_DIR / "whisper_small_native.safetensors"
+    from aiko_services_tpu_torch.models import save_pytree
+    start = time.perf_counter()
+    write_hf_whisper(hf, config, params)
+    save_pytree(native, params)
+    write_s = time.perf_counter() - start
+    whisper_ids = (50258, 50257)
+    hf_tokens, hf_load, hf_peak, launches = served_asr(str(hf), whisper_ids)
+    native_tokens, native_load, _, _ = served_asr(str(native), whisper_ids)
+    same = all(torch.equal(hf_tokens[key], native_tokens[key])
+               for key in native_tokens)
+    say("14a whisper_small_hf", frames=len(hf_tokens), rows=ROWS,
+        groups=2, max_frames=WHISPER["max_frames"],
+        sot_eot=json.dumps(whisper_ids), identical=same,
+        write_s=f"{write_s:.1f}", hf_load_s=f"{hf_load:.2f}",
+        native_load_s=f"{native_load:.2f}",
+        max_memory_allocated_gib=f"{hf_peak:.2f}",
+        k1_launches=launches, card=repr(smi))
+    if not same:
+        raise SystemExit("14a: tokens from the HF file differ from the "
+                         "native-layout load's")
+    if launches < config.enc_layers * 2:
+        raise SystemExit(f"14a: {launches} K1 launches in 2 groups")
+    return launches
+
+
+def phase_hf_llama(smi: str) -> dict:
+    """14b, 14c.  Returns {frame: generated} of the unsharded HF load."""
+    from aiko_services_tpu_torch.models import (
+        forward, generate, load_llama_params, param_specs, save_pytree)
+    from aiko_services_tpu_torch.parallel import (
+        filter_specs, set_default_devices)
+    config, params = C5_WEIGHTS["lm"]
+    hf, native = HF_DIR / "llama32_1b.safetensors", \
+        HF_DIR / "llama32_1b_native.safetensors"
+    start = time.perf_counter()
+    write_hf_llama(hf, config, params)
+    save_pytree(native, params)
+    write_s = time.perf_counter() - start
+    vocab = config.vocab_size
+    hf_out, hf_load, _, _ = served_lm(lm_definition(str(hf), vocab), 2)
+    native_out, native_load, _, _ = served_lm(
+        lm_definition(str(native), vocab), 2)
+    same = all(torch.equal(hf_out[key][1], native_out[key][1])
+               for key in native_out)
+    say("14b llama32_1b_hf", tied="lm_head" not in params,
+        frames=len(hf_out), rows=C5_ROWS, new_tokens=C5_MAX_NEW,
+        identical=same, write_s=f"{write_s:.1f}",
+        hf_load_s=f"{hf_load:.2f}", native_load_s=f"{native_load:.2f}",
+        card=repr(smi))
+    if not same:
+        raise SystemExit("14b: tokens from the HF file differ from the "
+                         "native-layout load's")
+    torch.cuda.empty_cache()
+
+    # 14c: the same file read straight into fsdp 2 x model 2 shards
+    whole_bytes, largest = tree_bytes(params)
+    axes = {"fsdp": 2, "model": 2}
+    set_default_devices(["cuda:0"] * 4)
+    try:
+        sharded_out, sharded_load, load_peak, element = served_lm(
+            lm_definition(str(hf), vocab, {"axes": axes}, frames=1), 1)
+        wq = type(element.state["layers"]["wq"]["w"]).__name__
+        prompt, generated = sharded_out[0]
+        reference = hf_out[0][1]
+        parting = first_difference(generated, reference)
+        whole = unsharded(element.state)
+        prompt = prompt.cuda()
+        with torch.no_grad():
+            sharded_last = forward(element.state, config, prompt)[:, -1]
+            whole_last = forward(whole, config, prompt)[:, -1]
+        parting_fields = {}
+        if parting >= 0:
+            # the first row that parts there, both runs fed the
+            # unsharded tokens (phase 13a's near-tie check)
+            row = int((generated[:, parting] != reference[:, parting])
+                      .nonzero()[0, 0])
+            forced = reference[row:row + 1].cuda()
+            ours = forced_step_logits(element.state, config,
+                                      prompt[row:row + 1], forced,
+                                      parting + 1)[parting]
+            theirs = forced_step_logits(whole, config, prompt[row:row + 1],
+                                        forced, parting + 1)[parting]
+            top = torch.topk(theirs, 2).values
+            parting_fields = dict(
+                parting_row=row,
+                parting_logits_max_abs_diff=(
+                    f"{(ours - theirs).abs().max().item():.3e}"),
+                parting_unsharded_top2_gap=f"{(top[0] - top[1]).item():.3e}")
+        del whole, element
+    finally:
+        set_default_devices(None)
+    torch.cuda.empty_cache()
+    diff = (sharded_last - whole_last).abs().max().item()
+    span = whole_last.abs().max().item()
+    agree = float((generated == reference).float().mean())
+    say("14c llama32_1b_hf_on_mesh", mesh=json.dumps(axes), wq=wq,
+        load_s=f"{sharded_load:.2f}",
+        load_peak_gib=f"{load_peak / 2**30:.3f}",
+        whole_copy_gib=f"{whole_bytes / 2**30:.3f}",
+        largest_tensor_gib=f"{largest / 2**30:.3f}",
+        last_logits_max_abs_diff_vs_unsharded=f"{diff:.3e}",
+        logits_span=f"{span:.3e}", greedy_first_difference=parting,
+        **parting_fields, tokens_agreeing=f"{agree:.4f}", card=repr(smi))
+    if load_peak >= whole_bytes + largest or wq != "Sharded":
+        raise SystemExit(f"14c: the placed load peaked at {load_peak} B, "
+                         f"not below one copy {whole_bytes} + the largest "
+                         f"tensor {largest} (wq {wq})")
+    if not np.isfinite(diff) or diff > SHARD_LOGITS_GROSS_FRACTION * span:
+        raise SystemExit(f"14c: sharded logits differ from the unsharded "
+                         f"load by {diff} (span {span})")
+
+    # 14c f32 at HF_F32_LAYERS layers: tokens identical to the unsharded
+    # load of the same file
+    from dataclasses import replace
+    small = replace(config, n_layers=HF_F32_LAYERS, dtype="float32")
+    cut = {"embed": {"w": params["embed"]["w"].float()},
+           "norm_out": {"scale": params["norm_out"]["scale"].float()},
+           "layers": {name: {key: leaf[:HF_F32_LAYERS].float()
+                             for key, leaf in layer.items()}
+                      for name, layer in params["layers"].items()}}
+    small_path = HF_DIR / "llama32_1b_f32_2layers.safetensors"
+    write_hf_llama(small_path, small, cut)
+    prompt = hf_out[0][0][:4].cuda()
+    whole = load_llama_params(small_path, small, device="cuda")
+    want, _ = generate(whole, small, prompt, HF_F32_NEW)
+    del whole
+    set_default_devices(["cuda:0"] * 4)
+    try:
+        from aiko_services_tpu_torch.parallel import create_mesh
+        mesh = create_mesh(axes)
+        placed = load_llama_params(
+            small_path, small, mesh=mesh,
+            specs=filter_specs(param_specs(small), mesh))
+        got, _ = generate(placed, small, prompt, HF_F32_NEW)
+        del placed
+    finally:
+        set_default_devices(None)
+    same = torch.equal(got.cpu(), want.cpu())
+    say("14c llama32_1b_hf_f32_on_mesh", mesh=json.dumps(axes),
+        layers=HF_F32_LAYERS, rows=prompt.shape[0], new_tokens=HF_F32_NEW,
+        identical=same, card=repr(smi))
+    if not same:
+        raise SystemExit("14c: f32 tokens of the placed load differ from "
+                         "the unsharded load's")
+    torch.cuda.empty_cache()
+    return {key: value[1] for key, value in hf_out.items()}
+
+
+def phase_repaired_departures(smi: str) -> int:
+    """14d.  Returns the straddling whisper run's K1 launches."""
+    from aiko_services_tpu_torch.models import forward, param_specs
+    from aiko_services_tpu_torch.models.asr import _asr_call
+    from aiko_services_tpu_torch.parallel import (
+        PartitionSpec, collective_counts, create_mesh, filter_specs,
+        reset_collective_counts, set_default_devices, shard_pytree)
+    launches, element = sharded_speech(smi, "14d whisper_small_straddle",
+                                       STRADDLE_AXES, max_tokens=8)
+    call, _ = _asr_call(element.state, element.config)
+    spans = [h1 - h0 for h0, h1 in call.spans]
+    say("14d straddle_heads", heads=element.config.n_heads,
+        model=STRADDLE_AXES["model"], heads_per_shard=json.dumps(spans),
+        duplicated_heads_per_layer=sum(spans) - element.config.n_heads,
+        k1_launches_per_shard=launches / STRADDLE_AXES["model"],
+        card=repr(smi))
+    del element
+
+    config, params = C5_WEIGHTS["lm"]
+    count = int(np.prod(list(RESHARD_AXES.values())))
+    set_default_devices(["cuda:0"] * count)
+    try:
+        mesh = create_mesh(RESHARD_AXES)
+        specs = filter_specs(param_specs(config), mesh)
+        default = shard_pytree(params, mesh, specs)
+        layers = dict(specs["layers"])
+        for name in ("wq", "wk", "wv"):
+            layers[name] = {"w": PartitionSpec(None, "model", "fsdp")}
+        swapped = shard_pytree(params, mesh, dict(
+            specs, layers=layers, embed={"w": PartitionSpec("fsdp", None)}))
+        prompt = torch.from_numpy(np.random.default_rng(14).integers(
+            0, config.vocab_size, (2, HF_PROMPT)).astype(np.int32)).cuda()
+        with torch.no_grad():
+            reset_collective_counts()
+            want = forward(default, config, prompt)
+            plain = collective_counts()
+            reset_collective_counts()
+            got = forward(swapped, config, prompt)
+            counted = collective_counts()
+        del default, swapped
+    finally:
+        set_default_devices(None)
+    torch.cuda.empty_cache()
+    moved = {axes: {"calls": entry["calls"] - plain.get(axes, {}).get(
+        "calls", 0), "bytes": entry["bytes"] - plain.get(axes, {}).get(
+        "bytes", 0)} for axes, entry in counted.items()}
+    moved = {axes: entry for axes, entry in moved.items() if entry["calls"]}
+    same = torch.equal(got, want)
+    say("14d llama32_1b_reshard", mesh=json.dumps(RESHARD_AXES),
+        resharded=json.dumps(moved),
+        reshard_mib=f"{sum(e['bytes'] for e in moved.values()) / 2**20:.1f}",
+        logits_identical=same, card=repr(smi))
+    if not same or sum(entry["calls"] for entry in moved.values()) != 4:
+        raise SystemExit(f"14d: resharded logits differ ({same}) or the "
+                         f"reshard was not counted once a leaf: {moved}")
+    return launches
+
+
+def phase_shipped_examples(smi: str) -> int:
+    """14e.  Returns the multimodal example's K1 launches."""
+    import threading
+    from aiko_services_tpu_torch.elements import RobotActor
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process, Registrar
+
+    def frames_of(definition, count):
+        process = Process(transport_kind="loopback")
+        pipeline = create_pipeline(process, definition)
+        process.run(in_thread=True)
+        try:
+            responses = queue.Queue()
+            pipeline.create_stream("s1", queue_response=responses)
+            return [responses.get(timeout=300)[2] for _ in range(count)]
+        finally:
+            process.terminate()
+
+    start = time.perf_counter()
+    kernels.reset_launch_counts()
+    outputs = frames_of(port_definition(
+        ROOT / "examples" / "pipeline_multimodal.json"), EXAMPLE_FRAMES)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts["flash_attention"]
+    for out in outputs:
+        logits = out["logits"]
+        if not (tuple(out["tokens"].shape) == (1, 32) and out["tokens"].is_cuda
+                and tuple(logits.shape) == (1, 32, 1024)
+                and torch.isfinite(logits).all()
+                and tuple(out["nll"].shape) == (1,)
+                and out["image"].shape == (256, 256, 3)
+                and out["image"].dtype == np.uint8
+                and len(out["overlay"]["objects"])
+                == len(out["overlay"]["rectangles"])
+                and isinstance(out["text"], list)):
+            raise SystemExit(f"14e multimodal: bad outputs {out.keys()}")
+    multimodal_s = time.perf_counter() - start
+    if launches < 4 * EXAMPLE_FRAMES:
+        raise SystemExit(f"14e multimodal: {launches} K1 launches")
+
+    start = time.perf_counter()
+    outputs = frames_of(port_definition(
+        ROOT / "examples" / "pipeline_compute.json"), 3)
+    for out in outputs:
+        tensor = np.asarray(out["tensor"])
+        if tensor.shape != (8, 16) or not np.isfinite(tensor).all():
+            raise SystemExit(f"14e compute: {tensor.shape}")
+    compute_s = time.perf_counter() - start
+
+    start = time.perf_counter()
+    process = Process(transport_kind="loopback")
+    Registrar(process, search_timeout=0.05)
+    robot = RobotActor(process, name="dog")
+    pipeline = create_pipeline(process, port_definition(
+        ROOT / "examples" / "pipeline_robot_loop.json"))
+    process.run(in_thread=True)
+    try:
+        published = threading.Event()
+        process.add_message_handler(lambda _topic, _payload: published.set(),
+                                    f"{process.namespace}/detections")
+        pipeline.create_stream("vision", queue_response=queue.Queue(),
+                               graph_path="camera", grace_time=300)
+        robot.start_camera(period=0.1, height=64, width=64)
+        if not published.wait(timeout=120):
+            raise SystemExit("14e robot: the vision leg never published")
+        responses = queue.Queue()
+        pipeline.create_stream(
+            "chat", queue_response=responses, graph_path="ask",
+            parameters={"control.robot_topic": robot.topic_path,
+                        "detections_window": 300.0})
+        context = False
+        for _ in range(8):
+            outputs = responses.get(timeout=120)[2]
+            if "prompt" in outputs:
+                context = "Visible objects:" in outputs["prompt"][0]
+            if context:
+                break
+        robot.stop_camera()
+        before = float(robot.share["odometer"])
+        pipeline.create_stream(
+            "drive", queue_response=queue.Queue(), graph_path="control",
+            parameters={"control.robot_topic": robot.topic_path})
+        pipeline.create_frame(pipeline.streams["drive"], {
+            "text": ["(action move 0.5) (action speak hello)"]})
+        deadline = time.monotonic() + 30
+        while (float(robot.share["odometer"]) <= before
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        moved = float(robot.share["odometer"]) - before
+    finally:
+        process.terminate()
+    if not context or abs(moved - 0.5) > 1e-6 or robot.share[
+            "utterances"] < 1:
+        raise SystemExit(f"14e robot: context {context}, moved {moved}")
+    robot_s = time.perf_counter() - start
+    say("14e shipped_examples", multimodal_frames=EXAMPLE_FRAMES,
+        multimodal_k1_launches=launches, multimodal_s=f"{multimodal_s:.1f}",
+        compute_frames=3, compute_s=f"{compute_s:.1f}",
+        robot_context=context, robot_moved_m=f"{moved:.3f}",
+        robot_s=f"{robot_s:.1f}", card=repr(smi))
+    return launches
+
+
+def phase_eval_pass(smi: str) -> None:
+    """14f: the analyzer's eval pass over config 5's definition on the
+    meta device: asr, lm and detector traced, no AIKO207/AIKO208, and
+    no byte allocated on the card."""
+    from aiko_services_tpu_torch.analyze import (
+        ALL_PASSES, analyze_definition)
+    from aiko_services_tpu_torch.analyze.shape_eval import (
+        element_cost_estimates)
+    from aiko_services_tpu_torch.pipeline.definition import (
+        parse_pipeline_definition)
+    import gc
+
+    def allocated() -> int:
+        # what earlier phases left unreachable is collected first, so
+        # the two readings differ only by what the pass holds
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    before = allocated()
+    start = time.perf_counter()
+    report = analyze_definition(config5_definition(), passes=ALL_PASSES)
+    estimates = element_cost_estimates(parse_pipeline_definition(
+        config5_definition(), validate=False))
+    after = allocated()
+    traced = sorted(getattr(report, "traced_elements", ()))
+    bad = [d.code for d in report.findings
+           if d.code in ("AIKO207", "AIKO208")]
+    say("14f eval_pass", traced=json.dumps(traced), aiko207_208=len(bad),
+        memory_allocated_before=before, memory_allocated_after=after,
+        seconds=f"{time.perf_counter() - start:.1f}",
+        element_cost_estimates=json.dumps(estimates), card=repr(smi))
+    if not {"asr", "lm", "detector"} <= set(traced) or bad \
+            or after != before:
+        raise SystemExit(f"14f: traced {traced}, findings "
+                         f"{report.render()}, memory {before} -> {after}")
+
+
+def phase_hf_and_examples(smi: str) -> dict:
+    """Phase 14.  Returns the kernel launches of its main-path runs."""
+    from aiko_services_tpu_torch.ops import kernels
+    start = time.perf_counter()
+    HF_DIR.mkdir(parents=True, exist_ok=True)
+    launches = {name: 0 for name in kernels.KERNELS}
+    forward, backward = set(), set()
+    with recorded_kernel_cases(forward, backward):
+        launches["flash_attention"] += phase_hf_whisper(smi)
+        phase_hf_llama(smi)
+        C5_WEIGHTS.pop("asr")
+        launches["flash_attention"] += phase_repaired_departures(smi)
+        C5_WEIGHTS.clear()
+        launches["flash_attention"] += phase_shipped_examples(smi)
+    phase_eval_pass(smi)
+    checked = {(*spec, 1.0 / math.sqrt(spec[4]))
+               for spec in KERNEL_CASES.values()}
+    new = sorted(forward - checked, key=str)
+    for index, spec in enumerate(new):
+        check_forward_case(f"14_{index}", spec, 1500 + index,
+                           "14g kernel_vs_plain")
+    say("14 hf_examples_eval", wall_s=f"{time.perf_counter() - start:.1f}",
+        launches=json.dumps(launches), new_k1_cases=len(new),
+        card=repr(smi))
+    return launches
+
+
 def main() -> None:
     from aiko_services_tpu_torch.ops import kernels
     run_start = time.perf_counter()
@@ -4901,6 +5521,8 @@ def main() -> None:
     for name, count in phase_long_context(smi).items():
         launches[name] += count
     for name, count in phase_parameter_sharding(smi).items():
+        launches[name] += count
+    for name, count in phase_hf_and_examples(smi).items():
         launches[name] += count
     say("run", seconds=f"{time.perf_counter() - run_start:.1f}",
         card=repr(smi))

@@ -5,6 +5,8 @@
 # tensors, forward and backward.  f32 throughout; tolerance atol 1e-5 (the
 # two sum the same f32 terms in another order).
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -89,9 +91,15 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_other_devices_raise():
+    """CPU tensors take the plain versions, CUDA tensors the kernels and
+    -- the forward only -- meta tensors its output contract (the eval
+    pass, tests/test_torch_analyze_eval.py); anything else raises."""
     q, k, v = (torch.zeros((1, 1, 4, 16), device="meta") for _ in range(3))
     with pytest.raises(ValueError, match="no kernel for device"):
-        torch_attention.flash_attention_forward(q, k, v)
+        torch_attention.flash_attention_backward(q, k, v, q, q[..., 0], q)
+    other = types.SimpleNamespace(device=torch.device("xla"), shape=q.shape)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        torch_attention.flash_attention_forward(other, other, other)
 
 
 # gradient cases: the JAX package's TestFlashBackward (96 causal and not,

@@ -7,7 +7,7 @@
 # test_region.py): failover through the seeded replica_kill point loses
 # no frame, a hot standby adopts the journal when the primary dies, and
 # a lost region's streams are adopted by the survivor.  The elastic
-# fleet and the SLO autopilot (ROADMAP Queue A item 8) raise.
+# fleet and the SLO autopilot (ROADMAP Queue A item 1) raise.
 
 import json
 import queue
@@ -170,11 +170,11 @@ def test_group_assignment_and_region_placement_equal_the_jax_packages():
                                     "autopilot"])
 def test_the_elastic_fleet_and_the_autopilot_raise_naming_item_8(option):
     process = Process(transport_kind="loopback")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 1"):
         Gateway(process, name=f"gw_{option}",
                 **{option: "min_replicas=1;max_replicas=2"})
     gateway = Gateway(process, name=f"gw_plain_{option}")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 1"):
         gateway.enable_autoscale("min_replicas=1")
 
 

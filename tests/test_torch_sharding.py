@@ -645,14 +645,149 @@ def test_load_pytree_places_each_tensor_into_its_shards(tmp_path):
         numpy_params["layers"]["wq"]["w"])
 
 
-def test_heads_that_do_not_divide_the_model_axis_raise():
-    config = torch_lm.TransformerConfig(**dict(SMALL, n_heads=4,
-                                               n_kv_heads=1))
-    params = torch_lm.init_params(config, torch.Generator().manual_seed(0),
-                                  device="cpu")
-    _, mesh = _meshes({"model": 8})
-    with pytest.raises(ValueError, match="must divide by the model axis"):
-        torch_lm.forward(torch_mesh.shard_pytree(
-            params, mesh, torch_mesh.filter_specs(
-                torch_lm.param_specs(config), mesh)), config,
-            torch.zeros((1, 4), dtype=torch.int32))
+# -- heads that straddle model shards; a layout other than the specs' -------
+
+WHISPER_SMALLER = dict(n_mels=8, d_model=48, enc_layers=2, dec_layers=2,
+                       n_heads=6, vocab_size=64, max_frames=16,
+                       max_text_len=12, dtype="float32")
+STRADDLE_CASES = [
+    # the old refusal's own config: 4 query heads (one KV head) over 8
+    # shards, each shard's columns half a head
+    ("lm", dict(SMALL, n_heads=4, n_kv_heads=1), {"model": 8}),
+    # 6 heads in 3 KV groups over 2 shards: each shard's 3 query heads
+    # span two KV groups
+    ("lm", dict(SMALL, d_model=48, n_heads=6, n_kv_heads=3), {"model": 2}),
+    # the same over fsdp 2 x model 4: 1.5 heads a shard
+    ("lm", dict(SMALL, d_model=48, n_heads=6, n_kv_heads=3),
+     {"fsdp": 2, "model": 4}),
+    # whisper's 6 heads over 4 shards
+    ("whisper", WHISPER_SMALLER, {"model": 4}),
+]
+
+
+@pytest.mark.parametrize("family, config, axes", STRADDLE_CASES,
+                         ids=["lm-4h-1kv-model8", "lm-6h-3kv-model2",
+                              "lm-6h-3kv-fsdp2-model4", "whisper-6h-model4"])
+def test_heads_that_do_not_divide_the_model_axis_match_jax(family, config,
+                                                           axes):
+    """GSPMD splits a head the model axis cuts; the port gives each shard
+    the whole heads its columns touch (one counted all_gather over model
+    a layer) and keeps its own columns of O: logits within TOL of the
+    JAX package's sharded forward and of the port's unsharded one, greedy
+    tokens identical to both."""
+    jax_mesh, mesh = _meshes(axes)
+    if family == "lm":
+        jax_config, jax_params, torch_config, numpy_params = _models(
+            config, 0)
+        tokens = _tokens((2, 8), 1)
+        with jax.set_mesh(jax_mesh):
+            expected = np.asarray(jax_lm.forward(jax_shard_pytree(
+                jax_params, jax_mesh, jax_filter_specs(
+                    jax_lm.param_specs(jax_config), jax_mesh)),
+                jax_config, tokens))
+        sharded = _sharded(numpy_params, mesh,
+                           torch_lm.param_specs(torch_config))
+        collectives.reset_collective_counts()
+        ours = torch_lm.forward(sharded, torch_config,
+                                torch.from_numpy(tokens)).numpy()
+        gathers = collectives.collective_counts()["model"]["calls"]
+        whole = torch_lm.forward(_port(numpy_params), torch_config,
+                                 torch.from_numpy(tokens)).numpy()
+        np.testing.assert_allclose(ours, expected, **TOL)
+        np.testing.assert_allclose(ours, whole, **TOL)
+        # per layer: the q/k/v gather, wo's psum and w_down's psum
+        assert gathers == 3 * config["n_layers"]
+        _assert_three(_generate_three(config, 0, axes,
+                                      _tokens((2, 4), 1), 4))
+        return
+    jax_config = jax_asr.AsrConfig(**config)
+    torch_config = torch_asr.AsrConfig(**config)
+    jax_params = jax_asr.init_asr_params(jax_config, jax.random.PRNGKey(3))
+    numpy_params = jax.tree_util.tree_map(np.asarray, jax_params)
+    mel = np.random.default_rng(2).standard_normal((2, 8, 24)).astype(
+        np.float32)
+    with jax.set_mesh(jax_mesh):
+        jax_sharded = jax_shard_pytree(jax_params, jax_mesh, jax_filter_specs(
+            jax_asr.asr_param_specs(jax_config), jax_mesh))
+        expected_memory = np.asarray(jax_asr.encode_audio(
+            jax_sharded, jax_config, mel))
+        expected = np.asarray(jax_asr.transcribe(jax_sharded, jax_config,
+                                                 mel, max_tokens=6))
+    sharded = _sharded(numpy_params, mesh,
+                       torch_asr.asr_param_specs(torch_config))
+    whole = _port(numpy_params)
+    memory = torch_asr.encode_audio(sharded, torch_config,
+                                    torch.from_numpy(mel))
+    np.testing.assert_allclose(memory.numpy(), expected_memory, **TOL)
+    np.testing.assert_allclose(
+        memory.numpy(), torch_asr.encode_audio(
+            whole, torch_config, torch.from_numpy(mel)).numpy(), **TOL)
+    tokens = torch_asr.transcribe(sharded, torch_config,
+                                  torch.from_numpy(mel), max_tokens=6)
+    np.testing.assert_array_equal(tokens.numpy(), expected)
+    np.testing.assert_array_equal(tokens.numpy(), torch_asr.transcribe(
+        whole, torch_config, torch.from_numpy(mel), max_tokens=6).numpy())
+
+
+def _swapped_specs(config):
+    """param_specs with wq/wk/wv cut the other way (columns over fsdp,
+    rows over model) and the embedding's rows over fsdp: a layout the
+    sharded path does not compute on."""
+    specs = torch_lm.param_specs(config)
+    layers = dict(specs["layers"])
+    for name in ("wq", "wk", "wv"):
+        layers[name] = {"w": torch_mesh.PartitionSpec(None, "model",
+                                                      "fsdp")}
+    return dict(specs, layers=layers,
+                embed={"w": torch_mesh.PartitionSpec("fsdp", None)})
+
+
+def test_a_layout_other_than_the_specs_is_resharded_once_and_counted():
+    """A tree cut otherwise than param_specs' layout (GSPMD would
+    re-partition it) gives the default layout's logits and JAX's, and
+    the greedy tokens of both; the reshard shows in the collective
+    counter: one call per resharded leaf, with the bytes of every source
+    position's block, once per forward and once per generate.  A tree in
+    the spec layout moves nothing."""
+    axes = {"fsdp": 2, "model": 2}
+    jax_config, jax_params, config, numpy_params = _models(SMALL, 4)
+    jax_mesh, mesh = _meshes(axes)
+    tokens = _tokens((2, 8), 3)
+    default = _sharded(numpy_params, mesh, torch_lm.param_specs(config))
+    swapped = _sharded(numpy_params, mesh, _swapped_specs(config))
+    collectives.reset_collective_counts()
+    assert collectives.conform(
+        default, torch_mesh.filter_specs(torch_lm.param_specs(config), mesh),
+        mesh, mesh.shape) is not None
+    assert collectives.collective_totals() == (0, 0)
+    def block_bytes(leaf):
+        return sum(block.numel() * block.element_size()
+                   for block in leaf.shards.flat)
+    embed_bytes = block_bytes(swapped["embed"]["w"])
+    qkv_bytes = sum(block_bytes(swapped["layers"][name]["w"])
+                    for name in ("wq", "wk", "wv"))
+    collectives.reset_collective_counts()
+    want = torch_lm.forward(default, config, torch.from_numpy(tokens))
+    plain = collectives.collective_counts()
+    collectives.reset_collective_counts()
+    got = torch_lm.forward(swapped, config, torch.from_numpy(tokens))
+    counted = collectives.collective_counts()
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    with jax.set_mesh(jax_mesh):
+        expected = np.asarray(jax_lm.forward(jax_shard_pytree(
+            jax_params, jax_mesh, jax_filter_specs(
+                jax_lm.param_specs(jax_config), jax_mesh)),
+            jax_config, tokens))
+    np.testing.assert_allclose(got.numpy(), expected, **TOL)
+    # wq/wk/wv move over fsdp+model, the embedding within fsdp
+    assert counted.pop("fsdp+model") == {"calls": 3, "bytes": qkv_bytes}
+    fsdp, plain_fsdp = counted.pop("fsdp"), plain.pop("fsdp")
+    assert fsdp == {"calls": plain_fsdp["calls"] + 1,
+                    "bytes": plain_fsdp["bytes"] + embed_bytes}
+    assert counted == plain
+    prompt = torch.from_numpy(_tokens((2, 4), 5))
+    collectives.reset_collective_counts()
+    ours, _ = torch_lm.generate(swapped, config, prompt, 5)
+    assert collectives.collective_counts()["fsdp+model"]["calls"] == 3
+    whole, _ = torch_lm.generate(_port(numpy_params), config, prompt, 5)
+    np.testing.assert_array_equal(ours.numpy(), whole.numpy())

@@ -175,7 +175,8 @@ def test_init_params_tree_matches_jax_and_is_seeded(lm):
 
 def test_constructors_default_to_cuda():
     from aiko_services_tpu_torch.models import (
-        asr, layers, load_pytree, tts, yolo)
+        asr, layers, load_llama_params, load_pytree, load_whisper_params,
+        tts, yolo)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
     asset = (pathlib.Path(__file__).parent / "assets"
@@ -195,6 +196,10 @@ def test_constructors_default_to_cuda():
             asset, yolo.YOLOV8N),
         "init_tts_params": lambda: tts.init_tts_params(
             tts.TTSConfig(d_model=32), torch.Generator()),
+        "load_llama_params": lambda: load_llama_params(
+            asset, torch_lm.TransformerConfig(**CONFIG)),
+        "load_whisper_params": lambda: load_whisper_params(
+            asset, asr.AsrConfig(d_model=32, n_heads=2)),
     }
     for name, construct in constructors.items():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -205,37 +210,10 @@ def test_constructors_default_to_cuda():
         layers.init_norm(3)
 
 
-def _element(class_name: str, parameters: dict) -> None:
-    """Build a one-element port pipeline on the CPU (construction is
-    where the port refuses what it does not have)."""
-    from aiko_services_tpu_torch.pipeline import create_pipeline
-    from aiko_services_tpu_torch.runtime import Process
-    create_pipeline(Process(transport_kind="loopback"), {
-        "name": "unported",
-        "graph": ["(node)"],
-        "parameters": {"device": "cpu"},
-        "elements": [
-            {"name": "node", "input": [{"name": "tokens"}],
-             "output": [{"name": "generated"}], "parameters": parameters,
-             "deploy": {"local": {
-                 "module": "aiko_services_tpu_torch.elements",
-                 "class_name": class_name}}}],
-    })
-
-
 def _gateway(**options) -> None:
     from aiko_services_tpu_torch.runtime import Process
     from aiko_services_tpu_torch.serve import Gateway
     Gateway(Process(transport_kind="loopback"), **options)
-
-
-def _foreign_checkpoint(directory, name: str) -> str:
-    """A checkpoint holding one tensor under a foreign naming convention
-    (HuggingFace Llama)."""
-    from aiko_services_tpu_torch.models import write_safetensors
-    path = directory / "foreign.safetensors"
-    write_safetensors(path, {name: np.zeros(2, np.float32)})
-    return str(path)
 
 
 def _sp_mesh(axes: dict):
@@ -247,12 +225,9 @@ def _sp_mesh(axes: dict):
 # what the port does not have yet raises, never runs something else
 UNPORTED = {
     # the serving gateway runs; its elastic fleet and its SLO autopilot
-    # (ROADMAP Queue A item 8) are what it does not have yet
+    # (ROADMAP Queue A item 1) are what it does not have yet
     "autoscale": lambda c, p, t, d: _gateway(autoscale="min_replicas=1"),
     "autopilot": lambda c, p, t, d: _gateway(autopilot="apply=off"),
-    "hf_llama_weights": lambda c, p, t, d: _element(
-        "LMGenerate", {**CONFIG, "weights": _foreign_checkpoint(
-            d, "model.embed_tokens.weight")}),
 }
 
 
