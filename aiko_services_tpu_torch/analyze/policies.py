@@ -249,13 +249,6 @@ def check_decode_parameters(parameters: dict,
     return problems
 
 
-def _not_ported(code: str, parameter: str, what: str) -> list:
-    """The one finding for a grammar whose subsystem the torch port does
-    not have yet: construction turns it into a DefinitionError."""
-    return [(code, f"`{parameter}` is not supported by the torch port yet "
-                   f"(the {what} it configures is not ported)")]
-
-
 def _on_error_field():
     from ..pipeline.element import ERROR_POLICIES
     return Field("str", choices=ERROR_POLICIES)
@@ -266,12 +259,6 @@ def check_faults_spec(spec) -> list:
     from ..faults import FAULTS_GRAMMAR
     return FAULTS_GRAMMAR.check(spec, value_code="AIKO402")
 
-
-# The grammars of subsystems the torch port does not have yet (tune/,
-# serve/autoscale.py, serve/autopilot.py: ROADMAP Queue A item 1) keep
-# their signature and rule code and refuse any spec, so a definition
-# that carries one fails at construction with a DefinitionError naming
-# the rule, never with an ImportError.
 
 def check_gateway_policy(spec) -> list:
     """(code, message) problems in a gateway admission-policy spec.
@@ -307,7 +294,12 @@ def check_journal_policy(spec) -> list:
 
 
 def check_tune_spec(spec) -> list:
-    return _not_ported("AIKO501", "tune", "profile-guided tuner")
+    """(code, message) problems in a `tune` SLO/directive spec (the
+    operating point a definition pins for `aiko tune`): the shared
+    grammar core validates it offline as AIKO501, exactly as
+    SloSpec.parse would at tune time."""
+    from ..tune.slo import check_tune_spec as check
+    return check(spec)
 
 
 def check_disagg_policy(spec) -> list:
@@ -350,7 +342,19 @@ def check_checkpoint_policy(spec, element: bool = False) -> list:
 
 
 def check_autoscale_policy(spec) -> list:
-    return _not_ported("AIKO406", "autoscale_policy", "fleet autoscaler")
+    """(code, message) problems in an elastic-fleet autoscale spec.
+    Same shape as check_gateway_policy: the per-directive grammar
+    check, then the REAL ScalePolicy.parse so cross-field constraints
+    (min <= max replicas, low_water < high_water) fail offline exactly
+    as they would when the gateway enables the autoscaler."""
+    from ..serve.autoscale import AUTOSCALE_GRAMMAR, ScalePolicy
+    problems = AUTOSCALE_GRAMMAR.check(spec, value_code="AIKO406")
+    if not problems:
+        try:
+            ScalePolicy.parse(spec)
+        except ValueError as error:
+            problems.append(("AIKO406", str(error)))
+    return problems
 
 
 def check_prefix_policy(spec, element: bool = False) -> list:
@@ -375,7 +379,19 @@ def check_prefix_policy(spec, element: bool = False) -> list:
 
 
 def check_autopilot_policy(spec) -> list:
-    return _not_ported("AIKO412", "autopilot_policy", "SLO autopilot")
+    """(code, message) problems in an online SLO autopilot spec (rule
+    code AIKO412).  Same shape as check_gateway_policy: the
+    per-directive grammar check, then the REAL AutopilotPolicy.parse
+    so cross-field constraints (burn_window > 0, max_delta_frac > 0)
+    fail offline exactly as Gateway construction would."""
+    from ..serve.autopilot import AUTOPILOT_GRAMMAR, AutopilotPolicy
+    problems = AUTOPILOT_GRAMMAR.check(spec, value_code="AIKO412")
+    if not problems:
+        try:
+            AutopilotPolicy.parse(spec)
+        except ValueError as error:
+            problems.append(("AIKO412", str(error)))
+    return problems
 
 
 def check_federation_policy(spec) -> list:

@@ -74,6 +74,7 @@ import torch
 from ..models import (
     f32_head, init_paged_pool, paged_decode_step, paged_prefill,
     paged_prefill_chunk, paged_verify_step)
+from ..runtime.compile_cache import record_capture
 from ..utils import get_logger
 from ..utils.padding import bucket_length
 from .blocks import TRASH_BLOCK, BlockManager
@@ -193,6 +194,9 @@ class _CapturedStep:
         with _CAPTURE_LOCK, torch.cuda.graph(
                 self.graph, capture_error_mode="thread_local"):
             self.output = run()
+        # counted beside the kernel build cache's hits and misses: a
+        # warm replica captures its own graphs (runtime/compile_cache.py)
+        record_capture()
 
     def replay(self, arrays) -> np.ndarray:
         for static, array in zip(self.inputs, arrays):

@@ -855,20 +855,23 @@ def _call_layout(mesh, params, config: TransformerConfig) -> tuple:
     # from the gathered K/V projections and a cache whole over "model"
     call.kv_whole = kv_heads % model != 0
     call.group = group
+    # Ulysses splits a "seq" line's heads over the line's positions
+    ulysses = (call.size["seq"] if config.sequence_parallel
+               and config.sp_mechanism == "ulysses" else 1)
     call.straddle = bool(not local_heads
-                         or (call.kv_whole and group % local_heads))
+                         or (call.kv_whole and group % local_heads)
+                         or local_heads % ulysses)
     if call.straddle:
-        # a shard's columns of wq cut a head, or its heads span two KV
-        # groups: it takes the whole heads its columns touch (and their
-        # KV heads) from the gathered projections (_straddle_attend)
-        if config.sequence_parallel:
-            raise ValueError(
-                f"sequence parallelism on a model axis ({model}) whose "
-                f"shards straddle heads (n_heads {heads}, n_kv_heads "
-                f"{kv_heads}) is not supported")
+        # a shard's columns of wq cut a head, its heads span two KV
+        # groups, or (Ulysses) they do not divide over the seq line: it
+        # takes the whole heads its columns touch (and their KV heads)
+        # from the gathered projections (_straddle_attend) -- every head
+        # when even those do not divide over the line
         call.kv_whole = True
         call.config = config
         call.spans = _head_spans(config, model)
+        if any((h1 - h0) % ulysses for h0, h1, _, _ in call.spans):
+            call.spans = [(0, heads, 0, kv_heads)] * model
         call.local = config
         return call, params
     call.local = replace(config, d_model=config.head_dim * local_heads,
@@ -1191,17 +1194,20 @@ def _straddle_attend(call: ShardedCall, q, k, v, rope, layer_cache,
     the whole heads its columns touch (_head_spans; at most two of them
     partly its own) with their KV heads, on the cache whole over "model"
     when there is one, and keeps its own columns for the row-parallel
-    wo."""
+    wo.  On the sequence-parallel path those heads go through the ring,
+    Ulysses or the sp decode over the position's "seq" line
+    (_straddle_sp)."""
     config = call.config
     hd, model = config.head_dim, call.cut["model"]
+    width = config.n_heads * hd // model
     widths = [next(t for t in grid.flat if t is not None).shape[-1]
               for grid in (q, k, v)]
     gathered = call.all_gather(map_shards(
         lambda q, k, v: torch.cat([q, k, v], -1), q, k, v), "model")
-    caches = (layer_cache if layer_cache is not None
-              else np.full(call.mesh.devices.shape, None, dtype=object))
 
-    def attend(both, r, index, cache):
+    def heads(both, r, index):
+        """(config of the heads, q, k, v, each head's KV head) of the
+        whole heads [h0, h1) the position's columns touch."""
         h0, h1, kv0, kv1 = call.spans[index]
         blocks = both.unflatten(-1, (model, -1))
         q_all, k_all, v_all = (
@@ -1214,6 +1220,22 @@ def _straddle_attend(call: ShardedCall, q, k, v, rope, layer_cache,
         kv_index = torch.tensor([head // call.group - kv0
                                  for head in range(h0, h1)],
                                 device=qh.device)
+        return local, qh, kh, vh, kv_index
+
+    def own(out, index):
+        h0 = call.spans[index][0]
+        return _merge_heads(out).narrow(-1, index * width - h0 * hd, width)
+
+    parts = map_shards(heads, gathered, rope, call.index["model"])
+    if config.sequence_parallel:
+        return map_shards(own, _straddle_sp(call, parts, layer_cache, pos),
+                          call.index["model"])
+    caches = (layer_cache if layer_cache is not None
+              else np.full(call.mesh.devices.shape, None, dtype=object))
+
+    def attend(part, cache, index):
+        local, qh, kh, vh, kv_index = part
+        kv0, kv1 = call.spans[index][2:]
         if cache is None:
             out = flash_attention(
                 qh.contiguous(), kh.index_select(1, kv_index).contiguous(),
@@ -1223,10 +1245,60 @@ def _straddle_attend(call: ShardedCall, q, k, v, rope, layer_cache,
                 local, qh, kh, vh, {name: tensor.narrow(1, kv0, kv1 - kv0)
                                     for name, tensor in cache.items()},
                 pos, kv_index=kv_index)
-        width = config.n_heads * hd // model
-        return _merge_heads(out).narrow(-1, index * width - h0 * hd, width)
+        return own(out, index)
 
-    return map_shards(attend, gathered, rope, call.index["model"], caches)
+    return map_shards(attend, parts, caches, call.index["model"])
+
+
+def _straddle_sp(call: ShardedCall, parts, layer_cache, pos: int):
+    """_straddle_attend's heads on the sequence-parallel path -> each
+    position's (B, h1 - h0, L, hd): every position of a "seq" line has
+    one model index, so one set of whole heads, which runs through the
+    ring or Ulysses (a prefill) or the sp decode over the line's cache
+    windows of its KV heads (one token), each query head against its own
+    KV head (K/V expanded by kv_index, as the dense path expands them)."""
+    def expanded(part):
+        local, qh, kh, vh, kv_index = part
+        return (replace(local, n_kv_heads=local.n_heads), qh,
+                kh.index_select(1, kv_index), vh.index_select(1, kv_index))
+
+    def prefill(entries, line):
+        local, qh, kh, vh = expanded(entries[0][0])
+        with use_mesh(line):
+            return _sp_prefill(local, qh, kh, vh)
+
+    if layer_cache is None:
+        return _on_seq_lines(call, prefill, parts)
+    length = next(t for t in parts.flat if t is not None)[1].shape[2]
+    if length > 1 and pos != 0:
+        raise ValueError(
+            "sequence-parallel cached prefill requires pos == 0 "
+            f"(got pos={pos}); multi-token cached decode at "
+            "pos > 0 is not supported on this path")
+    lines = call.size["seq"]
+
+    def write(part, cache, seq_index, model_index):
+        kv0, kv1 = call.spans[model_index][2:]
+        own = {name: cache[name].narrow(1, kv0, kv1 - kv0)
+               for name in ("k", "v")}
+        local_len = own["k"].shape[2]
+        _write_window(own, part[2], part[3], pos, seq_index * local_len,
+                      local_len * lines)
+        return own
+    written = map_shards(write, parts, layer_cache, call.index["seq"],
+                         call.index["model"])
+    if length > 1:
+        return _on_seq_lines(call, prefill, parts)
+
+    def decode(entries, line):
+        queries, caches = entries
+        kv_index = queries[0][4]
+        return sp_decode_shards(
+            [part[1] for part in queries],
+            [cache["k"].index_select(1, kv_index) for cache in caches],
+            [cache["v"].index_select(1, kv_index) for cache in caches],
+            pos, queries[0][1].device)
+    return _on_seq_lines(call, decode, parts, written)
 
 
 def _sharded_layer(call: ShardedCall, layer, h, rope, layer_cache,

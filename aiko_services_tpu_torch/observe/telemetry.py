@@ -435,8 +435,17 @@ class PipelineTelemetry:
         Published under a PROCESS-scoped source name, never merged into
         a pipeline's snapshot: N pipelines in one process would
         otherwise each republish the same global counters and the
-        Recorder's fleet merge would count them N times."""
-        return get_registry().snapshot()
+        Recorder's fleet merge would count them N times.  The hand-written
+        kernels' launch counts (ops/kernels.py) ride along as
+        `kernel_launches.<kernel>` counters, once a kernel has launched,
+        so a replica in another OS process shows its path went through
+        them."""
+        from ..ops import kernels
+        snapshot = get_registry().snapshot()
+        for name, count in kernels.launch_counts.items():
+            if count:
+                snapshot["counters"][f"kernel_launches.{name}"] = count
+        return snapshot
 
     def summary(self) -> dict:
         """Compact scalars for the EC share / dashboard plugin.  The

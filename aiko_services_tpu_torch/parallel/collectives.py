@@ -36,7 +36,9 @@
 # the identity and counts nothing.  reshard (a leaf moved from one layout
 # into another, GSPMD's re-partition of an operand the program wants cut
 # otherwise) counts as one call over the axes of both layouts, with the
-# bytes of every source position's block; conform reshards only the
+# bytes of every source position's block, and its backward (a gradient
+# carried back into the source layout) as one more, with the bytes of
+# every destination position's block; conform reshards only the
 # leaves of a tree whose layout differs, so a tree already laid out as
 # wanted moves and counts nothing.  Tests and chip_smoke.py read the
 # counter as the JAX tests count collectives in the compiled HLO.
@@ -50,7 +52,7 @@ import torch
 
 from .mesh import (
     Mesh, Sharded, layout_spec, leaf_layout, named_sharding, shard_pytree,
-    spec_layout)
+    spec_layout, unshard)
 
 __all__ = ["map_shards", "axis_index", "psum", "all_gather",
            "psum_scatter", "all_to_all", "ppermute", "collective_counts",
@@ -310,32 +312,110 @@ def sum_replica_grads(leaf) -> None:
     _record(replicated, leaf.shards)
 
 
+def _blocks(leaf) -> list:
+    """(tensor, index into the global tensor) for each distinct local
+    tensor of a placed leaf, in unique() order; a whole tensor is one."""
+    if not isinstance(leaf, Sharded):
+        return [(leaf, (slice(None),) * leaf.ndim)]
+    local_shape = leaf.sharding.shard_shape(tuple(leaf.shape))
+    seen, out = set(), []
+    for position, tensor in np.ndenumerate(leaf.shards):
+        if tensor is None or id(tensor) in seen:
+            continue
+        seen.add(id(tensor))
+        out.append((tensor, tuple(
+            slice(start * size, (start + 1) * size)
+            for start, size in zip(leaf.block(position), local_shape))))
+    return out
+
+
+def _source_grid(leaf) -> np.ndarray:
+    if isinstance(leaf, Sharded):
+        return leaf.shards
+    grid = np.empty(1, dtype=object)
+    grid[0] = leaf
+    return grid
+
+
+class _Reshard(torch.autograd.Function):
+    """reshard with a backward: the placed leaf's distinct blocks in, the
+    new layout's distinct blocks out (the new leaf itself goes to
+    `holder`).  The backward adds the blocks' gradients into the whole
+    tensor's (replicas on distinct tensors each carry their own
+    positions' share, as sum_replica_grads expects) and cuts it back
+    into the caller's layout: each source block gets its slice at its
+    first distinct tensor (sum_replica_grads then hands it to the
+    replicas) and zeros at the others.  The backward's move counts as
+    one call over the same axes, with the bytes of every destination
+    position's block."""
+
+    @staticmethod
+    def forward(ctx, leaf, mesh, sharding, axes, holder, *tensors):
+        if axes:
+            _record(axes, _source_grid(leaf))
+        placed = shard_pytree(unshard(leaf), mesh, sharding.spec)
+        holder["placed"] = placed
+        ctx.source = [(tensor.device, tensor.dtype, index)
+                      for tensor, index in _blocks(leaf)]
+        ctx.grid = _source_grid(placed)
+        ctx.axes, ctx.shape, ctx.home = axes, leaf.shape, mesh.home
+        blocks = _blocks(placed)
+        ctx.indices = [index for _, index in blocks]
+        inputs = {id(tensor) for tensor in tensors}
+        return tuple(tensor.clone() if id(tensor) in inputs else tensor
+                     for tensor, _ in blocks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.axes:
+            _record(ctx.axes, ctx.grid)
+        whole = None
+        for grad, index in zip(grads, ctx.indices):
+            if grad is None:
+                continue
+            if whole is None:
+                whole = torch.zeros(ctx.shape, dtype=grad.dtype,
+                                    device=ctx.home)
+            whole[index] += grad.to(ctx.home)
+        if whole is None:
+            return (None,) * (5 + len(ctx.source))
+        out, given = [], set()
+        for device, dtype, index in ctx.source:
+            key = tuple((part.start, part.stop) for part in index)
+            part = whole[index].to(device=device, dtype=dtype)
+            out.append(torch.zeros_like(part) if key in given else part)
+            given.add(key)
+        return (None,) * 5 + tuple(out)
+
+
 def reshard(leaf, mesh: Mesh, spec):
     """`leaf` (a whole tensor or a Sharded of any layout) placed by
     `spec` over `mesh`: gathered whole (parallel.unshard; every block
     must be local) and cut again by shard_pytree.  Counted as one
     collective over the axes of both layouts, with the bytes of every
-    source position's block (a whole source's bytes once)."""
+    source position's block (a whole source's bytes once).  A gradient
+    flows back through the move into the caller's layout (_Reshard),
+    and the backward's move counts too."""
     sharding = named_sharding(mesh, spec)
     wanted = spec_layout(sharding.spec, mesh, leaf.ndim)
     used = {name for names in leaf_layout(leaf, mesh) + wanted
             for name in names}
     axes = tuple(name for name in mesh.axis_names if name in used)
-    if isinstance(leaf, Sharded):
-        source = leaf.shards
-    else:
-        source = np.empty(1, dtype=object)
-        source[0] = leaf
-    if axes:
-        _record(axes, source)
-    return shard_pytree(leaf, mesh, sharding.spec)
+    holder: dict = {}
+    blocks = _Reshard.apply(leaf, mesh, sharding, axes, holder,
+                            *(tensor for tensor, _ in _blocks(leaf)))
+    placed = holder["placed"]
+    if isinstance(placed, Sharded):
+        return placed.rebuild(list(blocks))
+    return blocks[0]
 
 
 def conform(tree, specs, mesh: Mesh, sizes: dict):
     """`tree` with every leaf cut as its spec in `specs` (a spec tree; a
     missing entry means whole) cuts it over the axes `sizes` names above
-    1: a leaf cut otherwise is resharded into that layout, a leaf already
-    so comes back as it is (nothing moves, nothing counts)."""
+    1: a leaf cut otherwise is resharded into that layout (a gradient
+    flows back through the move), a leaf already so comes back as it is
+    (nothing moves, nothing counts)."""
     if isinstance(tree, dict):
         return {key: conform(value, specs.get(key)
                              if isinstance(specs, dict) else None,
@@ -344,12 +424,4 @@ def conform(tree, specs, mesh: Mesh, sizes: dict):
     wanted = spec_layout(specs, mesh, tree.ndim, sizes)
     if leaf_layout(tree, mesh) == wanted:
         return tree
-    blocks = tree.unique() if isinstance(tree, Sharded) else [tree]
-    if torch.is_grad_enabled() and any(block.requires_grad
-                                       for block in blocks):
-        # unshard gathers detached blocks: no gradient would reach them
-        raise ValueError(
-            f"a leaf cut {leaf_layout(tree, mesh)} takes a gradient; the "
-            f"sharded path reshards only for inference -- place what "
-            f"trains in the model's spec layout ({wanted} on this mesh)")
     return reshard(tree, mesh, layout_spec(wanted))

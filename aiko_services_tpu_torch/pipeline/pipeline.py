@@ -723,7 +723,14 @@ class Pipeline(Actor):
         time_start = time.perf_counter()
         for node_name in self.graph.get_path(stream.graph_path):
             if stream.state != StreamState.RUN:
-                break
+                # the stream was destroyed while this frame was in
+                # flight: its partial swag is no answer, so the frame
+                # is dropped and its caller told (a gateway that
+                # drained or failed this replica over knows its replay
+                # answers instead).  The JAX package answers here with
+                # the partial swag
+                self._finish_frame(stream, frame, dropped=True)
+                return
             if (node_name in frame.executed
                     or node_name in frame.pending_nodes):
                 continue
@@ -1849,13 +1856,16 @@ class Pipeline(Actor):
             self._respond(stream, frame)
         elif stream.topic_response:
             # A remote caller has this frame parked: notify it the frame was
-            # dropped/errored so it releases the frame instead of leaking it
+            # dropped/errored so it releases the frame instead of leaking it.
+            # The notice names this pipeline, so a gateway can tell one
+            # from a replica it has drained or failed over
             self.process.publish(
                 stream.topic_response,
                 generate("process_frame_response", [
                     {"stream_id": stream.stream_id,
                      "frame_id": frame.frame_id,
-                     "event": "error" if error else "drop_frame"},
+                     "event": "error" if error else "drop_frame",
+                     "topic_path": self.topic_path},
                 ]))
 
     def _respond(self, stream: Stream, frame: Frame) -> None:

@@ -17,6 +17,9 @@ from .share import (                                          # noqa: F401
 from .registrar import Registrar, RetainedElection            # noqa: F401
 from .state import StateMachine, StateMachineError            # noqa: F401
 from .process_manager import ProcessManager                   # noqa: F401
+from .compile_cache import (                                  # noqa: F401
+    cache_stats, compile_cache_dir, disable_compile_cache,
+    enable_compile_cache)
 from .lifecycle import LifeCycleManager, LifeCycleClient      # noqa: F401
 from .storage import (                                        # noqa: F401
     KeyValueStore, Storage, do_command, do_request)

@@ -43,13 +43,10 @@
 # code change.
 
 # The port's own copy of aiko_services_tpu/serve/gateway.py (host only,
-# jax-free there too), with one difference: the elastic fleet
-# (`autoscale=`, `replica_factory=`, enable_autoscale) and the SLO
-# autopilot (`autopilot=`) raise NotImplementedError naming ROADMAP Queue
-# A item 1, where tune/, serve/autoscale.py and serve/autopilot.py are
-# ported; the hooks only they drive (the autoscaler's spawn and floor
-# callbacks, the autopilot's start/stop and journal replay) come with
-# them.
+# jax-free there too): the elastic fleet (`autoscale=`,
+# `replica_factory=`, enable_autoscale; serve/autoscale.py) and the SLO
+# autopilot (`autopilot=`; serve/autopilot.py) are wired as in the JAX
+# package.
 
 from __future__ import annotations
 
@@ -77,12 +74,6 @@ SERVICE_PROTOCOL_GATEWAY = f"{PROTOCOL_PREFIX}/gateway:0"
 # completions have been observed (a cold estimate would shed blindly)
 _RATE_WINDOW = 64
 _RATE_WARMUP = 8
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to the torch port (ROADMAP Queue A "
-        f"item 1: tune/, serve/autoscale.py and serve/autopilot.py)")
 
 
 class _LocalResponder:
@@ -282,12 +273,6 @@ class Gateway(Actor):
                  replica_factory=None, journal=None, ha=None,
                  disagg=None, checkpoint=None, federation=None,
                  prefix=None, autopilot=None):
-        if autoscale is not None or replica_factory is not None:
-            raise _not_ported("the elastic fleet (autoscale=, "
-                              "replica_factory=, serve/autoscale.py)")
-        if autopilot is not None:
-            raise _not_ported("the SLO autopilot (autopilot=, "
-                              "serve/autopilot.py)")
         super().__init__(process, name, protocol=SERVICE_PROTOCOL_GATEWAY)
         # construction-time validation through the shared
         # directive-grammar core (analyze/grammar.py): a typo'd policy
@@ -378,6 +363,24 @@ class Gateway(Actor):
             raise ValueError(
                 f"{code}: gateway prefix policy rejected: "
                 f"{error}") from None
+        # online SLO autopilot (serve/autopilot.py): with an autopilot
+        # policy set, the gateway runs the observe -> tune -> apply
+        # loop on a cadence -- live trace harvest, bounded deltas
+        # through the live setters below, every apply write-ahead
+        # journaled.  apply=off (the default) is a dry-run audit.
+        # The attribute exists BEFORE the parse: stop() on a process
+        # torn down after a rejected spec must find it
+        self.autopilot = None
+        try:
+            from .autopilot import AutopilotPolicy
+            self.autopilot_policy = (AutopilotPolicy.parse(autopilot)
+                                     if autopilot is not None else None)
+        except ValueError as error:
+            code = ("AIKO404" if getattr(error, "kind", "") == "unknown"
+                    else "AIKO412")
+            raise ValueError(
+                f"{code}: gateway autopilot policy rejected: "
+                f"{error}") from None
         self.federation_group = None
         if self.federation is not None and self.federation.groups:
             self.federation_group = (self.federation.group
@@ -425,6 +428,8 @@ class Gateway(Actor):
         self._throttle_on = False
         self._services_cache = None
         self._discovery_handler = None
+        self.autoscaler = None
+        self.autopilot = None
         # -- crash consistency (serve/journal.py): a journaled gateway
         # rebuilds pins/cursors/dedupe floors after a crash; an HA
         # group member additionally runs the registrar-style retained
@@ -494,6 +499,15 @@ class Gateway(Actor):
             self.post_message_later(
                 "_journal_recover", [],
                 self.journal_policy.replay_timeout_s)
+        if autoscale is not None:
+            self.enable_autoscale(autoscale, replica_factory)
+        if self.autopilot_policy is not None:
+            from .autopilot import AutoPilot
+            self.autopilot = AutoPilot(self, self.autopilot_policy)
+            if not self.ha_group:
+                # HA members arm the loop on promote only: a standby
+                # must never tune a fleet it does not own
+                self.autopilot.start()
 
     def _post_message(self, actor_topic: str, command: str,
                       parameters) -> None:
@@ -501,7 +515,7 @@ class Gateway(Actor):
         # _LocalResponder): without this, an overload backlog in the
         # `in` mailbox starves every replica of slot-freeing responses
         if command in ("process_frame_response", "_release_dead_letter",
-                       "_replica_lost",
+                       "_replica_lost", "_autoscale_ready",
                        "_paced_replay"):
             # _paced_replay rides CONTROL too: recovery waves fire
             # exactly when the `in` mailbox is deepest, and a wave
@@ -530,9 +544,24 @@ class Gateway(Actor):
     # -- elastic fleet (serve/autoscale.py drives these) -------------------
 
     def enable_autoscale(self, policy, factory=None) -> None:
-        """Attach the load-driven autoscaler: not ported yet."""
-        raise _not_ported("the elastic fleet (enable_autoscale, "
-                          "serve/autoscale.py)")
+        """Attach the load-driven autoscaler: `policy` parses through
+        the shared directive grammar (AIKO406 on bad values, AIKO404 on
+        unknown directives, exactly like the admission policy), and
+        `factory` supplies/retires replicas (serve/autoscale.py
+        factories, or anything matching their spawn/retire shape)."""
+        from .autoscale import AutoScaler
+        if self.autoscaler is not None:
+            raise ValueError(f"{self.name}: autoscaler already enabled")
+        self.autoscaler = AutoScaler(self, policy, factory)
+
+    def _autoscale_ready(self, handle, info=None) -> None:
+        """Mailbox continuation for a finished spawn (the factory
+        thread must never touch gateway state directly).  Rides the
+        CONTROL mailbox: scale-ups happen exactly when the `in` mailbox
+        is drowning in queued submissions, and an attach parked behind
+        them would arrive after the overload it was meant to absorb."""
+        if self.autoscaler is not None:
+            self.autoscaler.spawn_finished(handle, info or {})
 
     # -- crash consistency: journal + hot-standby election ------------------
     #
@@ -563,6 +592,8 @@ class Gateway(Actor):
         started = time.monotonic()
         adopted = self._adopt_journal()
         self._start_journal_tick()
+        if self.autopilot is not None:
+            self.autopilot.start()
         takeover_ms = (time.monotonic() - started) * 1000.0
         if was_standby and self._ha_was_secondary:
             # promotion after standing by = a real takeover (a cold
@@ -584,6 +615,8 @@ class Gateway(Actor):
         if self.ec_producer is not None:
             self.ec_producer.update("role", self.role)
         self._stop_journal_tick()
+        if self.autopilot is not None:
+            self.autopilot.stop()
         _LOGGER.warning("%s: demoted to HA standby (%s)", self.name,
                         self.ha_group)
 
@@ -735,6 +768,14 @@ class Gateway(Actor):
                        not in self._journal_session]
         if dropped:
             self.telemetry.journal_dropped_stale.inc(dropped)
+        if self.autopilot is not None:
+            # autopilot config deltas replay FIRST (and on every
+            # adoption pass -- absolute values make re-application
+            # idempotent, and the deferred empty-pool retry below needs
+            # the second pass to reach late-attaching replicas): the
+            # adopted streams must land on the exact knob settings the
+            # previous primary had applied
+            self.autopilot.adopt_journal()
         if records and not any(not replica.dead for replica
                                in list(self.replicas.values())):
             # cold start after a FULL outage: the pool is empty because
@@ -1022,6 +1063,9 @@ class Gateway(Actor):
         self.process.add_message_handler(
             self._dead_letter_handler,
             f"{replica.topic_path}/dead_letter")
+        if self.autoscaler is not None:
+            # closes a pending discovered spawn's time-to-healthy clock
+            self.autoscaler.note_replica_added(replica)
         self._update_share()
         _LOGGER.info("%s: replica %s (%s) joined", self.name,
                      replica.name, replica.topic_path)
@@ -1936,6 +1980,10 @@ class Gateway(Actor):
             return
         frame_id = int(stream_dict.get("frame_id", 0))
         event = stream_dict.get("event")
+        if event and self._stale_notice(stream, frame_id,
+                                        stream_dict.get("topic_path")):
+            self.telemetry.duplicates.inc()
+            return
         if isinstance(frame_data, str):
             try:
                 frame_data = decode_frame_data(frame_data)
@@ -1943,6 +1991,20 @@ class Gateway(Actor):
                 event = event or "error"
                 frame_data = {}
         self._frame_done(stream, frame_id, frame_data or {}, event)
+
+    def _stale_notice(self, stream: _GatewayStream, frame_id: int,
+                      source) -> bool:
+        """A drop or error notice from a replica this gateway drained or
+        failed over (no longer in the pool): the stream was re-pinned and
+        the frame replayed on the new pin, whose answer is the frame's.
+        A drained prefill replica keeps its mid-hop frames, so a notice
+        for a frame still staged on it counts."""
+        if not source or source in self.replicas:
+            return False
+        staged = stream.inflight.get(frame_id)
+        if staged is not None and len(staged) > 3 and staged[3][1] == source:
+            return False
+        return stream.replica is None or stream.replica.topic_path != source
 
     def _dead_letter_handler(self, topic: str, payload: str) -> None:
         """A replica dead-lettered a frame: release the slot as
@@ -2179,11 +2241,12 @@ class Gateway(Actor):
         self._journal_forget(stream.stream_id)
         self._update_share()
 
-    # -- live reconfiguration ------------------------------------------------
+    # -- live reconfiguration (the autopilot's apply surface) --------------
     #
     # Every setter mutates the RUNNING configuration in place -- no
-    # restart, no stream disruption, no recompile (the JAX package's
-    # autopilot applies its deltas through these).
+    # restart, no stream disruption, no recompile.  serve/autopilot.py
+    # write-ahead journals each delta before calling these, so a crash
+    # mid-apply replays into the identical state.
 
     def set_bucket_rate(self, priority, rate, burst=None) -> None:
         """Live-retune (or create) one admission token bucket.  The
@@ -2203,6 +2266,24 @@ class Gateway(Actor):
                 bucket.tokens = min(bucket.tokens, bucket.burst)
         if self.journal is not None and self.role != "standby":
             self._buckets_dirty = True
+
+    def set_autoscale_floors(self, min_replicas=None,
+                             max_replicas=None) -> None:
+        """Live-move the autoscaler's floor/ceiling; the next scaler
+        tick acts on the new bounds.  The min <= max invariant is kept
+        by widening toward whichever side the caller moved."""
+        if self.autoscaler is None:
+            return
+        floors = self.autoscaler.policy
+        if max_replicas is not None:
+            floors.max_replicas = max(int(max_replicas), 1)
+        if min_replicas is not None:
+            floors.min_replicas = max(int(min_replicas), 1)
+        if floors.min_replicas > floors.max_replicas:
+            if min_replicas is not None and max_replicas is None:
+                floors.max_replicas = floors.min_replicas
+            else:
+                floors.min_replicas = floors.max_replicas
 
     def set_replica_parameter(self, element_name, name, value) -> int:
         """Broadcast one element-parameter change to every live
@@ -2235,6 +2316,18 @@ class Gateway(Actor):
 
     # -- observability -----------------------------------------------------
 
+    def _autopilot_collect(self) -> None:
+        """Mailbox continuation of the autopilot cadence timer."""
+        if self.autopilot is not None:
+            self.autopilot.collect()
+
+    def _autopilot_decide(self, round_id) -> None:
+        """Mailbox continuation closing one autopilot harvest round
+        (posted early when every respondent answered, else by the
+        wait lease)."""
+        if self.autopilot is not None:
+            self.autopilot.decide(round_id)
+
     def publish_trace(self, topic_response) -> None:
         """Wire query (`aiko trace collect`): publish this gateway's
         self-describing Perfetto document, so a collector harvests the
@@ -2251,7 +2344,9 @@ class Gateway(Actor):
         dashboard's `pool:` row; rides the periodic telemetry summary
         into the EC share so remote observers see it."""
         pool = {}
-        for replica in list(self.replicas.values()):
+        draining = (self.autoscaler.draining.values()
+                    if self.autoscaler is not None else ())
+        for replica in list(self.replicas.values()) + list(draining):
             pool[replica.name] = {
                 "topic": replica.topic_path,
                 "state": "draining" if replica.draining else "live",
@@ -2282,6 +2377,12 @@ class Gateway(Actor):
             # policy spec): process teardown finds nothing to stop --
             # every constructor raise precedes the election attribute
             return
+        if self.autopilot is not None:
+            self.autopilot.shutdown()
+            self.autopilot = None
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+            self.autoscaler = None
         self.telemetry.stop()
         for stream_id in list(self.streams):
             self.destroy_stream(stream_id)

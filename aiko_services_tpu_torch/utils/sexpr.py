@@ -191,10 +191,9 @@ def _parse_python(payload) -> tuple:
     return command, expression[1:]
 
 
-# Native fast path: the C++ extension (native/sexpr_codec.cpp) parses
-# byte-per-char identically; built via `python -m
-# aiko_services_tpu.native.build`.  Payloads outside latin-1 (exotic
-# unicode atoms) take the Python path.
+# Native fast path: the port has no native codec yet (native/ is ROADMAP
+# Queue A item 4), so the import below fails and every payload takes the
+# Python parser; the guard stays for when a native/ package arrives.
 try:
     from ..native import sexpr_parse_native as _parse_native
     from ..native import install_parse_error as _install_parse_error

@@ -2,8 +2,8 @@
 and serving-tier paths, its remaining model families (switch MoE,
 YOLOv8, TTS), its long-context (sequence-parallel) path, its
 parameter-sharding axes (tensor, FSDP, data and expert parallelism),
-HuggingFace checkpoints, the shipped examples and the analyzer's eval
-pass on one NVIDIA GPU.
+HuggingFace checkpoints, the shipped examples, the analyzer's eval
+pass and the elastic fleet on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -212,6 +212,30 @@ result:
          memory_allocated unchanged, element_cost_estimates printed;
      14g K1 at every case 14a-14e launched it with that phase 2 did not
          check, against the plain version
+ 15. the elastic fleet (serve/autoscale.py, runtime/compile_cache.py,
+     serve/autopilot.py, the CLI): replicas of the config-5 graph at
+     full width on phase 8's weights, fed by a gateway (2-row frames,
+     no micro-batching, so each frame is computed alone):
+     15a a cold replica through InProcessReplicaFactory against a fresh
+         kernel build cache under build/fleet/ (nvcc builds K1's
+         library: a miss) and a warm one from it (0 misses, a hit on
+         its own threads, asr/lm/detector imported, K1 launched):
+         time-to-healthy of each, captures, nvcc seconds;
+     15b a burst above the high watermark spawns exactly one warm
+         replica, two trickle streams on it are drained mid-way by the
+         low watermark back to one replica: 0 frames lost, every
+         output (ASR and LM tokens, detector boxes) equal to the
+         unscaled run's;
+     15c one OS-process replica (`python -m aiko_services_tpu_torch
+         pipeline`) through ProcessReplicaFactory and ProcessManager,
+         warm from the cold replica and the cache, attached by
+         registrar discovery over a local MQTT broker: its frame equal
+         to the reference, its published counters 1+ hit and 0 misses,
+         the cache unchanged, retired; its time-to-healthy;
+     15d the gateway's autopilot ticked once over the live traces: its
+         recommendations, what it applied or declined and why, the
+         journal holding exactly the applied deltas; the port's `tune`
+         on the same traces in a subprocess exits 0
 
 The last three lines are the card's nvidia-smi name and power limit, one
 JSON object describing every kernel of the paths, and {"ok": true,
@@ -229,6 +253,8 @@ import queue
 import re
 import statistics
 import subprocess
+import sys
+import threading
 import time
 
 import numpy as np
@@ -1222,8 +1248,9 @@ C5_MAX_TOKENS, C5_MAX_NEW, C5_IMAGE = 16, 32, 640
 # ordered sums, and those one-ulp differences (2^-8 relative) pass
 # through 16 residual layers -> atol 1e-1
 LM_CACHE_TOL = 1e-1
-# {"asr" | "lm": (config, parameters on the host)}: phase 8's seeded
-# whisper_small and llama32_1b, which phase 14 writes as HF-named files
+# {"asr" | "lm" | "detector": (config, parameters on the host)}: phase
+# 8's seeded whisper_small, llama32_1b and detector; phase 14 writes the
+# first two as HF-named files, phase 15's replicas serve all three
 C5_WEIGHTS: dict = {}
 
 
@@ -1450,7 +1477,9 @@ def phase_config5(smi: str) -> dict:
         C5_WEIGHTS.update({name: (element.config, tree_map(
             lambda leaf: leaf.detach().cpu(), element.state))
             for name, element in (("asr", pipeline.elements["asr"]),
-                                  ("lm", lm))})
+                                  ("lm", lm), ("detector",
+                                               pipeline.elements[
+                                                   "detector"]))})
         phase_lm_cache_vs_kernel(lm.state, lm.config)
         phase_generate_f32_vs_cpu()
         phase_detector_checkpoint()
@@ -4840,12 +4869,15 @@ def phase_sharded_speech(smi: str) -> int:
 
 
 @contextlib.contextmanager
-def recorded_kernel_cases(forward: set, backward: set):
+def recorded_kernel_cases(forward: set, backward: set,
+                          threads: dict | None = None):
     """Within the block, every K1 launch adds its case (B, H, Lq, Lk, D,
     dtype, causal, q_offset, sm_scale) to `forward`, and every K2/K3 pair
-    its case to `backward`: the record is taken at the module names every
-    path reaches the kernels through, and the wrappers (and their launch
-    counts) stay as they are."""
+    its case to `backward`; with `threads`, every K1 launch also adds one
+    to the count of the thread it launched on (by thread name).  The
+    record is taken at the module names every path reaches the kernels
+    through, and the wrappers (and their launch counts) stay as they
+    are."""
     from aiko_services_tpu_torch.parallel import attention
     forward_kernel = attention.flash_attention_forward
     backward_kernel = attention.flash_attention_backward
@@ -4859,6 +4891,9 @@ def recorded_kernel_cases(forward: set, backward: set):
     def forward_recorded(q, k, v, causal=False, sm_scale=None, q_offset=0):
         if q.device.type == "cuda":
             forward.add(case(q, k, causal, sm_scale, q_offset))
+            if threads is not None:
+                name = threading.current_thread().name
+                threads[name] = threads.get(name, 0) + 1
         return forward_kernel(q, k, v, causal=causal, sm_scale=sm_scale,
                               q_offset=q_offset)
 
@@ -5482,9 +5517,7 @@ def phase_hf_and_examples(smi: str) -> dict:
     with recorded_kernel_cases(forward, backward):
         launches["flash_attention"] += phase_hf_whisper(smi)
         phase_hf_llama(smi)
-        C5_WEIGHTS.pop("asr")
         launches["flash_attention"] += phase_repaired_departures(smi)
-        C5_WEIGHTS.clear()
         launches["flash_attention"] += phase_shipped_examples(smi)
     phase_eval_pass(smi)
     checked = {(*spec, 1.0 / math.sqrt(spec[4]))
@@ -5496,6 +5529,566 @@ def phase_hf_and_examples(smi: str) -> dict:
     say("14 hf_examples_eval", wall_s=f"{time.perf_counter() - start:.1f}",
         launches=json.dumps(launches), new_k1_cases=len(new),
         card=repr(smi))
+    return launches
+
+
+# -- the elastic fleet (phase 15) --------------------------------------------
+
+# replicas of the config-5 graph at full width on phase 8's weights
+# (nothing is drawn again), fed by the gateway: (inputs (asr (text) (lm
+# (reply))) (detector)), `inputs` passing each frame's audio and image
+# on.  Cut to F_ROWS rows a frame (config 5's frames carry 16; a batch,
+# not a width) and no micro-batching, so every replica computes each
+# frame alone and the unscaled run is the reference, token for token.
+FLEET_DIR = ROOT / "build" / "fleet"
+F_ROWS = 2
+F_FRAMES = 4                  # distinct frames, each served as reference
+# the burst: F_BURST_FRAMES frames in flight per stream until the
+# spawned replica joins
+F_BURST_STREAMS, F_BURST_FRAMES = 4, 2
+# per trickle stream, one frame in flight: at least F_TRICKLE_FRAMES,
+# and on until F_TRICKLE_AFTER_DRAIN frames went to the cold replica
+# after the drain (at most F_TRICKLE_FRAMES_MAX)
+F_TRICKLE_FRAMES, F_TRICKLE_AFTER_DRAIN, F_TRICKLE_FRAMES_MAX = 3, 2, 40
+F_ADMISSION = "max_inflight=4;queue=64"
+# high water: the burst (8 frames on one replica of 4 slots: 2.0)
+# spawns one replica; the two trickle streams alone (2 of 8 slots:
+# 0.25, under the low water) let the spawned replica drain after the
+# cooldown, and on the one replica left (2 of 4: 0.5, under the high
+# water) spawn nothing more
+F_AUTOSCALE = ("min_replicas=1;max_replicas=2;high_water=0.75;"
+               "low_water=0.3;cooldown=2;interval=0.05;drain_timeout=0")
+F_AUTOPILOT = "interval=0;apply=on;max_delta_frac=0.5;margin=0.15"
+F_JOURNAL = "backend=retained;interval=0.02;search_timeout=0.5"
+F_TIMEOUT = 600
+
+
+def fleet_definition(name: str, metrics_interval: float = 60.0) -> dict:
+    audio_t = f"f32[b,{int(C5_SECONDS * SAMPLE_RATE)}]"
+    image_t = f"f32[b,3,{C5_IMAGE},{C5_IMAGE}]"
+    fleet = dict(config5_definition(), name=name)
+    fleet["graph"] = ["(inputs (asr (text) (lm (reply))) (detector))"]
+    fleet["parameters"] = {"device": "cuda", "telemetry": True,
+                           "metrics_interval": metrics_interval}
+    elements = []
+    for element in fleet["elements"]:
+        element = json.loads(json.dumps(element))
+        if element["name"] == "sources":
+            element = {"name": "inputs",
+                       "input": [{"name": "audio", "type": audio_t},
+                                 {"name": "image", "type": image_t}],
+                       "output": [{"name": "audio", "type": audio_t},
+                                  {"name": "image", "type": image_t}],
+                       "deploy": {"local": {"module": MODULE,
+                                            "class_name": "Sample"}}}
+        for key in ("micro_batch", "micro_batch_wait_ms"):
+            element.get("parameters", {}).pop(key, None)
+        elements.append(element)
+    fleet["elements"] = elements
+    return fleet
+
+
+def fleet_frames() -> list:
+    """F_FRAMES distinct host frames of F_ROWS rows: tones and seeded
+    images at config 5's sizes."""
+    from aiko_services_tpu_torch.elements.audio_io import synthesize_tone
+    from aiko_services_tpu_torch.elements.image_io import synthesize_image
+    frames = []
+    for index in range(F_FRAMES):
+        rows = range(index * F_ROWS, (index + 1) * F_ROWS)
+        frames.append({
+            "audio": np.stack([synthesize_tone(330.0 + 55.0 * row,
+                                               C5_SECONDS)
+                               for row in rows]),
+            "image": np.stack([synthesize_image((3, C5_IMAGE, C5_IMAGE),
+                                                150 + row)
+                               for row in rows])})
+    return frames
+
+
+def fleet_outputs(outputs: dict) -> dict:
+    """What a served frame must reproduce exactly, on the host: the
+    ASR's and the LM's token streams and the detector's output."""
+    detections = outputs["detections"]
+    return {name: torch.as_tensor(np.asarray(value.cpu()
+                                             if torch.is_tensor(value)
+                                             else value))
+            for name, value in (
+                ("tokens", outputs["tokens"]),
+                ("generated", outputs["generated"]),
+                *((f"detections.{key}", detections[key])
+                  for key in ("boxes", "scores", "classes", "valid")))}
+
+
+def same_outputs(what: str, got: dict, want: dict) -> None:
+    for name, value in want.items():
+        if not torch.equal(got[name], value):
+            raise SystemExit(f"{what}: {name} differs from the unscaled "
+                             f"run: {got[name].tolist()} != "
+                             f"{value.tolist()}")
+
+
+def host_exports() -> dict:
+    """Phase 8's host weights offered over the transfer plane, in
+    export_weights' shape: the cold replica imports them as a warm one
+    imports a sibling's."""
+    from aiko_services_tpu_torch.pipeline.transfer import (
+        TENSOR_REF_KEY, get_transfer_server)
+    from aiko_services_tpu_torch.utils.tree import tree_map
+    server = get_transfer_server()
+    return {name: tree_map(lambda leaf: {TENSOR_REF_KEY:
+                                         server.offer(leaf)}, state)
+            for name, (_, state) in C5_WEIGHTS.items()}
+
+
+def spawn_replica(factory, name: str, warm_source) -> tuple:
+    """(handle, spawn info, seconds to healthy: spawn -> warm-up frame
+    served); raises on a failed bring-up."""
+    ready = queue.Queue()
+    start = time.perf_counter()
+    factory.spawn(name, warm_source=warm_source,
+                  ready=lambda handle, info: ready.put((handle, info)))
+    handle, info = ready.get(timeout=F_TIMEOUT)
+    seconds = time.perf_counter() - start
+    if handle is None:
+        raise SystemExit(f"15a: replica {name} failed: {info}")
+    return handle, info, seconds
+
+
+def serve_direct(pipeline, frames: list) -> list:
+    """The unscaled run: every frame through one replica's own stream."""
+    responses = queue.Queue()
+    stream = pipeline.create_stream("reference", queue_response=responses,
+                                    grace_time=F_TIMEOUT)
+    for frame in frames:
+        pipeline.create_frame(stream, dict(frame))
+    results = {}
+    for _ in frames:
+        _, frame, outputs = responses.get(timeout=F_TIMEOUT)
+        results[frame.frame_id] = fleet_outputs(outputs)
+    pipeline.destroy_stream("reference")
+    return [results[frame_id] for frame_id in sorted(results)]
+
+
+def loop_thread(pipeline) -> str:
+    """The name of the thread a replica's elements run on: its Process's
+    event loop (runtime/event.py loop_in_thread)."""
+    return f"{pipeline.process.event.name}-loop"
+
+
+def phase_fleet_bring_up(factory, threads: dict, smi: str) -> tuple:
+    """15a: a cold replica (the fresh build cache: nvcc builds K1's
+    library, a miss) and a warm one from it (0 misses, a hit, all three
+    models imported, K1 launched on its own thread: `threads` counts the
+    K1 launches per thread).  Returns (cold handle, launches)."""
+    from aiko_services_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    cold, cold_info, cold_s = spawn_replica(factory, "fleet-cold",
+                                            host_exports())
+    nvcc_s = kernels.build_seconds.get("flash_attention")
+    warm, warm_info, warm_s = spawn_replica(factory, "fleet-warm",
+                                            cold.pipeline)
+    cold_k1 = threads.get(loop_thread(cold.pipeline), 0)
+    warm_k1 = threads.get(loop_thread(warm.pipeline), 0)
+    launches = dict(kernels.launch_counts)
+    say("15a fleet_bring_up", cold_time_to_healthy_s=f"{cold_s:.2f}",
+        warm_time_to_healthy_s=f"{warm_s:.2f}",
+        nvcc_build_s=f"{nvcc_s:.2f}" if nvcc_s is not None else None,
+        cold=json.dumps({key: cold_info[key] for key in (
+            "cache_hits", "cache_misses", "cache_captures")}),
+        warm=json.dumps({key: warm_info[key] for key in (
+            "cache_hits", "cache_misses", "cache_captures")}),
+        warm_imported=",".join(warm_info["imported_elements"]),
+        k1_launches_cold=cold_k1, k1_launches_warm=warm_k1,
+        card=repr(smi))
+    warm.process.terminate()
+    if cold_info["cache_misses"] < 1 or nvcc_s is None:
+        raise SystemExit(f"15a: the cold replica built nothing: "
+                         f"{cold_info}")
+    if warm_info["cache_misses"] != 0 or warm_info["cache_hits"] < 1:
+        raise SystemExit(f"15a: the warm replica is not warm: {warm_info}")
+    if sorted(warm_info["imported_elements"]) != ["asr", "detector", "lm"]:
+        raise SystemExit(f"15a: the warm replica imported "
+                         f"{warm_info['imported_elements']}")
+    layers = C5_WEIGHTS["asr"][0].enc_layers
+    if cold_k1 < layers or warm_k1 < layers:
+        raise SystemExit(f"15a: K1 launches {cold_k1} cold, {warm_k1} warm: "
+                         f"expected the encoder's {layers} layers each")
+    return cold, launches
+
+
+def phase_fleet_scaling(gateway, cold, frames: list, reference: list,
+                        threads: dict, smi: str) -> dict:
+    """15b: a burst on the cold replica spawns exactly one warm replica;
+    the burst streams keep F_BURST_FRAMES frames each in flight until it
+    has joined, so two trickle streams (one frame in flight each) start
+    on it while the burst holds the cold one; once the burst is served
+    the low watermark drains the spawned replica with both trickle
+    streams mid-way.  Every frame equals the unscaled run.  Returns the
+    launches."""
+    from aiko_services_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    cold_thread = loop_thread(cold.pipeline)
+    cold_before = threads.get(cold_thread, 0)
+    responses = queue.Queue()
+    expected = {}                 # (stream, frame_id) -> frame index
+    received, lost = {}, []
+    cursors = {}
+
+    def submit(stream_id, offset):
+        cursor = cursors.get(stream_id, 0)
+        expected[(stream_id, cursor)] = (offset + cursor) % F_FRAMES
+        gateway.submit_frame(stream_id, frames[expected[(stream_id,
+                                                         cursor)]],
+                             frame_id=cursor)
+        cursors[stream_id] = cursor + 1
+
+    def receive(timeout):
+        stream_id, frame_id, outputs, status = responses.get(
+            timeout=timeout)
+        if status != "ok":
+            lost.append((stream_id, frame_id, status))
+        else:
+            received[(stream_id, int(frame_id))] = fleet_outputs(outputs)
+        return stream_id
+
+    start = time.perf_counter()
+    burst = [f"b{index}" for index in range(F_BURST_STREAMS)]
+    for stream_id in burst:
+        gateway.submit_stream(stream_id, queue_response=responses)
+    for _ in range(F_BURST_FRAMES):
+        for offset, stream_id in enumerate(burst):
+            submit(stream_id, offset)
+    deadline = time.monotonic() + F_TIMEOUT
+    while len(gateway.replicas) < 2 and time.monotonic() < deadline:
+        try:
+            stream_id = receive(0.02)
+        except queue.Empty:
+            continue
+        if len(gateway.replicas) < 2:
+            submit(stream_id, burst.index(stream_id))
+    grown_s = time.perf_counter() - start
+    grown = [replica for replica in list(gateway.replicas.values())
+             if replica.name != cold.name]
+    if not grown:
+        raise SystemExit("15b: the burst spawned no replica")
+    grown_thread = loop_thread(grown[0].pipeline)
+    grown = [replica.name for replica in grown]
+    # the cold replica is saturated by the burst: both trickle streams
+    # place on the spawned one
+    trickle = ("t0", "t1")
+    placements = {stream_id: [] for stream_id in trickle}
+
+    def submit_trickle(stream_id):
+        """One trickle frame, and the replica its stream is pinned to."""
+        submit(stream_id, trickle.index(stream_id))
+        deadline = time.monotonic() + 30
+        while (gateway.streams.get(stream_id) is None
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        stream = gateway.streams.get(stream_id)
+        placements[stream_id].append(
+            stream.replica.name if stream is not None
+            and stream.replica is not None else None)
+
+    for stream_id in trickle:
+        gateway.submit_stream(stream_id, queue_response=responses)
+        submit_trickle(stream_id)
+    while len(received) + len(lost) < len(expected):
+        stream_id = receive(F_TIMEOUT)
+        names = placements.get(stream_id)
+        if names is not None and len(names) < F_TRICKLE_FRAMES_MAX and (
+                len(names) < F_TRICKLE_FRAMES
+                or len(gateway.replicas) > 1
+                or names.count(cold.name) < F_TRICKLE_AFTER_DRAIN):
+            submit_trickle(stream_id)
+    elapsed = time.perf_counter() - start
+    deadline = time.monotonic() + 30
+    while len(gateway.replicas) > 1 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    launches = dict(kernels.launch_counts)
+    replica_k1 = {cold.name: threads.get(cold_thread, 0) - cold_before,
+                  grown[0]: threads.get(grown_thread, 0)}
+    spawns = list(gateway.autoscaler.spawns)
+    for key, index in expected.items():
+        if key in received:
+            same_outputs(f"15b {key}", received[key], reference[index])
+    drained_mid_way = [stream_id for stream_id, names in placements.items()
+                       if names[0] == grown[0] and names[-1] == cold.name]
+    telemetry = gateway.telemetry
+    say("15b fleet_scaling", frames=len(expected),
+        frames_ok=len(received), frames_lost=len(lost),
+        seconds=f"{elapsed:.2f}", spawned_after_s=f"{grown_s:.2f}",
+        scale_ups=telemetry.scale_ups.value,
+        scale_downs=telemetry.scale_downs.value,
+        spawned=json.dumps(spawns), pool_after=len(gateway.replicas),
+        trickle_placements=json.dumps(placements),
+        drained_mid_way=",".join(drained_mid_way),
+        k1_launches=launches["flash_attention"],
+        k1_launches_by_replica=json.dumps(replica_k1), card=repr(smi))
+    if lost or len(received) != len(expected):
+        raise SystemExit(f"15b: frames lost: {lost}")
+    layers = C5_WEIGHTS["asr"][0].enc_layers
+    if min(replica_k1.values()) < layers:
+        raise SystemExit(f"15b: K1 launches by replica {replica_k1}: "
+                         f"expected the encoder's {layers} layers each")
+    if (len(spawns) != 1 or telemetry.scale_ups.value != 1
+            or not spawns[0]["warm"] or spawns[0]["cache_misses"] != 0
+            or spawns[0]["cache_hits"] < 1
+            or sorted(spawns[0]["imported_elements"])
+            != ["asr", "detector", "lm"]):
+        raise SystemExit(f"15b: expected exactly one warm spawn with no "
+                         f"build: {spawns}")
+    if telemetry.scale_downs.value != 1 or len(gateway.replicas) != 1:
+        raise SystemExit(f"15b: the low watermark did not drain the pool "
+                         f"back to 1: {len(gateway.replicas)} replicas")
+    if not drained_mid_way:
+        raise SystemExit(f"15b: no trickle stream was drained mid-way: "
+                         f"{placements}")
+    return launches
+
+
+def phase_fleet_process(cold, cache, reference: list, frames: list,
+                        smi: str) -> dict:
+    """15c: one OS-process replica through ProcessReplicaFactory over
+    the port's ProcessManager, attached by registrar discovery over a
+    local MQTT broker; its counters come from the process snapshot it
+    publishes.  Returns the counters and seconds."""
+    import os
+    from aiko_services_tpu_torch.runtime import (
+        Process, ProcessManager, Recorder, Registrar)
+    from aiko_services_tpu_torch.serve import Gateway, ProcessReplicaFactory
+    from aiko_services_tpu_torch.transport.minimqtt import MiniMqttBroker
+    broker = MiniMqttBroker()
+    saved = {key: os.environ.get(key)
+             for key in ("AIKO_MQTT_HOST", "AIKO_MQTT_PORT")}
+    os.environ["AIKO_MQTT_HOST"] = "127.0.0.1"
+    os.environ["AIKO_MQTT_PORT"] = str(broker.port)
+    definition = FLEET_DIR / "replica.json"
+    definition.write_text(json.dumps(fleet_definition(
+        "template", metrics_interval=0.5)))
+    libraries = sorted(path.name for path in cache.iterdir())
+    process = Process(transport_kind="mqtt")
+    manager = ProcessManager()
+    logs = FLEET_DIR / "logs"
+    try:
+        Registrar(process, search_timeout=0.05)
+        recorder = Recorder(process)
+        gateway = Gateway(process, name="fleet_os_gw", policy=F_ADMISSION)
+        process.run(in_thread=True)
+        gateway.discover(name="fleet-os*")
+        factory = ProcessReplicaFactory(
+            manager, str(definition), transport="mqtt",
+            compile_cache=str(cache), log_dir=str(logs))
+        start = time.perf_counter()
+        factory.spawn("fleet-os1", warm_source=cold.pipeline).join(
+            timeout=F_TIMEOUT)
+        deadline = time.monotonic() + F_TIMEOUT
+        replica = None
+        while time.monotonic() < deadline:
+            replica = next((replica for replica in gateway.replicas.values()
+                            if replica.name == "fleet-os1"), None)
+            if replica is not None and replica.fresh(
+                    time.monotonic(), gateway.policy.stale_after_s):
+                break
+            if "fleet-os1" not in manager:
+                break
+            time.sleep(0.05)
+        attached_s = time.perf_counter() - start
+        if replica is None:
+            raise SystemExit(f"15c: the child never attached (log: "
+                             f"{(logs / 'fleet-os1.log').read_text()[-2000:]})")
+        responses = queue.Queue()
+        gateway.submit_stream("c0", queue_response=responses)
+        gateway.submit_frame("c0", frames[0])
+        _, _, outputs, status = responses.get(timeout=F_TIMEOUT)
+        healthy_s = time.perf_counter() - start
+        if status != "ok":
+            raise SystemExit(f"15c: the child's frame: {status} {outputs}")
+        same_outputs("15c", fleet_outputs(outputs), reference[0])
+        # the child's process snapshot once it counts the frame's K1
+        # launches beside its build cache's counters
+        counters = None
+        deadline = time.monotonic() + 60
+        while counters is None and time.monotonic() < deadline:
+            for source in recorder.metrics_sources():
+                snapshot = (recorder.metrics_for(source) or {}).get(
+                    "counters", {})
+                if (source.endswith("/process")
+                        and f"/{os.getpid()}/" not in source
+                        and "compile_cache.hits" in snapshot
+                        and "kernel_launches.flash_attention" in snapshot):
+                    counters = snapshot
+            time.sleep(0.1)
+        factory.retire("fleet-os1")
+        deadline = time.monotonic() + 60
+        while "fleet-os1" in manager and time.monotonic() < deadline:
+            time.sleep(0.05)
+        retired = "fleet-os1" not in manager
+    finally:
+        process.terminate()
+        manager.terminate()
+        broker.stop()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    after = sorted(path.name for path in cache.iterdir())
+    child = {key: (counters or {}).get(f"compile_cache.{key}", 0)
+             for key in ("hits", "misses", "captures")}
+    child["k1_launches"] = (counters or {}).get(
+        "kernel_launches.flash_attention", 0)
+    say("15c fleet_os_process", attached_s=f"{attached_s:.2f}",
+        time_to_healthy_s=f"{healthy_s:.2f}", child=json.dumps(child),
+        libraries_before=len(libraries), libraries_after=len(after),
+        retired=retired, card=repr(smi))
+    if counters is None:
+        raise SystemExit("15c: no process snapshot from the child")
+    if child["misses"] != 0 or child["hits"] < 1:
+        raise SystemExit(f"15c: the child is not warm: {child}")
+    layers = C5_WEIGHTS["asr"][0].enc_layers
+    if child["k1_launches"] < layers:
+        raise SystemExit(f"15c: the child launched K1 "
+                         f"{child['k1_launches']} times: expected the "
+                         f"encoder's {layers} layers")
+    if after != libraries:
+        raise SystemExit(f"15c: the cache changed: {libraries} -> {after}")
+    if not retired:
+        raise SystemExit("15c: the child outlived its retirement")
+    return child
+
+
+def phase_fleet_autopilot(gateway, smi: str) -> None:
+    """15d: one autopilot tick over what the live replicas and the
+    gateway recorded, its journal, then `tune` on the same traces."""
+    from aiko_services_tpu_torch.observe import merge_trace_documents
+    from aiko_services_tpu_torch.observe.trace import chrome_trace_document
+    # the fleet's scaling is done: an applied floor must not spawn a
+    # replica after the phase
+    gateway.autoscaler.stop()
+    pilot = gateway.autopilot
+    start = time.perf_counter()
+    report = pilot.tick_now()
+    tick_s = time.perf_counter() - start
+    if report is None:
+        raise SystemExit("15d: the autopilot harvested nothing to tune")
+    tick = pilot.ledger[-1]
+    planned = [f"{record['target']}.{record['knob']} "
+               f"{record['current']!r}->{record['proposed']!r} "
+               f"({record['reason']})"
+               for record in report["recommendations"]]
+    applied = [{key: record[key] for key in ("seq", "target", "knob",
+                                             "value", "clamped")}
+               for record in tick["applied"]]
+    journal = [{key: record[key] for key in ("seq", "target", "knob",
+                                             "value", "clamped")}
+               for record in gateway.journal.replay_deltas()]
+    if applied:
+        decision = "applied"
+    elif tick["gated"]:
+        decision = "declined: the SLO burn is under the threshold"
+    elif tick["skipped"]:
+        decision = ("declined: the planned knobs change shapes (skipped, "
+                    "never applied live)")
+    else:
+        decision = ("declined: nothing to move (converged)"
+                    if tick["converged"] else "declined")
+    documents = [(gateway.topic_path, chrome_trace_document(
+        gateway.telemetry.chrome_events(),
+        metadata=gateway.telemetry.trace_metadata()))]
+    for replica in gateway.replicas.values():
+        telemetry = replica.pipeline.telemetry
+        documents.append((replica.topic_path, chrome_trace_document(
+            telemetry.chrome_events(), metadata=telemetry.trace_metadata())))
+    trace = FLEET_DIR / "fleet_trace.json"
+    trace.write_text(json.dumps(merge_trace_documents(sorted(documents))))
+    result = subprocess.run(
+        [sys.executable, "-m", "aiko_services_tpu_torch", "tune",
+         str(trace), "--json", "--no-flops"], capture_output=True,
+        text=True, timeout=F_TIMEOUT, cwd=ROOT)
+    say("15d fleet_autopilot", tick_s=f"{tick_s:.2f}",
+        floors=json.dumps({name: record["floor"] for name, record
+                           in report["elements"].items()}),
+        planned=json.dumps(planned), decision=repr(decision),
+        applied=json.dumps(applied), journal=json.dumps(journal),
+        convergence=tick["convergence"], tune_cli_rc=result.returncode,
+        card=repr(smi))
+    if journal != applied:
+        raise SystemExit(f"15d: the journal {journal} is not the applied "
+                         f"deltas {applied}")
+    if result.returncode != 0:
+        raise SystemExit(f"15d: tune exited {result.returncode}: "
+                         f"{result.stderr[-2000:]}")
+    cli = json.loads(result.stdout)
+    if set(cli["elements"]) != set(report["elements"]):
+        raise SystemExit(f"15d: tune's elements {sorted(cli['elements'])} "
+                         f"are not the autopilot's "
+                         f"{sorted(report['elements'])}")
+
+
+def phase_fleet_kernel_checks(forward: set) -> None:
+    """15e: K1 at every case the fleet's replicas launched it with (F_ROWS
+    rows a frame) that phase 2 did not check, against the plain version
+    at phase 2's limits."""
+    checked = {(*spec, 1.0 / math.sqrt(spec[4]))
+               for spec in KERNEL_CASES.values()}
+    new = sorted(forward - checked, key=str)
+    if not new:
+        raise SystemExit(f"15e: the fleet launched no K1 case phase 2 did "
+                         f"not check: {forward}")
+    for index, spec in enumerate(new):
+        check_forward_case(f"15_{index}", spec, 1700 + index,
+                           "15e kernel_vs_plain")
+    say("15e fleet_kernel_checks", k1_cases=len(new), ok=True)
+
+
+def phase_fleet(smi: str) -> dict:
+    """Phase 15.  Returns the kernel launches of its main-path runs."""
+    import shutil
+    from aiko_services_tpu_torch.runtime import (
+        Process, disable_compile_cache, enable_compile_cache)
+    from aiko_services_tpu_torch.serve import Gateway, InProcessReplicaFactory
+    start = time.perf_counter()
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    cache = FLEET_DIR / "cache"
+    enable_compile_cache(str(cache))
+    frames = fleet_frames()
+    factory = InProcessReplicaFactory(
+        fleet_definition, warmup=frames[0], compile_cache=str(cache),
+        probe_timeout=F_TIMEOUT)
+    launches = {}
+    forward, threads = set(), {}
+    gateway_process = Process(transport_kind="loopback")
+    cold, running = None, False
+    try:
+        with recorded_kernel_cases(forward, set(), threads):
+            cold, launches = phase_fleet_bring_up(factory, threads, smi)
+            reference = serve_direct(cold.pipeline, frames)
+            gateway = Gateway(gateway_process, name="fleet_gw",
+                              policy=F_ADMISSION, router_seed=7,
+                              telemetry=True, metrics_interval=60.0,
+                              journal=F_JOURNAL, autopilot=F_AUTOPILOT)
+            gateway.attach_replica(cold.pipeline)
+            gateway.enable_autoscale(F_AUTOSCALE, factory)
+            gateway_process.run(in_thread=True)
+            running = True
+            for name, count in phase_fleet_scaling(
+                    gateway, cold, frames, reference, threads,
+                    smi).items():
+                launches[name] = launches.get(name, 0) + count
+        phase_fleet_process(cold, cache, reference, frames, smi)
+        phase_fleet_autopilot(gateway, smi)
+        phase_fleet_kernel_checks(forward)
+    finally:
+        if running:       # a Process never run cannot be terminated
+            gateway_process.terminate()
+        if cold is not None:
+            cold.process.terminate()
+        disable_compile_cache()
+        C5_WEIGHTS.clear()
+    say("15 fleet", wall_s=f"{time.perf_counter() - start:.1f}",
+        launches=json.dumps(launches), card=repr(smi))
     return launches
 
 
@@ -5523,6 +6116,8 @@ def main() -> None:
     for name, count in phase_parameter_sharding(smi).items():
         launches[name] += count
     for name, count in phase_hf_and_examples(smi).items():
+        launches[name] += count
+    for name, count in phase_fleet(smi).items():
         launches[name] += count
     say("run", seconds=f"{time.perf_counter() - run_start:.1f}",
         card=repr(smi))

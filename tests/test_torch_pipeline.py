@@ -121,15 +121,21 @@ def test_cuda_device_raises_without_a_card(monkeypatch):
                         _definition(device=None))
 
 
-@pytest.mark.parametrize("parameter, value", [
-    ("autoscale_policy", "min_replicas=1"),
-    ("tune", "slo=latency"),
+@pytest.mark.parametrize("parameter, value, bad, code", [
+    ("autoscale_policy", "min_replicas=1", "min_replicas=3;max_replicas=2",
+     "AIKO406"),
+    ("tune", "slo=latency", "slo=goodput", "AIKO501"),
 ])
-def test_unported_grammars_fail_as_definition_errors(parameter, value):
-    with pytest.raises(DefinitionError, match="not supported by the torch "
-                                              "port yet"):
+def test_unported_grammars_fail_as_definition_errors(parameter, value, bad,
+                                                     code):
+    """The elastic fleet's and the tuner's grammars, once refused as not
+    ported, now check definitions as the JAX package's do: a good spec
+    constructs, a bad one fails with its rule code."""
+    create_pipeline(Process(transport_kind="loopback"),
+                    _definition(parameters={parameter: value}))
+    with pytest.raises(DefinitionError, match=code):
         create_pipeline(Process(transport_kind="loopback"),
-                        _definition(parameters={parameter: value}))
+                        _definition(parameters={parameter: bad}))
 
 
 @pytest.mark.parametrize("parameter, good, bad, code", [

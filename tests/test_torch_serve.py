@@ -7,7 +7,8 @@
 # test_region.py): failover through the seeded replica_kill point loses
 # no frame, a hot standby adopts the journal when the primary dies, and
 # a lost region's streams are adopted by the survivor.  The elastic
-# fleet and the SLO autopilot (ROADMAP Queue A item 1) raise.
+# fleet and the SLO autopilot have files of their own
+# (tests/test_torch_autoscale.py, test_torch_autopilot.py).
 
 import json
 import queue
@@ -164,28 +165,6 @@ def test_group_assignment_and_region_placement_equal_the_jax_packages():
                 assert (port.owner_of(stream_id, region=region, lost=lost)
                         == reference.owner_of(stream_id, region=region,
                                               lost=lost))
-
-
-@pytest.mark.parametrize("option", ["autoscale", "replica_factory",
-                                    "autopilot"])
-def test_the_elastic_fleet_and_the_autopilot_raise_naming_item_8(option):
-    process = Process(transport_kind="loopback")
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
-        Gateway(process, name=f"gw_{option}",
-                **{option: "min_replicas=1;max_replicas=2"})
-    gateway = Gateway(process, name=f"gw_plain_{option}")
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
-        gateway.enable_autoscale("min_replicas=1")
-
-
-@pytest.mark.parametrize("policy", ["autoscale_policy", "autopilot_policy",
-                                    "tune"])
-def test_grammars_of_item_8_still_refuse(policy):
-    check = {"autoscale_policy": policies.check_autoscale_policy,
-             "autopilot_policy": policies.check_autopilot_policy,
-             "tune": policies.check_tune_spec}[policy]
-    [(code, message)] = check("x=1")
-    assert code.startswith("AIKO") and "not supported" in message
 
 
 # -- one seeded workload through both packages' gateways ---------------------

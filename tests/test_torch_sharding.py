@@ -791,3 +791,115 @@ def test_a_layout_other_than_the_specs_is_resharded_once_and_counted():
     assert collectives.collective_counts()["fsdp+model"]["calls"] == 3
     whole, _ = torch_lm.generate(_port(numpy_params), config, prompt, 5)
     np.testing.assert_array_equal(ours.numpy(), whole.numpy())
+
+
+SP_STRADDLE_CASES = [
+    # 4 query heads over 4 model shards with one KV head: every shard's
+    # heads share it, taken from the gathered projections
+    (dict(SMALL, n_heads=4, n_kv_heads=1), {"seq": 2, "model": 4}),
+    # 6 heads in 3 KV groups over 2 shards: each shard's 3 heads span
+    # two KV groups
+    (dict(SMALL, d_model=48, n_heads=6, n_kv_heads=3), {"seq": 2, "model": 2}),
+]
+
+
+@pytest.mark.parametrize("config, axes", SP_STRADDLE_CASES,
+                         ids=["4h-1kv-seq2-model4", "6h-3kv-seq2-model2"])
+@pytest.mark.parametrize("mechanism", ["ring", "ulysses"])
+def test_sequence_parallel_heads_that_straddle_the_model_axis_match_jax(
+        config, axes, mechanism):
+    """Sequence parallelism on a model axis whose shards straddle heads:
+    each "seq" hop runs the whole heads a shard's columns touch (the
+    straddle path's all_gather over model carries the hop's K/V block)
+    through the ring or Ulysses.  Logits within TOL of the JAX package's
+    sharded forward on the same mesh and of the port's unsharded one;
+    greedy tokens (the ring / Ulysses prefill and the sp decode over a
+    cache cut on "seq") identical to the port's unsharded run."""
+    changes = dict(sequence_parallel=True, sp_mechanism=mechanism)
+    jax_config, jax_params, torch_config, numpy_params = _models(
+        config, 0, **changes)
+    jax_mesh, mesh = _meshes(axes)
+    tokens = _tokens((2, 16), 1)
+    with jax.set_mesh(jax_mesh):
+        expected = np.asarray(jax_lm.forward(jax_shard_pytree(
+            jax_params, jax_mesh, jax_filter_specs(
+                jax_lm.param_specs(jax_config), jax_mesh)),
+            jax_config, tokens))
+    sharded = _sharded(numpy_params, mesh,
+                       torch_lm.param_specs(torch_config))
+    with torch_mesh.use_mesh(mesh):
+        ours = torch_lm.forward(sharded, torch_config,
+                                torch.from_numpy(tokens)).numpy()
+    whole = torch_lm.forward(
+        _port(numpy_params),
+        dataclasses.replace(torch_config, sequence_parallel=False),
+        torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(ours, expected, **TOL)
+    np.testing.assert_allclose(ours, whole, **TOL)
+    # generate (the cache it makes is whole over "model", cut on "seq"):
+    # the port's sharded against its unsharded run -- JAX's sp decode
+    # cuts the KV heads over "model" and refuses both configs
+    prompt = torch.from_numpy(_tokens((2, 16), 4))
+    with torch_mesh.use_mesh(mesh):
+        ours, _ = torch_lm.generate(sharded, torch_config, prompt, 6)
+    whole, _ = torch_lm.generate(
+        _port(numpy_params),
+        dataclasses.replace(torch_config, sequence_parallel=False), prompt,
+        6)
+    np.testing.assert_array_equal(ours.numpy(), whole.numpy())
+
+
+def test_a_leaf_cut_otherwise_than_the_specs_carries_its_gradient():
+    """make_train_step(sharded=True) on a tree cut otherwise than
+    param_specs: the reshard at entry is differentiable, so every leaf's
+    gradient comes back in the caller's layout, leaf by leaf equal to
+    jax.value_and_grad of the JAX package's loss (as
+    test_sharded_gradients_match_jax); the backward's moves count once
+    more per resharded leaf; the first two losses of the step equal JAX's
+    sharded=False step and the port's unsharded one, and the parameters
+    stay in the caller's layout.  f32: loss and gradient atol 1e-6, the
+    losses of the steps atol 1e-5 (the train-step tests' bounds)."""
+    axes = {"data": 2, "fsdp": 2, "model": 2}
+    jax_mesh, mesh = _meshes(axes)
+    jax_config, jax_params, config, numpy_params = _models(SMALL, 5)
+    tokens = _tokens((4, 17), 6)
+
+    def jax_loss(params, tokens):
+        logits = jax_lm.forward(params, jax_config, tokens[:, :-1])
+        log_probs = jax.nn.log_softmax(logits, axis=-1)
+        return -jnp.mean(jnp.take_along_axis(
+            log_probs, tokens[:, 1:, None], axis=-1)[..., 0])
+
+    def torch_loss(params, tokens):
+        return optim.next_token_loss(
+            torch_lm.forward(params, config, tokens[:, :-1]), tokens[:, 1:])
+
+    expected_loss, expected = jax.value_and_grad(jax_loss)(jax_params,
+                                                           tokens)
+    swapped = _sharded(numpy_params, mesh, _swapped_specs(config))
+    collectives.reset_collective_counts()
+    loss, grads = optim.value_and_grad(torch_loss, swapped,
+                                       torch.from_numpy(tokens))
+    # wq/wk/wv over fsdp+model: the forward's move and the backward's
+    assert collectives.collective_counts()["fsdp+model"]["calls"] == 6
+    wq = grads["layers"]["wq"]["w"]
+    assert isinstance(wq, torch_mesh.Sharded)
+    assert (torch_mesh.leaf_layout(wq, mesh)
+            == torch_mesh.leaf_layout(swapped["layers"]["wq"]["w"], mesh))
+    np.testing.assert_allclose(float(loss), float(expected_loss), atol=1e-6,
+                               rtol=0)
+    _assert_trees_close(grads, expected, atol=1e-6, rtol=0)
+    _, jax_losses = _jax_train(jax_config, jax_params, jax_mesh, tokens, 2,
+                               sharded=False)
+    optimizer = optim.adam(1e-2)
+    trained, losses = _train(
+        torch_lm.make_train_step(config, optimizer, sharded=True),
+        _sharded(numpy_params, mesh, _swapped_specs(config)), optimizer,
+        torch.from_numpy(tokens), 2)
+    _, whole_losses = _train(torch_lm.make_train_step(config, optimizer),
+                             _port(numpy_params), optimizer,
+                             torch.from_numpy(tokens), 2)
+    np.testing.assert_allclose(losses, jax_losses, atol=1e-5)
+    np.testing.assert_allclose(losses, whole_losses, atol=1e-5)
+    assert (torch_mesh.leaf_layout(trained["layers"]["wq"]["w"], mesh)
+            == torch_mesh.leaf_layout(swapped["layers"]["wq"]["w"], mesh))

@@ -210,33 +210,10 @@ def test_constructors_default_to_cuda():
         layers.init_norm(3)
 
 
-def _gateway(**options) -> None:
-    from aiko_services_tpu_torch.runtime import Process
-    from aiko_services_tpu_torch.serve import Gateway
-    Gateway(Process(transport_kind="loopback"), **options)
-
-
 def _sp_mesh(axes: dict):
     from aiko_services_tpu_torch.parallel import create_mesh
     return create_mesh(axes, devices=["cpu"] * int(np.prod(
         list(axes.values()))))
-
-
-# what the port does not have yet raises, never runs something else
-UNPORTED = {
-    # the serving gateway runs; its elastic fleet and its SLO autopilot
-    # (ROADMAP Queue A item 1) are what it does not have yet
-    "autoscale": lambda c, p, t, d: _gateway(autoscale="min_replicas=1"),
-    "autopilot": lambda c, p, t, d: _gateway(autopilot="apply=off"),
-}
-
-
-@pytest.mark.parametrize("option", sorted(UNPORTED))
-def test_unported_options_raise(lm, option, tmp_path):
-    _, _, torch_config, numpy_params, tokens = lm
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        UNPORTED[option](torch_config, _port_params(numpy_params),
-                         torch.from_numpy(tokens), tmp_path)
 
 
 def _moe_trains(tmp_path) -> None:
