@@ -13,11 +13,21 @@ from __future__ import annotations
 import glob as globlib
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..pipeline import PipelineElement, StreamEvent
 
-__all__ = ["DataSource", "DataTarget", "Sample", "expand_data_sources"]
+__all__ = ["DataSource", "DataTarget", "Sample", "expand_data_sources",
+           "host_array"]
+
+
+def host_array(value) -> np.ndarray:
+    """An element input as a numpy array on the host: a tensor (on any
+    device) is read back first -- np.asarray on a CUDA tensor raises."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu()
+    return np.asarray(value)
 
 
 def expand_data_sources(data_sources) -> list:

@@ -1,37 +1,38 @@
 # Image I/O elements and image synthesis helpers.
 #
-# Counterpart of aiko_services_tpu/elements/image_io.py: ImageReadFile
-# (PIL), ImageOverlay (cv2 boxes and labels over the Detector's
-# detections, the reference's overlay contract) and ImageWriteFile, and
-# the synthesis helpers (the ImageSource, ImageResize and ImageOutput
-# elements are not ported yet).  Images and detections that arrive as
-# tensors on the device are read back with .cpu() before any numpy; cv2
-# stays import-guarded, as in the JAX package (without it the overlay
-# dict is built and nothing is drawn).  The host image is the JAX
-# package's numpy code, bit for bit.  The on-device image cannot
-# reproduce jax.random's bits: it draws from a torch.Generator seeded with
-# the same seed on the device the caller names (deterministic per seed and
-# device, different numbers from the JAX package's).
+# Counterpart of aiko_services_tpu/elements/image_io.py, with the same
+# class names, parameters and outputs: ImageReadFile (PIL), ImageSource
+# (seeded synthetic images), ImageResize, ImageOverlay (cv2 boxes and
+# labels over the Detector's detections, the reference's overlay
+# contract), ImageWriteFile and ImageOutput.  Images and detections that
+# arrive as tensors on the device are read back with .cpu() before any
+# numpy; cv2 stays import-guarded, as in the JAX package (without it the
+# overlay dict is built and nothing is drawn).  ImageResize runs on the
+# element's `device` parameter (CUDA unless the definition asks for the
+# CPU) as F.interpolate's bilinear resize with antialiasing, which is
+# jax.image.resize(method="bilinear")'s function (it antialiases when it
+# shrinks).  The host image is the JAX package's numpy code, bit for
+# bit.  The on-device image cannot reproduce jax.random's bits: it draws
+# from a torch.Generator seeded with the same seed on the device the
+# caller names (deterministic per seed and device, different numbers
+# from the JAX package's).
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..ops.device import resolve_device
+from ..ops.device import as_device_array, resolve_device
 from ..pipeline import PipelineElement, StreamEvent
-from .common_io import DataSource, DataTarget
+from ..utils import get_logger
+from .common_io import DataSource, DataTarget, host_array
 
-__all__ = ["ImageReadFile", "ImageOverlay", "ImageWriteFile",
-           "synthesize_image", "synthesize_image_on_device", "host_array"]
+__all__ = ["ImageReadFile", "ImageResize", "ImageOverlay",
+           "ImageWriteFile", "ImageOutput", "ImageSource",
+           "synthesize_image", "synthesize_image_on_device"]
 
-
-def host_array(value) -> np.ndarray:
-    """An element input as a numpy array on the host: a tensor (on any
-    device) is read back first -- np.asarray on a CUDA tensor raises."""
-    if isinstance(value, torch.Tensor):
-        value = value.detach().cpu()
-    return np.asarray(value)
+_LOGGER = get_logger("image_io")
 
 
 def synthesize_image(shape, seed: int) -> np.ndarray:
@@ -59,6 +60,43 @@ class ImageReadFile(DataSource):
         with Image.open(item) as handle:
             array = np.asarray(handle.convert("RGB"), np.float32) / 255.0
         return {"image": array.transpose(2, 0, 1)}
+
+
+class ImageSource(DataSource):
+    """Synthetic image source: items are [channels, height, width] shapes
+    (deterministic, seeded) -- the hermetic stand-in for cameras.
+
+    on_device=true draws the image on the element's device (no
+    host->device transfer rides the frame path)."""
+
+    def read_item(self, stream, item) -> dict:
+        seed = (int(self.get_parameter("seed", 0, stream))
+                + self.emission_index(stream))
+        if self.get_parameter("on_device", False, stream):
+            return {"image": synthesize_image_on_device(
+                item, seed, self.get_parameter("device", "cuda"))}
+        return {"image": synthesize_image(item, seed)}
+
+
+class ImageResize(PipelineElement):
+    """Resize (C, H, W) or (N, C, H, W) images to (resize_height,
+    resize_width) on the element's device: bilinear on half-pixel
+    centers, antialiased when shrinking (jax.image.resize's
+    "bilinear")."""
+
+    def process_frame(self, stream, image):
+        height = int(self.get_parameter("resize_height", 256, stream))
+        width = int(self.get_parameter("resize_width", 256, stream))
+        device = resolve_device(self.get_parameter("device", "cuda"))
+        dtype = (image.dtype if isinstance(image, torch.Tensor)
+                 and image.is_floating_point() else torch.float32)
+        image = as_device_array(image, dtype, device)
+        batched = image.ndim == 4
+        resized = F.interpolate(image if batched else image[None],
+                                size=(height, width), mode="bilinear",
+                                align_corners=False, antialias=True)
+        return StreamEvent.OKAY, {
+            "image": resized if batched else resized[0]}
 
 
 class ImageOverlay(PipelineElement):
@@ -116,4 +154,16 @@ class ImageWriteFile(DataTarget):
             array = (array * 255.0).clip(0, 255).astype(np.uint8)
         path = self.next_target_path(stream)
         Image.fromarray(array.squeeze()).save(path)
+        return StreamEvent.OKAY, {"image": image}
+
+
+class ImageOutput(PipelineElement):
+    """Log image shapes (the reference's ImageOutput shows on screen;
+    headless here).  A tensor's shape and dtype are read without copying
+    it to the host."""
+
+    def process_frame(self, stream, image):
+        shape = tuple(getattr(image, "shape", np.shape(image)))
+        dtype = getattr(image, "dtype", None)
+        _LOGGER.info("%s: image %s %s", self.definition.name, shape, dtype)
         return StreamEvent.OKAY, {"image": image}

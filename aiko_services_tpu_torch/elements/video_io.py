@@ -18,8 +18,7 @@ import numpy as np
 
 from ..pipeline import PipelineElement, StreamEvent
 from ..utils import get_logger
-from .common_io import DataSource, DataTarget, Sample
-from .image_io import host_array
+from .common_io import DataSource, DataTarget, Sample, host_array
 
 __all__ = ["VideoReadFile", "VideoSample", "VideoWriteFile", "VideoOutput"]
 

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from ..ops.audio import full_f32_convolution
 from ..ops.device import counted_flags
 from ..parallel.collectives import (
-    all_gather, axis_index, map_shards, psum)
+    _entries, all_gather, axis_index, map_shards, psum)
 from ..parallel.mesh import Sharded
 
 __all__ = ["dense", "rms_norm", "layer_norm", "rotary_embedding",
@@ -240,14 +240,16 @@ class ShardedCall:
 
     def grid(self, leaf):
         """A leaf as a grid: a Sharded's blocks, or the whole tensor on
-        each position's device (one copy per device)."""
+        the device of each position this process computes (one copy per
+        device)."""
         if isinstance(leaf, Sharded):
             if leaf.mesh is not self.mesh:
                 raise ValueError(
                     f"a sharded call's leaves must share one mesh: "
                     f"{leaf.mesh!r} is not {self.mesh!r}")
             return leaf.shards
-        return map_shards(lambda device: leaf.to(device), self.mesh.devices)
+        return map_shards(lambda device: leaf.to(device),
+                          self.mesh.local_devices)
 
     def dicts(self, node):
         """A parameter tree with each dict of leaves (a layer's {"w",
@@ -285,9 +287,9 @@ class ShardedCall:
         if not self.split:
             return self.grid(tensor)
         block = tensor.shape[dim] // self.size["data"]
-        return map_shards(lambda index, device: tensor.narrow(
+        return map_shards(lambda device, index: tensor.narrow(
             dim, index * block, block).to(device),
-            self.index["data"], self.mesh.devices)
+            self.mesh.local_devices, self.index["data"])
 
     def psum(self, grid, axis_name: str):
         """psum over an axis the parameters are cut by (the identity
@@ -316,16 +318,25 @@ class ShardedCall:
     def gather_home(self, grid, dim: int = 0):
         """The whole tensor on the home device: the data blocks of
         `grid` concatenated along `dim` when split_batch split the batch
-        over "data", else position 0's entry."""
+        over "data" (gathered from other processes: a collective), else
+        this process's first entry."""
+        mesh = self.mesh
         if not self.split:
-            return grid[(0,) * self.mesh.devices.ndim].to(self.home)
-        axis = self.mesh.axis_names.index("data")
-        entries = []
+            # every position holds the whole result: take a local one
+            return grid[mesh.local][0].to(self.home)
+        axis = mesh.axis_names.index("data")
+        members = []
         for index in range(self.size["data"]):
-            position = [0] * self.mesh.devices.ndim
+            position = [0] * mesh.devices.ndim
             position[axis] = index
-            entries.append(grid[tuple(position)].to(self.home))
-        return torch.cat(entries, dim=dim)
+            members.append(int(np.ravel_multi_index(position,
+                                                    mesh.devices.shape)))
+        entries = _entries(mesh, grid, members)
+        if entries is None:
+            raise ValueError("gather_home: this process holds no data "
+                             "block of the result")
+        return torch.cat([entry.to(self.home) for entry in entries],
+                         dim=dim)
 
 
 def _dense_partial(params: dict, x):

@@ -1056,7 +1056,8 @@ def _sharded_moe(call: ShardedCall, layer, x):
     experts = config.n_experts
     local_experts = experts // call.cut["expert"]
     expert_index = (call.index["expert"] if call.cut["expert"] > 1
-                    else map_shards(lambda device: 0, call.mesh.devices))
+                    else map_shards(lambda device: 0,
+                                   call.mesh.local_devices))
     routed = map_shards(lambda p, x: _router(config, {"router": p}, x,
                                              with_probs=True),
                         layer["router"], x)
@@ -1352,7 +1353,7 @@ def _sharded_forward(mesh, params, config: TransformerConfig, tokens,
             pos + torch.arange(length, device=device), config.head_dim,
             config.rope_theta)
         return cos[None, None], sin[None, None]
-    rotary = map_shards(rope, mesh.devices)
+    rotary = map_shards(rope, mesh.local_devices)
     aux_sum = torch.zeros((), dtype=torch.float32, device=call.home)
     for index in range(config.n_layers):
         layer = call.layer(grids["layers"], index)

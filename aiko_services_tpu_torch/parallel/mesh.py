@@ -109,6 +109,17 @@ class Mesh:
         return self.shape.get(axis_name, 1)
 
     @property
+    def local_devices(self) -> np.ndarray:
+        """The device grid with None at other processes' positions: a
+        grid built from it (collectives.map_shards) holds entries only
+        where this process computes."""
+        if self.processes is None:
+            return self.devices
+        out = np.empty(self.devices.shape, dtype=object)
+        out[self.local] = self.devices[self.local]
+        return out
+
+    @property
     def home(self) -> torch.device:
         """The first local device: where placed tensors and results
         live."""
@@ -497,16 +508,33 @@ def _place(leaf, sharding: NamedSharding):
 
 def unshard(leaf) -> torch.Tensor:
     """A Sharded leaf gathered into one tensor on its mesh's home device
-    (a plain tensor passes through).  Every block must be local."""
+    (a plain tensor passes through).
+
+    On a mesh over several processes each process holds only its own
+    blocks; the others' are gathered through torch.distributed (the
+    collectives' group gather), so unshard is then a COLLECTIVE: every
+    process of the mesh must reach it, for the same leaves in the same
+    order.  The sharded model paths do (the token grid at entry, the
+    cache write-back and the logits at exit, LMForward's output), and so
+    must a caller of save_pytree or Checkpointer.save on a sharded
+    tree.  The gathered blocks are detached: this is a serving path."""
     if not isinstance(leaf, Sharded):
         return leaf
     mesh = leaf.mesh
+    blocks = leaf.shards
     if not mesh.local.all():
-        raise ValueError("unshard needs every block in this process; a "
-                         "mesh over several processes holds only its own")
+        from .collectives import _entries
+        entries = _entries(mesh, blocks, list(range(blocks.size)))
+        if entries is None:
+            raise ValueError("unshard: this process holds no block of "
+                             "the leaf's mesh")
+        blocks = np.empty(blocks.size, dtype=object)
+        for index, entry in enumerate(entries):
+            blocks[index] = entry
+        blocks = blocks.reshape(leaf.shards.shape)
     out = torch.empty(leaf.shape, dtype=leaf.dtype, device=mesh.home)
     local_shape = leaf.sharding.shard_shape(tuple(leaf.shape))
-    for position, tensor in np.ndenumerate(leaf.shards):
+    for position, tensor in np.ndenumerate(blocks):
         index = tuple(slice(start * size, (start + 1) * size)
                       for start, size in zip(leaf.block(position),
                                              local_shape))

@@ -435,7 +435,12 @@ class Pipeline(Actor):
                     grace_time,
                     self.topic_in,
                 ])
-        for node_name in self.graph.get_path(stream.graph_path):
+        # Local elements in REVERSE graph order, for the same reason: a
+        # source's frames must not reach an element whose start_stream
+        # has not run yet (a DataTarget's target path).  The JAX package
+        # starts them in graph order, and under load its sink can see a
+        # frame first.
+        for node_name in reversed(self.graph.get_path(stream.graph_path)):
             element = self.elements[node_name]
             if not isinstance(element, RemoteElement):
                 stream_event, diagnostic = self._safe_call(

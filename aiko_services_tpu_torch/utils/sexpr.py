@@ -191,17 +191,15 @@ def _parse_python(payload) -> tuple:
     return command, expression[1:]
 
 
-# Native fast path: the port has no native codec yet (native/ is ROADMAP
-# Queue A item 4), so the import below fails and every payload takes the
-# Python parser; the guard stays for when a native/ package arrives.
-try:
-    from ..native import sexpr_parse_native as _parse_native
-    from ..native import install_parse_error as _install_parse_error
-except ImportError:  # pragma: no cover
-    _parse_native = None
-else:
-    if _parse_native is not None:
-        _install_parse_error(ParseError)
+# Native fast path: the C++ extension (native/sexpr_codec.cpp) parses
+# byte-per-char identically once it is built, into build/native/, with
+# `python -m aiko_services_tpu_torch.native.build`; until then every
+# payload takes the Python parser.  parse() reads native.sexpr_parse_native
+# at each call, so a build in this process switches it at once.  Payloads
+# outside latin-1 (exotic unicode atoms) take the Python path.
+from .. import native as _native  # noqa: E402
+
+_native.install_parse_error(ParseError)
 
 
 def parse(payload) -> tuple:
@@ -211,9 +209,10 @@ def parse(payload) -> tuple:
     binary-safe).  A bare atom parses as (atom, []).  Returns ("", []) for an
     empty payload.
     """
-    if _parse_native is not None:
+    parse_native = _native.sexpr_parse_native
+    if parse_native is not None:
         try:
-            return _parse_native(payload)
+            return parse_native(payload)
         except UnicodeEncodeError:
             pass  # non-latin-1 text: python path handles full unicode
     return _parse_python(payload)

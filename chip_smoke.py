@@ -3,7 +3,8 @@ and serving-tier paths, its remaining model families (switch MoE,
 YOLOv8, TTS), its long-context (sequence-parallel) path, its
 parameter-sharding axes (tensor, FSDP, data and expert parallelism),
 HuggingFace checkpoints, the shipped examples, the analyzer's eval
-pass and the elastic fleet on one NVIDIA GPU.
+pass, the elastic fleet, the media and vision elements, the
+Checkpointer and the native codec on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -153,7 +154,8 @@ result:
      times (a collective between two shards on one card moves no bytes,
      so every time is one card's):
      13a examples/pipeline_llm_8b.json as shipped: llama3_8b at full
-         width (bf16, weights from a seed) on its fsdp 2 x model 4 mesh,
+         width (bf16, weights drawn on the card from a seed and installed
+         through the element's restore_state) on its fsdp 2 x model 4 mesh,
          the TextSource prompt, 128 new tokens through the pipeline:
          tokens/s, decode-step ms, collective calls and KiB a step, peak
          memory; the last prompt position's logits and the greedy tokens
@@ -236,6 +238,33 @@ result:
          recommendations, what it applied or declined and why, the
          journal holding exactly the applied deltas; the port's `tune`
          on the same traces in a subprocess exits 0
+
+ 16. the last modules: the media and vision elements, the Checkpointer
+     and the native S-expression codec, on phase 8's seeded weights:
+     16a two media graphs at full width through Process /
+         create_pipeline: ToneSource (on_device, 7.5 s tones read as 24
+         kHz audio) -> AudioResample (24 -> 16 kHz) -> AudioFraming (a
+         window of 2 chunks: 5 s, then 10 s) -> SpeechToText
+         (whisper_small, max_frames 512, bf16) -> TokensToText, with
+         AudioFFT on a side branch; ImageSource (on_device, 3 x 480 x
+         640) -> ImageResize (640 x 640) -> Detector (yolov8n shape) and
+         FaceDetect, ImageOutput.  The card's resampled, framed and
+         resized tensors and its spectrum against the same elements on
+         the CPU (the tests' tolerances), the ASR tokens against the
+         card's SpeechToText on the CPU-framed audio (identical),
+         FaceDetect's detections against a CPU run on the same image
+         (equal), K1 launches counted;
+     16b config 5's graph at full width (phase 15's replica definition,
+         2-row frames) serving 4 frames, Pipeline.checkpoint into a
+         Checkpointer under build/, a fresh pipeline restored from it:
+         the stream cursor restored, the same frames' outputs identical
+         to the pipeline's before the checkpoint, K1 launched after the
+         restore; bytes written, save and restore seconds, peak memory;
+     16c native.build.build() with g++, then utils.sexpr.parse on the
+         native path: tests/test_native.py's corpus equal to the Python
+         parser's (errors too), and both parsers' microseconds a message;
+     16d K1 at every case 16a/16b launched it with that phase 2 did not
+         check, against the plain version
 
 The last three lines are the card's nvidia-smi name and power limit, one
 JSON object describing every kernel of the paths, and {"ok": true,
@@ -4308,12 +4337,42 @@ def forced_step_logits(params, config, prompt, forced, steps: int) -> list:
     return out
 
 
+def draw_on_card(config, seed: int) -> dict:
+    """init_params' tree and distributions drawn on the card from a CUDA
+    generator seeded with `seed`: the embedding N(0, 0.02^2), each dense
+    weight N(0, 1/in_features) a layer at a time in f32 and cast, the
+    norm scales 1.  Not init_params' numbers (it draws on the host, which
+    took about 82 s for the 8B); 13a holds the sharded run against the
+    unsharded one on this same draw."""
+    from aiko_services_tpu_torch.models import init_params
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(node, path):
+        if isinstance(node, dict):
+            return {key: draw(value, path + (key,))
+                    for key, value in node.items()}
+        out = torch.empty(node.shape, dtype=node.dtype, device="cuda")
+        if path[-1] == "scale":
+            return out.fill_(1.0)
+        scale = 0.02 if path[0] == "embed" else 1.0 / math.sqrt(
+            node.shape[-2])
+        for block in out.view(-1, *node.shape[-2:]):
+            block.copy_(torch.randn(block.shape, generator=generator,
+                                    device="cuda") * scale)
+        return out
+
+    with torch.device("meta"):  # init_dense draws on the host otherwise
+        shapes = init_params(config, torch.Generator(), device="meta")
+    return draw(shapes, ())
+
+
 def phase_8b_arm(smi: str, axes: dict, whole=None) -> tuple:
     """One arm of 13a: the 8B example's pipeline on `axes`, then its
     element's decode steps timed and counted, and the sharded logits and
-    greedy tokens against the unsharded 8B.  With `whole` (the first
-    arm's weights, unsharded), the arm serves them as int8 weights and
-    KV through the element's restore_state instead of drawing its own.
+    greedy tokens against the unsharded 8B.  The first arm's weights are
+    drawn on the card (draw_on_card, seed 0) and installed through the
+    element's restore_state; with `whole` (the first arm's weights,
+    unsharded), the arm serves them as int8 weights and KV instead.
     Returns (the pipeline run's kernel launches, the weights unsharded)."""
     quantized = whole is not None
     from aiko_services_tpu_torch.models import (
@@ -4342,12 +4401,14 @@ def phase_8b_arm(smi: str, axes: dict, whole=None) -> tuple:
         start = time.perf_counter()
         pipeline = create_pipeline(process, definition)
         element = pipeline.elements["lm"]
+        element.configure()
         if quantized:
-            element.configure()
             element.restore_state(quantize_weights_int8(whole,
                                                         element.config))
             del whole
-        element._ensure_ready()
+        else:
+            element.restore_state(draw_on_card(
+                element.config, int(lm["parameters"].get("seed", 0))))
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - start
         process.run(in_thread=True)
@@ -6086,8 +6147,448 @@ def phase_fleet(smi: str) -> dict:
         if cold is not None:
             cold.process.terminate()
         disable_compile_cache()
-        C5_WEIGHTS.clear()
     say("15 fleet", wall_s=f"{time.perf_counter() - start:.1f}",
+        launches=json.dumps(launches), card=repr(smi))
+    return launches
+
+
+# -- phase 16: the media and vision elements, the Checkpointer, the codec ----
+#
+# The last modules of the port on the card, on phase 8's seeded config-5
+# weights (C5_WEIGHTS: nothing is drawn again).  The media elements run
+# where the JAX package's do: the resampler, the FFT and the resize on
+# the card, framing and face detection on the host; each card output is
+# held against the same element on the CPU.
+
+CHECKPOINT_DIR = ROOT / "build" / "c5_checkpoint"
+M_TONES = ((440.0, 7.5), (523.25, 7.5), (659.25, 7.5))
+M_RATE_IN = 24000             # the 7.5 s tones' samples read as 24 kHz
+M_WINDOW = 2                  # AudioFraming: chunks of 5 s, then 10 s
+M_MAX_TOKENS = 16
+M_IMAGES = 2
+M_IMAGE_SHAPE = (3, 480, 640)
+M_RESAMPLE_ATOL = 1e-6        # tests/test_torch_media.py's bounds
+M_RESIZE_ATOL = 1e-6
+M_SPECTRUM_REL = 1e-5         # of the spectrum's peak
+K_FRAMES = 4                  # 16b: frames served before the checkpoint
+# tests/test_native.py's corpus and its malformed payloads
+SEXPR_CORPUS = [
+    "",
+    "(test)",
+    "(add topic name protocol transport owner (a=b c=d))",
+    "(process_frame (stream_id: 1 frame_id: 0) (a: 0))",
+    '(say "hello world" "quo\\"ted")',
+    "(share response/topic 300 *)",
+    "(nested (a (b (c))) ())",
+    "(mixed (a: 1) plain (b: 2))",
+    "atom_only",
+    "(numbers 1 2.5 -3 1e-6)",
+    "(canon 5:ab cd x)",
+    "(canon 3:\x00\x01\xff end)",
+    "  ( spaced   out )  ",
+    "(empty ())",
+    "(keyword_odd a: 1 b:)",
+    "(blob 256:" + bytes(range(256)).decode("latin-1") + ")",
+]
+SEXPR_MALFORMED = ["((((", "(unterminated", '("unclosed)', "(a) trailing",
+                   "(overrun 99:x)"]
+
+
+def media_definitions() -> tuple:
+    """(the speech graph, the image graph), on the card."""
+    def local(class_name):
+        return {"local": {"module": MODULE, "class_name": class_name}}
+
+    speech = {
+        "name": "media_speech",
+        "graph": ["(tone (resample (framing (asr (text))) (fft)))"],
+        "parameters": {"device": "cuda"},
+        "elements": [
+            {"name": "tone", "output": [{"name": "audio"}],
+             "parameters": {"data_sources": [list(t) for t in M_TONES],
+                            "on_device": True},
+             "deploy": local("ToneSource")},
+            {"name": "resample", "input": [{"name": "audio"}],
+             "output": [{"name": "audio"}, {"name": "sample_rate"}],
+             "map_out": {"audio": "resampled"},
+             "parameters": {"rate_in": M_RATE_IN,
+                            "rate_out": SAMPLE_RATE},
+             "deploy": local("AudioResample")},
+            {"name": "framing", "input": [{"name": "audio"}],
+             "output": [{"name": "audio"}],
+             "map_in": {"audio": "resampled"},
+             "map_out": {"audio": "framed"},
+             "parameters": {"window_count": M_WINDOW},
+             "deploy": local("AudioFraming")},
+            {"name": "asr", "input": [{"name": "audio"}],
+             "output": [{"name": "tokens"}],
+             "map_in": {"audio": "framed"},
+             "parameters": {"preset": "whisper_small", "max_frames": 512,
+                            "max_tokens": M_MAX_TOKENS,
+                            "dtype": "bfloat16"},
+             "deploy": local("SpeechToText")},
+            {"name": "text", "input": [{"name": "tokens"}],
+             "output": [{"name": "text"}],
+             "deploy": local("TokensToText")},
+            {"name": "fft", "input": [{"name": "audio"}],
+             "output": [{"name": "spectrum"}, {"name": "frequencies"}],
+             "map_in": {"audio": "resampled"},
+             "deploy": local("AudioFFT")},
+        ]}
+    image = {
+        "name": "media_image",
+        "graph": ["(camera (resize (detector) (face) (show)))"],
+        "parameters": {"device": "cuda"},
+        "elements": [
+            {"name": "camera", "output": [{"name": "image"}],
+             "parameters": {"data_sources": [list(M_IMAGE_SHAPE)]
+                            * M_IMAGES, "on_device": True, "seed": 160},
+             "deploy": local("ImageSource")},
+            {"name": "resize", "input": [{"name": "image"}],
+             "output": [{"name": "image"}], "map_out": {"image": "resized"},
+             "parameters": {"resize_height": C5_IMAGE,
+                            "resize_width": C5_IMAGE},
+             "deploy": local("ImageResize")},
+            {"name": "detector", "input": [{"name": "image"}],
+             "output": [{"name": "detections"}],
+             "map_in": {"image": "resized"},
+             "parameters": {"preset": "yolov8n", "dtype": "bfloat16"},
+             "deploy": local("Detector")},
+            {"name": "face", "input": [{"name": "image"}],
+             "output": [{"name": "detections"}, {"name": "overlay"}],
+             "map_in": {"image": "resized"},
+             "map_out": {"detections": "faces"},
+             "deploy": local("FaceDetect")},
+            {"name": "show", "input": [{"name": "image"}],
+             "output": [{"name": "image"}], "map_in": {"image": "resized"},
+             "map_out": {"image": "shown"},
+             "deploy": local("ImageOutput")},
+        ]}
+    return speech, image
+
+
+def serve_frames(definition: dict, count: int, weights: dict) -> tuple:
+    """(the outputs of `count` frames of one stream in frame order, the
+    pipeline's K1 launches, its ASR element): each element named in
+    `weights` gets phase 8's state through restore_state first."""
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    process = Process(transport_kind="loopback")
+    try:
+        pipeline = create_pipeline(process, definition)
+        process.run(in_thread=True)
+        for name, state in weights.items():
+            pipeline.elements[name].restore_state(state)
+        responses = queue.Queue()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        pipeline.create_stream("s1", queue_response=responses,
+                               grace_time=600)
+        results = {}
+        for _ in range(count):
+            _, frame, outputs = responses.get(timeout=600)
+            results[frame.frame_id] = outputs
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+    finally:
+        process.terminate()
+    return ([results[key] for key in sorted(results)], launches,
+            pipeline.elements.get("asr"))
+
+
+def cpu_element(cls, **parameters):
+    """A port element on the CPU, outside any pipeline (its parameters
+    as given, a fresh stream state)."""
+    import types
+    element = cls.__new__(cls)
+    parameters["device"] = "cpu"
+    element.get_parameter = (lambda name, default=None, stream=None:
+                             parameters.get(name, default))
+    element.definition = types.SimpleNamespace(name=cls.__name__)
+    return element
+
+
+def phase_media_speech(smi: str) -> dict:
+    """16a, the speech graph.  Returns its kernel launches."""
+    import types
+    from aiko_services_tpu_torch.elements import (
+        AudioFFT, AudioFraming, AudioResample)
+    speech, _ = media_definitions()
+    start = time.perf_counter()
+    outputs, launches, asr = serve_frames(
+        speech, len(M_TONES), {"asr": C5_WEIGHTS["asr"][1]})
+    seconds = time.perf_counter() - start
+    resample = cpu_element(AudioResample, rate_in=M_RATE_IN,
+                           rate_out=SAMPLE_RATE)
+    framing = cpu_element(AudioFraming, window_count=M_WINDOW)
+    fft = cpu_element(AudioFFT)
+    window = types.SimpleNamespace(variables={})
+    worst = {"resampled": 0.0, "framed": 0.0, "spectrum": 0.0}
+    lengths = []
+    for index, frame in enumerate(outputs):
+        tone = frame["audio"]
+        if not (tone.is_cuda and frame["resampled"].is_cuda
+                and frame["spectrum"].is_cuda):
+            raise SystemExit("16a: the tone, the resampled audio or the "
+                             "spectrum left the card")
+        _, resampled = AudioResample.process_frame(resample, None,
+                                                   tone.cpu())
+        _, framed = AudioFraming.process_frame(framing, window,
+                                               resampled["audio"])
+        _, spectrum = AudioFFT.process_frame(fft, None, resampled["audio"])
+        errors = {
+            "resampled": (frame["resampled"].cpu()
+                          - resampled["audio"]).abs().max().item(),
+            "framed": float(np.abs(frame["framed"]
+                                   - framed["audio"]).max()),
+            "spectrum": (frame["spectrum"].cpu() - spectrum["spectrum"]
+                         ).abs().max().item()
+            / spectrum["spectrum"].abs().max().item()}
+        for name, error in errors.items():
+            worst[name] = max(worst[name], error)
+        if (errors["resampled"] > M_RESAMPLE_ATOL
+                or errors["framed"] > M_RESAMPLE_ATOL
+                or errors["spectrum"] > M_SPECTRUM_REL):
+            raise SystemExit(f"16a: frame {index} differs from the CPU "
+                             f"elements: {errors}")
+        peak_hz = spectrum["frequencies"][
+            int(frame["spectrum"].argmax().item())]
+        want_hz = M_TONES[index][0] * M_RATE_IN / SAMPLE_RATE
+        if abs(peak_hz - want_hz) > 1.0:
+            raise SystemExit(f"16a: spectrum peak {peak_hz} Hz, the tone "
+                             f"is at {want_hz} Hz")
+        reference = asr._transcribe(asr.state, framed["audio"],
+                                    M_MAX_TOKENS)
+        tokens = frame["tokens"]
+        if not torch.equal(tokens.cpu(), reference.cpu()):
+            raise SystemExit(f"16a: frame {index}: the served tokens "
+                             f"{tokens.tolist()} differ from the card's "
+                             f"ASR on the CPU-framed audio "
+                             f"{reference.tolist()}")
+        if not (isinstance(frame["text"], list) and len(frame["text"]) == 1):
+            raise SystemExit(f"16a: text {frame['text']!r}")
+        lengths.append(int(frame["framed"].shape[-1]))
+    if launches["flash_attention"] < 12 * len(M_TONES):
+        raise SystemExit(f"16a: {launches['flash_attention']} K1 launches "
+                         f"for {len(M_TONES)} frames of 12 encoder layers")
+    say("16a media_speech", frames=len(outputs),
+        framed_samples=json.dumps(lengths),
+        resampled_max_abs_err=f"{worst['resampled']:.3e}",
+        framed_max_abs_err=f"{worst['framed']:.3e}",
+        spectrum_max_rel_err=f"{worst['spectrum']:.3e}",
+        tokens_equal_cpu_framed=True,
+        flash_attention_launches=launches["flash_attention"],
+        wall_s=f"{seconds:.1f}", card=repr(smi), ok=True)
+    return launches
+
+
+def phase_media_image(smi: str) -> None:
+    """16a, the image graph (no kernel of the port runs on it)."""
+    from aiko_services_tpu_torch.elements import FaceDetect, ImageResize
+    _, image = media_definitions()
+    start = time.perf_counter()
+    outputs, _, _ = serve_frames(image, M_IMAGES,
+                                 {"detector": C5_WEIGHTS["detector"][1]})
+    seconds = time.perf_counter() - start
+    config = C5_WEIGHTS["detector"][0]
+    resize = cpu_element(ImageResize, resize_height=C5_IMAGE,
+                         resize_width=C5_IMAGE)
+    face = cpu_element(FaceDetect)
+    worst, faces = 0.0, 0
+    for index, frame in enumerate(outputs):
+        if not (frame["image"].is_cuda and frame["resized"].is_cuda
+                and tuple(frame["resized"].shape)
+                == (3, C5_IMAGE, C5_IMAGE)
+                and torch.equal(frame["shown"], frame["resized"])):
+            raise SystemExit(f"16a: frame {index}: image "
+                             f"{tuple(frame['image'].shape)} resized "
+                             f"{tuple(frame['resized'].shape)}")
+        _, resized = ImageResize.process_frame(resize, None,
+                                               frame["image"].cpu())
+        error = (frame["resized"].cpu() - resized["image"]).abs().max()
+        worst = max(worst, error.item())
+        if error > M_RESIZE_ATOL:
+            raise SystemExit(f"16a: frame {index}: the resize differs "
+                             f"from the CPU's by {error.item()}")
+        _, expected = FaceDetect.process_frame(face, None,
+                                               frame["resized"].cpu())
+        for key in ("boxes", "scores", "classes", "valid"):
+            if not np.array_equal(frame["faces"][key],
+                                  expected["detections"][key]):
+                raise SystemExit(f"16a: frame {index}: FaceDetect's {key} "
+                                 f"differ from the CPU run's")
+        if frame["overlay"] != expected["overlay"]:
+            raise SystemExit(f"16a: frame {index}: the face overlay "
+                             f"differs from the CPU run's")
+        faces += int(np.asarray(frame["faces"]["valid"]).sum())
+        detections = frame["detections"]
+        boxes, scores = detections["boxes"], detections["scores"]
+        classes = detections["classes"]
+        if not (boxes.is_cuda and tuple(boxes.shape)
+                == (1, config.max_detections, 4)
+                and torch.isfinite(boxes).all()
+                and ((0 <= scores) & (scores <= 1)).all()
+                and ((0 <= classes) & (classes < config.n_classes)).all()):
+            raise SystemExit(f"16a: frame {index}: detections "
+                             f"{tuple(boxes.shape)} outside their ranges")
+    say("16a media_image", frames=len(outputs),
+        image=json.dumps(list(M_IMAGE_SHAPE)),
+        resized=json.dumps([3, C5_IMAGE, C5_IMAGE]),
+        resize_max_abs_err=f"{worst:.3e}", faces_found=faces,
+        face_detections_equal_cpu=True, wall_s=f"{seconds:.1f}",
+        card=repr(smi), ok=True)
+
+
+def serve_stream(pipeline, stream_id: str, frames: list) -> list:
+    """fleet_outputs of `frames` through a stream of `pipeline` that stays
+    open, in frame order."""
+    responses = queue.Queue()
+    stream = pipeline.create_stream(stream_id, queue_response=responses,
+                                    grace_time=F_TIMEOUT)
+    for frame in frames:
+        pipeline.create_frame(stream, dict(frame))
+    results = {}
+    for _ in frames:
+        _, frame, outputs = responses.get(timeout=F_TIMEOUT)
+        results[frame.frame_id] = fleet_outputs(outputs)
+    return [results[key] for key in sorted(results)]
+
+
+def phase_checkpoint(smi: str) -> dict:
+    """16b.  Returns the kernel launches of the restored pipeline's run."""
+    import shutil
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    from aiko_services_tpu_torch.utils.checkpoint import Checkpointer
+    shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    frames = fleet_frames()[:K_FRAMES]
+    checkpointer = Checkpointer(CHECKPOINT_DIR, max_to_keep=1,
+                                device="cuda")
+    process = Process(transport_kind="loopback")
+    try:
+        pipeline = create_pipeline(process, fleet_definition("c5_ckpt"))
+        process.run(in_thread=True)
+        for name, (_, state) in C5_WEIGHTS.items():
+            pipeline.elements[name].restore_state(state)
+        before = serve_stream(pipeline, "s16", frames)
+        cursor = pipeline.streams["s16"].frame_id
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        target = pipeline.checkpoint(checkpointer, step=K_FRAMES)
+        save_s = time.perf_counter() - start
+        save_peak = torch.cuda.max_memory_allocated()
+    finally:
+        process.terminate()
+    del pipeline
+    torch.cuda.empty_cache()
+    written = sum(path.stat().st_size for path in target.rglob("*")
+                  if path.is_file())
+    process = Process(transport_kind="loopback")
+    try:
+        pipeline = create_pipeline(process, fleet_definition("c5_ckpt"))
+        process.run(in_thread=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        metadata = pipeline.restore_checkpoint(checkpointer)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - start
+        restore_peak = torch.cuda.max_memory_allocated()
+        restored_cursor = pipeline.streams["s16"].frame_id
+        kernels.reset_launch_counts()
+        after = serve_stream(pipeline, "s16_restored", frames)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+    finally:
+        process.terminate()
+    shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    if metadata.get("pipeline") != "c5_ckpt" or restored_cursor != cursor:
+        raise SystemExit(f"16b: cursor {restored_cursor} restored, "
+                         f"{cursor} saved ({metadata.get('pipeline')})")
+    for index, (got, want) in enumerate(zip(after, before)):
+        same_outputs(f"16b frame {index} after the restore", got, want)
+    if launches["flash_attention"] < 12 * K_FRAMES:
+        raise SystemExit(f"16b: {launches['flash_attention']} K1 launches "
+                         f"after the restore for {K_FRAMES} frames")
+    say("16b checkpoint", frames=K_FRAMES, rows_per_frame=F_ROWS,
+        stream_cursor=restored_cursor, bytes_written=written,
+        gib_written=f"{written / 2**30:.3f}", save_s=f"{save_s:.2f}",
+        restore_s=f"{restore_s:.2f}",
+        save_max_memory_allocated_gib=f"{save_peak / 2**30:.2f}",
+        restore_max_memory_allocated_gib=f"{restore_peak / 2**30:.2f}",
+        outputs_identical=True,
+        flash_attention_launches=launches["flash_attention"],
+        card=repr(smi), ok=True)
+    return launches
+
+
+def phase_native_codec(smi: str) -> None:
+    """16c."""
+    from aiko_services_tpu_torch import native
+    from aiko_services_tpu_torch.native.build import build
+    from aiko_services_tpu_torch.utils import sexpr
+    start = time.perf_counter()
+    if build() is None or native.sexpr_parse_native is None:
+        raise SystemExit("16c: the native codec did not build or load")
+    build_s = time.perf_counter() - start
+    for payload in SEXPR_CORPUS:
+        if sexpr.parse(payload) != sexpr._parse_python(payload):
+            raise SystemExit(f"16c: the native parser differs on "
+                             f"{payload!r}")
+    for payload in SEXPR_MALFORMED:
+        for parser in (sexpr.parse, sexpr._parse_python):
+            try:
+                parser(payload)
+            except sexpr.ParseError:
+                continue
+            raise SystemExit(f"16c: {payload!r} parsed without a "
+                             f"ParseError")
+    message = sexpr.generate(
+        "add", ["namespace/host/1234/5", "pipeline_worker",
+                "github.com/x/protocol/pipeline:0", "mqtt", "owner",
+                ["ec=true", "stage=3"]])
+    timed = {}
+    for name, parser in (("native", sexpr.parse),
+                         ("python", sexpr._parse_python)):
+        start = time.perf_counter()
+        for _ in range(20000):
+            parser(message)
+        timed[name] = (time.perf_counter() - start) / 20000 * 1e6
+    say("16c native_codec", build_s=f"{build_s:.2f}",
+        corpus=len(SEXPR_CORPUS), malformed=len(SEXPR_MALFORMED),
+        native_us_per_message=f"{timed['native']:.3f}",
+        python_us_per_message=f"{timed['python']:.3f}",
+        message_bytes=len(message), equal_to_python=True, ok=True)
+
+
+def phase_media_kernel_checks(forward: set) -> None:
+    """16d: K1 at every case 16a/16b launched it with that phase 2 did
+    not check, against the plain version."""
+    checked = {(*spec, 1.0 / math.sqrt(spec[4]))
+               for spec in KERNEL_CASES.values()}
+    new = sorted(forward - checked, key=str)
+    for index, spec in enumerate(new):
+        check_forward_case(f"16_{index}", spec, 1600 + index,
+                           "16d kernel_vs_plain")
+    say("16d media_kernel_checks", k1_cases=len(new), ok=True)
+
+
+def phase_last_modules(smi: str) -> dict:
+    """Phase 16.  Returns the kernel launches of its main-path runs."""
+    from aiko_services_tpu_torch.ops import kernels
+    start = time.perf_counter()
+    launches = {name: 0 for name in kernels.KERNELS}
+    forward = set()
+    with recorded_kernel_cases(forward, set()):
+        add_launches(launches, phase_media_speech(smi))
+        phase_media_image(smi)
+        add_launches(launches, phase_checkpoint(smi))
+    phase_native_codec(smi)
+    phase_media_kernel_checks(forward)
+    say("16 last_modules", wall_s=f"{time.perf_counter() - start:.1f}",
         launches=json.dumps(launches), card=repr(smi))
     return launches
 
@@ -6119,6 +6620,9 @@ def main() -> None:
         launches[name] += count
     for name, count in phase_fleet(smi).items():
         launches[name] += count
+    for name, count in phase_last_modules(smi).items():
+        launches[name] += count
+    C5_WEIGHTS.clear()
     say("run", seconds=f"{time.perf_counter() - run_start:.1f}",
         card=repr(smi))
     sources = {"flash_attention": ("flash_attention.cu", 75),

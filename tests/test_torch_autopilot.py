@@ -5,8 +5,8 @@
 # journal (idempotent replay, committed-prefix truncation, HA standby
 # adoption without re-apply), trace-collection early return, and
 # deterministic tick_now() convergence on a live in-process fleet.  The
-# replica's element is PE_Busy, defined here (the port has no
-# elements/toys.py yet); pipelines run with "device": "cpu".
+# replica's element is the port's PE_Busy (elements/toys.py); pipelines
+# run with "device": "cpu".
 #
 # Parity with the JAX package: AutopilotPolicy.parse gives the same
 # fields and the same diagnostic codes, and analyze_definition the same
@@ -20,11 +20,11 @@ import pytest
 from aiko_services_tpu.serve import autopilot as jax_autopilot
 from aiko_services_tpu.analyze import analyze_definition as jax_analyze
 from aiko_services_tpu_torch import faults as faults_module
+from aiko_services_tpu_torch.elements.toys import PE_Busy
 from aiko_services_tpu_torch.analyze import analyze_definition
 from aiko_services_tpu_torch.observe.metrics import (
     SlidingWindow, get_registry)
-from aiko_services_tpu_torch.pipeline import (
-    PipelineElement, StreamEvent, create_pipeline)
+from aiko_services_tpu_torch.pipeline import create_pipeline
 from aiko_services_tpu_torch.runtime import Process
 from aiko_services_tpu_torch.serve import Gateway
 from aiko_services_tpu_torch.serve import autopilot as torch_autopilot
@@ -34,21 +34,7 @@ from helpers import wait_for
 from test_torch_cli import _invoke
 
 
-class PE_Busy(PipelineElement):
-    """The JAX package's toy (elements/toys.py): number x constant after
-    a FIXED host cost per frame (`work_ms`), so the floor classification
-    (compute vs queue wait) is test-controlled.  Array inputs multiply
-    elementwise, so the element coalesces under micro-batching."""
-
-    def process_frame(self, stream, number):
-        time.sleep(float(self.get_parameter("work_ms", 2, stream)) / 1000.0)
-        constant = int(self.get_parameter("constant", 3, stream))
-        if hasattr(number, "shape"):
-            return StreamEvent.OKAY, {"number": number * constant}
-        return StreamEvent.OKAY, {"number": int(number) * constant}
-
-
-ELEMENTS = "tests.test_torch_autopilot"
+ELEMENTS = PE_Busy.__module__
 _JOURNAL = "backend=retained;interval=0.02;search_timeout=0.5"
 _POLICY = "interval=0;apply=on;max_delta_frac=0.5;margin=0.15"
 

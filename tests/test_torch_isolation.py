@@ -3,7 +3,8 @@
 # (decode/, with the prefill engine of decode/disagg.py and the
 # checkpoint keeper of decode/checkpoint.py), serving tier (serve/: the
 # gateway, its admission, journal, disaggregation and federation
-# policies) and training paths loads no JAX, no optax, no ml_dtypes and
+# policies), media, vision and toy elements, the native codec, the
+# Checkpointer and training paths loads no JAX, no optax, no ml_dtypes and
 # nothing of the JAX package, and no source file of the port (decode/
 # and serve/ included; nor the chip scripts chip_smoke.py,
 # chip_profile.py and chip_backward_ab.py) imports them.
@@ -42,6 +43,8 @@ def test_importing_the_main_path_loads_no_jax():
         "import aiko_services_tpu_torch.decode.disagg\n"
         "import aiko_services_tpu_torch.decode.checkpoint\n"
         "import aiko_services_tpu_torch.serve\n"
+        "import aiko_services_tpu_torch.native.build\n"
+        "import aiko_services_tpu_torch.utils.checkpoint\n"
         "print(' '.join(sorted(sys.modules)))\n")
     result = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                             capture_output=True, text=True, timeout=120)
@@ -55,7 +58,10 @@ def test_importing_the_main_path_loads_no_jax():
                    "elements.image_io", "decode.blocks", "decode.engine",
                    "decode.prefix", "decode.disagg", "decode.checkpoint",
                    "serve.gateway", "serve.policy", "serve.journal",
-                   "serve.disagg", "serve.federation"):
+                   "serve.disagg", "serve.federation", "elements.toys",
+                   "elements.vision", "elements.webcam_io",
+                   "elements.gstreamer_io", "native", "native.build",
+                   "utils.checkpoint"):
         assert f"aiko_services_tpu_torch.{module}" in loaded
     assert [module for module in loaded if _forbidden(module)] == []
 

@@ -6,12 +6,14 @@
 import ast
 import pathlib
 import queue
+import time
 
 import numpy as np
 import pytest
 
 from aiko_services_tpu_torch.models import SafetensorsFile
-from aiko_services_tpu_torch.pipeline import DefinitionError, create_pipeline
+from aiko_services_tpu_torch.pipeline import (
+    DefinitionError, PipelineElement, StreamEvent, create_pipeline)
 from aiko_services_tpu_torch.runtime import Process
 from aiko_services_tpu_torch.transport import reset_brokers
 
@@ -176,3 +178,46 @@ def test_sharding_block_runs_on_a_data_axis():
     assert texts == plain_texts
     for got, want in zip(tokens, plain_tokens):
         np.testing.assert_array_equal(got, want)
+
+
+class SlowStartSink(PipelineElement):
+    """A sink whose start_stream takes a while before it sets up what
+    its process_frame needs (as DataTarget's target path)."""
+
+    def start_stream(self, stream, stream_id):
+        time.sleep(0.3)
+        stream.variables["sink.ready"] = True
+        return StreamEvent.OKAY, None
+
+    def process_frame(self, stream, text):
+        return StreamEvent.OKAY, {"text": text,
+                                  "ready": stream.variables["sink.ready"]}
+
+
+def test_every_element_starts_before_a_source_generates():
+    """A source's generator thread produces frames the moment its
+    start_stream runs; the stream's other elements are started first,
+    so no frame reaches an element whose start_stream has not run
+    (under load the JAX package's engine can deliver one there)."""
+    definition = {
+        "name": "start_order", "graph": ["(source (sink))"],
+        "elements": [
+            {"name": "source", "output": [{"name": "text"}],
+             "parameters": {"data_sources": ["a", "b", "c"]},
+             "deploy": {"local": {"module": MODULE,
+                                  "class_name": "TextSource"}}},
+            {"name": "sink", "input": [{"name": "text"}],
+             "output": [{"name": "text"}, {"name": "ready"}],
+             "deploy": {"local": {"module": "tests.test_torch_pipeline",
+                                  "class_name": "SlowStartSink"}}}]}
+    process = Process(transport_kind="loopback")
+    try:
+        pipeline = create_pipeline(process, definition)
+        process.run(in_thread=True)
+        responses = queue.Queue()
+        pipeline.create_stream("s1", queue_response=responses)
+        got = [responses.get(timeout=20)[2] for _ in range(3)]
+    finally:
+        process.terminate()
+    assert sorted(outputs["text"] for outputs in got) == ["a", "b", "c"]
+    assert all(outputs["ready"] for outputs in got)
