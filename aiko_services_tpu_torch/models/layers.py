@@ -22,7 +22,8 @@ import torch.nn.functional as F
 from ..ops.audio import full_f32_convolution
 from ..ops.device import counted_flags
 from ..parallel.collectives import (
-    _entries, all_gather, axis_index, map_shards, psum)
+    _entries, all_gather, axis_index, join_backward, map_shards, psum,
+    replicated)
 from ..parallel.mesh import Sharded
 
 __all__ = ["dense", "rms_norm", "layer_norm", "rotary_embedding",
@@ -241,13 +242,15 @@ class ShardedCall:
     def grid(self, leaf):
         """A leaf as a grid: a Sharded's blocks, or the whole tensor on
         the device of each position this process computes (one copy per
-        device)."""
+        device; on a mesh over several processes a replica on each,
+        whose gradient sums every process's -- collectives.replicated)."""
         if isinstance(leaf, Sharded):
             if leaf.mesh is not self.mesh:
                 raise ValueError(
                     f"a sharded call's leaves must share one mesh: "
                     f"{leaf.mesh!r} is not {self.mesh!r}")
             return leaf.shards
+        leaf = replicated(leaf, self.mesh)
         return map_shards(lambda device: leaf.to(device),
                           self.mesh.local_devices)
 
@@ -315,15 +318,31 @@ class ShardedCall:
             return x.narrow(dim, index * width, width)
         return map_shards(cut, grid, self.index[axis_name])
 
+    def first(self, grid):
+        """The entry of the mesh's first position, where every position
+        holds the same (replicated) result.  A process that does not
+        hold that position takes its own replica, detached: on a mesh
+        over several processes every process computes the loss on the
+        result, and only the first position's copy may send its
+        cotangent back (the collectives' backward sums what every
+        process sends, so a second live copy would count it twice)."""
+        if self.mesh.local.flat[0]:
+            return grid.flat[0]
+        return grid[self.mesh.local][0].detach()
+
     def gather_home(self, grid, dim: int = 0):
         """The whole tensor on the home device: the data blocks of
         `grid` concatenated along `dim` when split_batch split the batch
         over "data" (gathered from other processes: a collective), else
-        this process's first entry."""
+        the first position's entry (ShardedCall.first).  Each process's
+        own blocks keep their gradient; the blocks gathered from other
+        processes are detached on purpose: their owners compute the same
+        loss on them and send those rows' cotangents back themselves.
+        The result carries the mesh's chain of cross-process backward
+        collectives (collectives.join_backward)."""
         mesh = self.mesh
         if not self.split:
-            # every position holds the whole result: take a local one
-            return grid[mesh.local][0].to(self.home)
+            return join_backward(self.first(grid).to(self.home), mesh)
         axis = mesh.axis_names.index("data")
         members = []
         for index in range(self.size["data"]):
@@ -335,8 +354,8 @@ class ShardedCall:
         if entries is None:
             raise ValueError("gather_home: this process holds no data "
                              "block of the result")
-        return torch.cat([entry.to(self.home) for entry in entries],
-                         dim=dim)
+        return join_backward(torch.cat(
+            [entry.to(self.home) for entry in entries], dim=dim), mesh)
 
 
 def _dense_partial(params: dict, x):

@@ -17,8 +17,10 @@
 # Sharded parameters (parallel.shard_pytree) train where they lie: the
 # tree utilities walk their distinct blocks, so the moments take each
 # block's shape and device and the elementwise update needs no
-# collective; value_and_grad sums the gradients of a block's replicas
-# that lie on different devices (collectives.sum_replica_grads).
+# collective (adam's and adamw's every operation is elementwise, on one
+# process or several); value_and_grad sums the gradients of a block's
+# replicas that lie on different devices, or on other processes of a
+# mesh from global_mesh (collectives.sum_replica_grads).
 #
 # Departures from optax: learning rates are floats (no schedules), and
 # update() writes the new moments into the state's tensors in place (the
@@ -32,7 +34,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..parallel.collectives import sum_replica_grads
+from ..parallel.collectives import begin_backward, sum_replica_grads
 from ..parallel.mesh import sharded_leaves
 from ..utils.tree import tree_leaves, tree_map
 
@@ -111,10 +113,13 @@ def value_and_grad(loss_fn: Callable, params, *arguments):
     """(loss, grads): loss_fn(params, *arguments) and its gradient with
     respect to every leaf of the parameter tree (zeros where a leaf does
     not reach the loss, as jax.grad gives).  The leaves are made to
-    require grad; their .grad is left empty."""
+    require grad; their .grad is left empty.  On a mesh over several
+    processes the loss starts its own chain of cross-process backward
+    collectives (collectives.begin_backward)."""
     leaves = tree_leaves(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
+    begin_backward()
     loss = loss_fn(params, *arguments)
     loss.backward()
     for sharded in sharded_leaves(params):

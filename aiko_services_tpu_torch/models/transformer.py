@@ -964,6 +964,12 @@ def _on_seq_lines(call: ShardedCall, function, *grids):
         raise ValueError(f"the sequence-parallel path needs a mesh with a "
                          f"'seq' axis, got axes {mesh.axis_names}")
     axis = mesh.axis_names.index("seq")
+    if "seq" in mesh.process_axes:
+        # the ring, Ulysses and the sp decode move shards with
+        # .to(device) along the line: every position must be local
+        raise NotImplementedError(
+            "sequence parallelism over a 'seq' axis that spans processes "
+            "is not ported")
     out = np.empty(mesh.devices.shape, dtype=object)
     made: dict = {}
     for position in np.ndindex(mesh.devices.shape):
@@ -1145,12 +1151,13 @@ def _sharded_moe(call: ShardedCall, layer, x):
 def _sharded_aux(call: ShardedCall, routed):
     """The load-balancing loss over the WHOLE batch: each data block's
     sums of the router's one-hots and probabilities, psummed over
-    "data" when the batch is split there."""
+    "data" when the batch is split there; the first position's sums
+    (ShardedCall.first: one live copy across processes)."""
     sums = map_shards(lambda r: torch.stack([r[1].sum(dim=(0, 1)),
                                             r[4].sum(dim=(0, 1))]), routed)
     if call.split:
         sums = psum(sums, call.mesh, "data")
-    total = next(t for t in sums.flat if t is not None).to(call.home)
+    total = call.first(sums).to(call.home)
     rows = next(r for r in routed.flat if r is not None)[1]
     count = rows.shape[0] * rows.shape[1] * (call.size["data"]
                                              if call.split else 1)
@@ -1336,6 +1343,11 @@ def _sharded_layer(call: ShardedCall, layer, h, rope, layer_cache,
 def _sharded_forward(mesh, params, config: TransformerConfig, tokens,
                      cache, pos: int, return_aux: bool, context_fn):
     """forward() on the mesh: the same results, computed on the shards."""
+    if context_fn is not None and mesh.processes is not None:
+        # a checkpointed layer runs its forward collectives again inside
+        # the backward, out of the order the processes pair them in
+        raise ValueError("remat_policy is not ported to a mesh over "
+                         "several processes")
     call, params = _call_layout(mesh, params, config)
     grids = call.dicts(params)
     token_grid = _token_grid(call, tokens)
@@ -1754,7 +1766,11 @@ def make_train_step(config: TransformerConfig, optimizer,
     takes its parameter's blocks and the update is elementwise, so no
     weight is ever gathered.  sharded=True adds activation_specs: with an
     ambient mesh and whole parameters, the step runs data-parallel on
-    it."""
+    it.  On a mesh from global_mesh every process runs this step on the
+    same tokens and weights: each computes its own positions, the
+    gradients cross the processes through the collectives' backward
+    (parallel/collectives.py), and each process's blocks take exactly
+    the gradients of the same step on a one-process mesh."""
     resolve_remat_policy(remat_policy)  # fail fast on typos
 
     def loss_fn(params, tokens):

@@ -10,9 +10,9 @@ from .attention import (                                      # noqa: F401
     flash_attention_backward_plain, ring_attention, sp_decode_attention,
     ulysses_attention)
 from .collectives import (                                    # noqa: F401
-    all_gather, all_to_all, axis_index, collective_counts,
-    collective_totals, conform, map_shards, ppermute, psum, psum_scatter,
-    reset_collective_counts, reshard)
+    all_gather, all_to_all, axis_index, begin_backward, collective_counts,
+    collective_totals, conform, join_backward, map_shards, ppermute, psum,
+    psum_scatter, reset_collective_counts, reshard, staged_bytes)
 from .distributed import (                                    # noqa: F401
     global_mesh, initialize_distributed, is_distributed, process_count,
     process_index, shutdown_distributed)

@@ -46,8 +46,11 @@ def initialize_distributed(coordinator_address: str | None = None,
     anywhere (a one-process deployment) this does nothing and returns
     False.  Idempotent: later calls after a successful join return True.
     local_device_ids picks this process's devices (CUDA indices) for
-    global_mesh; backend defaults to NCCL when CUDA is available, else
-    gloo."""
+    global_mesh, the same index more than once for several positions on
+    one card; backend defaults to NCCL when CUDA is available, else gloo
+    (which moves host tensors: on a gloo job the collectives stage CUDA
+    blocks through host memory, as two processes on one card need, since
+    NCCL takes one rank per card)."""
     global _INITIALIZED, _LOCAL_DEVICE_IDS
     with _LOCK:
         if _INITIALIZED:
@@ -120,10 +123,18 @@ def process_count() -> int:
 def _local_devices() -> list:
     """This process's devices: the CUDA devices initialize_distributed
     was given, else the default device list (every CUDA device, or the
-    list set_default_devices installed), else the CPU."""
+    list set_default_devices installed), else the CPU.  Equal devices
+    are one object, as in create_mesh: the shard code shares work and
+    tensors between positions by identity, so local_device_ids=[0, 0]
+    gives two positions on one card that share what they compute
+    alike."""
     if _LOCAL_DEVICE_IDS is not None:
-        return [torch.device("cuda", index) for index in _LOCAL_DEVICE_IDS]
-    return default_devices() or [torch.device("cpu")]
+        devices = [torch.device("cuda", index)
+                   for index in _LOCAL_DEVICE_IDS]
+    else:
+        devices = default_devices() or [torch.device("cpu")]
+    canonical: dict = {}
+    return [canonical.setdefault(str(device), device) for device in devices]
 
 
 def global_mesh(axes: dict | None = None) -> Mesh:

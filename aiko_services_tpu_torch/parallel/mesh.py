@@ -99,6 +99,11 @@ class Mesh:
         # position groups of each set of axes (collectives)
         self.process_groups: dict = {}
         self.group_cache: dict = {}
+        # across processes (collectives): each process group's count of
+        # exchanges, and the chain of backward collectives of the forward
+        # in flight (its own while open, a weak reference once joined)
+        self.sequence: dict = {}
+        self.chain = None
 
     @property
     def shape(self) -> OrderedDict:
@@ -118,6 +123,15 @@ class Mesh:
         out = np.empty(self.devices.shape, dtype=object)
         out[self.local] = self.devices[self.local]
         return out
+
+    @property
+    def process_axes(self) -> tuple:
+        """The axes along which positions lie on other processes (none
+        on a mesh one process drives)."""
+        if self.processes is None:
+            return ()
+        return tuple(name for axis, name in enumerate(self.axis_names)
+                     if (np.diff(self.processes, axis=axis) != 0).any())
 
     @property
     def home(self) -> torch.device:
@@ -517,7 +531,11 @@ def unshard(leaf) -> torch.Tensor:
     order.  The sharded model paths do (the token grid at entry, the
     cache write-back and the logits at exit, LMForward's output), and so
     must a caller of save_pytree or Checkpointer.save on a sharded
-    tree.  The gathered blocks are detached: this is a serving path."""
+    tree.  The gathered blocks are detached: this is the serving and
+    checkpoint gather, and no gradient flows back through it.  The
+    collectives' own gather (parallel/collectives.py) is the one that
+    carries gradients across processes, and reshard's backward carries a
+    gradient back through the unshard it moves a leaf with."""
     if not isinstance(leaf, Sharded):
         return leaf
     mesh = leaf.mesh

@@ -4,7 +4,8 @@ YOLOv8, TTS), its long-context (sequence-parallel) path, its
 parameter-sharding axes (tensor, FSDP, data and expert parallelism),
 HuggingFace checkpoints, the shipped examples, the analyzer's eval
 pass, the elastic fleet, the media and vision elements, the
-Checkpointer and the native codec on one NVIDIA GPU.
+Checkpointer, the native codec and sharded training across processes
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -265,6 +266,30 @@ result:
          parser's (errors too), and both parsers' microseconds a message;
      16d K1 at every case 16a/16b launched it with that phase 2 did not
          check, against the plain version
+ 17. sharded training across two processes on the one card: two worker
+     processes join a gloo job through the AIKO_* contract on localhost,
+     each with local_device_ids [0, 0] (two positions on cuda:0), and a
+     global mesh spans both; every cross-process exchange of a CUDA
+     block goes through host memory (counted).  The parent first runs
+     the unsharded steps on the same weights (drawn on the card from one
+     seed in every process) and batches, writes the parameters after
+     them (and the f32 gradients) under build/, and frees the card:
+     17a llama32_1b at full width and depth, bf16, batch 4 x 1024,
+         adamw, 1 + 2 steps of make_train_step(sharded=True) on fsdp 2 x
+         model 2, fsdp across the processes: each rank's losses and its
+         blocks' change against the unsharded steps (13c's gates), step
+         ms, tokens/s, peak memory, collective calls and bytes a step
+         (worked out from the mesh in advance; a mismatch fails), bytes
+         staged through the host, K1/K2/K3 launches a step against
+         layers x the shards the rank computes, 0 kernel builds in the
+         workers;
+     17b the same step in f32 at 2 layers on fsdp 2 x model 2 and on
+         data 2 x fsdp 2 (the replica sum across the processes): each
+         step's gradients leaf by leaf and the losses against the
+         unsharded step's;
+     17c every K1 and K2/K3 case 17a/17b launched that phase 2 did not
+         check, against the plain versions, on each rank; and the ranks'
+         replicas (whole leaves, blocks both hold) bit for bit equal
 
 The last three lines are the card's nvidia-smi name and power limit, one
 JSON object describing every kernel of the paths, and {"ok": true,
@@ -6593,6 +6618,438 @@ def phase_last_modules(smi: str) -> dict:
     return launches
 
 
+# -- phase 17: training across processes --------------------------------------
+#
+# Two worker processes (process_worker, each its own python) join one job
+# through the AIKO_* contract on localhost with backend "gloo" (one card
+# cannot hold two NCCL ranks) and local_device_ids [0, 0]: each drives
+# two positions on cuda:0, and global_mesh spans both.  Every
+# cross-process exchange of a CUDA block goes through host memory
+# (gloo), counted.  The parent runs the unsharded steps first on the same
+# weights (draw_on_card, drawn alike in every process) and batches,
+# writes what the workers hold their steps against under PROCESS_DIR, and
+# frees the card before the workers start.
+
+PROCESS_DIR = ROOT / "build" / "processes"
+PROCESS_TIMEOUT = 900         # seconds, for both workers together
+PROCESS_SEED = 17
+PROCESS_ARMS = (              # (label, dtype, layers: None for all, axes)
+    ("17a", "bfloat16", None, {"fsdp": 2, "model": 2}),
+    ("17b", "float32", SHARD_F32_LAYERS, {"fsdp": 2, "model": 2}),
+    ("17b", "float32", SHARD_F32_LAYERS, {"data": 2, "fsdp": 2}),
+)
+
+
+def process_config(dtype: str, layers):
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import LLAMA32_1B
+    return replace(LLAMA32_1B, dtype=dtype,
+                   n_layers=layers or LLAMA32_1B.n_layers)
+
+
+def process_batches(config) -> list:
+    """The 1 + SHARD_TRAIN_STEPS batches, the same in every process."""
+    rng = np.random.default_rng(PROCESS_SEED)
+    return [torch.from_numpy(rng.integers(
+        0, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
+        for _ in range(1 + SHARD_TRAIN_STEPS)]
+
+
+def process_reference(config) -> list:
+    """The unsharded steps on PROCESS_SEED's weights and batches: writes
+    the parameters after them (and in f32 each step's gradients) under
+    PROCESS_DIR and frees the card; returns the losses."""
+    from aiko_services_tpu_torch.models import (
+        adamw, make_train_step, save_pytree)
+    f32 = config.dtype == "float32"
+    grads = []
+    optimizer = recording(adamw(SHARD_LR), lambda step, tree: (
+        grads.append(tree_to(tree, "cpu")) if f32 else None))
+    params = draw_on_card(config, PROCESS_SEED)
+    state = optimizer.init(params)
+    step = make_train_step(config, optimizer)
+    losses = []
+    for batch in process_batches(config):
+        params, state, loss = step(params, state, batch)
+        losses.append(loss.item())
+    save_pytree(PROCESS_DIR / f"{config.dtype}_after.safetensors", params)
+    for index, tree in enumerate(grads):
+        save_pytree(PROCESS_DIR / f"{config.dtype}_grads{index}.safetensors",
+                    tree)
+    del params, state, step, grads
+    torch.cuda.empty_cache()
+    return losses
+
+
+def local_blocks(leaf) -> list:
+    """(tensor, index into the whole tensor) of each distinct block this
+    process holds of a placed leaf; a whole tensor is one, at ()."""
+    from aiko_services_tpu_torch.parallel import Sharded
+    if not isinstance(leaf, Sharded):
+        return [(leaf, ())]
+    shape = leaf.sharding.shard_shape(tuple(leaf.shape))
+    seen, out = set(), []
+    for position, tensor in np.ndenumerate(leaf.shards):
+        if tensor is None or id(tensor) in seen:
+            continue
+        seen.add(id(tensor))
+        out.append((tensor, tuple(
+            slice(start * size, (start + 1) * size)
+            for start, size in zip(leaf.block(position), shape))))
+    return out
+
+
+def local_relative(got_tree, want_tree, base_tree=None) -> tuple:
+    """worst_relative over the blocks this process holds: per leaf,
+    ||got - want|| / ||want|| over its distinct local blocks against the
+    same slices of the whole `want_tree` (with `base_tree`, a tree placed
+    as `got_tree`, of the changes from it)."""
+    worst = ("", 0.0)
+    wants = dict(leaf_items(want_tree))
+    bases = dict(leaf_items(base_tree)) if base_tree is not None else {}
+    for name, leaf in leaf_items(got_tree):
+        error2 = scale2 = 0.0
+        base = (local_blocks(bases[name]) if name in bases
+                else [(None, None)] * len(local_blocks(leaf)))
+        for (tensor, index), (start, _) in zip(local_blocks(leaf), base):
+            got = tensor.detach().float()
+            want = wants[name][index].to(got.device).float()
+            if start is not None:
+                got, want = got - start.float(), want - start.float()
+            error2 += (got - want).norm().item() ** 2
+            scale2 += want.norm().item() ** 2
+        error = (math.sqrt(error2 / scale2) if scale2
+                 else 0.0 if not error2 else float("inf"))
+        if not error <= worst[1]:
+            worst = (name, error)
+    return worst
+
+
+def replica_digests(tree, mesh) -> dict:
+    """sha256 of every local block that another process holds too, and
+    of every whole leaf: {name@block: digest}."""
+    import hashlib
+    from aiko_services_tpu_torch.parallel import Sharded
+    out = {}
+    for name, leaf in leaf_items(tree):
+        held = {}
+        if isinstance(leaf, Sharded):
+            for position in np.ndindex(leaf.shards.shape):
+                held.setdefault(leaf.block(position), set()).add(
+                    int(mesh.processes[position]))
+        for tensor, index in local_blocks(leaf):
+            block = (() if not index else tuple(
+                part.start // (part.stop - part.start) for part in index))
+            if index and len(held[block]) < 2:
+                continue
+            data = tensor.detach().contiguous().view(torch.uint8).cpu()
+            out[f"{name}@{block}"] = hashlib.sha256(
+                data.numpy().tobytes()).hexdigest()
+    return out
+
+
+def process_expected(config, mesh) -> dict:
+    """What one sharded train step issues on this process, worked out
+    from the mesh: its K1 (and K2, K3) launches -- one per layer and per
+    (data block, model shard) its positions compute -- and its
+    collective calls and bytes: per position, the embedding's gather and
+    per layer the q/k/v and gate/up psums and the wo and w_down gathers
+    over fsdp, the wo and w_down psums over model (each the activations'
+    bytes), the f32 logits' psum over fsdp; per step, each whole leaf's
+    gradient summed across the processes and each Sharded leaf whose
+    blocks another process holds too summed with it (sum_replica_grads),
+    each with its local blocks' bytes."""
+    from aiko_services_tpu_torch.models import init_params, param_specs
+    from aiko_services_tpu_torch.parallel import filter_specs
+    from aiko_services_tpu_torch.parallel.mesh import spec_layout
+    size = {name: mesh.size(name) for name in ("data", "fsdp", "model")}
+    data, fsdp, model = size["data"], size["fsdp"], size["model"]
+    rows = TRAIN_BATCH // data if TRAIN_BATCH % data == 0 else TRAIN_BATCH
+    tokens = rows * TRAIN_SEQ
+    width = torch.empty((), dtype=config.torch_dtype).element_size()
+    positions = [position for position in np.ndindex(mesh.devices.shape)
+                 if mesh.local[position]]
+    index = {name: mesh.axis_names.index(name) if name in mesh.axis_names
+             else None for name in size}
+    shards = {tuple(position[index[name]] if index[name] is not None
+                    else 0 for name in ("data", "model"))
+              for position in positions}
+    calls = per_position = 0
+    d, hd = config.d_model, config.head_dim
+    if fsdp > 1:
+        calls += 2 + 4 * config.n_layers
+        per_position += tokens * width * (
+            d // fsdp + config.n_layers * (
+                (config.n_heads + 2 * config.n_kv_heads) * hd // model
+                + 2 * d // fsdp + 2 * config.d_ff // model))
+        per_position += tokens * config.vocab_size * 4
+    if model > 1:
+        calls += 2 * config.n_layers
+        per_position += tokens * width * config.n_layers * 2 * d // fsdp
+    total = per_position * len(positions)
+    with torch.device("meta"):
+        shapes = init_params(config, torch.Generator(), device="meta")
+    specs = dict(leaf_items(filter_specs(param_specs(config), mesh)))
+    spanning = set(mesh.process_axes)
+    for name, leaf in leaf_items(shapes):
+        layout = spec_layout(specs[name], mesh, leaf.ndim)
+        cut_by = {axis for names in layout for axis in names}
+        leaf_bytes = leaf.numel() * width
+        if not cut_by:
+            calls += 1
+            total += leaf_bytes
+        elif spanning - cut_by:
+            cut = int(np.prod([mesh.shape[axis] for axis in cut_by]))
+            calls += 1
+            total += leaf_bytes // cut * len(positions)
+    return {"launches": config.n_layers * len(shards),
+            "collective_calls": calls, "collective_bytes": total}
+
+
+def process_arm(rank: int, label: str, config, axes: dict, smi: str,
+                reference: list) -> dict:
+    """One arm of phase 17 on this rank: 1 + SHARD_TRAIN_STEPS sharded
+    steps on the global mesh, held against the parent's unsharded steps
+    (losses; each parameter's change over this rank's blocks; in f32
+    each step's gradients leaf by leaf) and the counts worked out in
+    advance.  Returns what the parent checks across the ranks."""
+    from aiko_services_tpu_torch.models import (
+        adamw, count_params, load_pytree, make_train_step, param_specs)
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import (
+        collective_totals, filter_specs, global_mesh,
+        reset_collective_counts, shard_pytree, staged_bytes, use_mesh)
+    from aiko_services_tpu_torch.utils.tree import tree_map
+    f32 = config.dtype == "float32"
+    mesh = global_mesh(axes)
+    params = draw_on_card(config, PROCESS_SEED)
+    n_params = count_params(params)
+    sharded = copy_replicated(shard_pytree(
+        params, mesh, filter_specs(param_specs(config), mesh)))
+    del params
+    torch.cuda.empty_cache()
+    before = tree_map(lambda tensor: tensor.detach().clone(), sharded)
+    grad_errors = []
+
+    def record(step, grads):
+        if f32:
+            want = load_pytree(PROCESS_DIR / f"float32_grads{step}"
+                               f".safetensors", device="cpu")
+            grad_errors.append(local_relative(grads, want))
+    optimizer = recording(adamw(SHARD_LR), record)
+    state = optimizer.init(sharded)
+    step = make_train_step(config, optimizer, sharded=True)
+    losses, times = [], []
+    with use_mesh(mesh):
+        for index, batch in enumerate(process_batches(config)):
+            if index == 1:  # the warm-up step is not counted
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                reset_collective_counts()
+            start = time.perf_counter()
+            sharded, state, loss = step(sharded, state, batch)
+            losses.append(loss.item())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+    launches = launch_counts()
+    calls, size = collective_totals()
+    staged = staged_bytes()
+    peak = torch.cuda.max_memory_allocated()
+    after = load_pytree(PROCESS_DIR / f"{config.dtype}_after.safetensors",
+                        device="cpu")
+    update_leaf, update_error = local_relative(sharded, after, before)
+    digests = replica_digests(sharded, mesh)
+    expected = process_expected(config, mesh)
+    del sharded, state, step, before, after
+    torch.cuda.empty_cache()
+    steps = SHARD_TRAIN_STEPS
+    loss_diff = max(abs(a - b) for a, b in zip(losses, reference))
+    step_s = statistics.median(times[1:])
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    mfu = 6 * n_params * tokens_per_s / peaks_for(smi)[1][config.dtype]
+    grad_leaf, grad_error = max(grad_errors, key=lambda item: item[1],
+                                default=("", 0.0))
+    per_step = {"launches": {name: count / steps
+                             for name, count in launches.items()},
+                "collective_calls": calls / steps,
+                "collective_bytes": size / steps}
+    say(f"{label} rank{rank} train_across_processes", mesh=json.dumps(axes),
+        dtype=config.dtype, layers=config.n_layers,
+        batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", steps=f"1+{steps}",
+        losses=json.dumps([round(value, 6) for value in losses]),
+        unsharded_losses=json.dumps([round(value, 6)
+                                     for value in reference]),
+        loss_max_abs_diff=f"{loss_diff:.3e}",
+        update_rel_err=f"{update_error:.3e}", update_worst_leaf=update_leaf,
+        **(dict(grad_rel_err=f"{grad_error:.3e}", grad_worst_leaf=grad_leaf)
+           if f32 else {}),
+        step_ms=f"{step_s * 1e3:.1f}", tokens_per_s=f"{tokens_per_s:.1f}",
+        train_mfu=f"{mfu:.4f}",
+        launches_per_step=json.dumps(per_step["launches"]),
+        expected_launches_per_step=expected["launches"],
+        collective_calls_per_step=per_step["collective_calls"],
+        expected_collective_calls=expected["collective_calls"],
+        collective_mib_per_step=f"{size / steps / 2**20:.3f}",
+        expected_collective_mib=f"{expected['collective_bytes'] / 2**20:.3f}",
+        host_staged_mib_per_step=f"{staged / steps / 2**20:.1f}",
+        max_memory_allocated_gib=f"{peak / 2**30:.2f}", card=repr(smi))
+    limits = ((SHARD_F32_LOSS_ATOL, SHARD_F32_UPDATE_REL_TOL) if f32
+              else (SHARD_LOSS_ATOL, SHARD_BF16_UPDATE_REL_TOL))
+    if not (np.isfinite(losses).all() and loss_diff <= limits[0]
+            and update_error <= limits[1]
+            and grad_error <= SHARD_F32_GRAD_REL_TOL):
+        raise SystemExit(f"{label} rank {rank}: losses {losses} vs "
+                         f"unsharded {reference} (limit {limits[0]}); "
+                         f"parameter change {update_error:.3e} relative at "
+                         f"{update_leaf} (limit {limits[1]}); gradient "
+                         f"{grad_error:.3e} relative at {grad_leaf} (limit "
+                         f"{SHARD_F32_GRAD_REL_TOL})")
+    if (any(count != expected["launches"]
+            for count in per_step["launches"].values())
+            or per_step["collective_calls"] != expected["collective_calls"]
+            or per_step["collective_bytes"] != expected["collective_bytes"]):
+        raise SystemExit(f"{label} rank {rank}: a step issued {per_step}, "
+                         f"worked out from the mesh: {expected}")
+    return {"label": label, "axes": axes, "launches": launches,
+            "digests": digests}
+
+
+def process_worker(argument: str) -> None:
+    """One rank of phase 17, in its own process: joins the job, loads the
+    kernels phase 1 built (no build here), runs every arm of
+    PROCESS_ARMS, holds each new K1/K2/K3 case against its plain version,
+    and writes its results under PROCESS_DIR."""
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import (
+        initialize_distributed, process_index, shutdown_distributed)
+    smi, reference = json.loads(argument)
+    if not torch.cuda.is_available():
+        raise SystemExit("phase 17 worker: no CUDA device")
+    if not initialize_distributed(backend="gloo", local_device_ids=[0, 0],
+                                  timeout_seconds=PROCESS_TIMEOUT):
+        raise SystemExit("phase 17 worker: no AIKO_* job to join")
+    rank = process_index()
+    for name in kernels.KERNEL_SOURCES:
+        kernels.load_kernel(name)
+    forward, backward = set(), set()
+    arms = []
+    with recorded_kernel_cases(forward, backward):
+        for label, dtype, layers, axes in PROCESS_ARMS:
+            config = process_config(dtype, layers)
+            arms.append(process_arm(rank, label, config, axes, smi,
+                                    reference[dtype]))
+
+    def checked(cases):
+        return {(*spec, 1.0 / math.sqrt(spec[4])) for spec in cases}
+    new_forward = sorted(forward - checked(KERNEL_CASES.values()), key=str)
+    new_backward = sorted(backward - checked(BACKWARD_CASES.values()),
+                          key=str)
+    for index, spec in enumerate(new_forward):
+        check_forward_case(f"17_{index}", spec, 1700 + index,
+                           f"17c rank{rank} kernel_vs_plain")
+    for index, spec in enumerate(new_backward):
+        check_backward_case(f"17_{index}", spec, 1800 + index,
+                            f"17c rank{rank} backward_vs_plain")
+    builds = sorted(kernels.build_seconds)
+    (PROCESS_DIR / f"rank{rank}.json").write_text(json.dumps({
+        "arms": arms, "k1_cases": len(new_forward),
+        "k2_k3_cases": len(new_backward), "builds": builds}))
+    shutdown_distributed()
+    if builds:
+        raise SystemExit(f"phase 17 worker {rank} built {builds}: it must "
+                         f"load what phase 1 built")
+    print(f"rank {rank} done", flush=True)
+
+
+def phase_processes(smi: str) -> dict:
+    """Phase 17: sharded training across two processes on the card.
+    Returns the kernel launches of both workers' main-path steps."""
+    import os
+    import shutil
+    import socket
+    from aiko_services_tpu_torch.ops import kernels
+    start = time.perf_counter()
+    shutil.rmtree(PROCESS_DIR, ignore_errors=True)
+    PROCESS_DIR.mkdir(parents=True)
+    reference = {}
+    for _, dtype, layers, _ in PROCESS_ARMS:
+        if dtype not in reference:
+            reference[dtype] = process_reference(process_config(dtype,
+                                                                layers))
+    reference_s = time.perf_counter() - start
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    argument = json.dumps([smi, reference])
+    workers, logs = [], []
+    try:
+        for rank in range(2):
+            env = {key: value for key, value in os.environ.items()
+                   if not key.startswith("AIKO_")}
+            env.update(PYTHONPATH=str(ROOT),
+                       AIKO_COORDINATOR=f"127.0.0.1:{port}",
+                       AIKO_NUM_PROCESSES="2", AIKO_PROCESS_ID=str(rank))
+            logs.append(open(PROCESS_DIR / f"rank{rank}.log", "w"))
+            workers.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.process_worker(sys.argv[1])", argument],
+                cwd=ROOT, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + PROCESS_TIMEOUT
+        while any(worker.poll() is None for worker in workers):
+            failed = [worker for worker in workers
+                      if worker.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for worker in workers:
+            if worker.poll() is None:
+                worker.kill()
+            worker.wait()
+        for log in logs:
+            log.close()
+    texts = [(PROCESS_DIR / f"rank{rank}.log").read_text()
+             for rank in range(2)]
+    for text in texts:
+        for line in text.splitlines():
+            if line.startswith("[17"):
+                print(line, flush=True)
+    codes = [worker.returncode for worker in workers]
+    if codes != [0, 0] or any(f"rank {rank} done" not in text
+                              for rank, text in enumerate(texts)):
+        raise SystemExit(f"17: workers exited {codes}; their logs end:\n"
+                         + "\n".join(text[-3000:] for text in texts))
+    results = [json.loads((PROCESS_DIR / f"rank{rank}.json").read_text())
+               for rank in range(2)]
+    launches = {name: 0 for name in kernels.KERNELS}
+    for result in results:
+        for arm in result["arms"]:
+            add_launches(launches, arm["launches"])
+    replicas = 0
+    for first, second in zip(results[0]["arms"], results[1]["arms"]):
+        shared = set(first["digests"]) & set(second["digests"])
+        differ = [key for key in shared
+                  if first["digests"][key] != second["digests"][key]]
+        if not shared or differ:
+            raise SystemExit(f"17 {first['label']} {first['axes']}: the "
+                             f"ranks' replicas differ at {differ} (of "
+                             f"{len(shared)} shared blocks)")
+        replicas += len(shared)
+    if min(launches.values()) == 0:
+        raise SystemExit(f"17: a kernel never launched: {launches}")
+    shutil.rmtree(PROCESS_DIR, ignore_errors=True)
+    say("17 processes", workers=2, backend="gloo", devices="cuda:0 x 2 each",
+        reference_s=f"{reference_s:.1f}", replicas_equal=replicas,
+        k1_cases=[result["k1_cases"] for result in results],
+        k2_k3_cases=[result["k2_k3_cases"] for result in results],
+        kernel_builds_in_workers=0,
+        wall_s=f"{time.perf_counter() - start:.1f}",
+        launches=json.dumps(launches), card=repr(smi))
+    return launches
+
+
 def main() -> None:
     from aiko_services_tpu_torch.ops import kernels
     run_start = time.perf_counter()
@@ -6623,6 +7080,9 @@ def main() -> None:
     for name, count in phase_last_modules(smi).items():
         launches[name] += count
     C5_WEIGHTS.clear()
+    torch.cuda.empty_cache()
+    for name, count in phase_processes(smi).items():
+        launches[name] += count
     say("run", seconds=f"{time.perf_counter() - run_start:.1f}",
         card=repr(smi))
     sources = {"flash_attention": ("flash_attention.cu", 75),
