@@ -236,8 +236,11 @@ class ShardedCall:
         # axes its leaves are whole over to 1)
         self.cut = dict(self.size)
         self.home = mesh.home
-        # whether the call's batch is cut over "data" (split_batch)
+        # whether the call's batch is cut over "data" (split_batch), and
+        # its sequence over "seq" (the sequence-parallel prefill: each
+        # position holds its block of the positions)
         self.split = False
+        self.seq_split = False
 
     def grid(self, leaf):
         """A leaf as a grid: a Sharded's blocks, or the whole tensor on
@@ -330,32 +333,46 @@ class ShardedCall:
             return grid.flat[0]
         return grid[self.mesh.local][0].detach()
 
-    def gather_home(self, grid, dim: int = 0):
-        """The whole tensor on the home device: the data blocks of
-        `grid` concatenated along `dim` when split_batch split the batch
-        over "data" (gathered from other processes: a collective), else
-        the first position's entry (ShardedCall.first).  Each process's
-        own blocks keep their gradient; the blocks gathered from other
-        processes are detached on purpose: their owners compute the same
-        loss on them and send those rows' cotangents back themselves.
-        The result carries the mesh's chain of cross-process backward
-        collectives (collectives.join_backward)."""
+    def gather_home(self, grid, dim: int = 0, seq_dim: int = 1):
+        """The whole tensor on the home device: the blocks of `grid`
+        concatenated -- along `dim` over "data" when split_batch split
+        the batch, along `seq_dim` over "seq" when the sequence is cut
+        there (seq_split) -- gathered from other processes (a
+        collective), else the first position's entry
+        (ShardedCall.first).  Each process's own blocks keep their
+        gradient; the blocks gathered from other processes are detached
+        on purpose: their owners compute the same loss on them and send
+        those rows' cotangents back themselves.  The result carries the
+        mesh's chain of cross-process backward collectives
+        (collectives.join_backward)."""
         mesh = self.mesh
-        if not self.split:
+        cuts = [(name, axis_dim) for name, axis_dim, cut in (
+            ("data", dim, self.split), ("seq", seq_dim, self.seq_split))
+            if cut]
+        if not cuts:
             return join_backward(self.first(grid).to(self.home), mesh)
-        axis = mesh.axis_names.index("data")
+        shape = [self.size[name] for name, _ in cuts]
         members = []
-        for index in range(self.size["data"]):
+        for indices in np.ndindex(*shape):
             position = [0] * mesh.devices.ndim
-            position[axis] = index
+            for (name, _), index in zip(cuts, indices):
+                position[mesh.axis_names.index(name)] = index
             members.append(int(np.ravel_multi_index(position,
                                                     mesh.devices.shape)))
         entries = _entries(mesh, grid, members)
         if entries is None:
-            raise ValueError("gather_home: this process holds no data "
-                             "block of the result")
-        return join_backward(torch.cat(
-            [entry.to(self.home) for entry in entries], dim=dim), mesh)
+            raise ValueError("gather_home: this process holds no block of "
+                             "the result")
+        blocks = np.empty(len(entries), dtype=object)
+        for index, entry in enumerate(entries):
+            blocks[index] = entry.to(self.home)
+        blocks = blocks.reshape(shape)
+        for (_, axis_dim) in reversed(cuts):
+            joined = np.empty(blocks.shape[:-1], dtype=object)
+            for index in np.ndindex(*blocks.shape[:-1]):
+                joined[index] = torch.cat(list(blocks[index]), dim=axis_dim)
+            blocks = joined
+        return join_backward(blocks[()], mesh)
 
 
 def _dense_partial(params: dict, x):

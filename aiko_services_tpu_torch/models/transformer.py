@@ -39,7 +39,14 @@
 # ring_attention or ulysses_attention (sp_mechanism), the cached prefill
 # at pos 0 the same way over the fresh K/V, and cached decode through
 # sp_decode_attention over the cache, its length sharded over "seq"
-# (cache_specs(sequence_parallel=True)).
+# (cache_specs(sequence_parallel=True)).  On the sharded path (below) a
+# prefill's positions are cut over "seq" too, as the JAX package's
+# activation spec cuts them: each position computes its block of the
+# sequence and the ring's hops, Ulysses' all_to_alls and the sp decode's
+# merge run on the position grids (parallel.attention's *_grid forms),
+# so a "seq" axis may span processes; an SP call on an ambient mesh
+# whose "seq" axis spans processes takes that path with whole
+# parameters too.
 #
 # The parameter-sharding axes: param_specs / quantized_param_specs lay
 # the tree out megatron-style (TP on "model", FSDP on "fsdp", experts on
@@ -71,14 +78,16 @@ from torch.utils.checkpoint import (
 
 from ..ops.device import resolve_device
 from ..parallel.attention import (
-    flash_attention, ring_attention, sp_decode_attention, sp_decode_shards,
-    ulysses_attention)
-from ..parallel.collectives import conform, map_shards, psum
+    flash_attention, ring_attention, ring_attention_grid,
+    sp_decode_attention, sp_decode_grid, ulysses_attention,
+    ulysses_attention_grid)
+from ..parallel.collectives import (
+    _link, all_gather, conform, join_backward, map_shards, psum)
 from ..parallel.mesh import PartitionSpec as P
 from ..parallel.mesh import (
     Sharded, ambient_mesh, assign, filter_specs, layout_matches,
-    leaf_layout, shard_pytree, sharded_leaves, unshard, use_mesh)
-from ..utils.tree import tree_map
+    leaf_layout, shard_pytree, sharded_leaves, unshard)
+from ..utils.tree import flatten_tensors, rebuild_tensors, tree_map
 from .asr import _layer_count, _stack, count_params
 from .layers import (
     ShardedCall, apply_rotary, column_parallel, dense, f32_reduction,
@@ -738,6 +747,10 @@ def forward(params: dict, config: TransformerConfig, tokens,
     scoring); return_aux=True also returns the mean MoE load-balancing
     loss across layers (0 for the dense FFN), and remat_policy names a
     REMAT_POLICIES entry wrapping each layer in torch.utils.checkpoint.
+    On a mesh over several processes every policy keeps only each
+    layer's inputs and recomputes the whole layer in the backward (as
+    nothing_saveable does): the gradients are the policy's, what it
+    would save is not kept there.
     With a cache (init_cache): K/V are written at `pos` (an int or a 0-d
     tensor), in place, and (logits, cache) is returned -- the
     incremental-decode path."""
@@ -752,7 +765,7 @@ def forward(params: dict, config: TransformerConfig, tokens,
             "by rematerializing")
     pos = int(pos)
     context_fn = resolve_remat_policy(remat_policy)
-    mesh = _call_mesh(params, tokens, cache, activation_specs)
+    mesh = _call_mesh(params, tokens, cache, activation_specs, config)
     if mesh is not None:
         # one scope for the whole call: the dense blocks' own scopes
         # then only count
@@ -801,23 +814,32 @@ def forward(params: dict, config: TransformerConfig, tokens,
 # so a decode step issues 2 per layer on a model-only mesh (6 with fsdp),
 # plus one all_gather over fsdp after the embedding gather and one psum
 # over fsdp for the logits.  The MoE FFN adds one psum over expert (its
-# local experts' outputs), the sequence-parallel attention the ring's,
-# Ulysses' or the sp decode's exchanges along each "seq" line.
+# local experts' outputs), the sequence-parallel attention the ring's
+# ppermutes (one a hop), Ulysses' two all_to_alls or the sp decode's
+# pmax and psum over "seq", and a cached prefill one all_gather over
+# "seq" of its K/V blocks for the cache's windows.
 
 
-def _call_mesh(params, tokens, cache, activation_specs: bool):
+def _call_mesh(params, tokens, cache, activation_specs: bool,
+               config: TransformerConfig | None = None):
     """The mesh a call runs sharded on: that of its Sharded leaves
     (parameters, tokens, cache), else -- activation_specs=True, the JAX
     package's batch-on-"data" constraint -- the ambient mesh when it has
-    an axis above 1; None for the whole-tensor path."""
+    an axis above 1, or the ambient mesh of a sequence-parallel call
+    whose "seq" axis spans processes (each process computes its block of
+    the sequence, as GSPMD spreads the JAX package's); None for the
+    whole-tensor path."""
     for tree in (params, tokens, cache):
         for leaf in sharded_leaves(tree):
             return leaf.mesh
-    if activation_specs:
-        mesh = ambient_mesh()
-        if mesh is not None and any(size > 1
-                                    for size in mesh.shape.values()):
-            return mesh
+    mesh = ambient_mesh()
+    if mesh is None:
+        return None
+    if activation_specs and any(size > 1 for size in mesh.shape.values()):
+        return mesh
+    if (config is not None and config.sequence_parallel
+            and "seq" in mesh.process_axes):
+        return mesh
     return None
 
 
@@ -954,42 +976,6 @@ def _sharded_cache(mesh, params, config: TransformerConfig, batch: int,
                                             "v_scale")})
 
 
-def _on_seq_lines(call: ShardedCall, function, *grids):
-    """function(per-grid lists of the line's entries, the line's 1-D
-    mesh) once per line of positions along "seq"; its result goes to
-    every position of the line (lines seeing the same entries share
-    it)."""
-    mesh = call.mesh
-    if "seq" not in mesh.axis_names:
-        raise ValueError(f"the sequence-parallel path needs a mesh with a "
-                         f"'seq' axis, got axes {mesh.axis_names}")
-    axis = mesh.axis_names.index("seq")
-    if "seq" in mesh.process_axes:
-        # the ring, Ulysses and the sp decode move shards with
-        # .to(device) along the line: every position must be local
-        raise NotImplementedError(
-            "sequence parallelism over a 'seq' axis that spans processes "
-            "is not ported")
-    out = np.empty(mesh.devices.shape, dtype=object)
-    made: dict = {}
-    for position in np.ndindex(mesh.devices.shape):
-        if position[axis] != 0 or not mesh.local[position]:
-            continue
-        line = []
-        for index in range(mesh.devices.shape[axis]):
-            at = list(position)
-            at[axis] = index
-            line.append(tuple(at))
-        entries = [[grid[at] for at in line] for grid in grids]
-        key = tuple(id(entry) for column in entries for entry in column)
-        if key not in made:
-            made[key] = function(entries, mesh.line("seq", position))
-        result = made[key]
-        for at in line:
-            out[at] = result.to(mesh.devices[at])
-    return out
-
-
 def _write_window(layer_cache: dict, k, v, pos: int, offset: int,
                   total: int) -> None:
     """The part of K/V written at `pos` (its start clamped into the whole
@@ -1005,11 +991,61 @@ def _write_window(layer_cache: dict, k, v, pos: int, offset: int,
             v[:, :, low - start:high - start]
 
 
+def _check_seq(call: ShardedCall, pos: int) -> None:
+    mesh = call.mesh
+    if "seq" not in mesh.axis_names:
+        raise ValueError(f"the sequence-parallel path needs a mesh with a "
+                         f"'seq' axis, got axes {mesh.axis_names}")
+    if call.length > 1 and pos != 0:
+        raise ValueError(
+            "sequence-parallel cached prefill requires pos == 0 "
+            f"(got pos={pos}); multi-token cached decode at "
+            "pos > 0 is not supported on this path")
+
+
+def _sp_prefill_grid(call: ShardedCall, config: TransformerConfig, q, k,
+                     v):
+    """The causal ring or Ulysses (config.sp_mechanism) over the call's
+    "seq" axis on grids of each position's block of the sequence, K/V
+    heads expanded; the kernels take contiguous blocks."""
+    repeats = config.n_heads // config.n_kv_heads
+    q = map_shards(lambda x: x.contiguous(), q)
+    k, v = (map_shards(lambda x: repeat_kv(x, repeats).contiguous(), grid)
+            for grid in (k, v))
+    attend = (ulysses_attention_grid if config.sp_mechanism == "ulysses"
+              else ring_attention_grid)
+    return attend(q, k, v, call.mesh, "seq", causal=True)
+
+
+def _written(call: ShardedCall, k, v, caches, pos: int):
+    """Each position's cache window with the fresh K/V written at `pos`
+    (the part that falls into it); a prefill's K/V blocks, cut over
+    "seq" like its positions but not like the cache's windows, meet
+    first in one all_gather over "seq".  Returns the windows' k and v
+    grids."""
+    if call.seq_split:
+        both = all_gather(map_shards(lambda k, v: torch.stack([k, v]), k, v),
+                          call.mesh, "seq", dim=3)
+        k = map_shards(lambda kv: kv[0], both)
+        v = map_shards(lambda kv: kv[1], both)
+    parts = call.size["seq"]
+
+    def write(k, v, cache, index):
+        local_len = cache["k"].shape[2]
+        _write_window(cache, k, v, pos, index * local_len,
+                      local_len * parts)
+        return cache
+    written = map_shards(write, k, v, caches, call.index["seq"])
+    return (map_shards(lambda cache: cache["k"], written),
+            map_shards(lambda cache: cache["v"], written))
+
+
 def _sharded_attend(call: ShardedCall, qkv, layer_cache, pos: int):
     """Each model shard's attention over its heads -> (B, L, H/M * hd)
     per position: flash attention, the cached path, or -- on the
-    sequence-parallel path -- the ring / Ulysses / sp decode over the
-    position's "seq" line."""
+    sequence-parallel path -- the ring / Ulysses over the position's
+    "seq" line on its block of the sequence, and the sp decode over the
+    line's cache windows."""
     local = call.local
     if not local.sequence_parallel:
         if layer_cache is None:
@@ -1018,38 +1054,16 @@ def _sharded_attend(call: ShardedCall, qkv, layer_cache, pos: int):
             out = map_shards(lambda t, c: _cached_attention(
                 local, *t, c, pos), qkv, layer_cache)
         return map_shards(_merge_heads, out)
-
-    def prefill(entries, line):
-        with use_mesh(line):
-            return _sp_prefill(local, *entries[0][0])
-
-    if layer_cache is None:
-        return map_shards(_merge_heads, _on_seq_lines(call, prefill, qkv))
-    length = next(t for t in qkv.flat if t is not None)[0].shape[2]
-    if length > 1 and pos != 0:
-        raise ValueError(
-            "sequence-parallel cached prefill requires pos == 0 "
-            f"(got pos={pos}); multi-token cached decode at "
-            "pos > 0 is not supported on this path")
-    parts = call.size["seq"]
-
-    def write(t, c, index):
-        local_len = c["k"].shape[2]
-        _write_window(c, t[1], t[2], pos, index * local_len,
-                      local_len * parts)
-        return c
-    written = map_shards(write, qkv, layer_cache, call.index["seq"])
-    if length > 1:
-        return map_shards(_merge_heads, _on_seq_lines(call, prefill, qkv))
-
-    def decode(entries, line):
-        queries, caches = entries
-        return sp_decode_shards([t[0] for t in queries],
-                                [c["k"] for c in caches],
-                                [c["v"] for c in caches], pos,
-                                queries[0][0].device)
-    return map_shards(_merge_heads, _on_seq_lines(call, decode, qkv,
-                                                  written))
+    _check_seq(call, pos)
+    q, k, v = (map_shards(lambda t, part=part: t[part], qkv)
+               for part in range(3))
+    if layer_cache is not None:
+        cache_k, cache_v = _written(call, k, v, layer_cache, pos)
+    if layer_cache is None or call.length > 1:
+        return map_shards(_merge_heads, _sp_prefill_grid(call, local, q, k,
+                                                         v))
+    return map_shards(_merge_heads, sp_decode_grid(q, cache_k, cache_v, pos,
+                                                   call.mesh, "seq"))
 
 
 def _sharded_moe(call: ShardedCall, layer, x):
@@ -1262,51 +1276,31 @@ def _straddle_sp(call: ShardedCall, parts, layer_cache, pos: int):
     """_straddle_attend's heads on the sequence-parallel path -> each
     position's (B, h1 - h0, L, hd): every position of a "seq" line has
     one model index, so one set of whole heads, which runs through the
-    ring or Ulysses (a prefill) or the sp decode over the line's cache
-    windows of its KV heads (one token), each query head against its own
-    KV head (K/V expanded by kv_index, as the dense path expands them)."""
-    def expanded(part):
-        local, qh, kh, vh, kv_index = part
-        return (replace(local, n_kv_heads=local.n_heads), qh,
-                kh.index_select(1, kv_index), vh.index_select(1, kv_index))
-
-    def prefill(entries, line):
-        local, qh, kh, vh = expanded(entries[0][0])
-        with use_mesh(line):
-            return _sp_prefill(local, qh, kh, vh)
-
-    if layer_cache is None:
-        return _on_seq_lines(call, prefill, parts)
-    length = next(t for t in parts.flat if t is not None)[1].shape[2]
-    if length > 1 and pos != 0:
-        raise ValueError(
-            "sequence-parallel cached prefill requires pos == 0 "
-            f"(got pos={pos}); multi-token cached decode at "
-            "pos > 0 is not supported on this path")
-    lines = call.size["seq"]
-
-    def write(part, cache, seq_index, model_index):
-        kv0, kv1 = call.spans[model_index][2:]
-        own = {name: cache[name].narrow(1, kv0, kv1 - kv0)
-               for name in ("k", "v")}
-        local_len = own["k"].shape[2]
-        _write_window(own, part[2], part[3], pos, seq_index * local_len,
-                      local_len * lines)
-        return own
-    written = map_shards(write, parts, layer_cache, call.index["seq"],
-                         call.index["model"])
-    if length > 1:
-        return _on_seq_lines(call, prefill, parts)
-
-    def decode(entries, line):
-        queries, caches = entries
-        kv_index = queries[0][4]
-        return sp_decode_shards(
-            [part[1] for part in queries],
-            [cache["k"].index_select(1, kv_index) for cache in caches],
-            [cache["v"].index_select(1, kv_index) for cache in caches],
-            pos, queries[0][1].device)
-    return _on_seq_lines(call, decode, parts, written)
+    ring or Ulysses (a prefill, on the position's block of the sequence)
+    or the sp decode over the line's cache windows of its KV heads (one
+    token), each query head against its own KV head (K/V expanded by
+    kv_index, as the dense path expands them)."""
+    _check_seq(call, pos)
+    config = next(part for part in parts.flat if part is not None)[0]
+    config = replace(config, n_kv_heads=config.n_heads)
+    q = map_shards(lambda part: part[1], parts)
+    if layer_cache is not None:
+        def own(part, cache, model_index):
+            kv0, kv1 = call.spans[model_index][2:]
+            return {name: cache[name].narrow(1, kv0, kv1 - kv0)
+                    for name in ("k", "v")}
+        cache_k, cache_v = _written(
+            call, map_shards(lambda part: part[2], parts),
+            map_shards(lambda part: part[3], parts),
+            map_shards(own, parts, layer_cache, call.index["model"]), pos)
+    if layer_cache is None or call.length > 1:
+        k, v = (map_shards(lambda part, which=which: part[which]
+                           .index_select(1, part[4]), parts)
+                for which in (2, 3))
+        return _sp_prefill_grid(call, config, q, k, v)
+    k, v = (map_shards(lambda part, cache: cache.index_select(1, part[4]),
+                       parts, grid) for grid in (cache_k, cache_v))
+    return sp_decode_grid(q, k, v, pos, call.mesh, "seq")
 
 
 def _sharded_layer(call: ShardedCall, layer, h, rope, layer_cache,
@@ -1329,7 +1323,16 @@ def _sharded_layer(call: ShardedCall, layer, h, rope, layer_cache,
     h = map_shards(torch.add, h, row_parallel(call, layer["wo"], out))
     normed = map_shards(lambda p, x: rms_norm(p, x, eps),
                         layer["mlp_norm"], h)
-    if local.n_experts > 0:
+    if local.n_experts > 0 and call.seq_split:
+        # the capacity dispatch counts each expert's tokens along the
+        # whole row: the FFN runs on the whole sequence, gathered over
+        # "seq", and each position keeps its block
+        mlp, aux = _sharded_moe(call, layer, all_gather(
+            normed, call.mesh, "seq", dim=1))
+        block = call.length // call.size["seq"]
+        mlp = map_shards(lambda out, index: out.narrow(
+            1, index * block, block), mlp, call.index["seq"])
+    elif local.n_experts > 0:
         mlp, aux = _sharded_moe(call, layer, normed)
     else:
         gate, up = column_parallel(call, [layer["w_gate"], layer["w_up"]],
@@ -1342,15 +1345,27 @@ def _sharded_layer(call: ShardedCall, layer, h, rope, layer_cache,
 
 def _sharded_forward(mesh, params, config: TransformerConfig, tokens,
                      cache, pos: int, return_aux: bool, context_fn):
-    """forward() on the mesh: the same results, computed on the shards."""
-    if context_fn is not None and mesh.processes is not None:
-        # a checkpointed layer runs its forward collectives again inside
-        # the backward, out of the order the processes pair them in
-        raise ValueError("remat_policy is not ported to a mesh over "
-                         "several processes")
+    """forward() on the mesh: the same results, computed on the shards.
+    On the sequence-parallel path a prefill's positions are cut over
+    "seq" (the JAX package's activation spec): each position embeds,
+    projects and runs the FFN on its block of the sequence, and its
+    attention is the ring's or Ulysses' over the "seq" line."""
     call, params = _call_layout(mesh, params, config)
     grids = call.dicts(params)
     token_grid = _token_grid(call, tokens)
+    call.length = length = tokens.shape[1]
+    seq = call.size["seq"]
+    call.seq_split = bool(config.sequence_parallel and seq > 1
+                          and length > 1)
+    block = length
+    if call.seq_split:
+        if length % seq:
+            raise ValueError(f"sequence-parallel prefill: sequence length "
+                             f"({length}) must be divisible by mesh axis "
+                             f"'seq' size ({seq})")
+        block = length // seq
+        token_grid = map_shards(lambda t, index: t.narrow(
+            1, index * block, block), token_grid, call.index["seq"])
     whole_cache = None
     if cache is not None:
         cache, whole_cache = _placed_cache(call, cache, config)
@@ -1358,14 +1373,18 @@ def _sharded_forward(mesh, params, config: TransformerConfig, tokens,
     h = call.all_gather(map_shards(
         lambda table, t: _embed({"embed": table}, config, t),
         grids["embed"], token_grid), "fsdp")
-    length = tokens.shape[1]
 
-    def rope(device):
+    def rope(device, index):
+        start = pos + (index * block if call.seq_split else 0)
         cos, sin = rotary_embedding(
-            pos + torch.arange(length, device=device), config.head_dim,
+            start + torch.arange(block, device=device), config.head_dim,
             config.rope_theta)
         return cos[None, None], sin[None, None]
-    rotary = map_shards(rope, mesh.local_devices)
+    # positions that share a block share its rope (and what is computed
+    # from it)
+    rotary = map_shards(rope, mesh.local_devices, call.index["seq"]
+                        if call.seq_split else np.full(mesh.devices.shape,
+                                                       0, dtype=object))
     aux_sum = torch.zeros((), dtype=torch.float32, device=call.home)
     for index in range(config.n_layers):
         layer = call.layer(grids["layers"], index)
@@ -1374,6 +1393,8 @@ def _sharded_forward(mesh, params, config: TransformerConfig, tokens,
         if context_fn is None or cache is not None:
             h, aux = _sharded_layer(call, layer, h, rotary, layer_cache,
                                     pos)
+        elif mesh.processes is not None:
+            h, aux = _remat_across(call, layer, h, rotary, pos)
         else:
             h, aux = checkpoint(_sharded_layer, call, layer, h, rotary,
                                 None, pos, use_reentrant=False,
@@ -1395,6 +1416,76 @@ def _sharded_forward(mesh, params, config: TransformerConfig, tokens,
     if return_aux:
         return logits, aux_sum / max(config.n_layers, 1)
     return logits
+
+
+# -- remat on a mesh over several processes ----------------------------------
+#
+# torch.utils.checkpoint recomputes a layer when the backward first
+# unpacks one of its saved tensors, at a point the autograd engine
+# chooses; on a mesh over several processes the recomputed forward's
+# exchanges must run at one point on every process.  So there the layer
+# is a node of the mesh's chain of cross-process backward collectives
+# (_RematLayer): its forward runs the layer without autograd and keeps
+# only its inputs; its backward -- at the layer's place in the chain --
+# runs the layer again with autograd (every exchange counted and
+# checked as in the forward), then that graph's backward, its own
+# collectives ordered by a chain of their own joined into the layer's
+# outputs; the mesh's chain is restored after.  Every policy recomputes
+# the whole layer there: the gradients are the same (remat changes when
+# activations are computed, never what), the memory kept is the inputs.
+
+
+class _RematLayer(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, call, template, pos, holder, chain, token, *tensors):
+        h, aux = _sharded_layer(call, *rebuild_tensors(template, tensors),
+                                None, pos)
+        outputs: list = []
+        holder["h"] = flatten_tensors(h, outputs)
+        ctx.call, ctx.template, ctx.pos = call, template, pos
+        ctx.state = chain.state
+        ctx.save_for_backward(*tensors)
+        return torch.zeros(()), aux, *outputs
+
+    @staticmethod
+    def backward(ctx, _, grad_aux, *grads):
+        ctx.state.spent = True
+        mesh = ctx.call.mesh
+        inputs = [tensor.detach().requires_grad_(tensor.requires_grad)
+                  for tensor in ctx.saved_tensors]
+        outer = mesh.chain
+        mesh.chain = None
+        try:
+            with torch.enable_grad():
+                h, aux = _sharded_layer(
+                    ctx.call, *rebuild_tensors(ctx.template, inputs),
+                    None, ctx.pos)
+                outputs: list = []
+                flatten_tensors(h, outputs)
+                roots = [join_backward(aux, mesh), *outputs]
+                pairs = [(root, grad) for root, grad in zip(
+                    roots, (grad_aux, *grads)) if root.requires_grad]
+                torch.autograd.backward([root for root, _ in pairs],
+                                        [grad for _, grad in pairs])
+        finally:
+            mesh.chain = outer
+        return (None,) * 5 + (torch.zeros(()),) + tuple(
+            tensor.grad if tensor.requires_grad else None
+            for tensor in inputs)
+
+
+def _remat_across(call: ShardedCall, layer, h, rotary, pos: int):
+    """One layer under remat on a mesh over several processes: a
+    _RematLayer node in the mesh's chain.  Returns (h grid, aux)."""
+    tensors: list = []
+    template = flatten_tensors((layer, h, rotary), tensors)
+    holder: dict = {}
+    chain, token = _link(call.mesh)
+    token, aux, *outputs = _RematLayer.apply(call, template, pos, holder,
+                                             chain, token, *tensors)
+    chain.token = token
+    return rebuild_tensors(holder["h"], outputs), aux
 
 
 # -- generation -------------------------------------------------------------
@@ -1422,7 +1513,7 @@ def _conformed(params, config: TransformerConfig, prompt, cache) -> tuple:
     on a sharded call, a parameter tree or a Sharded cache laid out
     otherwise than the call computes on is resharded once, here at the
     entry of a generation, not at every step."""
-    mesh = _call_mesh(params, prompt, cache, False)
+    mesh = _call_mesh(params, prompt, cache, False, config)
     if mesh is None:
         return params, cache, None
     call, params = _call_layout(mesh, params, config)
@@ -1438,7 +1529,7 @@ def _prompt_cache(params, config, prompt, max_new_tokens: int, cache):
     the parameters' mesh when they are sharded."""
     if cache is not None:
         return cache
-    mesh = _call_mesh(params, prompt, None, False)
+    mesh = _call_mesh(params, prompt, None, False, config)
     if mesh is not None:
         return _sharded_cache(mesh, params, config, prompt.shape[0],
                               prompt.shape[1] + max_new_tokens)

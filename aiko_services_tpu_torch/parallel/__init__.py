@@ -7,12 +7,13 @@ from .mesh import (                                           # noqa: F401
 from .attention import (                                      # noqa: F401
     attention_reference, flash_attention, flash_attention_forward,
     flash_attention_plain, flash_attention_backward,
-    flash_attention_backward_plain, ring_attention, sp_decode_attention,
-    ulysses_attention)
+    flash_attention_backward_plain, ring_attention, ring_attention_grid,
+    sp_decode_attention, sp_decode_grid, ulysses_attention,
+    ulysses_attention_grid)
 from .collectives import (                                    # noqa: F401
     all_gather, all_to_all, axis_index, begin_backward, collective_counts,
-    collective_totals, conform, join_backward, map_shards, ppermute, psum,
-    psum_scatter, reset_collective_counts, reshard, staged_bytes)
+    collective_totals, conform, join_backward, map_shards, pmax, ppermute,
+    psum, psum_scatter, reset_collective_counts, reshard, staged_bytes)
 from .distributed import (                                    # noqa: F401
     global_mesh, initialize_distributed, is_distributed, process_count,
     process_index, shutdown_distributed)

@@ -54,17 +54,22 @@ import contextvars
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ..ops import kernels
-from .mesh import PartitionSpec, ambient_mesh, named_sharding
+from ..utils.tree import flatten_tensors, rebuild_tensors, tensor_place
+from .collectives import (
+    _link, all_to_all, axis_index, map_shards, pmax, ppermute, psum)
+from .mesh import Mesh, PartitionSpec, ambient_mesh, named_sharding
 
 __all__ = ["attention_reference", "flash_attention", "count_meta_flops",
            "flash_attention_forward", "flash_attention_plain",
            "flash_attention_backward", "flash_attention_backward_plain",
            "flash_attention_dq_plain", "flash_attention_dkv_plain",
            "ring_attention", "ulysses_attention", "sp_decode_attention",
-           "sp_decode_shards"]
+           "ring_attention_grid", "ulysses_attention_grid",
+           "sp_decode_grid"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -452,7 +457,22 @@ def flash_attention(q, k, v, causal: bool = False, sm_scale=None,
                                  int(q_offset))
 
 
-# -- sequence parallelism: the shards --------------------------------------
+# -- sequence parallelism ----------------------------------------------------
+#
+# The grid forms -- ring_attention_grid, ulysses_attention_grid and
+# sp_decode_grid -- are the JAX package's *_sharded functions inside
+# shard_map: each takes position grids (parallel/collectives.py) whose
+# position i along the axis holds block i of the sequence ((B, H, L/n, D)
+# for the ring and Ulysses, window i of the cache for the sp decode) and
+# moves data between the positions only through the collectives: a ring
+# hop is one ppermute over the axis (a device copy on a mesh one process
+# drives, a point-to-point transfer between processes on a global
+# mesh), Ulysses' swaps are all_to_alls, the sp decode's merge one pmax
+# and one psum.  So one code path serves a mesh of one process and a
+# "seq" axis that spans processes.  The whole-tensor entry points
+# (ring_attention, ulysses_attention, sp_decode_attention) cut their
+# inputs into a grid over the axis's devices (a line this process
+# drives), call the grid form and gather its result.
 
 def _resolve_mesh(mesh, what: str):
     mesh = mesh if mesh is not None else ambient_mesh()
@@ -462,32 +482,93 @@ def _resolve_mesh(mesh, what: str):
     return mesh
 
 
-def _axis(mesh, axis_name: str, length: int, what: str) -> list:
-    """The devices of `axis_name`; ValueError unless `length` (the
-    sharded sequence) divides by their number."""
+def _line(mesh, axis_name: str, length: int, what: str) -> Mesh:
+    """The 1-D mesh of the devices along `axis_name` (Mesh.axis_devices),
+    driven by this process; ValueError unless `length` (the sharded
+    sequence) divides by their number."""
     devices = mesh.axis_devices(axis_name)
     if length % len(devices):
         raise ValueError(f"{what}: sequence length ({length}) must be "
                          f"divisible by mesh axis '{axis_name}' size "
                          f"({len(devices)})")
-    return devices
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = devices
+    return Mesh(grid, (axis_name,))
 
 
-def _split(x, devices: list) -> list:
-    """(B, H, L, D) -> one contiguous (B, H, L/n, D) shard per device."""
-    local = x.shape[2] // len(devices)
-    return [x[:, :, index * local:(index + 1) * local].to(device)
-            .contiguous() for index, device in enumerate(devices)]
+class _Split(torch.autograd.Function):
+    """x cut along `dim` into one block per device (each made contiguous
+    when `contiguous`); the backward concatenates the blocks' gradients
+    once, where autograd through n narrowed blocks would fill n whole
+    tensors with zeros and add them."""
+
+    @staticmethod
+    def forward(ctx, x, devices, dim: int, contiguous: bool):
+        local = x.shape[dim] // len(devices)
+        ctx.home, ctx.dim = x.device, dim
+        ctx.like = (tuple(x.narrow(dim, 0, local).shape), x.dtype)
+        blocks = (x.narrow(dim, index * local, local).to(device)
+                  for index, device in enumerate(devices))
+        return tuple(block.contiguous() if contiguous else block
+                     for block in blocks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        shape, dtype = ctx.like
+        return torch.cat([
+            torch.zeros(shape, dtype=dtype, device=ctx.home) if grad is None
+            else grad.to(ctx.home) for grad in grads], dim=ctx.dim), \
+            None, None, None
 
 
-def _gather(shards: list, device, dim: int = 2):
-    return torch.cat([shard.to(device) for shard in shards], dim=dim)
+def _split_grid(x, line: Mesh, dim: int = 2,
+                contiguous: bool = True) -> np.ndarray:
+    """x cut along `dim` into one block per position of the line, each on
+    its position's device."""
+    grid = np.empty(line.devices.size, dtype=object)
+    for index, block in enumerate(_Split.apply(
+            x, list(line.devices.flat), dim, contiguous)):
+        grid[index] = block
+    return grid
 
 
-def _rotate(shards: list, devices: list) -> list:
-    """The ring's ppermute: device i receives what device i - 1 held."""
-    return [tuple(x.to(device) for x in shards[index - 1])
-            for index, device in enumerate(devices)]
+def _gather_grid(grid: np.ndarray, device, dim: int = 2):
+    return torch.cat([block.to(device) for block in grid.flat], dim=dim)
+
+
+def _pack(*tensors):
+    """The tensors' bytes in one flat uint8 tensor: a ring hop moves its
+    blocks in one exchange."""
+    return torch.cat([tensor.contiguous().reshape(-1).view(torch.uint8)
+                      for tensor in tensors])
+
+
+def _unpack(packed, likes) -> tuple:
+    """_pack's tensors back from its bytes: likes is [(shape, dtype)]
+    (wider types first, so each view starts on its type's boundary)."""
+    out, start = [], 0
+    for shape, dtype in likes:
+        size = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        out.append(packed[start:start + size].view(dtype).view(shape))
+        start += size
+    return tuple(out)
+
+
+def _hop(grid: np.ndarray, mesh, axis_name: str, label) -> np.ndarray:
+    """One ring hop of a grid of tensor tuples: position i receives what
+    position i - 1 held, in one ppermute.  Across processes the tuples
+    travel as their bytes in one block; within one process they move as
+    they are (a device copy, or none at all on one card)."""
+    size = mesh.size(axis_name)
+    perm = [(i, (i + 1) % size) for i in range(size)]
+    if axis_name not in mesh.process_axes:
+        return ppermute(grid, mesh, axis_name, perm, label=label)
+    likes = [(tensor.shape, tensor.dtype)
+             for tensor in next(entry for entry in grid.flat
+                                if entry is not None)]
+    moved = ppermute(map_shards(lambda entry: _pack(*entry), grid), mesh,
+                     axis_name, perm, label=label)
+    return map_shards(lambda packed: _unpack(packed, likes), moved)
 
 
 # -- ring attention ----------------------------------------------------------
@@ -508,169 +589,310 @@ def _merge_softmax_partials(out, lse, out_blk, lse_blk):
 
 
 def _skipped(causal: bool, step: int, index: int) -> bool:
-    """Device `index` holds the K/V of shard (index - step) mod n at hop
-    `step`: entirely in the future of its queries, so fully masked, when
-    the index wrapped (index < step)."""
+    """Position `index` holds the K/V of block (index - step) mod n at
+    hop `step`: entirely in the future of its queries, so fully masked,
+    when the index wrapped (index < step)."""
     return causal and index < step
 
 
-def _ring_forward(q_shards, k_shards, v_shards, devices, causal: bool,
-                  sm_scale: float):
-    """Per-shard (O in q's dtype, merged LSE f32).  Q stays put, K/V
+def _ring_forward(q, k, v, mesh, axis_name: str, causal: bool,
+                  sm_scale: float, call: int) -> tuple:
+    """(O grid in q's dtype, merged LSE grid f32).  Q stays put, K/V
     rotate n - 1 hops; step 0 (the diagonal block) is causal, every
     executed later hop holds strictly-past keys and runs dense, all with
     q_offset 0.  Partials accumulate in f32 and are cast once."""
-    outs, lses = [None] * len(devices), [None] * len(devices)
-    kv = list(zip(k_shards, v_shards))
-    for step in range(len(devices)):
-        if step:
-            kv = _rotate(kv, devices)
-        for index, (k_blk, v_blk) in enumerate(kv):
-            if _skipped(causal, step, index):
+    size = mesh.size(axis_name)
+    index = axis_index(mesh, axis_name)
+
+    def attend(step):
+        def compute(q, kv, position, previous):
+            if _skipped(causal, step, position):
                 # the JAX package merges a zero partial with LSE -1e30:
                 # weights exactly 1 and 0, the same result as no merge
-                continue
+                return previous
             out_blk, lse_blk = flash_attention_forward(
-                q_shards[index], k_blk, v_blk, causal=causal and step == 0,
+                q, kv[0], kv[1], causal=causal and step == 0,
                 sm_scale=sm_scale)
             if _RING_HOP_CALLBACK is not None:
                 _RING_HOP_CALLBACK(step)
-            if step == 0:
-                outs[index], lses[index] = out_blk.float(), lse_blk
-            else:
-                outs[index], lses[index] = _merge_softmax_partials(
-                    outs[index], lses[index], out_blk, lse_blk)
-    dtype = q_shards[0].dtype
-    return [out.to(dtype) for out in outs], lses
+            if previous is None:
+                return out_blk.float(), lse_blk
+            return _merge_softmax_partials(*previous, out_blk, lse_blk)
+        return compute
+
+    kv = map_shards(lambda k, v: (k, v), k, v)
+    state = map_shards(attend(0), q, kv, index,
+                       np.full(q.shape, None, dtype=object))
+    for step in range(1, size):
+        kv = _hop(kv, mesh, axis_name, ("ring", call, step))
+        state = map_shards(attend(step), q, kv, index, state)
+    return (map_shards(lambda s, q: s[0].to(q.dtype), state, q),
+            map_shards(lambda s: s[1], state))
 
 
-def _ring_backward(q_shards, k_shards, v_shards, out_shards, lse_shards,
-                   dout_shards, devices, causal: bool, sm_scale: float):
-    """The second ring: each K/V shard travels with f32 dK/dV
+def _ring_backward(q, k, v, out, lse, dout, mesh, axis_name: str,
+                   causal: bool, sm_scale: float, call: int) -> tuple:
+    """The second ring: each K/V block travels with f32 dK/dV
     accumulators, every executed hop runs the backward kernels against
     the forward's GLOBAL O and merged LSE (so a hop's partial gradients
-    are the global attention's restricted to that shard), and one last
-    rotation returns each accumulator to its home device."""
-    count = len(devices)
-    dq = [torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-          for q in q_shards]
-    kv = [(k, v, torch.zeros(k.shape, dtype=torch.float32, device=k.device),
-           torch.zeros(v.shape, dtype=torch.float32, device=v.device))
-          for k, v in zip(k_shards, v_shards)]
-    for step in range(count):
-        if step:
-            kv = _rotate(kv, devices)
-        for index in range(count):
-            if _skipped(causal, step, index):
-                continue
-            k_blk, v_blk, dk_blk, dv_blk = kv[index]
+    are the global attention's restricted to that block), and one last
+    hop returns each accumulator to its home position.  Returns the dQ,
+    dK and dV grids in q's, k's and v's dtypes."""
+    size = mesh.size(axis_name)
+    index = axis_index(mesh, axis_name)
+
+    def attend(step):
+        def compute(q, carried, o, l, d, position, dq):
+            if _skipped(causal, step, position):
+                return carried, dq
+            dk, dv, k_blk, v_blk = carried
             dq_h, dk_h, dv_h = flash_attention_backward(
-                q_shards[index], k_blk, v_blk, out_shards[index],
-                lse_shards[index], dout_shards[index],
-                causal=causal and step == 0, sm_scale=sm_scale)
-            dq[index] = dq[index] + dq_h.float()
-            kv[index] = (k_blk, v_blk, dk_blk + dk_h.float(),
-                         dv_blk + dv_h.float())
-    # shard s sits on device (s + n - 1) mod n after the loop
-    kv = _rotate(kv, devices)
-    return ([grad.to(q.dtype) for grad, q in zip(dq, q_shards)],
-            [entry[2].to(k.dtype) for entry, k in zip(kv, k_shards)],
-            [entry[3].to(v.dtype) for entry, v in zip(kv, v_shards)])
+                q, k_blk, v_blk, o, l, d, causal=causal and step == 0,
+                sm_scale=sm_scale)
+            return ((dk + dk_h.float(), dv + dv_h.float(), k_blk, v_blk),
+                    dq + dq_h.float())
+        return compute
+
+    # f32 accumulators first: _pack's views start on their boundaries
+    carried = map_shards(lambda k, v: (
+        torch.zeros(k.shape, dtype=torch.float32, device=k.device),
+        torch.zeros(v.shape, dtype=torch.float32, device=v.device), k, v),
+        k, v)
+    dq = map_shards(lambda q: torch.zeros(q.shape, dtype=torch.float32,
+                                          device=q.device), q)
+    for step in range(size):
+        if step:
+            carried = _hop(carried, mesh, axis_name,
+                           ("ring backward", call, step))
+        both = map_shards(attend(step), q, carried, out, lse, dout, index,
+                          dq)
+        carried = map_shards(lambda pair: pair[0], both)
+        dq = map_shards(lambda pair: pair[1], both)
+    # block s sits at position (s + n - 1) mod n after the loop
+    home = _hop(map_shards(lambda entry: entry[:2], carried), mesh,
+                axis_name, ("ring home", call))
+    return (map_shards(lambda grad, q: grad.to(q.dtype), dq, q),
+            map_shards(lambda grads, k: grads[0].to(k.dtype), home, k),
+            map_shards(lambda grads, v: grads[1].to(v.dtype), home, v))
 
 
-class _RingAttention(torch.autograd.Function):
-    """The JAX package's custom_vjp around _ring: the forward keeps each
-    shard's q, k, v, O and merged LSE, the backward runs the second
-    ring.  devices, causal and sm_scale get no gradient."""
+class _RingGrid(torch.autograd.Function):
+    """The JAX package's custom_vjp around _ring, on position grids: the
+    forward (its hops run without autograd, as every Function's forward
+    does) keeps the distinct local q, k, v, O and merged LSE; the
+    backward is the second ring, never autograd through the hops.
+    Across processes it takes the mesh's chain token and returns the next
+    (collectives._link), so that its backward's exchanges run in one
+    order on every process."""
 
     @staticmethod
-    def forward(ctx, q, k, v, devices, causal: bool, sm_scale: float):
-        shards = [_split(x, devices) for x in (q, k, v)]
-        outs, lses = _ring_forward(*shards, devices, causal, sm_scale)
-        ctx.save_for_backward(*shards[0], *shards[1], *shards[2], *outs,
-                              *lses)
-        ctx.devices, ctx.causal, ctx.sm_scale = devices, causal, sm_scale
-        ctx.home = q.device
-        return _gather(outs, q.device)
+    def forward(ctx, template, how, holder, chain, token, *tensors):
+        out, lse = _ring_forward(*rebuild_tensors(template, tensors), *how)
+        outs, lses = [], []
+        holder["out"] = ctx.out = flatten_tensors(out, outs)
+        ctx.lse = flatten_tensors(lse, lses)
+        ctx.template, ctx.how, ctx.counts = template, how, (len(tensors),
+                                                            len(outs))
+        ctx.state = None if chain is None else chain.state
+        ctx.save_for_backward(*tensors, *outs, *lses)
+        return (None if token is None else torch.zeros(()), *outs)
 
     @staticmethod
-    def backward(ctx, dout):
-        count = len(ctx.devices)
+    def backward(ctx, _, *douts):
+        if ctx.state is not None:
+            ctx.state.spent = True
+        count, slots = ctx.counts
         saved = ctx.saved_tensors
-        q_shards, k_shards, v_shards, outs, lses = (
-            list(saved[part * count:(part + 1) * count])
-            for part in range(5))
-        dq, dk, dv = _ring_backward(
-            q_shards, k_shards, v_shards, outs, lses,
-            _split(dout, ctx.devices), ctx.devices, ctx.causal,
-            ctx.sm_scale)
-        return (_gather(dq, ctx.home), _gather(dk, ctx.home),
-                _gather(dv, ctx.home), None, None, None)
+        tensors, outs = saved[:count], saved[count:count + slots]
+        q, k, v = rebuild_tensors(ctx.template, tensors)
+        dout = rebuild_tensors(ctx.out, [
+            torch.zeros_like(out) if grad is None else grad.contiguous()
+            for grad, out in zip(douts, outs)])
+        grids = _ring_backward(q, k, v, rebuild_tensors(ctx.out, outs),
+                               rebuild_tensors(ctx.lse,
+                                               saved[count + slots:]),
+                               dout, *ctx.how)
+        # positions holding the same q, k and v share their gradients:
+        # each distinct triple adds its gradients once
+        grads: list = [None] * count
+        done = set()
+        templates = [grid.reshape(-1) for grid in ctx.template]
+        results = [grid.reshape(-1) for grid in grids]
+        for index in range(q.size):
+            places = tuple(tensor_place(grid, index) for grid in templates)
+            if places[0] is None or places in done:
+                continue
+            done.add(places)
+            for place, grid in zip(places, results):
+                grad = grid[index]
+                grads[place] = (grad if grads[place] is None
+                                else grads[place] + grad)
+        return (None, None, None, None,
+                None if ctx.state is None else torch.zeros(()), *grads)
+
+
+def ring_attention_grid(q, k, v, mesh, axis_name: str = "seq",
+                        causal: bool = True, sm_scale=None) -> np.ndarray:
+    """ring_attention_sharded on position grids: q, k, v hold at position
+    i of `axis_name` block i of the sequence, (B, H, L/n, D) each; the
+    result holds each position's block of O, differentiable in every
+    local q, k and v.
+
+    Each position keeps its query block; K/V rotate n - 1 hops (each one
+    ppermute over the axis), and each executed hop is one
+    flash_attention_forward (K1 on CUDA) whose (O, LSE) merges into the
+    position's running partial.  Under causal masking the hop that
+    brings position i the K/V of a later block is skipped -- no launch
+    -- so position i runs i + 1 hops, n(n + 1)/2 along the axis.  The
+    backward's second ring runs the dQ and dK/dV kernels (K2, K3) once an
+    executed hop and returns the dK/dV accumulators home with one last
+    ppermute."""
+    tensors: list = []
+    template = flatten_tensors((q, k, v), tensors)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(tensors[0].shape[-1])
+    chain = token = None
+    if (axis_name in mesh.process_axes and torch.is_grad_enabled()
+            and any(tensor.requires_grad for tensor in tensors)):
+        # the backward's exchanges cross processes: they take their
+        # place in the mesh's chain
+        chain, token = _link(mesh)
+    mesh.calls["ring"] = call = mesh.calls.get("ring", 0) + 1
+    holder: dict = {}
+    token, *outs = _RingGrid.apply(
+        template, (mesh, axis_name, bool(causal), float(sm_scale), call),
+        holder, chain, token, *tensors)
+    if chain is not None:
+        chain.token = token
+    return rebuild_tensors(holder["out"], outs)
 
 
 def ring_attention(q, k, v, mesh=None, axis_name: str = "seq",
                    causal: bool = True, sm_scale=None):
     """Sequence-parallel attention over mesh axis `axis_name` (the
     ambient mesh when mesh=None): (B, H, L, D) in and out,
-    differentiable in q, k and v.
-
-    Each device of the axis keeps its query shard; K/V shards rotate
-    n - 1 hops around the ring, and each executed hop is one
-    flash_attention_forward (the forward kernel on CUDA) whose (O, LSE)
-    merges into the shard's running partial.  Under causal masking the
-    hop that brings device i the K/V of a later shard is skipped -- no
-    launch -- so device i runs i + 1 hops, n(n + 1)/2 in all."""
-    devices = _axis(_resolve_mesh(mesh, "ring_attention"), axis_name,
-                    q.shape[2], "ring_attention")
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    return _RingAttention.apply(q, k, v, devices, bool(causal),
-                                float(sm_scale))
+    differentiable in q, k and v.  The sequence is cut into one block
+    per device of the axis and runs through ring_attention_grid: device
+    i runs i + 1 hops under causal masking, n(n + 1)/2 in all."""
+    line = _line(_resolve_mesh(mesh, "ring_attention"), axis_name,
+                 q.shape[2], "ring_attention")
+    out = ring_attention_grid(*(_split_grid(x, line) for x in (q, k, v)),
+                              line, axis_name, causal, sm_scale)
+    return _gather_grid(out, q.device)
 
 
 # -- Ulysses (all-to-all) sequence parallelism -------------------------------
 
-def ulysses_attention(q, k, v, mesh=None, axis_name: str = "seq",
-                      causal: bool = False, sm_scale=None):
-    """DeepSpeed-Ulysses style: the all-to-all swaps sequence sharding
-    for head sharding -- device i receives head group i over the whole
-    sequence -- flash_attention (differentiable: the backward kernels in
-    training) runs on each (B, H/n, L, D) group, and the second
-    all-to-all swaps back.  The head count must divide by the axis
-    size."""
-    mesh = _resolve_mesh(mesh, "ulysses_attention")
-    devices = _axis(mesh, axis_name, q.shape[2], "ulysses_attention")
-    axis_size, heads = len(devices), q.shape[1]
-    if heads % axis_size != 0:
+def ulysses_attention_grid(q, k, v, mesh, axis_name: str = "seq",
+                           causal: bool = False,
+                           sm_scale=None) -> np.ndarray:
+    """ulysses_attention_sharded on position grids of (B, H, L/n, D)
+    blocks: one all_to_all over the axis swaps sequence sharding for
+    head sharding (q, k and v stacked: position i receives head group i
+    over the whole sequence), flash_attention (K1, and K2/K3 in the
+    backward) runs on each (B, H/n, L, D) group, and a second all_to_all
+    swaps back.  Differentiable through the all_to_alls.  The head count
+    must divide by the axis size."""
+    _check_heads(next(entry for entry in q.flat
+                      if entry is not None).shape[1], mesh, axis_name)
+    groups = all_to_all(map_shards(lambda q, k, v: torch.stack([q, k, v]),
+                                   q, k, v), mesh, axis_name, split_dim=2,
+                        concat_dim=3)
+    return all_to_all(_ulysses_groups(groups, causal, sm_scale), mesh,
+                      axis_name, split_dim=2, concat_dim=1)
+
+
+def _check_heads(heads: int, mesh, axis_name: str) -> None:
+    size = mesh.size(axis_name)
+    if heads % size != 0:
         raise ValueError(
             f"ulysses_attention: heads ({heads}) must be divisible by "
-            f"mesh axis '{axis_name}' size ({axis_size}); use "
+            f"mesh axis '{axis_name}' size ({size}); use "
             f"ring_attention for head counts smaller than the axis")
-    group = heads // axis_size
-    outs = []
-    for index, device in enumerate(devices):
-        heads_slice = slice(index * group, (index + 1) * group)
-        q_i, k_i, v_i = (x[:, heads_slice].to(device).contiguous()
-                         for x in (q, k, v))
-        outs.append(flash_attention(q_i, k_i, v_i, causal=causal,
-                                    sm_scale=sm_scale))
-    return _gather(outs, q.device, dim=1)
+
+
+def _ulysses_groups(groups: np.ndarray, causal: bool, sm_scale):
+    """flash_attention (K1, and K2/K3 in the backward) on each position's
+    (q, k, v) head group over the whole sequence."""
+    return map_shards(lambda qkv: flash_attention(
+        qkv[0], qkv[1], qkv[2], causal=causal, sm_scale=sm_scale), groups)
+
+
+def ulysses_attention(q, k, v, mesh=None, axis_name: str = "seq",
+                      causal: bool = False, sm_scale=None):
+    """DeepSpeed-Ulysses style over mesh axis `axis_name` (the ambient
+    mesh when mesh=None): (B, H, L, D) in and out.  The whole tensor is
+    what ulysses_attention_grid's first all_to_all gathers, so each
+    device of the axis takes its head group over the whole sequence
+    directly, runs the grid form's per-group attention, and the groups
+    are gathered back on the heads."""
+    line = _line(_resolve_mesh(mesh, "ulysses_attention"), axis_name,
+                 q.shape[2], "ulysses_attention")
+    _check_heads(q.shape[1], line, axis_name)
+    groups = map_shards(lambda *qkv: qkv, *(_split_grid(x, line, dim=1)
+                                            for x in (q, k, v)))
+    return _gather_grid(_ulysses_groups(groups, causal, sm_scale),
+                        q.device, dim=1)
 
 
 # -- sequence-parallel decode attention --------------------------------------
+
+def sp_decode_grid(q, cache_k, cache_v, pos, mesh, axis_name: str = "seq",
+                   sm_scale=None) -> np.ndarray:
+    """sp_decode_attention_sharded on position grids: q (B, H, Lq, D) the
+    same at every position of a line, position i's cache window i (B,
+    Hkv, Lc/n, D), Hkv dividing H.  Each position attends q over its
+    window (positions past pos + i masked; GQA contracting the grouped q
+    heads against the un-expanded window); the partials merge exactly
+    with one max over the axis (pmax) and ONE sum of the fused [num,
+    den] (psum), so every position gets the output.  Plain torch: the
+    JAX package computes it as einsums outside any Pallas kernel."""
+    index = axis_index(mesh, axis_name)
+
+    def scores(q, k_local, position):
+        batch, kv_heads, local_len, head_dim = k_local.shape
+        q_len = q.shape[2]
+        scale = (1.0 / math.sqrt(head_dim) if sm_scale is None
+                 else sm_scale)
+        device = k_local.device
+        grouped = q.reshape(batch, kv_heads, q.shape[1] // kv_heads, q_len,
+                            head_dim)
+        k_pos = position * local_len + torch.arange(local_len,
+                                                    device=device)
+        q_pos = torch.as_tensor(pos, device=device) + torch.arange(
+            q_len, device=device)
+        s = torch.matmul(grouped.float(),
+                         k_local.float()[:, :, None].transpose(-1, -2)) \
+            * scale                                    # (B, Hkv, G, Lq, Lk)
+        return s.masked_fill(k_pos[None, :] > q_pos[:, None], _NEG_INF)
+
+    s = map_shards(scores, q, cache_k, index)
+    m_global = pmax(map_shards(lambda s: s.amax(dim=-1), s), mesh,
+                    axis_name)                        # (B, Hkv, G, Lq)
+
+    def partial(s, m, v_local):
+        p = torch.exp(s - m[..., None])
+        return torch.cat([torch.matmul(p, v_local.float()[:, :, None]),
+                          p.sum(dim=-1, keepdim=True)], dim=-1)
+    fused = psum(map_shards(partial, s, m_global, cache_v), mesh, axis_name)
+
+    def finish(fused, q):
+        head_dim = q.shape[-1]
+        num, den = fused[..., :head_dim], fused[..., head_dim:]
+        out = (num / torch.clamp_min(den, 1e-30)).to(q.dtype)
+        return out.reshape(q.shape)
+    return map_shards(finish, fused, q)
+
 
 def sp_decode_attention(q, cache_k, cache_v, pos, mesh=None,
                         axis_name: str = "seq", sm_scale=None,
                         batch_axis: str = "data", head_axis: str = "model"):
     """KV-cached decode with the cache length sharded over `axis_name`:
     q (B, H, Lq, D) replicated, cache (B, Hkv, Lc, D) with Hkv dividing
-    H.  Each device attends q over its local cache shard (positions past
-    pos + i masked), GQA contracting the grouped q heads against the
-    un-expanded shard; the partials merge exactly with one max over the
-    shards (the pmax) and ONE sum of the fused [num, den] (the psum).
-    Plain torch: the JAX package computes it as einsums outside any
-    Pallas kernel.  q's and the cache's specs shard batch on
-    `batch_axis` and heads on `head_axis` where the mesh has them."""
+    H -- sp_decode_grid over the axis's devices, each holding its
+    contiguous window of the cache; the output lands on q's device.
+    q's and the cache's specs shard batch on `batch_axis` and heads on
+    `head_axis` where the mesh has them."""
     mesh = _resolve_mesh(mesh, "sp_decode_attention")
     names = mesh.axis_names
     b_ax = batch_axis if batch_axis in names else None
@@ -679,52 +901,13 @@ def sp_decode_attention(q, cache_k, cache_v, pos, mesh=None,
         tuple(q.shape))
     named_sharding(mesh, PartitionSpec(b_ax, h_ax, axis_name, None)) \
         .shard_shape(tuple(cache_k.shape))
-    devices = mesh.axis_devices(axis_name)
-    local_len = cache_k.shape[2] // len(devices)
-    windows = [slice(index * local_len, (index + 1) * local_len)
-               for index in range(len(devices))]
-    return sp_decode_shards(
-        [q.to(device) for device in devices],
-        [cache_k[:, :, window].to(device)
-         for window, device in zip(windows, devices)],
-        [cache_v[:, :, window].to(device)
-         for window, device in zip(windows, devices)],
-        pos, q.device, sm_scale)
-
-
-def sp_decode_shards(q_shards: list, k_shards: list, v_shards: list, pos,
-                     home, sm_scale=None):
-    """sp_decode_attention on shards that already lie on their devices:
-    q (B, H, Lq, D) once per device, device i's contiguous window i of
-    the cache (B, Hkv, Lc/n, D).  Each device attends over its window
-    (positions past pos + i masked), the partials merge with one max and
-    one sum of the fused [num, den] on `home`, where the output lands."""
-    batch, kv_heads, local_len, head_dim = k_shards[0].shape
-    q_len, heads = q_shards[0].shape[2], q_shards[0].shape[1]
-    groups = heads // kv_heads
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(head_dim)
-    scores = []
-    for index, (q, k_local) in enumerate(zip(q_shards, k_shards)):
-        device = k_local.device
-        q_grouped = q.reshape(batch, kv_heads, groups, q_len, head_dim)
-        k_pos = index * local_len + torch.arange(local_len, device=device)
-        q_pos = torch.as_tensor(pos, device=device) + torch.arange(
-            q_len, device=device)
-        s = torch.matmul(q_grouped.float(),
-                         k_local.float()[:, :, None].transpose(-1, -2)) \
-            * sm_scale                                 # (B, Hkv, G, Lq, Lk)
-        scores.append(s.masked_fill(k_pos[None, :] > q_pos[:, None],
-                                    _NEG_INF))
-    m_global = torch.stack([s.amax(dim=-1).to(home) for s in scores]) \
-        .amax(dim=0)                                   # (B, Hkv, G, Lq)
-    fused = None
-    for s, v_local in zip(scores, v_shards):
-        p = torch.exp(s - m_global.to(s.device)[..., None])
-        num = torch.matmul(p, v_local.float()[:, :, None])
-        den = p.sum(dim=-1, keepdim=True)
-        part = torch.cat([num, den], dim=-1).to(home)
-        fused = part if fused is None else fused + part
-    num, den = fused[..., :head_dim], fused[..., head_dim:]
-    out = (num / torch.clamp_min(den, 1e-30)).to(q_shards[0].dtype)
-    return out.reshape(batch, heads, q_len, head_dim)
+    line = _line(mesh, axis_name, cache_k.shape[2], "sp_decode_attention")
+    queries = np.empty(line.devices.size, dtype=object)
+    for index, device in enumerate(line.devices.flat):
+        queries[index] = q.to(device)
+    out = sp_decode_grid(queries, _split_grid(cache_k, line,
+                                              contiguous=False),
+                         _split_grid(cache_v, line, contiguous=False), pos,
+                         line, axis_name,
+                         sm_scale)
+    return out.flat[0].to(q.device)

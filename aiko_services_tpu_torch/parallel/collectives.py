@@ -29,7 +29,10 @@
 # On a mesh from parallel.distributed.global_mesh each group gathers its
 # entries from the other processes through torch.distributed (gloo on the
 # CPU, NCCL on CUDA) on the group's own process group, then computes as
-# above.  Gradients cross the processes as XLA's transposes do:
+# above -- except ppermute, which sends each block only to its
+# destination's owner (one all_to_all with the other slots empty, per set
+# of ranks; the ring's hops, parallel/attention.py).  Gradients cross the
+# processes as XLA's transposes do:
 #   - a collective's gather (_Across) hands each process's cotangents of
 #     another process's entries back to their owner, which sums them (a
 #     reduce-scatter: one all_to_all, summed in f32);
@@ -37,7 +40,9 @@
 #     parameter) sums its cotangents over the processes (_Replicated, an
 #     all_reduce), and so does the whole gradient of a reshard;
 #   - sum_replica_grads adds the gradients of a Sharded block's replicas
-#     on other processes (one all_reduce over the block's owners).
+#     on other processes (one all_reduce over the block's owners);
+#   - a ppermute's backward is the inverse permutation of the
+#     cotangents, point to point again (_Permute).
 # The processes pair their calls on one process group by order, and the
 # autograd engine runs ready nodes in an order the graph alone does not
 # fix, so every cross-process backward collective of a mesh takes the
@@ -87,7 +92,7 @@ from .mesh import (
     Mesh, Sharded, layout_spec, leaf_layout, named_sharding, shard_pytree,
     spec_layout, unshard)
 
-__all__ = ["map_shards", "axis_index", "psum", "all_gather",
+__all__ = ["map_shards", "axis_index", "psum", "pmax", "all_gather",
            "psum_scatter", "all_to_all", "ppermute", "collective_counts",
            "reset_collective_counts", "collective_totals", "staged_bytes",
            "sum_replica_grads", "replicated", "reshard", "conform",
@@ -128,7 +133,9 @@ def reset_collective_counts() -> None:
 
 def _record(axes: tuple, grid: np.ndarray) -> None:
     size = sum(tensor.numel() * tensor.element_size()
-               for tensor in grid.flat if tensor is not None)
+               for entry in grid.flat if entry is not None
+               for tensor in (entry if isinstance(entry, tuple)
+                              else (entry,)))
     with _COUNTS_LOCK:
         entry = _COUNTS.setdefault("+".join(axes), {"calls": 0, "bytes": 0})
         entry["calls"] += 1
@@ -248,29 +255,56 @@ def _check_step(mesh: Mesh, ranks: tuple, group, numel: int, tag: int,
             f"{dict(zip(ranks, seen))}")
 
 
+def _transfer(mesh: Mesh, ranks: tuple, outgoing: dict, incoming: dict,
+              dtype, device, numel: int, tag: int) -> dict:
+    """One exchange over the process group of `ranks` (one all_to_all
+    with empty slots): this process sends outgoing[rank] (flattened) to
+    each rank it names and receives from each rank in `incoming` a
+    tensor of that shape and `dtype`; it sends nothing to, and receives
+    nothing from, the others.  `numel` is the exchange's size every
+    process of the group checks alike (_check_step).  Returns {rank:
+    received}, on `device`."""
+    import torch.distributed as dist
+    group = _process_group(mesh, ranks)
+    staged = (torch.device(device).type == "cuda"
+              and dist.get_backend(group) == "gloo")
+    wire = "cpu" if staged else device
+    _check_step(mesh, ranks, group, numel, tag, wire)
+    sends = [outgoing[rank].reshape(-1) for rank in ranks
+             if rank in outgoing]
+    send = (torch.cat(sends) if sends
+            else torch.empty(0, dtype=dtype, device=device))
+    if staged:
+        send = _to_host(send)
+    sizes = {rank: int(np.prod(shape)) for rank, shape in incoming.items()}
+    receive = torch.empty(sum(sizes.values()), dtype=dtype, device=wire,
+                          pin_memory=staged)
+    dist.all_to_all_single(
+        receive, send,
+        output_split_sizes=[sizes.get(rank, 0) for rank in ranks],
+        input_split_sizes=[outgoing[rank].numel() if rank in outgoing
+                           else 0 for rank in ranks], group=group)
+    if staged:
+        receive = _staged(receive).to(device)
+    received, start = {}, 0
+    for rank in ranks:
+        if rank in sizes:
+            received[rank] = receive[start:start + sizes[rank]].view(
+                incoming[rank])
+            start += sizes[rank]
+    return received
+
+
 def _exchange(mesh: Mesh, ranks: tuple, outgoing: dict, like,
               tag: int) -> dict:
     """One all_to_all over the process group of `ranks`: this process
     sends outgoing[rank] to every other rank and receives from each a
     tensor shaped and typed like `like` (the groups are symmetric).
     Returns {rank: received}, on like's device."""
-    import torch.distributed as dist
-    group = _process_group(mesh, ranks)
     others = [rank for rank in ranks if rank != mesh.rank]
-    staged = _staging(group, like)
-    wire = "cpu" if staged else like.device
-    _check_step(mesh, ranks, group, like.numel(), tag, wire)
-    send = torch.cat([outgoing[rank].reshape(-1) for rank in others])
-    if staged:
-        send = _to_host(send)
-    receive = torch.empty(len(others) * like.numel(), dtype=like.dtype,
-                          device=wire, pin_memory=staged)
-    sizes = [0 if rank == mesh.rank else like.numel() for rank in ranks]
-    dist.all_to_all_single(receive, send, output_split_sizes=sizes,
-                           input_split_sizes=sizes, group=group)
-    if staged:
-        receive = _staged(receive).to(like.device)
-    return dict(zip(others, receive.view(len(others), *like.shape)))
+    return _transfer(mesh, ranks, {rank: outgoing[rank] for rank in others},
+                     {rank: like.shape for rank in others}, like.dtype,
+                     like.device, like.numel(), tag)
 
 
 def _all_reduce(mesh: Mesh, ranks: tuple, tensor, tag: int):
@@ -567,18 +601,195 @@ def all_to_all(grid: np.ndarray, mesh: Mesh, axis_name: str,
     return _collective(mesh, grid, axis_name, _per_position(compute))
 
 
-def ppermute(grid: np.ndarray, mesh: Mesh, axis_name: str,
-             perm) -> np.ndarray:
+def pmax(grid: np.ndarray, mesh: Mesh, axis_names) -> np.ndarray:
+    """Every position gets the elementwise maximum of its group's entries
+    over `axis_names` (lax.pmax)."""
+    return _collective(mesh, grid, axis_names, _per_group(
+        lambda entries, k, device: torch.stack(
+            [entry.to(device) for entry in entries]).amax(dim=0)))
+
+
+def ppermute(grid: np.ndarray, mesh: Mesh, axis_name: str, perm,
+             label=None) -> np.ndarray:
     """perm is a list of (source, destination) axis indices: the
     destination gets the source's entry; a position no pair names gets
-    zeros, as in lax.ppermute."""
+    zeros, as in lax.ppermute.  Within one process an entry may be a
+    tuple of tensors, moved as it is.  Across processes each block goes
+    only to its destination's owner (_permute_across); `label` (any
+    repr-able value) joins the exchange's checked tag, so that two
+    processes at different calls of one collective -- a ring one hop
+    out of step -- fail at once."""
     sources = {destination: source for source, destination in perm}
+    axes = _axes(mesh, axis_name)
+    if not axes:
+        return grid
+    if set(axes) & set(mesh.process_axes):
+        return _permute_across(grid, mesh, axes, sources, label)
+    # every group lies in one process: each destination takes its
+    # source's entry onto its device (the same object on the same device)
+    _record(axes, grid)
+    flat = grid.reshape(-1)
+    devices = mesh.devices.ravel().tolist()
+    local = mesh.local.ravel().tolist()
+    out = np.empty(grid.size, dtype=object)
+    for members in _groups(mesh, axes):
+        if not local[members[0]]:
+            continue
+        for k, index in enumerate(members):
+            device = devices[index]
+            if k not in sources:
+                out[index] = torch.zeros_like(flat[index], device=device)
+                continue
+            entry = flat[members[sources[k]]]
+            out[index] = (tuple(tensor.to(device) for tensor in entry)
+                          if isinstance(entry, tuple) else entry.to(device))
+    return out.reshape(grid.shape)
 
-    def compute(entries, k, device):
-        if k not in sources:
-            return torch.zeros_like(entries[k], device=device)
-        return entries[sources[k]].to(device)
-    return _collective(mesh, grid, axis_name, _per_position(compute))
+
+def _permute_across(grid: np.ndarray, mesh: Mesh, axes: tuple,
+                    sources: dict, label) -> np.ndarray:
+    """ppermute over axes that span processes: a block whose source and
+    destination this process both holds is copied; a block for another
+    process goes to its owner alone, in one exchange per set of ranks
+    (_send_blocks); groups whose local entries are the same tensors
+    share one move, as _collective shares its results."""
+    _record(axes, grid)
+    flat = grid.reshape(-1)
+    owners = [int(rank) for rank in mesh.processes.flat]
+    devices = mesh.devices.ravel().tolist()
+    out = np.empty(grid.size, dtype=object)
+    plans: dict = {}
+    lines: dict = {}
+    aliases = []
+    for members in _groups(mesh, axes):
+        line = [owners[index] for index in members]
+        ranks = tuple(sorted(set(line)))
+        if len(ranks) > 1:
+            _process_group(mesh, ranks)
+        if mesh.rank not in ranks:
+            continue
+        key = (tuple(id(flat[index]) for index, rank in zip(members, line)
+                     if rank == mesh.rank), tuple(line))
+        if key in lines:
+            aliases.extend(zip(members, lines[key]))
+            continue
+        lines[key] = members
+        plan = plans.setdefault(ranks, {
+            "send": {}, "receive": {}, "pairs": 0,
+            "like": next(flat[index] for index, rank in zip(members, line)
+                         if rank == mesh.rank)})
+        for k, index in enumerate(members):
+            source = sources.get(k)
+            if source is None:
+                if line[k] == mesh.rank:
+                    out[index] = torch.zeros_like(flat[index],
+                                                  device=devices[index])
+                continue
+            owner, held = line[source], flat[members[source]]
+            if owner != line[k]:
+                plan["pairs"] += 1
+            if owner == mesh.rank and line[k] == mesh.rank:
+                out[index] = held.to(devices[index])
+            elif owner == mesh.rank:
+                plan["send"].setdefault(line[k], []).append(held)
+            elif line[k] == mesh.rank:
+                plan["receive"].setdefault(owner, []).append(index)
+    tag = _tag(("ppermute", axes, sorted(sources.items()), label))
+    # alike on every process (each holds its own positions' entries), so
+    # that all of them take part in the backward's exchanges
+    differentiable = torch.is_grad_enabled() and any(
+        tensor.requires_grad for tensor in flat if tensor is not None)
+    for ranks in sorted(plans):
+        plan = plans[ranks]
+        if not plan["pairs"]:
+            continue
+        counts = {rank: len(plan["send"][rank])
+                  for rank in sorted(plan["send"])}
+        sent = [tensor for rank in counts for tensor in plan["send"][rank]]
+        wanted = {rank: [flat[index].shape for index in plan["receive"][rank]]
+                  for rank in sorted(plan["receive"])}
+        targets = [index for rank in wanted
+                   for index in plan["receive"][rank]]
+        like = plan["like"]
+        numel = plan["pairs"] * like.numel()
+        if differentiable:
+            chain, token = _link(mesh)
+            token, *received = _Permute.apply(
+                mesh, ranks, counts, wanted, (like.dtype, like.device,
+                                              numel, tag), chain, token,
+                *sent)
+            chain.token = token
+        else:
+            received = _send_blocks(mesh, ranks, counts, sent, wanted,
+                                    like.dtype, like.device, numel, tag)
+        for index, block in zip(targets, received):
+            out[index] = block.to(devices[index])
+    for index, first in aliases:
+        if owners[index] == mesh.rank:
+            out[index] = out[first]
+    return out.reshape(grid.shape)
+
+
+def _send_blocks(mesh: Mesh, ranks: tuple, counts: dict, sent: list,
+                 wanted: dict, dtype, device, numel: int, tag: int) -> list:
+    """One _transfer of blocks: the first counts[r1] tensors of `sent` go
+    to rank r1, the next counts[r2] to r2, ... (in `counts`' order); from
+    each rank of `wanted` this process receives one block per shape
+    listed.  Returns the received blocks in `wanted`'s order."""
+    outgoing, start = {}, 0
+    for rank, count in counts.items():
+        outgoing[rank] = torch.cat([tensor.detach().reshape(-1).to(device)
+                                    for tensor in sent[start:start + count]])
+        start += count
+    received = _transfer(mesh, ranks, outgoing, {
+        rank: (sum(int(np.prod(shape)) for shape in shapes),)
+        for rank, shapes in wanted.items()}, dtype, device, numel, tag)
+    out = []
+    for rank, shapes in wanted.items():
+        start = 0
+        for shape in shapes:
+            size = int(np.prod(shape))
+            out.append(received[rank][start:start + size].view(shape))
+            start += size
+    return out
+
+
+class _Permute(torch.autograd.Function):
+    """The cross-process moves of a ppermute: this process's blocks for
+    other processes in, the blocks they send it out (_send_blocks).  The
+    backward is the inverse permutation of the cotangents, point to
+    point again: each received block's cotangent goes back to its
+    source's owner, which takes it as its block's gradient."""
+
+    @staticmethod
+    def forward(ctx, mesh, ranks, counts, wanted, how, chain, token, *sent):
+        dtype, device, numel, tag = how
+        ctx.mesh, ctx.ranks, ctx.how = mesh, ranks, how
+        ctx.counts, ctx.wanted = counts, wanted
+        ctx.state = chain.state
+        ctx.sent = [(tensor.shape, tensor.device) for tensor in sent]
+        return torch.zeros(()), *_send_blocks(mesh, ranks, counts,
+                                              list(sent), wanted, dtype,
+                                              device, numel, tag)
+
+    @staticmethod
+    def backward(ctx, _, *grads):
+        ctx.state.spent = True
+        dtype, device, numel, tag = ctx.how
+        shapes = [shape for rank in ctx.wanted for shape in ctx.wanted[rank]]
+        grads = [torch.zeros(shape, dtype=dtype, device=device)
+                 if grad is None else grad
+                 for grad, shape in zip(grads, shapes)]
+        back, start = {}, 0
+        for rank, count in ctx.counts.items():
+            back[rank] = [shape for shape, _ in ctx.sent[start:start + count]]
+            start += count
+        returned = _send_blocks(
+            ctx.mesh, ctx.ranks, {rank: len(ctx.wanted[rank])
+                                  for rank in ctx.wanted}, grads, back,
+            dtype, device, numel, _tag(("ppermute backward", tag)))
+        return (None,) * 6 + (torch.zeros(()),) + tuple(
+            grad.to(where) for grad, (_, where) in zip(returned, ctx.sent))
 
 
 @torch.no_grad()

@@ -104,6 +104,10 @@ class Mesh:
         # in flight (its own while open, a weak reference once joined)
         self.sequence: dict = {}
         self.chain = None
+        # calls of a grid function by name (parallel/attention.py): the
+        # ring's exchanges carry their call's number in their checked
+        # tag, so processes one ring apart fail at once
+        self.calls: dict = {}
 
     @property
     def shape(self) -> OrderedDict:

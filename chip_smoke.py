@@ -157,7 +157,8 @@ result:
      13a examples/pipeline_llm_8b.json as shipped: llama3_8b at full
          width (bf16, weights drawn on the card from a seed and installed
          through the element's restore_state) on its fsdp 2 x model 4 mesh,
-         the TextSource prompt, 128 new tokens through the pipeline:
+         the TextSource prompt, 64 new tokens (it ships 128) through
+         the pipeline:
          tokens/s, decode-step ms, collective calls and KiB a step, peak
          memory; the last prompt position's logits and the greedy tokens
          against the unsharded 8B on the same weights, and where the
@@ -166,11 +167,12 @@ result:
      13b f32 at the 8B widths, 2 layers: sharded and unsharded generate
          give identical tokens on fsdp 2 x model 4, and with int8
          weights and int8 KV on fsdp 2 x model 2;
-     13c llama32_1b at full width, data 2 x fsdp 2 x model 2, batch
-         4 x 1024, adamw, 2 steps of make_train_step(sharded=True): losses
-         and each parameter's change against the unsharded steps, step
-         ms, tokens/s, MFU, K1/K2/K3 launches a step (16 layers x 2 data
-         x 2 model shards); then in f32 at 2 layers, where each step's
+     13c llama32_1b at full width, depth cut to 8 layers, data 2 x
+         fsdp 2 x model 2, batch 4 x 1024, adamw, 2 steps of
+         make_train_step(sharded=True): losses and each parameter's
+         change against the unsharded steps, step ms, tokens/s, MFU,
+         K1/K2/K3 launches a step (8 layers x 2 data x 2 model shards);
+         then in f32 at 2 layers, where each step's
          gradients are held leaf by leaf against the unsharded step's;
      13d phase 11a's MoE (its depth cut to 4 layers) on data 2 x expert
          2 x model 2: 2 train steps against the unsharded ones, in bf16
@@ -274,7 +276,8 @@ result:
      the unsharded steps on the same weights (drawn on the card from one
      seed in every process) and batches, writes the parameters after
      them (and the f32 gradients) under build/, and frees the card:
-     17a llama32_1b at full width and depth, bf16, batch 4 x 1024,
+     17a llama32_1b at full width, depth cut to 8 layers, bf16, batch
+         4 x 1024,
          adamw, 1 + 2 steps of make_train_step(sharded=True) on fsdp 2 x
          model 2, fsdp across the processes: each rank's losses and its
          blocks' change against the unsharded steps (13c's gates), step
@@ -290,6 +293,33 @@ result:
      17c every K1 and K2/K3 case 17a/17b launched that phase 2 did not
          check, against the plain versions, on each rank; and the ranks'
          replicas (whole leaves, blocks both hold) bit for bit equal
+ 18. sequence parallelism across two processes on the one card: two
+     gloo workers (phase 17's harness), each one "seq" position on
+     cuda:0 (local_device_ids [0]) of a global {"seq": 2} mesh; each
+     embeds, projects and runs the FFN on its half of the sequence, and
+     the ring's hops, Ulysses' all_to_alls, the cached prefill's K/V
+     gather and the sp decode's pmax/psum cross the processes through
+     host memory.  Per arm and rank: ms and tokens/s, K1/K2/K3 launches
+     (a causal ring of 2: rank 0 one hop a layer, rank 1 two) and
+     collective calls and bytes, each held to the count worked out from
+     the shapes in advance, bytes staged through the host, peak memory:
+     18a llama32_1b at full width and depth, bf16, a 1 x 8192 prompt,
+         ring and Ulysses forwards, against 12b's path (the one-process
+         {"seq": 4} forward) at 12b's gates;
+     18b depth cut to 4 layers, bf16, 1 x 8192, 1 + 2 adamw steps
+         through the ring, losses against the same steps on a
+         one-process {"seq": 2} mesh, the first against the non-SP
+         step's;
+     18c full depth, a 4,096-token prompt and 32 new tokens (the ring's
+         cached prefill, then the sp decode), tokens identical to the
+         one-process SP generate on {"seq": 2} with the same layout; the
+         cached prefill's and one decode step's logits and the first
+         token against the non-SP path's at 12b's gates;
+     18d f32 at 2 layers, 1 x 2048, one step through the ring under a
+         remat policy (each layer recomputed inside its backward node),
+         gradients leaf by leaf against the unsharded step's;
+     18e every K1 and K2/K3 case 18a-18d launched that phase 2 did not
+         check, against the plain versions, on each rank
 
 The last three lines are the card's nvidia-smi name and power limit, one
 JSON object describing every kernel of the paths, and {"ok": true,
@@ -4274,9 +4304,13 @@ def phase_long_context(smi: str) -> dict:
 PIPELINE_8B = ROOT / "examples" / "pipeline_llm_8b.json"
 LONGCONTEXT_JSON = ROOT / "examples" / "pipeline_longcontext.json"
 SHARD_DECODE_STEPS = 16       # 13a: decode steps timed on the element
+SHARD_8B_NEW_TOKENS = 64      # 13a: the example ships 128; cut to keep the
+                              # run well inside its time limit
 SHARD_F32_LAYERS = 2          # 13b, 13d's f32 generate: depth cut
 SHARD_F32_PROMPT, SHARD_F32_NEW = 16, 16
 SHARD_TRAIN_STEPS = 2         # 13c, 13d
+SHARD_BF16_LAYERS = 8         # 13c's bf16 arm: depth cut to make room
+                              # for phase 18 in the run's time limit
 SHARD_LR = 1e-4
 SHARD_MOE_PROMPT, SHARD_MOE_NEW = 16, 8
 # 13d trains phase 11a's MoE at half its depth: at 8 layers the sharded
@@ -4419,7 +4453,7 @@ def phase_8b_arm(smi: str, axes: dict, whole=None) -> tuple:
         lm["parameters"].update(weight_dtype="int8", kv_dtype="int8")
     prompt_text = definition["elements"][0]["parameters"][
         "data_sources"][0]
-    max_new = int(lm["parameters"]["max_new_tokens"])
+    lm["parameters"]["max_new_tokens"] = max_new = SHARD_8B_NEW_TOKENS
     set_default_devices(["cuda:0"] * count)
     process = Process(transport_kind="loopback")
     try:
@@ -4734,14 +4768,15 @@ def copy_replicated(tree):
 
 def phase_sharded_training(smi: str) -> dict:
     """13c: llama32_1b at full width on data 2 x fsdp 2 x model 2, in
-    bf16 and (depth cut to SHARD_F32_LAYERS) in f32."""
+    bf16 (depth cut to SHARD_BF16_LAYERS) and in f32 (depth cut to
+    SHARD_F32_LAYERS)."""
     from dataclasses import replace
     from aiko_services_tpu_torch.models import LLAMA32_1B
     axes = {"data": 2, "fsdp": 2, "model": 2}
     launches = {}
-    for config in (LLAMA32_1B, replace(LLAMA32_1B,
-                                       n_layers=SHARD_F32_LAYERS,
-                                       dtype="float32")):
+    for config in (replace(LLAMA32_1B, n_layers=SHARD_BF16_LAYERS),
+                   replace(LLAMA32_1B, n_layers=SHARD_F32_LAYERS,
+                           dtype="float32")):
         arm = sharded_vs_whole_training(
             smi, f"13c llama32_1b_sharded_train_step_{config.dtype}",
             config, axes, SHARD_TRAIN_STEPS, 13)
@@ -6633,8 +6668,9 @@ def phase_last_modules(smi: str) -> dict:
 PROCESS_DIR = ROOT / "build" / "processes"
 PROCESS_TIMEOUT = 900         # seconds, for both workers together
 PROCESS_SEED = 17
+PROCESS_BF16_LAYERS = 8       # 17a: depth cut (16 before), widths kept
 PROCESS_ARMS = (              # (label, dtype, layers: None for all, axes)
-    ("17a", "bfloat16", None, {"fsdp": 2, "model": 2}),
+    ("17a", "bfloat16", PROCESS_BF16_LAYERS, {"fsdp": 2, "model": 2}),
     ("17b", "float32", SHARD_F32_LAYERS, {"fsdp": 2, "model": 2}),
     ("17b", "float32", SHARD_F32_LAYERS, {"data": 2, "fsdp": 2}),
 )
@@ -6915,6 +6951,25 @@ def process_arm(rank: int, label: str, config, axes: dict, smi: str,
             "digests": digests}
 
 
+def check_new_cases(forward: set, backward: set, prefix: str,
+                    phase: str, seed: int) -> tuple:
+    """Each K1 case of `forward` and K2/K3 case of `backward` that phase
+    2 did not check, against the plain versions at phase 2's limits;
+    returns how many of each were checked."""
+    def checked(cases):
+        return {(*spec, 1.0 / math.sqrt(spec[4])) for spec in cases}
+    new_forward = sorted(forward - checked(KERNEL_CASES.values()), key=str)
+    new_backward = sorted(backward - checked(BACKWARD_CASES.values()),
+                          key=str)
+    for index, spec in enumerate(new_forward):
+        check_forward_case(f"{prefix}_{index}", spec, seed + index,
+                           f"{phase} kernel_vs_plain")
+    for index, spec in enumerate(new_backward):
+        check_backward_case(f"{prefix}_{index}", spec, seed + 100 + index,
+                            f"{phase} backward_vs_plain")
+    return len(new_forward), len(new_backward)
+
+
 def process_worker(argument: str) -> None:
     """One rank of phase 17, in its own process: joins the job, loads the
     kernels phase 1 built (no build here), runs every arm of
@@ -6940,21 +6995,12 @@ def process_worker(argument: str) -> None:
             arms.append(process_arm(rank, label, config, axes, smi,
                                     reference[dtype]))
 
-    def checked(cases):
-        return {(*spec, 1.0 / math.sqrt(spec[4])) for spec in cases}
-    new_forward = sorted(forward - checked(KERNEL_CASES.values()), key=str)
-    new_backward = sorted(backward - checked(BACKWARD_CASES.values()),
-                          key=str)
-    for index, spec in enumerate(new_forward):
-        check_forward_case(f"17_{index}", spec, 1700 + index,
-                           f"17c rank{rank} kernel_vs_plain")
-    for index, spec in enumerate(new_backward):
-        check_backward_case(f"17_{index}", spec, 1800 + index,
-                            f"17c rank{rank} backward_vs_plain")
+    new_forward, new_backward = check_new_cases(
+        forward, backward, "17", f"17c rank{rank}", 1700)
     builds = sorted(kernels.build_seconds)
     (PROCESS_DIR / f"rank{rank}.json").write_text(json.dumps({
-        "arms": arms, "k1_cases": len(new_forward),
-        "k2_k3_cases": len(new_backward), "builds": builds}))
+        "arms": arms, "k1_cases": new_forward,
+        "k2_k3_cases": new_backward, "builds": builds}))
     shutdown_distributed()
     if builds:
         raise SystemExit(f"phase 17 worker {rank} built {builds}: it must "
@@ -6962,26 +7008,19 @@ def process_worker(argument: str) -> None:
     print(f"rank {rank} done", flush=True)
 
 
-def phase_processes(smi: str) -> dict:
-    """Phase 17: sharded training across two processes on the card.
-    Returns the kernel launches of both workers' main-path steps."""
+def run_workers(phase: str, directory: pathlib.Path, entry: str,
+                argument: str) -> None:
+    """Two worker processes, each `chip_smoke.<entry>(argument)` in its
+    own python (cwd the repo root), joined through the AIKO_* contract
+    on localhost; their logs go under `directory` and their `[<phase>`
+    lines are relayed.  Exits unless both end with code 0 and print
+    "rank <r> done" within PROCESS_TIMEOUT; a worker still running then
+    is killed."""
     import os
-    import shutil
     import socket
-    from aiko_services_tpu_torch.ops import kernels
-    start = time.perf_counter()
-    shutil.rmtree(PROCESS_DIR, ignore_errors=True)
-    PROCESS_DIR.mkdir(parents=True)
-    reference = {}
-    for _, dtype, layers, _ in PROCESS_ARMS:
-        if dtype not in reference:
-            reference[dtype] = process_reference(process_config(dtype,
-                                                                layers))
-    reference_s = time.perf_counter() - start
     with socket.socket() as probe:
         probe.bind(("127.0.0.1", 0))
         port = probe.getsockname()[1]
-    argument = json.dumps([smi, reference])
     workers, logs = [], []
     try:
         for rank in range(2):
@@ -6990,10 +7029,10 @@ def phase_processes(smi: str) -> dict:
             env.update(PYTHONPATH=str(ROOT),
                        AIKO_COORDINATOR=f"127.0.0.1:{port}",
                        AIKO_NUM_PROCESSES="2", AIKO_PROCESS_ID=str(rank))
-            logs.append(open(PROCESS_DIR / f"rank{rank}.log", "w"))
+            logs.append(open(directory / f"rank{rank}.log", "w"))
             workers.append(subprocess.Popen(
-                [sys.executable, "-c", "import sys, chip_smoke; "
-                 "chip_smoke.process_worker(sys.argv[1])", argument],
+                [sys.executable, "-c", f"import sys, chip_smoke; "
+                 f"chip_smoke.{entry}(sys.argv[1])", argument],
                 cwd=ROOT, env=env, stdout=logs[-1],
                 stderr=subprocess.STDOUT))
         deadline = time.monotonic() + PROCESS_TIMEOUT
@@ -7010,17 +7049,36 @@ def phase_processes(smi: str) -> dict:
             worker.wait()
         for log in logs:
             log.close()
-    texts = [(PROCESS_DIR / f"rank{rank}.log").read_text()
+    texts = [(directory / f"rank{rank}.log").read_text()
              for rank in range(2)]
     for text in texts:
         for line in text.splitlines():
-            if line.startswith("[17"):
+            if line.startswith(f"[{phase}"):
                 print(line, flush=True)
     codes = [worker.returncode for worker in workers]
     if codes != [0, 0] or any(f"rank {rank} done" not in text
                               for rank, text in enumerate(texts)):
-        raise SystemExit(f"17: workers exited {codes}; their logs end:\n"
-                         + "\n".join(text[-3000:] for text in texts))
+        raise SystemExit(f"{phase}: workers exited {codes}; their logs "
+                         f"end:\n" + "\n".join(text[-3000:]
+                                                for text in texts))
+
+
+def phase_processes(smi: str) -> dict:
+    """Phase 17: sharded training across two processes on the card.
+    Returns the kernel launches of both workers' main-path steps."""
+    import shutil
+    from aiko_services_tpu_torch.ops import kernels
+    start = time.perf_counter()
+    shutil.rmtree(PROCESS_DIR, ignore_errors=True)
+    PROCESS_DIR.mkdir(parents=True)
+    reference = {}
+    for _, dtype, layers, _ in PROCESS_ARMS:
+        if dtype not in reference:
+            reference[dtype] = process_reference(process_config(dtype,
+                                                                layers))
+    reference_s = time.perf_counter() - start
+    run_workers("17", PROCESS_DIR, "process_worker",
+                json.dumps([smi, reference]))
     results = [json.loads((PROCESS_DIR / f"rank{rank}.json").read_text())
                for rank in range(2)]
     launches = {name: 0 for name in kernels.KERNELS}
@@ -7044,6 +7102,457 @@ def phase_processes(smi: str) -> dict:
         reference_s=f"{reference_s:.1f}", replicas_equal=replicas,
         k1_cases=[result["k1_cases"] for result in results],
         k2_k3_cases=[result["k2_k3_cases"] for result in results],
+        kernel_builds_in_workers=0,
+        wall_s=f"{time.perf_counter() - start:.1f}",
+        launches=json.dumps(launches), card=repr(smi))
+    return launches
+
+
+# -- phase 18: sequence parallelism across processes --------------------------
+#
+# Phase 17's harness (run_workers): two gloo worker processes on the one
+# card, each owning one "seq" position on cuda:0 (local_device_ids [0]),
+# a global {"seq": 2} mesh over both, the weights drawn on the card from
+# one seed in each process (draw_on_card).  Each process embeds,
+# projects and runs the FFN on its half of the sequence; a ring hop,
+# Ulysses' all_to_alls, the cached prefill's K/V gather and the sp
+# decode's pmax and psum cross the process boundary through host memory
+# (gloo).  Each worker runs an arm's reference on a one-process mesh of
+# the card first (phase 12's paths), then the arm across the processes;
+# only the latter's launches, collectives and staged bytes are counted,
+# and they are held to the counts worked out from the shapes in advance
+# (seq_expected).
+
+SEQ_DIR = ROOT / "build" / "seq_processes"
+SEQ_SEED = 18
+SEQ_TRAIN_LAYERS = 4          # 18b: depth cut, widths kept
+SEQ_TRAIN_STEPS = 2           # 18b: 1 + 2 steps, the first not counted
+SEQ_REMAT_LAYERS = 2          # 18d: f32, depth cut
+SEQ_REMAT_LEN = 2048          # 18d: the step's positions
+SEQ_REMAT_POLICY = "nothing_saveable"
+# 18b: the same steps on a one-process {"seq": 2} mesh run the same code,
+# so their losses may differ only by the order in which the processes'
+# gradient shares are summed (bf16 parameters after each adamw update):
+# on an H100 they read 4.482e-5.  The first step's loss is also
+# held against the unsharded non-SP step's, at 12c's TRAIN_LOSS_ATOL.
+SEQ_SAME_PATH_LOSS_ATOL = 1e-3
+
+
+def seq_measured(run) -> tuple:
+    """(run()'s result, what it cost on this process: seconds, K1/K2/K3
+    launches, collective calls and bytes, bytes staged through host
+    memory, peak bytes allocated on the card)."""
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import (
+        collective_totals, reset_collective_counts, staged_bytes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    reset_collective_counts()
+    start = time.perf_counter()
+    result = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    calls, size = collective_totals()
+    return result, {"seconds": seconds, "launches": launch_counts(),
+                    "calls": calls, "bytes": size, "staged": staged_bytes(),
+                    "peak": torch.cuda.max_memory_allocated()}
+
+
+def seq_expected(config, kind: str, length: int, rank: int,
+                 whole: tuple = (0, 0), new_tokens: int = 0) -> dict:
+    """What one arm issues on this rank of a causal {"seq": 2} ring (or
+    Ulysses) across the two processes, worked out from the shapes: K1
+    (and K2, K3) launches -- rank r runs r + 1 hops a layer, each one
+    launch -- and its collective calls and bytes, each call counting this
+    process's block (B 1, H heads after the K/V expansion, L/2
+    positions):
+      - a forward hop: one ppermute of K and V;
+      - a backward hop: one of K, V and their f32 dK, dV; one more
+        returns dK, dV home;
+      - Ulysses: one all_to_all of q, k, v stacked and one of O;
+      - the cached prefill: one all_gather of the un-expanded K/V block;
+      - a decode step: per layer one pmax of the (B, Hkv, G, 1) maxima
+        and one psum of [num, den], f32;
+      - a train step: one all_reduce of each whole parameter's gradient
+        (`whole`: the count of such leaves and their bytes)."""
+    layers, heads, hd = config.n_layers, config.n_heads, config.head_dim
+    width = torch.empty((), dtype=config.torch_dtype).element_size()
+    block = length // 2
+    qkv = heads * block * hd               # elements of one expanded block
+    hop = 2 * qkv * width
+    hops = rank + 1
+    if kind == "ring":
+        return {"launches": {"flash_attention": layers * hops,
+                             "flash_attention_dq": 0,
+                             "flash_attention_dkv": 0},
+                "calls": layers, "bytes": layers * hop}
+    if kind == "ulysses":
+        return {"launches": {"flash_attention": layers,
+                             "flash_attention_dq": 0,
+                             "flash_attention_dkv": 0},
+                "calls": 2 * layers,
+                "bytes": layers * (3 * qkv + qkv) * width}
+    if kind == "generate":
+        groups = heads // config.n_kv_heads
+        prefill = hop + 2 * config.n_kv_heads * block * hd * width
+        step = config.n_kv_heads * groups * 4 * (1 + hd + 1)
+        return {"launches": {"flash_attention": layers * hops,
+                             "flash_attention_dq": 0,
+                             "flash_attention_dkv": 0},
+                "calls": 2 * layers * new_tokens,
+                "bytes": layers * (prefill + (new_tokens - 1) * step)}
+    forwards = 2 if kind == "remat" else 1
+    backward = qkv * (2 * 4 + 2 * width) + qkv * 2 * 4
+    return {"launches": {"flash_attention": forwards * layers * hops,
+                         "flash_attention_dq": layers * hops,
+                         "flash_attention_dkv": layers * hops},
+            "calls": (forwards + 2) * layers + whole[0],
+            "bytes": layers * (forwards * hop + backward) + whole[1]}
+
+
+def seq_report(label: str, rank: int, smi: str, cost: dict,
+               expected: dict, tokens: int, **fields) -> None:
+    """One arm's line, then its launches and collectives held to the
+    counts worked out in advance."""
+    say(f"{label} rank{rank}", ms=f"{cost['seconds'] * 1e3:.1f}",
+        tokens_per_s=f"{tokens / cost['seconds']:.1f}", **fields,
+        launches=json.dumps(cost["launches"]),
+        expected_launches=json.dumps(expected["launches"]),
+        collective_calls=cost["calls"],
+        expected_collective_calls=expected["calls"],
+        collective_mib=f"{cost['bytes'] / 2**20:.3f}",
+        expected_collective_mib=f"{expected['bytes'] / 2**20:.3f}",
+        host_staged_mib=f"{cost['staged'] / 2**20:.1f}",
+        max_memory_allocated_gib=f"{cost['peak'] / 2**30:.2f}",
+        card=repr(smi))
+    if (cost["launches"] != expected["launches"]
+            or cost["calls"] != expected["calls"]
+            or cost["bytes"] != expected["bytes"]):
+        raise SystemExit(f"{label} rank {rank}: issued {cost}, worked out "
+                         f"from the shapes: {expected}")
+
+
+def seq_tokens(config, shape, seed: int):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, config.vocab_size, shape)).cuda()
+
+
+def seq_prefill(rank: int, mesh, smi: str) -> dict:
+    """18a: llama32_1b at full width and depth, bf16, one 1 x SP_SEQ
+    prompt through the ring and through Ulysses across the processes,
+    against 12b's path (the one-process {"seq": SP_SIZE} forward on the
+    same weights)."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import LLAMA32_1B, forward
+    from aiko_services_tpu_torch.parallel import use_mesh
+    params = draw_on_card(LLAMA32_1B, SEQ_SEED)
+    tokens = seq_tokens(LLAMA32_1B, (1, SP_SEQ), 1801)
+    launches = {name: 0 for name in launch_counts()}
+    for mechanism in ("ring", "ulysses"):
+        config = replace(LLAMA32_1B, sequence_parallel=True,
+                         sp_mechanism=mechanism)
+        with use_mesh(seq_mesh()), torch.no_grad():
+            reference = forward(params, config, tokens)
+        with use_mesh(mesh), torch.no_grad():
+            logits, cost = seq_measured(
+                lambda: forward(params, config, tokens))
+        if not (logits.shape == reference.shape
+                and torch.isfinite(logits).all()):
+            raise SystemExit(f"18a rank {rank}: {mechanism} logits "
+                             f"{tuple(logits.shape)} not finite")
+        error = (logits - reference).abs().max().item()
+        same = (logits.argmax(-1) == reference.argmax(-1)).float().mean(
+            ).item()
+        del logits, reference
+        torch.cuda.empty_cache()
+        seq_report("18a prefill_across_processes", rank, smi, cost,
+                   seq_expected(config, mechanism, SP_SEQ, rank), SP_SEQ,
+                   mechanism=mechanism,
+                   logits_max_abs_diff_vs_12b=f"{error:.3e}",
+                   same_argmax_share=f"{same:.4f}")
+        if error > SP_LOGITS_GROSS_TOL or same < SP_ARGMAX_FLOOR:
+            raise SystemExit(f"18a rank {rank}: {mechanism} logits differ "
+                             f"from 12b's by {error:.3e} (argmax share "
+                             f"{same:.4f})")
+        add_launches(launches, cost["launches"])
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def whole_leaves(params) -> tuple:
+    """(leaves, bytes) of a tree whose every leaf is whole: on {"seq": 2}
+    each one's gradient is summed across the processes."""
+    leaves = [leaf for _, leaf in leaf_items(params)]
+    return len(leaves), sum(leaf.numel() * leaf.element_size()
+                            for leaf in leaves)
+
+
+def seq_train(rank: int, mesh, smi: str) -> dict:
+    """18b: llama32_1b at full width, depth cut to SEQ_TRAIN_LAYERS,
+    bf16, 1 x SP_SEQ, 1 + SEQ_TRAIN_STEPS adamw steps through the ring
+    across the processes, against the same steps through the ring on a
+    one-process {"seq": 2} mesh (losses, SEQ_SAME_PATH_LOSS_ATOL), and
+    the first step's loss against the unsharded non-SP step's on the
+    same weights and tokens (12c's TRAIN_LOSS_ATOL)."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import (
+        LLAMA32_1B, adamw, make_train_step)
+    from aiko_services_tpu_torch.parallel import create_mesh, use_mesh
+    config = replace(LLAMA32_1B, n_layers=SEQ_TRAIN_LAYERS,
+                     sequence_parallel=True)
+    batches = [seq_tokens(config, (1, SP_SEQ + 1), 1810 + index)
+               for index in range(1 + SEQ_TRAIN_STEPS)]
+
+    def steps(run_mesh) -> tuple:
+        params = draw_on_card(config, SEQ_SEED)
+        size = whole_leaves(params)
+        optimizer = adamw(SHARD_LR)
+        state = optimizer.init(params)
+        step = make_train_step(config, optimizer, sharded=True)
+        losses, costs = [], []
+        with use_mesh(run_mesh):
+            for index, batch in enumerate(batches):
+                (params, state, loss), cost = seq_measured(
+                    lambda: step(params, state, batch))
+                losses.append(loss.item())
+                costs.append(cost)
+        del params, state, step
+        torch.cuda.empty_cache()
+        return losses, costs[1:], size
+
+    params = draw_on_card(config, SEQ_SEED)
+    optimizer = adamw(SHARD_LR)
+    dense = make_train_step(replace(config, sequence_parallel=False),
+                            optimizer)(params, optimizer.init(params),
+                                       batches[0])[2].item()
+    del params, optimizer
+    torch.cuda.empty_cache()
+    reference, _, _ = steps(create_mesh({"seq": 2},
+                                        devices=["cuda:0"] * 2))
+    losses, costs, size = steps(mesh)
+    loss_diff = max(abs(a - b) for a, b in zip(losses, reference))
+    dense_diff = abs(losses[0] - dense)
+    cost = {"seconds": statistics.median(c["seconds"] for c in costs),
+            "launches": costs[-1]["launches"], "calls": costs[-1]["calls"],
+            "bytes": costs[-1]["bytes"], "staged": costs[-1]["staged"],
+            "peak": max(c["peak"] for c in costs)}
+    if any((c["launches"], c["calls"], c["bytes"])
+           != (cost["launches"], cost["calls"], cost["bytes"])
+           for c in costs):
+        raise SystemExit(f"18b rank {rank}: the steps issued {costs}")
+    seq_report("18b train_across_processes", rank, smi, cost,
+               seq_expected(config, "train", SP_SEQ, rank, size), SP_SEQ,
+               layers=config.n_layers, batch=f"1x{SP_SEQ}",
+               steps=f"1+{SEQ_TRAIN_STEPS}",
+               losses=json.dumps([round(value, 6) for value in losses]),
+               one_process_losses=json.dumps([round(value, 6)
+                                              for value in reference]),
+               loss_max_abs_diff=f"{loss_diff:.3e}",
+               loss_limit=SEQ_SAME_PATH_LOSS_ATOL,
+               non_sp_first_loss=f"{dense:.6f}",
+               first_loss_abs_diff_vs_non_sp=f"{dense_diff:.3e}",
+               non_sp_limit=TRAIN_LOSS_ATOL)
+    if not (np.isfinite(losses).all()
+            and loss_diff <= SEQ_SAME_PATH_LOSS_ATOL
+            and dense_diff <= TRAIN_LOSS_ATOL):
+        raise SystemExit(f"18b rank {rank}: losses {losses} vs the "
+                         f"one-process ring's {reference}, the first vs "
+                         f"the non-SP step's {dense}")
+    return {name: count * len(costs)
+            for name, count in cost["launches"].items()}
+
+
+def seq_generate(rank: int, mesh, smi: str) -> dict:
+    """18c: llama32_1b at full depth, a 1 x SP_PROMPT prompt and SP_NEW
+    new tokens -- the ring's cached prefill, then the sp decode over the
+    cache's windows -- across the processes, against 12d's SP generate
+    on a one-process {"seq": 2} mesh with the same layout (tokens
+    identical).  That reference runs the same seq-cut code, so the
+    cached prefill's logits and one decode step's (the first generated
+    token forced on both sides) are also held against the non-SP path's
+    on the same weights, at 12b's SP_LOGITS_GROSS_TOL / SP_ARGMAX_FLOOR;
+    the first token equals the non-SP one unless the non-SP logits
+    there are a near-tie (top-2 gap within SP_LOGITS_GROSS_TOL)."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import (
+        LLAMA32_1B, cache_specs, forward, generate, init_cache,
+        init_sp_cache)
+    from aiko_services_tpu_torch.parallel import (
+        create_mesh, filter_specs, shard_pytree, use_mesh)
+    config = replace(LLAMA32_1B, sequence_parallel=True)
+    params = draw_on_card(config, SEQ_SEED)
+    prompt = seq_tokens(config, (1, SP_PROMPT), 1820).to(torch.int32)
+
+    def sp_cache(run_mesh):
+        return shard_pytree(
+            init_sp_cache(config, 1, SP_PROMPT + SP_NEW, run_mesh, "cuda"),
+            run_mesh, filter_specs(cache_specs(sequence_parallel=True),
+                                   run_mesh))
+
+    def run(run_mesh):
+        with use_mesh(run_mesh):
+            return generate(params, config, prompt, SP_NEW,
+                            cache=sp_cache(run_mesh))[0]
+
+    reference = run(create_mesh({"seq": 2}, devices=["cuda:0"] * 2))
+    tokens, cost = seq_measured(lambda: run(mesh))
+    same = torch.equal(tokens, reference)
+    # the witness from another path: the non-SP cached prefill and step
+    dense = replace(config, sequence_parallel=False)
+    first = tokens[:, :1]
+    with torch.no_grad():
+        want, dense_cache = forward(params, dense, prompt, cache=init_cache(
+            dense, 1, SP_PROMPT + SP_NEW, device="cuda"), pos=0)
+        want_step = forward(params, dense, first, cache=dense_cache,
+                            pos=SP_PROMPT)[0]
+        del dense_cache
+        with use_mesh(mesh):
+            got, cache = forward(params, config, prompt,
+                                 cache=sp_cache(mesh), pos=0)
+            got_step = forward(params, config, first, cache=cache,
+                               pos=SP_PROMPT)[0]
+        del cache
+    error = (got - want).abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    step_error = (got_step - want_step).abs().max().item()
+    top = torch.topk(want[0, -1].float(), 2).values
+    gap = (top[0] - want[0, -1, int(first)].float()).item()
+    del got, want, got_step, want_step
+    torch.cuda.empty_cache()
+    seq_report("18c generate_across_processes", rank, smi, cost,
+               seq_expected(config, "generate", SP_PROMPT, rank,
+                            new_tokens=SP_NEW), SP_NEW,
+               prompt=SP_PROMPT, new_tokens=SP_NEW,
+               identical_to_one_process=same,
+               prefill_logits_max_abs_diff_vs_non_sp=f"{error:.3e}",
+               prefill_same_argmax_share=f"{agree:.4f}",
+               step_logits_max_abs_diff_vs_non_sp=f"{step_error:.3e}",
+               first_token_non_sp_logit_gap=f"{gap:.4f}",
+               non_sp_top2_gap=f"{(top[0] - top[1]).item():.4f}")
+    if not same:
+        raise SystemExit(f"18c rank {rank}: tokens {tokens.tolist()} vs "
+                         f"the one-process SP generate's "
+                         f"{reference.tolist()}")
+    if (error > SP_LOGITS_GROSS_TOL or agree < SP_ARGMAX_FLOOR
+            or step_error > SP_LOGITS_GROSS_TOL
+            or gap > SP_LOGITS_GROSS_TOL):
+        raise SystemExit(f"18c rank {rank}: against the non-SP path the "
+                         f"prefill logits differ by {error:.3e} (argmax "
+                         f"share {agree:.4f}), the step's by "
+                         f"{step_error:.3e}; the first token's logit is "
+                         f"{gap:.4f} below the non-SP maximum")
+    del params
+    torch.cuda.empty_cache()
+    return cost["launches"]
+
+
+def seq_remat(rank: int, mesh, smi: str) -> dict:
+    """18d: llama32_1b widths in f32 at SEQ_REMAT_LAYERS layers, one
+    train step through the ring across the processes under
+    SEQ_REMAT_POLICY, against the unsharded step's gradients (like
+    17b)."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import (
+        LLAMA32_1B, adamw, make_train_step)
+    from aiko_services_tpu_torch.parallel import use_mesh
+    config = replace(LLAMA32_1B, n_layers=SEQ_REMAT_LAYERS, dtype="float32")
+    batch = seq_tokens(config, (1, SEQ_REMAT_LEN + 1), 1830)
+    grads = {}
+
+    def prepared(run_config, name, **options):
+        """(the step on fresh weights, the weights' (leaves, bytes))."""
+        params = draw_on_card(run_config, SEQ_SEED)
+        optimizer = recording(adamw(SHARD_LR), lambda _, tree: grads.update(
+            {name: tree_to(tree, "cuda")}))
+        train_step = make_train_step(run_config, optimizer, **options)
+        state = optimizer.init(params)
+        return (lambda: train_step(params, state, batch)[2].item(),
+                whole_leaves(params))
+
+    whole_loss = prepared(config, "whole")[0]()
+    torch.cuda.empty_cache()
+    sp_config = replace(config, sequence_parallel=True)
+    run, size = prepared(sp_config, "remat", sharded=True,
+                         remat_policy=SEQ_REMAT_POLICY)
+    with use_mesh(mesh):
+        loss, cost = seq_measured(run)
+    grad_leaf, grad_error = local_relative(grads["remat"], grads["whole"])
+    seq_report("18d remat_across_processes", rank, smi, cost,
+               seq_expected(sp_config, "remat", SEQ_REMAT_LEN, rank, size),
+               SEQ_REMAT_LEN, policy=SEQ_REMAT_POLICY,
+               layers=config.n_layers, dtype=config.dtype,
+               loss_abs_diff=f"{abs(loss - whole_loss):.3e}",
+               grad_rel_err=f"{grad_error:.3e}", grad_worst_leaf=grad_leaf)
+    if not (abs(loss - whole_loss) <= SHARD_F32_LOSS_ATOL
+            and grad_error <= SHARD_F32_GRAD_REL_TOL):
+        raise SystemExit(f"18d rank {rank}: loss {loss} vs unsharded "
+                         f"{whole_loss}; gradient {grad_error:.3e} relative "
+                         f"at {grad_leaf} (limit {SHARD_F32_GRAD_REL_TOL})")
+    torch.cuda.empty_cache()
+    return cost["launches"]
+
+
+def seq_worker(argument: str) -> None:
+    """One rank of phase 18, in its own process: joins the job with one
+    position on cuda:0, loads the kernels phase 1 built (no build here),
+    runs 18a-18d, holds each new K1/K2/K3 case against its plain version
+    (18e) and writes its launches under SEQ_DIR."""
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import (
+        global_mesh, initialize_distributed, process_index,
+        shutdown_distributed)
+    smi = json.loads(argument)
+    if not torch.cuda.is_available():
+        raise SystemExit("phase 18 worker: no CUDA device")
+    if not initialize_distributed(backend="gloo", local_device_ids=[0],
+                                  timeout_seconds=PROCESS_TIMEOUT):
+        raise SystemExit("phase 18 worker: no AIKO_* job to join")
+    rank = process_index()
+    for name in kernels.KERNEL_SOURCES:
+        kernels.load_kernel(name)
+    mesh = global_mesh({"seq": 2})
+    if mesh.process_axes != ("seq",):
+        raise SystemExit(f"phase 18 worker: {mesh} does not span the "
+                         f"processes on 'seq'")
+    forward, backward = set(), set()
+    launches = {name: 0 for name in kernels.KERNELS}
+    with recorded_kernel_cases(forward, backward):
+        for arm in (seq_prefill, seq_train, seq_generate, seq_remat):
+            add_launches(launches, arm(rank, mesh, smi))
+    cases = check_new_cases(forward, backward, "18", f"18e rank{rank}",
+                            1900)
+    builds = sorted(kernels.build_seconds)
+    (SEQ_DIR / f"rank{rank}.json").write_text(json.dumps({
+        "launches": launches, "cases": cases, "builds": builds}))
+    shutdown_distributed()
+    if builds:
+        raise SystemExit(f"phase 18 worker {rank} built {builds}: it must "
+                         f"load what phase 1 built")
+    print(f"rank {rank} done", flush=True)
+
+
+def phase_seq_processes(smi: str) -> dict:
+    """Phase 18: sequence parallelism across two processes on the card.
+    Returns the kernel launches of both workers' main-path runs."""
+    import shutil
+    from aiko_services_tpu_torch.ops import kernels
+    start = time.perf_counter()
+    shutil.rmtree(SEQ_DIR, ignore_errors=True)
+    SEQ_DIR.mkdir(parents=True)
+    run_workers("18", SEQ_DIR, "seq_worker", json.dumps(smi))
+    results = [json.loads((SEQ_DIR / f"rank{rank}.json").read_text())
+               for rank in range(2)]
+    launches = {name: 0 for name in kernels.KERNELS}
+    for result in results:
+        add_launches(launches, result["launches"])
+    if min(launches.values()) == 0:
+        raise SystemExit(f"18: a kernel never launched: {launches}")
+    shutil.rmtree(SEQ_DIR, ignore_errors=True)
+    say("18 seq_processes", workers=2, backend="gloo",
+        devices="cuda:0 x 1 each", mesh=json.dumps({"seq": 2}),
+        new_cases=[result["cases"] for result in results],
         kernel_builds_in_workers=0,
         wall_s=f"{time.perf_counter() - start:.1f}",
         launches=json.dumps(launches), card=repr(smi))
@@ -7082,6 +7591,8 @@ def main() -> None:
     C5_WEIGHTS.clear()
     torch.cuda.empty_cache()
     for name, count in phase_processes(smi).items():
+        launches[name] += count
+    for name, count in phase_seq_processes(smi).items():
         launches[name] += count
     say("run", seconds=f"{time.perf_counter() - run_start:.1f}",
         card=repr(smi))
