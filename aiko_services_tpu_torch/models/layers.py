@@ -22,8 +22,8 @@ import torch.nn.functional as F
 from ..ops.audio import full_f32_convolution
 from ..ops.device import counted_flags
 from ..parallel.collectives import (
-    _entries, all_gather, axis_index, join_backward, map_shards, psum,
-    replicated)
+    _entries, _groups, all_gather, axis_index, join_backward, map_shards,
+    psum, replicated)
 from ..parallel.mesh import Sharded
 
 __all__ = ["dense", "rms_norm", "layer_norm", "rotary_embedding",
@@ -352,14 +352,7 @@ class ShardedCall:
         if not cuts:
             return join_backward(self.first(grid).to(self.home), mesh)
         shape = [self.size[name] for name, _ in cuts]
-        members = []
-        for indices in np.ndindex(*shape):
-            position = [0] * mesh.devices.ndim
-            for (name, _), index in zip(cuts, indices):
-                position[mesh.axis_names.index(name)] = index
-            members.append(int(np.ravel_multi_index(position,
-                                                    mesh.devices.shape)))
-        entries = _entries(mesh, grid, members)
+        entries = self._line_entries(grid, tuple(name for name, _ in cuts))
         if entries is None:
             raise ValueError("gather_home: this process holds no block of "
                              "the result")
@@ -373,6 +366,34 @@ class ShardedCall:
                 joined[index] = torch.cat(list(blocks[index]), dim=axis_dim)
             blocks = joined
         return join_backward(blocks[()], mesh)
+
+    def _line_entries(self, grid, axes: tuple):
+        """The entries of one line of positions along `axes` (in their
+        mixed-radix order), gathered from the processes that hold them:
+        the line through index 0 of every other axis, or, for a process
+        that holds none of its positions, the first line it holds one
+        of -- detached then, as in first(): the first line's owners send
+        every row's cotangent back, and a second live copy would count
+        it twice.  Every process walks the same lines (the plan depends
+        on the mesh alone): a line is exchanged when one of its owners
+        has no line yet, and then all its owners take part."""
+        mesh = self.mesh
+        lines = _groups(mesh, axes)
+        if mesh.processes is None:
+            return _entries(mesh, grid, lines[0])
+        owners = mesh.processes.reshape(-1)
+        served: set = set()
+        mine = None
+        for number, members in enumerate(lines):
+            ranks = {int(owners[index]) for index in members}
+            if ranks <= served:
+                continue
+            served |= ranks
+            entries = _entries(mesh, grid, members)
+            if mine is None and entries is not None:
+                mine = (entries if number == 0
+                        else [entry.detach() for entry in entries])
+        return mine
 
 
 def _dense_partial(params: dict, x):

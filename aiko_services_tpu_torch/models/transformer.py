@@ -67,6 +67,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from dataclasses import dataclass, replace
@@ -746,11 +747,13 @@ def forward(params: dict, config: TransformerConfig, tokens,
     With cache=None: a causal prefill over the whole sequence (training /
     scoring); return_aux=True also returns the mean MoE load-balancing
     loss across layers (0 for the dense FFN), and remat_policy names a
-    REMAT_POLICIES entry wrapping each layer in torch.utils.checkpoint.
-    On a mesh over several processes every policy keeps only each
-    layer's inputs and recomputes the whole layer in the backward (as
-    nothing_saveable does): the gradients are the policy's, what it
-    would save is not kept there.
+    REMAT_POLICIES entry wrapping each layer in torch.utils.checkpoint
+    (everything_saveable recomputes nothing, so it wraps nothing and
+    runs as without remat).  On a mesh over several processes each
+    layer is one node of the backward's chain of exchanges
+    (_RematLayer): it keeps the layer's inputs and what the policy saves
+    (the products, under the dots policies), and recomputes the rest,
+    exchanges included, inside its backward.
     With a cache (init_cache): K/V are written at `pos` (an int or a 0-d
     tensor), in place, and (logits, cache) is returned -- the
     incremental-decode path."""
@@ -1394,7 +1397,7 @@ def _sharded_forward(mesh, params, config: TransformerConfig, tokens,
             h, aux = _sharded_layer(call, layer, h, rotary, layer_cache,
                                     pos)
         elif mesh.processes is not None:
-            h, aux = _remat_across(call, layer, h, rotary, pos)
+            h, aux = _remat_across(call, layer, h, rotary, pos, context_fn)
         else:
             h, aux = checkpoint(_sharded_layer, call, layer, h, rotary,
                                 None, pos, use_reentrant=False,
@@ -1425,24 +1428,56 @@ def _sharded_forward(mesh, params, config: TransformerConfig, tokens,
 # chooses; on a mesh over several processes the recomputed forward's
 # exchanges must run at one point on every process.  So there the layer
 # is a node of the mesh's chain of cross-process backward collectives
-# (_RematLayer): its forward runs the layer without autograd and keeps
-# only its inputs; its backward -- at the layer's place in the chain --
-# runs the layer again with autograd (every exchange counted and
-# checked as in the forward), then that graph's backward, its own
-# collectives ordered by a chain of their own joined into the layer's
-# outputs; the mesh's chain is restored after.  Every policy recomputes
-# the whole layer there: the gradients are the same (remat changes when
-# activations are computed, never what), the memory kept is the inputs.
+# (_RematLayer): its forward runs the layer under the policy's forward
+# context.  A selective-checkpoint context (the dots policies) keeps the
+# outputs of the operations the policy saves; it pairs them with the
+# recompute's by order, so that forward runs with autograd on detached
+# inputs as the recompute does, and its graph is dropped at once.
+# nothing_saveable's no-op context pairs nothing, so its forward runs
+# without autograd and holds no graph.  The backward -- at the layer's
+# place in the chain -- runs the
+# layer again with autograd under the recompute context, which hands
+# those outputs back in place of recomputing them while every other
+# operation runs again (every exchange counted and checked as in the
+# forward), then that graph's backward, its own collectives ordered by a
+# chain of their own joined into the layer's outputs; the mesh's chain
+# is restored after.  The gradients are the same under every policy
+# (remat changes when activations are computed, never what); the memory
+# kept is the inputs and the saved set (nothing_saveable: the inputs
+# alone).  everything_saveable wraps nothing (resolve_remat_policy).
 
 
 class _RematLayer(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, call, template, pos, holder, chain, token, *tensors):
-        h, aux = _sharded_layer(call, *rebuild_tensors(template, tensors),
-                                None, pos)
+    def run(call, template, pos, context, tensors, fresh: bool = True):
+        """The layer under `context` on `tensors`, with autograd unless
+        this is a forward (fresh) under a no-op context (fresh: detached
+        here, and run on a chain of its own that nothing joins, the
+        mesh's restored after)."""
+        mesh = call.mesh
+        grad = not (fresh and isinstance(context, contextlib.nullcontext))
+        if fresh:
+            tensors = [tensor.detach().requires_grad_(tensor.requires_grad)
+                       for tensor in tensors]
+            outer, mesh.chain = mesh.chain, None
+        try:
+            with torch.set_grad_enabled(grad), context:
+                return _sharded_layer(
+                    call, *rebuild_tensors(template, tensors), None, pos)
+        finally:
+            if fresh:
+                mesh.chain = outer
+
+    @staticmethod
+    def forward(ctx, call, template, pos, holder, context_fn, chain, token,
+                *tensors):
+        saving, ctx.recompute = context_fn()
+        h, aux = _RematLayer.run(call, template, pos, saving, tensors)
         outputs: list = []
         holder["h"] = flatten_tensors(h, outputs)
+        outputs = [tensor.detach() for tensor in outputs]
+        aux = aux.detach()
         ctx.call, ctx.template, ctx.pos = call, template, pos
         ctx.state = chain.state
         ctx.save_for_backward(*tensors)
@@ -1458,9 +1493,8 @@ class _RematLayer(torch.autograd.Function):
         mesh.chain = None
         try:
             with torch.enable_grad():
-                h, aux = _sharded_layer(
-                    ctx.call, *rebuild_tensors(ctx.template, inputs),
-                    None, ctx.pos)
+                h, aux = _RematLayer.run(ctx.call, ctx.template, ctx.pos,
+                                         ctx.recompute, inputs, fresh=False)
                 outputs: list = []
                 flatten_tensors(h, outputs)
                 roots = [join_backward(aux, mesh), *outputs]
@@ -1470,20 +1504,23 @@ class _RematLayer(torch.autograd.Function):
                                         [grad for _, grad in pairs])
         finally:
             mesh.chain = outer
-        return (None,) * 5 + (torch.zeros(()),) + tuple(
+        return (None,) * 6 + (torch.zeros(()),) + tuple(
             tensor.grad if tensor.requires_grad else None
             for tensor in inputs)
 
 
-def _remat_across(call: ShardedCall, layer, h, rotary, pos: int):
+def _remat_across(call: ShardedCall, layer, h, rotary, pos: int,
+                  context_fn):
     """One layer under remat on a mesh over several processes: a
-    _RematLayer node in the mesh's chain.  Returns (h grid, aux)."""
+    _RematLayer node in the mesh's chain, saving what `context_fn` (the
+    policy's, resolve_remat_policy) saves.  Returns (h grid, aux)."""
     tensors: list = []
     template = flatten_tensors((layer, h, rotary), tensors)
     holder: dict = {}
     chain, token = _link(call.mesh)
     token, aux, *outputs = _RematLayer.apply(call, template, pos, holder,
-                                             chain, token, *tensors)
+                                             context_fn, chain, token,
+                                             *tensors)
     chain.token = token
     return rebuild_tensors(holder["h"], outputs), aux
 
@@ -1818,10 +1855,10 @@ _SAVED_OPS = {
 
 
 def _save_policy(name: str):
-    saved = _SAVED_OPS.get(name)
+    saved = _SAVED_OPS[name]
 
     def policy(ctx, op, *args, **kwargs):
-        if saved is None or op in saved:
+        if op in saved:
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -1830,8 +1867,9 @@ def _save_policy(name: str):
 
 def resolve_remat_policy(name: str | None):
     """Remat-policy name -> the checkpoint's context_fn (None: don't wrap
-    the layer at all)."""
-    if name is None or name == "none":
+    the layer at all -- no policy, or everything_saveable, which saves
+    every activation and so recomputes nothing, on every mesh)."""
+    if name is None or name in ("none", "everything_saveable"):
         return None
     if name not in REMAT_POLICIES:
         raise ValueError(

@@ -18,6 +18,7 @@
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 
@@ -50,7 +51,16 @@ def initialize_distributed(coordinator_address: str | None = None,
     one card; backend defaults to NCCL when CUDA is available, else gloo
     (which moves host tensors: on a gloo job the collectives stage CUDA
     blocks through host memory, as two processes on one card need, since
-    NCCL takes one rank per card)."""
+    NCCL takes one rank per card).
+
+    On NCCL the process's card is the first of local_device_ids (by
+    default the process id modulo the visible cards): it becomes the
+    current device and the group's device_id before the first
+    collective, so every NCCL call of this process runs there.  Two
+    ranks of one NCCL job on one physical card (one UUID, whatever CUDA
+    index each sees it as) raise ValueError on every rank, before any
+    NCCL call (the ranks compare their cards through the rendezvous
+    store); nothing falls back to gloo."""
     global _INITIALIZED, _LOCAL_DEVICE_IDS
     with _LOCK:
         if _INITIALIZED:
@@ -74,14 +84,83 @@ def initialize_distributed(coordinator_address: str | None = None,
         import torch.distributed as dist
         if backend is None:
             backend = "nccl" if torch.cuda.is_available() else "gloo"
-        dist.init_process_group(
-            backend, init_method=f"tcp://{coordinator_address}",
-            world_size=int(num_processes), rank=int(process_id),
-            timeout=datetime.timedelta(seconds=timeout_seconds))
+        world, rank = int(num_processes), int(process_id)
+        timeout = datetime.timedelta(seconds=timeout_seconds)
+        init_method = f"tcp://{coordinator_address}"
+        if backend == "nccl":
+            if local_device_ids is None:
+                local_device_ids = [rank % max(torch.cuda.device_count(), 1)]
+            card = torch.device("cuda", int(local_device_ids[0]))
+            store, _, _ = next(dist.rendezvous(
+                init_method, rank, world, timeout=timeout))
+            store.set_timeout(timeout)
+            _claim_card(store, rank, world, card)
+            torch.cuda.set_device(card)
+            # the prefix init_process_group gives a store it makes itself
+            dist.init_process_group(
+                backend, store=dist.PrefixStore("default_pg", store),
+                world_size=world, rank=rank, timeout=timeout,
+                device_id=card)
+        else:
+            dist.init_process_group(backend, init_method=init_method,
+                                    world_size=world, rank=rank,
+                                    timeout=timeout)
         _LOCAL_DEVICE_IDS = (None if local_device_ids is None
                              else [int(index) for index in local_device_ids])
         _INITIALIZED = True
         return True
+
+
+def _claim_card(store, rank: int, world: int, card) -> None:
+    """Every rank of an NCCL job publishes its card in the rendezvous
+    store and reads every other's; two ranks on one physical card raise
+    ValueError on all of them (NCCL takes one rank per card).  A card is
+    named by its host and its UUID, not its CUDA index: a job that gives
+    each rank its own card through CUDA_VISIBLE_DEVICES sees every card
+    as cuda:0.  The index stays for the message."""
+    import socket
+    claim = {"host": socket.gethostname(), "card": _card_identity(card),
+             "index": card.index}
+    store.set(f"aiko_card/{rank}", json.dumps(claim))
+    claims = [json.loads(store.get(f"aiko_card/{other}").decode())
+              for other in range(world)]
+    owners: dict = {}
+    for other, claim in enumerate(claims):
+        owners.setdefault((claim["host"], claim["card"]), []).append(other)
+    shared = [ranks for ranks in owners.values() if len(ranks) > 1]
+    if shared:
+        # the store lives in rank 0: it leaves only once every rank has
+        # read the claims, so each rank raises this error, not a lost
+        # connection
+        store.set(f"aiko_card_read/{rank}", "1")
+        if rank == 0:
+            try:
+                store.wait([f"aiko_card_read/{other}"
+                            for other in range(1, world)])
+            except RuntimeError:
+                pass  # a rank that never read: raise all the same
+        raise ValueError(
+            "NCCL takes one rank per card, but ranks share cards: "
+            + "; ".join(
+                f"ranks {ranks} on card {claims[ranks[0]]['card']} of "
+                f"{claims[ranks[0]]['host']} (as cuda:"
+                + "/".join(str(claims[other]["index"]) for other in ranks)
+                + ")" for ranks in shared)
+            + " (give each rank its own card in local_device_ids, or "
+              "backend='gloo' for several ranks on one card)")
+
+
+def _card_identity(card) -> str:
+    """The card's UUID, else its PCI address: the same physical card
+    gives the same string in every process, whatever its CUDA index
+    there."""
+    properties = torch.cuda.get_device_properties(card)
+    uuid = getattr(properties, "uuid", None)
+    if uuid:
+        return str(uuid)
+    return "pci {}:{}:{}".format(*(
+        getattr(properties, name, "?") for name in
+        ("pci_domain_id", "pci_bus_id", "pci_device_id")))
 
 
 _LOCAL_DEVICE_IDS: list | None = None

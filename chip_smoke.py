@@ -5,9 +5,11 @@ parameter-sharding axes (tensor, FSDP, data and expert parallelism),
 HuggingFace checkpoints, the shipped examples, the analyzer's eval
 pass, the elastic fleet, the media and vision elements, the
 Checkpointer, the native codec and sharded training across processes
-on one NVIDIA GPU.
+on one NVIDIA GPU; with `cards`, the mesh on several cards (phases 19
+and 20, below).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py cards    # a machine with four cards
 
 Phases, each printing one line; any failure exits non-zero and prints no
 result:
@@ -315,11 +317,52 @@ result:
          one-process SP generate on {"seq": 2} with the same layout; the
          cached prefill's and one decode step's logits and the first
          token against the non-SP path's at 12b's gates;
-     18d f32 at 2 layers, 1 x 2048, one step through the ring under a
-         remat policy (each layer recomputed inside its backward node),
-         gradients leaf by leaf against the unsharded step's;
+     18d f32 at 2 layers, 1 x 2048, one step through the ring under
+         nothing_saveable and under dots_saveable (each layer recomputed
+         inside its backward node, the products kept under the second),
+         gradients leaf by leaf against the unsharded step's; for each
+         policy the peak over the layers' forward and what the layers
+         leave held for the backward (read before the f32 head, whose
+         transient sets the step's own peak);
      18e every K1 and K2/K3 case 18a-18d launched that phase 2 did not
          check, against the plain versions, on each rank
+
+`python3 chip_smoke.py cards` runs phases 0, 1, 19 and 20 and phase 3's
+timing on cuda:0; it exits non-zero with fewer than four CUDA devices:
+ 19. one process over several cards:
+     19a nvidia-smi topo -m, a 1 GiB bf16 copy cuda:0 -> cuda:k timed
+         on each card, then phase 2's K1 and K2/K3 cases on every card
+         but cuda:0, each against its plain version there, each
+         launched twice and bitwise equal;
+     19b examples/pipeline_llm_8b.json (llama3_8b, bf16, drawn on the
+         card) through create_pipeline with its eight fsdp 2 x model 4
+         positions spread over the cards (two a card on four): its 64
+         tokens identical to the same definition over cuda:0 eight
+         times; decode-step ms, collective calls and KiB a step, each
+         card's peak;
+     19c llama32_1b at full width and depth, bf16, 4 x 1024, adamw, 1 +
+         2 sharded steps on fsdp 2 x model 2 over four cards, losses and
+         parameters against the same mesh over cuda:0 four times (13c's
+         gates, and whether bit-equal): step ms, tokens/s, MFU over the
+         four cards' peak, each card's peak, K1/K2/K3 launches a step a
+         card;
+     19d 12a's ring forward + backward at (1, 32, 8192, 64) bf16 on
+         {"seq": 4} over four cards, bit-equal to the cuda:0 x 4 mesh,
+         timed against one K1 + K2 + K3 call; 12b's SP prefill, ring and
+         Ulysses, on the four cards against the non-SP forward;
+ 20. four NCCL worker processes (phase 17's harness), each one card
+     (local_device_ids [rank]), nothing staged through host memory:
+     20a 17a's step at full depth on fsdp 2 x model 2, one position a
+         process, against the unsharded steps, the counts worked out in
+         advance, and the step again with every exchange's checked
+         header skipped (what the headers cost);
+     20b 17b's f32 arms at 2 layers on fsdp 2 x model 2 and data 2 x
+         fsdp 2, each gradient leaf against the unsharded step's;
+     20c 18a on {"seq": 4} across the four processes: ring and Ulysses
+         forwards against 12b's path on each rank's card, rank r's
+         hops r + 1 a layer;
+     20d every K1 and K2/K3 case 20a-20c launched that phase 2 did not
+         check, against the plain versions on each rank's card
 
 The last three lines are the card's nvidia-smi name and power limit, one
 JSON object describing every kernel of the paths, and {"ok": true,
@@ -330,6 +373,7 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import gc
 import json
 import math
 import pathlib
@@ -457,11 +501,12 @@ def device_ms(function, runs: int = 10) -> float:
     return total_us / runs / 1e3
 
 
-def random_qkv(batch, heads, q_len, k_len, dim, dtype, seed):
+def random_qkv(batch, heads, q_len, k_len, dim, dtype, seed,
+               device="cuda"):
     generator = torch.Generator().manual_seed(seed)
     shapes = [(batch, heads, q_len, dim), (batch, heads, k_len, dim),
               (batch, heads, k_len, dim)]
-    return [torch.randn(shape, generator=generator).to("cuda", dtype)
+    return [torch.randn(shape, generator=generator).to(device, dtype)
             for shape in shapes]
 
 
@@ -583,21 +628,23 @@ def plain_by_heads(function, batch: int, q_len: int, k_len: int, heads: int,
 
 
 def check_forward_case(case: str, spec: tuple, seed: int,
-                       phase: str) -> float:
+                       phase: str, device="cuda") -> float:
     """One K1 case (B, H, Lq, Lk, D, dtype, causal, q_offset[, sm_scale])
-    against the plain f32 version, and a second launch on the same inputs
-    bitwise equal to the first (one owner block per output tile, no
-    atomics); returns O's max abs error."""
+    on `device` (the current card by default) against the plain f32
+    version there, and a second launch on the same inputs bitwise equal
+    to the first (one owner block per output tile, no atomics); returns
+    O's max abs error."""
     from aiko_services_tpu_torch.parallel.attention import (
         flash_attention_forward, flash_attention_plain)
     batch, heads, q_len, k_len, dim, dtype, causal, q_offset, *scale = spec
     sm_scale = scale[0] if scale else None
-    q, k, v = random_qkv(batch, heads, q_len, k_len, dim, dtype, seed=seed)
+    q, k, v = random_qkv(batch, heads, q_len, k_len, dim, dtype, seed=seed,
+                         device=device)
     out, lse = flash_attention_forward(q, k, v, causal=causal,
                                        sm_scale=sm_scale, q_offset=q_offset)
     repeat = flash_attention_forward(q, k, v, causal=causal,
                                      sm_scale=sm_scale, q_offset=q_offset)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(q.device)
     if not (torch.equal(out, repeat[0]) and torch.equal(lse, repeat[1])):
         raise SystemExit(f"{case}: two launches on the same inputs differ")
     del repeat
@@ -617,16 +664,19 @@ def check_forward_case(case: str, spec: tuple, seed: int,
     say(phase, case=case, shape=f"{batch}x{heads}x{q_len}x{k_len}x{dim}",
         dtype=str(dtype).replace("torch.", ""), causal=causal,
         q_offset=q_offset, o_max_abs_err=f"{out_error:.3e}",
-        lse_max_abs_err=f"{lse_error:.3e}", bitwise_repeat=True, ok=True)
+        lse_max_abs_err=f"{lse_error:.3e}", bitwise_repeat=True,
+        **({} if device == "cuda" else {"device": str(out.device)}),
+        ok=True)
     return out_error
 
 
-def phase_kernel_checks() -> float:
-    """Every case of KERNEL_CASES (check_forward_case); returns the O max
-    abs error at the serving shape."""
+def phase_kernel_checks(phase: str = "2 kernel_vs_plain",
+                        device="cuda") -> float:
+    """Every case of KERNEL_CASES (check_forward_case) on `device`;
+    returns the O max abs error at the serving shape."""
     serving_error = None
     for index, (case, spec) in enumerate(KERNEL_CASES.items()):
-        error = check_forward_case(case, spec, index, "2 kernel_vs_plain")
+        error = check_forward_case(case, spec, index, phase, device)
         if case == "serving_encoder_bf16":
             serving_error = error
     return serving_error
@@ -657,24 +707,26 @@ def relative_error(actual, expected) -> float:
 
 
 def check_backward_case(case: str, spec: tuple, seed: int,
-                        phase: str) -> dict:
+                        phase: str, device="cuda") -> dict:
     """K2 and K3 at one case (B, H, Lq, Lk, D, dtype, causal, q_offset[,
-    sm_scale]) against the plain f32 backward on the same inputs and the
-    same dO, and a second launch on the same inputs bitwise equal to the
-    first; returns each gradient's max abs and relative error."""
+    sm_scale]) on `device` (the current card by default) against the
+    plain f32 backward on the same inputs and the same dO there, and a
+    second launch on the same inputs bitwise equal to the first; returns
+    each gradient's max abs and relative error."""
     from aiko_services_tpu_torch.parallel.attention import (
         flash_attention_backward, flash_attention_backward_plain,
         flash_attention_forward)
     batch, heads, q_len, k_len, dim, dtype, causal, q_offset, *scale = spec
     options = dict(causal=causal, q_offset=q_offset,
                    sm_scale=scale[0] if scale else None)
-    q, k, v = random_qkv(batch, heads, q_len, k_len, dim, dtype, seed=seed)
+    q, k, v = random_qkv(batch, heads, q_len, k_len, dim, dtype, seed=seed,
+                         device=device)
     dout = random_qkv(batch, heads, q_len, 1, dim, dtype,
-                      seed=seed + 100)[0]
+                      seed=seed + 100, device=device)[0]
     out, lse = flash_attention_forward(q, k, v, **options)
     grads = flash_attention_backward(q, k, v, out, lse, dout, **options)
     repeat = flash_attention_backward(q, k, v, out, lse, dout, **options)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(q.device)
     if not all(torch.equal(first, second)
                for first, second in zip(grads, repeat)):
         raise SystemExit(f"{case}: two launches on the same inputs differ")
@@ -703,17 +755,20 @@ def check_backward_case(case: str, spec: tuple, seed: int,
         dtype=str(dtype).replace("torch.", ""), causal=causal,
         q_offset=q_offset,
         **{key: f"{value:.3e}" for key, value in fields.items()},
-        bitwise_repeat=True, ok=True)
+        bitwise_repeat=True,
+        **({} if device == "cuda" else {"device": str(q.device)}),
+        ok=True)
     return fields
 
 
-def phase_backward_checks() -> dict:
-    """Every case of BACKWARD_CASES (check_backward_case); returns the
-    max abs errors at the training shape."""
+def phase_backward_checks(phase: str = "2b backward_vs_plain",
+                          device="cuda") -> dict:
+    """Every case of BACKWARD_CASES (check_backward_case) on `device`;
+    returns the max abs errors at the training shape."""
     errors = None
     for index, (case, spec) in enumerate(BACKWARD_CASES.items()):
-        fields = check_backward_case(case, spec, 100 + index,
-                                     "2b backward_vs_plain")
+        fields = check_backward_case(case, spec, 100 + index, phase,
+                                     device)
         if case == "lm_training_bf16":
             errors = {"flash_attention_dq": fields["dq_max_abs_err"],
                       "flash_attention_dkv": max(fields["dk_max_abs_err"],
@@ -2959,7 +3014,7 @@ def phase_moe_training(smi: str) -> tuple:
     of the measured steps)."""
     from dataclasses import replace
     from aiko_services_tpu_torch.models import (
-        LLAMA32_1B, adamw, count_params, init_params, make_train_step)
+        LLAMA32_1B, adamw, count_params, make_train_step)
     from aiko_services_tpu_torch.models import transformer
     from aiko_services_tpu_torch.models.optim import (
         next_token_loss, value_and_grad)
@@ -2969,8 +3024,7 @@ def phase_moe_training(smi: str) -> tuple:
     torch.cuda.empty_cache()
     config = replace(LLAMA32_1B, n_layers=M_LAYERS, n_experts=M_EXPERTS)
     start = time.perf_counter()
-    params = init_params(config, torch.Generator().manual_seed(0),
-                         device="cuda")
+    params = draw_on_card(config, 0)
     n_params = count_params(params)
     active = moe_active_params(config)
     rng = np.random.default_rng(0)
@@ -3754,9 +3808,9 @@ LONGCONTEXT_FRAMES, LONGCONTEXT_SEQ = 4, 8192
 LEFT_PAD_PROMPT, LEFT_PAD_NEW = 1021, 16
 
 
-def seq_mesh(size: int = SP_SIZE):
+def seq_mesh(size: int = SP_SIZE, device="cuda:0"):
     from aiko_services_tpu_torch.parallel import create_mesh
-    return create_mesh({"seq": size}, devices=["cuda:0"] * size)
+    return create_mesh({"seq": size}, devices=[device] * size)
 
 
 def launch_counts() -> dict:
@@ -3785,9 +3839,10 @@ def plain_attention_chunks(q, k, v, dout, causal: bool) -> list:
     return [torch.cat(column, dim=1) for column in zip(*parts)]
 
 
-def ring_pass(q, k, v, dout, size: int, causal: bool) -> tuple:
+def ring_pass(q, k, v, dout, size: int, causal: bool, mesh=None) -> tuple:
     """(O, [dQ, dK, dV], executed hops, launches) of ring_attention
-    forward and backward on a {"seq": size} mesh over cuda:0."""
+    forward and backward on `mesh`, by default a {"seq": size} mesh over
+    cuda:0."""
     from aiko_services_tpu_torch.ops import kernels
     from aiko_services_tpu_torch.parallel import attention
     inputs = [x.detach().requires_grad_(True) for x in (q, k, v)]
@@ -3795,12 +3850,14 @@ def ring_pass(q, k, v, dout, size: int, causal: bool) -> tuple:
     kernels.reset_launch_counts()
     attention._RING_HOP_CALLBACK = hops.append
     try:
-        out = attention.ring_attention(*inputs, seq_mesh(size),
-                                       causal=causal)
+        out = attention.ring_attention(
+            *inputs, seq_mesh(size) if mesh is None else mesh,
+            causal=causal)
     finally:
         attention._RING_HOP_CALLBACK = None
     grads = torch.autograd.grad(out, inputs, dout)
-    torch.cuda.synchronize()
+    synchronize_cards([torch.cuda.current_device()] if mesh is None
+                      else list(mesh.devices.flat))
     return out.detach(), grads, len(hops), launch_counts()
 
 
@@ -4652,7 +4709,7 @@ def sharded_vs_whole_training(smi: str, label: str, config, axes: dict,
     config also holds each step's gradients, leaf by leaf, against the
     unsharded step's."""
     from aiko_services_tpu_torch.models import (
-        adamw, count_params, init_params, make_train_step, param_specs)
+        adamw, count_params, make_train_step, param_specs)
     from aiko_services_tpu_torch.ops import kernels
     from aiko_services_tpu_torch.parallel import (
         collective_totals, filter_specs, reset_collective_counts,
@@ -4662,8 +4719,7 @@ def sharded_vs_whole_training(smi: str, label: str, config, axes: dict,
     batches = [torch.from_numpy(rng.integers(
         0, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
         for _ in range(steps)]
-    params = init_params(config, torch.Generator().manual_seed(seed),
-                         device="cuda")
+    params = draw_on_card(config, seed)
     n_params = count_params(params)
     mesh = shard_mesh(axes)
     sharded = copy_replicated(shard_pytree(
@@ -5491,6 +5547,7 @@ def phase_shipped_examples(smi: str) -> int:
     import threading
     from aiko_services_tpu_torch.elements import RobotActor
     from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import set_default_devices
     from aiko_services_tpu_torch.pipeline import create_pipeline
     from aiko_services_tpu_torch.runtime import Process, Registrar
 
@@ -5528,8 +5585,14 @@ def phase_shipped_examples(smi: str) -> int:
         raise SystemExit(f"14e multimodal: {launches} K1 launches")
 
     start = time.perf_counter()
-    outputs = frames_of(port_definition(
-        ROOT / "examples" / "pipeline_compute.json"), 3)
+    # the example's {"data": -1} mesh resolves over the default device
+    # list: pinned to cuda:0, as on a machine with one card
+    set_default_devices(["cuda:0"])
+    try:
+        outputs = frames_of(port_definition(
+            ROOT / "examples" / "pipeline_compute.json"), 3)
+    finally:
+        set_default_devices(None)
     for out in outputs:
         tensor = np.asarray(out["tensor"])
         if tensor.shape != (8, 16) or not np.isfinite(tensor).all():
@@ -6668,7 +6731,8 @@ def phase_last_modules(smi: str) -> dict:
 PROCESS_DIR = ROOT / "build" / "processes"
 PROCESS_TIMEOUT = 900         # seconds, for both workers together
 PROCESS_SEED = 17
-PROCESS_BF16_LAYERS = 8       # 17a: depth cut (16 before), widths kept
+PROCESS_BF16_LAYERS = 8       # 17a: depth cut (16 before; 20a runs all
+                              # 16 on NCCL), widths kept
 PROCESS_ARMS = (              # (label, dtype, layers: None for all, axes)
     ("17a", "bfloat16", PROCESS_BF16_LAYERS, {"fsdp": 2, "model": 2}),
     ("17b", "float32", SHARD_F32_LAYERS, {"fsdp": 2, "model": 2}),
@@ -6715,6 +6779,39 @@ def process_reference(config) -> list:
     del params, state, step, grads
     torch.cuda.empty_cache()
     return losses
+
+
+def process_references(arms) -> dict:
+    """process_reference of each dtype `arms` train in, under a fresh
+    PROCESS_DIR: {dtype: the unsharded losses}."""
+    import shutil
+    shutil.rmtree(PROCESS_DIR, ignore_errors=True)
+    PROCESS_DIR.mkdir(parents=True)
+    reference = {}
+    for _, dtype, layers, _ in arms:
+        if dtype not in reference:
+            reference[dtype] = process_reference(process_config(dtype,
+                                                                layers))
+    return reference
+
+
+def equal_replicas(results: list, phase: str) -> int:
+    """Every block two ranks both hold (replica_digests), bit for bit
+    equal: rank 0's arms against each other rank's.  Returns how many
+    blocks were compared."""
+    replicas = 0
+    for other in results[1:]:
+        for first, second in zip(results[0]["arms"], other["arms"]):
+            shared = set(first["digests"]) & set(second["digests"])
+            differ = [key for key in shared
+                      if first["digests"][key] != second["digests"][key]]
+            if not shared or differ:
+                raise SystemExit(f"{phase} {first['label']} "
+                                 f"{first['axes']}: the ranks' replicas "
+                                 f"differ at {differ} (of {len(shared)} "
+                                 f"shared blocks)")
+            replicas += len(shared)
+    return replicas
 
 
 def local_blocks(leaf) -> list:
@@ -6843,17 +6940,22 @@ def process_expected(config, mesh) -> dict:
 
 
 def process_arm(rank: int, label: str, config, axes: dict, smi: str,
-                reference: list) -> dict:
-    """One arm of phase 17 on this rank: 1 + SHARD_TRAIN_STEPS sharded
-    steps on the global mesh, held against the parent's unsharded steps
-    (losses; each parameter's change over this rank's blocks; in f32
-    each step's gradients leaf by leaf) and the counts worked out in
-    advance.  Returns what the parent checks across the ranks."""
+                reference: list, header_cost: bool = False) -> dict:
+    """One arm of phase 17 (20a, 20b) on this rank: 1 + SHARD_TRAIN_STEPS
+    sharded steps on the global mesh, held against the parent's
+    unsharded steps (losses; each parameter's change over this rank's
+    blocks; in f32 each step's gradients leaf by leaf) and the counts
+    worked out in advance; on an NCCL job no byte may be staged through
+    host memory.  With `header_cost`, SHARD_TRAIN_STEPS more steps run
+    with every exchange's checked header skipped on all ranks alike (the
+    sequence still counted): the difference of the two medians is what
+    the headers cost a step.  Returns what the parent checks across the
+    ranks."""
     from aiko_services_tpu_torch.models import (
         adamw, count_params, load_pytree, make_train_step, param_specs)
     from aiko_services_tpu_torch.ops import kernels
     from aiko_services_tpu_torch.parallel import (
-        collective_totals, filter_specs, global_mesh,
+        collective_totals, filter_specs, global_mesh, process_count,
         reset_collective_counts, shard_pytree, staged_bytes, use_mesh)
     from aiko_services_tpu_torch.utils.tree import tree_map
     f32 = config.dtype == "float32"
@@ -6883,6 +6985,7 @@ def process_arm(rank: int, label: str, config, axes: dict, smi: str,
                 torch.cuda.reset_peak_memory_stats()
                 kernels.reset_launch_counts()
                 reset_collective_counts()
+                exchanges = sum(mesh.sequence.values())
             start = time.perf_counter()
             sharded, state, loss = step(sharded, state, batch)
             losses.append(loss.item())
@@ -6891,19 +6994,42 @@ def process_arm(rank: int, label: str, config, axes: dict, smi: str,
     launches = launch_counts()
     calls, size = collective_totals()
     staged = staged_bytes()
+    exchanges = sum(mesh.sequence.values()) - exchanges
     peak = torch.cuda.max_memory_allocated()
     after = load_pytree(PROCESS_DIR / f"{config.dtype}_after.safetensors",
                         device="cpu")
     update_leaf, update_error = local_relative(sharded, after, before)
     digests = replica_digests(sharded, mesh)
     expected = process_expected(config, mesh)
+    unchecked = []
+    if header_cost:
+        from aiko_services_tpu_torch.parallel import collectives
+        checked_step = collectives._check_step
+
+        def sequence_only(mesh, ranks, *_):
+            mesh.sequence[ranks] = mesh.sequence.get(ranks, 0) + 1
+        collectives._check_step = sequence_only
+        try:
+            with use_mesh(mesh):
+                for batch in process_batches(config)[1:]:
+                    start = time.perf_counter()
+                    sharded, state, loss = step(sharded, state, batch)
+                    loss.item()
+                    torch.cuda.synchronize()
+                    unchecked.append(time.perf_counter() - start)
+        finally:
+            collectives._check_step = checked_step
     del sharded, state, step, before, after
     torch.cuda.empty_cache()
     steps = SHARD_TRAIN_STEPS
     loss_diff = max(abs(a - b) for a, b in zip(losses, reference))
     step_s = statistics.median(times[1:])
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / step_s
-    mfu = 6 * n_params * tokens_per_s / peaks_for(smi)[1][config.dtype]
+    # over the peak of the cards the job runs on: one on gloo (every
+    # rank on cuda:0), one a rank on NCCL
+    cards = process_count() if nccl_job() else 1
+    mfu = (6 * n_params * tokens_per_s
+           / (cards * peaks_for(smi)[1][config.dtype]))
     grad_leaf, grad_error = max(grad_errors, key=lambda item: item[1],
                                 default=("", 0.0))
     per_step = {"launches": {name: count / steps
@@ -6929,9 +7055,17 @@ def process_arm(rank: int, label: str, config, axes: dict, smi: str,
         collective_mib_per_step=f"{size / steps / 2**20:.3f}",
         expected_collective_mib=f"{expected['collective_bytes'] / 2**20:.3f}",
         host_staged_mib_per_step=f"{staged / steps / 2**20:.1f}",
-        max_memory_allocated_gib=f"{peak / 2**30:.2f}", card=repr(smi))
+        **(dict(step_ms_headers_skipped=f"{statistics.median(unchecked) * 1e3:.1f}",
+                headers_ms_per_step=f"{(step_s - statistics.median(unchecked)) * 1e3:.1f}",
+                checked_exchanges_per_step=exchanges / steps)
+           if unchecked else {}),
+        max_memory_allocated_gib=f"{peak / 2**30:.2f}",
+        device=f"cuda:{torch.cuda.current_device()}", card=repr(smi))
     limits = ((SHARD_F32_LOSS_ATOL, SHARD_F32_UPDATE_REL_TOL) if f32
               else (SHARD_LOSS_ATOL, SHARD_BF16_UPDATE_REL_TOL))
+    if nccl_job() and staged:
+        raise SystemExit(f"{label} rank {rank}: {staged} bytes staged "
+                         f"through host memory on NCCL")
     if not (np.isfinite(losses).all() and loss_diff <= limits[0]
             and update_error <= limits[1]
             and grad_error <= SHARD_F32_GRAD_REL_TOL):
@@ -7009,13 +7143,14 @@ def process_worker(argument: str) -> None:
 
 
 def run_workers(phase: str, directory: pathlib.Path, entry: str,
-                argument: str) -> None:
-    """Two worker processes, each `chip_smoke.<entry>(argument)` in its
-    own python (cwd the repo root), joined through the AIKO_* contract
-    on localhost; their logs go under `directory` and their `[<phase>`
-    lines are relayed.  Exits unless both end with code 0 and print
-    "rank <r> done" within PROCESS_TIMEOUT; a worker still running then
-    is killed."""
+                argument: str, count: int = 2,
+                timeout: float = PROCESS_TIMEOUT) -> None:
+    """`count` worker processes, each `chip_smoke.<entry>(argument)` in
+    its own python (cwd the repo root), joined through the AIKO_*
+    contract on localhost; their logs go under `directory` and their
+    `[<phase>` lines are relayed.  Exits unless all end with code 0 and
+    print "rank <r> done" within `timeout` seconds; a worker still
+    running then is killed."""
     import os
     import socket
     with socket.socket() as probe:
@@ -7023,19 +7158,20 @@ def run_workers(phase: str, directory: pathlib.Path, entry: str,
         port = probe.getsockname()[1]
     workers, logs = [], []
     try:
-        for rank in range(2):
+        for rank in range(count):
             env = {key: value for key, value in os.environ.items()
                    if not key.startswith("AIKO_")}
             env.update(PYTHONPATH=str(ROOT),
                        AIKO_COORDINATOR=f"127.0.0.1:{port}",
-                       AIKO_NUM_PROCESSES="2", AIKO_PROCESS_ID=str(rank))
+                       AIKO_NUM_PROCESSES=str(count),
+                       AIKO_PROCESS_ID=str(rank))
             logs.append(open(directory / f"rank{rank}.log", "w"))
             workers.append(subprocess.Popen(
                 [sys.executable, "-c", f"import sys, chip_smoke; "
                  f"chip_smoke.{entry}(sys.argv[1])", argument],
                 cwd=ROOT, env=env, stdout=logs[-1],
                 stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + PROCESS_TIMEOUT
+        deadline = time.monotonic() + timeout
         while any(worker.poll() is None for worker in workers):
             failed = [worker for worker in workers
                       if worker.poll() not in (None, 0)]
@@ -7050,14 +7186,14 @@ def run_workers(phase: str, directory: pathlib.Path, entry: str,
         for log in logs:
             log.close()
     texts = [(directory / f"rank{rank}.log").read_text()
-             for rank in range(2)]
+             for rank in range(count)]
     for text in texts:
         for line in text.splitlines():
             if line.startswith(f"[{phase}"):
                 print(line, flush=True)
     codes = [worker.returncode for worker in workers]
-    if codes != [0, 0] or any(f"rank {rank} done" not in text
-                              for rank, text in enumerate(texts)):
+    if codes != [0] * count or any(f"rank {rank} done" not in text
+                                   for rank, text in enumerate(texts)):
         raise SystemExit(f"{phase}: workers exited {codes}; their logs "
                          f"end:\n" + "\n".join(text[-3000:]
                                                 for text in texts))
@@ -7069,13 +7205,7 @@ def phase_processes(smi: str) -> dict:
     import shutil
     from aiko_services_tpu_torch.ops import kernels
     start = time.perf_counter()
-    shutil.rmtree(PROCESS_DIR, ignore_errors=True)
-    PROCESS_DIR.mkdir(parents=True)
-    reference = {}
-    for _, dtype, layers, _ in PROCESS_ARMS:
-        if dtype not in reference:
-            reference[dtype] = process_reference(process_config(dtype,
-                                                                layers))
+    reference = process_references(PROCESS_ARMS)
     reference_s = time.perf_counter() - start
     run_workers("17", PROCESS_DIR, "process_worker",
                 json.dumps([smi, reference]))
@@ -7085,16 +7215,7 @@ def phase_processes(smi: str) -> dict:
     for result in results:
         for arm in result["arms"]:
             add_launches(launches, arm["launches"])
-    replicas = 0
-    for first, second in zip(results[0]["arms"], results[1]["arms"]):
-        shared = set(first["digests"]) & set(second["digests"])
-        differ = [key for key in shared
-                  if first["digests"][key] != second["digests"][key]]
-        if not shared or differ:
-            raise SystemExit(f"17 {first['label']} {first['axes']}: the "
-                             f"ranks' replicas differ at {differ} (of "
-                             f"{len(shared)} shared blocks)")
-        replicas += len(shared)
+    replicas = equal_replicas(results, "17")
     if min(launches.values()) == 0:
         raise SystemExit(f"17: a kernel never launched: {launches}")
     shutil.rmtree(PROCESS_DIR, ignore_errors=True)
@@ -7129,13 +7250,20 @@ SEQ_TRAIN_LAYERS = 4          # 18b: depth cut, widths kept
 SEQ_TRAIN_STEPS = 2           # 18b: 1 + 2 steps, the first not counted
 SEQ_REMAT_LAYERS = 2          # 18d: f32, depth cut
 SEQ_REMAT_LEN = 2048          # 18d: the step's positions
-SEQ_REMAT_POLICY = "nothing_saveable"
+SEQ_REMAT_POLICIES = ("nothing_saveable", "dots_saveable")
 # 18b: the same steps on a one-process {"seq": 2} mesh run the same code,
 # so their losses may differ only by the order in which the processes'
 # gradient shares are summed (bf16 parameters after each adamw update):
 # on an H100 they read 4.482e-5.  The first step's loss is also
 # held against the unsharded non-SP step's, at 12c's TRAIN_LOSS_ATOL.
 SEQ_SAME_PATH_LOSS_ATOL = 1e-3
+
+
+def nccl_job() -> bool:
+    """Whether this process joined a job over NCCL (cards mode's phase
+    20), where no exchange stages through host memory."""
+    import torch.distributed as dist
+    return dist.is_initialized() and dist.get_backend() == "nccl"
 
 
 def seq_measured(run) -> tuple:
@@ -7160,13 +7288,14 @@ def seq_measured(run) -> tuple:
 
 
 def seq_expected(config, kind: str, length: int, rank: int,
-                 whole: tuple = (0, 0), new_tokens: int = 0) -> dict:
-    """What one arm issues on this rank of a causal {"seq": 2} ring (or
-    Ulysses) across the two processes, worked out from the shapes: K1
+                 whole: tuple = (0, 0), new_tokens: int = 0,
+                 size: int = 2) -> dict:
+    """What one arm issues on this rank of a causal {"seq": size} ring
+    (or Ulysses) across `size` processes, worked out from the shapes: K1
     (and K2, K3) launches -- rank r runs r + 1 hops a layer, each one
     launch -- and its collective calls and bytes, each call counting this
-    process's block (B 1, H heads after the K/V expansion, L/2
-    positions):
+    process's block (B 1, H heads after the K/V expansion, L/size
+    positions); the ring moves its blocks size - 1 hops a layer:
       - a forward hop: one ppermute of K and V;
       - a backward hop: one of K, V and their f32 dK, dV; one more
         returns dK, dV home;
@@ -7178,7 +7307,7 @@ def seq_expected(config, kind: str, length: int, rank: int,
         (`whole`: the count of such leaves and their bytes)."""
     layers, heads, hd = config.n_layers, config.n_heads, config.head_dim
     width = torch.empty((), dtype=config.torch_dtype).element_size()
-    block = length // 2
+    block = length // size
     qkv = heads * block * hd               # elements of one expanded block
     hop = 2 * qkv * width
     hops = rank + 1
@@ -7186,7 +7315,8 @@ def seq_expected(config, kind: str, length: int, rank: int,
         return {"launches": {"flash_attention": layers * hops,
                              "flash_attention_dq": 0,
                              "flash_attention_dkv": 0},
-                "calls": layers, "bytes": layers * hop}
+                "calls": layers * (size - 1),
+                "bytes": layers * (size - 1) * hop}
     if kind == "ulysses":
         return {"launches": {"flash_attention": layers,
                              "flash_attention_dq": 0,
@@ -7233,48 +7363,75 @@ def seq_report(label: str, rank: int, smi: str, cost: dict,
                          f"from the shapes: {expected}")
 
 
+def warm_exchanges(mesh, axis_name: str) -> None:
+    """One ring hop and one all_to_all of a few bytes over `axis_name`,
+    untimed: the process group and its transport's connections (NCCL
+    makes both at first use) are made here, not inside the first
+    measured call."""
+    from aiko_services_tpu_torch.parallel import collectives
+    size = mesh.size(axis_name)
+    grid = np.empty(mesh.devices.shape, dtype=object)
+    for position in np.ndindex(mesh.devices.shape):
+        if mesh.local[position]:
+            grid[position] = torch.zeros(size, device=mesh.devices[position])
+    with torch.no_grad():
+        collectives.ppermute(grid, mesh, axis_name,
+                             [(i, (i + 1) % size) for i in range(size)])
+        collectives.all_to_all(grid, mesh, axis_name, split_dim=0,
+                               concat_dim=0)
+    synchronize_cards(list(mesh.devices[mesh.local]))
+
+
 def seq_tokens(config, shape, seed: int):
     return torch.from_numpy(np.random.default_rng(seed).integers(
         0, config.vocab_size, shape)).cuda()
 
 
-def seq_prefill(rank: int, mesh, smi: str) -> dict:
-    """18a: llama32_1b at full width and depth, bf16, one 1 x SP_SEQ
-    prompt through the ring and through Ulysses across the processes,
-    against 12b's path (the one-process {"seq": SP_SIZE} forward on the
-    same weights)."""
+def seq_prefill(rank: int, mesh, smi: str, label: str = "18a") -> dict:
+    """18a (20c): llama32_1b at full width and depth, bf16, one 1 x
+    SP_SEQ prompt through the ring and through Ulysses across the
+    processes of `mesh`'s "seq" axis, against 12b's path (the one-process
+    {"seq": SP_SIZE} forward on the same weights, on this process's
+    card).  On an NCCL job nothing is staged through host memory."""
     from dataclasses import replace
     from aiko_services_tpu_torch.models import LLAMA32_1B, forward
     from aiko_services_tpu_torch.parallel import use_mesh
     params = draw_on_card(LLAMA32_1B, SEQ_SEED)
     tokens = seq_tokens(LLAMA32_1B, (1, SP_SEQ), 1801)
     launches = {name: 0 for name in launch_counts()}
+    size = mesh.size("seq")
+    card = f"cuda:{torch.cuda.current_device()}"
+    warm_exchanges(mesh, "seq")
     for mechanism in ("ring", "ulysses"):
         config = replace(LLAMA32_1B, sequence_parallel=True,
                          sp_mechanism=mechanism)
-        with use_mesh(seq_mesh()), torch.no_grad():
+        with use_mesh(seq_mesh(device=card)), torch.no_grad():
             reference = forward(params, config, tokens)
         with use_mesh(mesh), torch.no_grad():
             logits, cost = seq_measured(
                 lambda: forward(params, config, tokens))
         if not (logits.shape == reference.shape
                 and torch.isfinite(logits).all()):
-            raise SystemExit(f"18a rank {rank}: {mechanism} logits "
+            raise SystemExit(f"{label} rank {rank}: {mechanism} logits "
                              f"{tuple(logits.shape)} not finite")
         error = (logits - reference).abs().max().item()
         same = (logits.argmax(-1) == reference.argmax(-1)).float().mean(
             ).item()
         del logits, reference
         torch.cuda.empty_cache()
-        seq_report("18a prefill_across_processes", rank, smi, cost,
-                   seq_expected(config, mechanism, SP_SEQ, rank), SP_SEQ,
-                   mechanism=mechanism,
+        seq_report(f"{label} prefill_across_processes", rank, smi, cost,
+                   seq_expected(config, mechanism, SP_SEQ, rank, size=size),
+                   SP_SEQ, mechanism=mechanism, seq_axis=size,
                    logits_max_abs_diff_vs_12b=f"{error:.3e}",
                    same_argmax_share=f"{same:.4f}")
         if error > SP_LOGITS_GROSS_TOL or same < SP_ARGMAX_FLOOR:
-            raise SystemExit(f"18a rank {rank}: {mechanism} logits differ "
-                             f"from 12b's by {error:.3e} (argmax share "
-                             f"{same:.4f})")
+            raise SystemExit(f"{label} rank {rank}: {mechanism} logits "
+                             f"differ from 12b's by {error:.3e} (argmax "
+                             f"share {same:.4f})")
+        if nccl_job() and cost["staged"]:
+            raise SystemExit(f"{label} rank {rank}: {mechanism} staged "
+                             f"{cost['staged']} bytes through host memory "
+                             f"on NCCL")
         add_launches(launches, cost["launches"])
     del params
     torch.cuda.empty_cache()
@@ -7450,12 +7607,18 @@ def seq_generate(rank: int, mesh, smi: str) -> dict:
 
 def seq_remat(rank: int, mesh, smi: str) -> dict:
     """18d: llama32_1b widths in f32 at SEQ_REMAT_LAYERS layers, one
-    train step through the ring across the processes under
-    SEQ_REMAT_POLICY, against the unsharded step's gradients (like
-    17b)."""
+    train step through the ring across the processes under each of
+    SEQ_REMAT_POLICIES (nothing_saveable keeps each layer's inputs,
+    dots_saveable its products too), against the unsharded step's
+    gradients (like 17b).  The step's own peak is the f32 head's
+    transient, alike under both; so each layer's end also reads the
+    card's allocator: the peak over the layers' forward and what the
+    layers leave held for the backward, each above what the card held as
+    the step began."""
     from dataclasses import replace
     from aiko_services_tpu_torch.models import (
         LLAMA32_1B, adamw, make_train_step)
+    from aiko_services_tpu_torch.models import transformer as lm_module
     from aiko_services_tpu_torch.parallel import use_mesh
     config = replace(LLAMA32_1B, n_layers=SEQ_REMAT_LAYERS, dtype="float32")
     batch = seq_tokens(config, (1, SEQ_REMAT_LEN + 1), 1830)
@@ -7474,24 +7637,58 @@ def seq_remat(rank: int, mesh, smi: str) -> dict:
     whole_loss = prepared(config, "whole")[0]()
     torch.cuda.empty_cache()
     sp_config = replace(config, sequence_parallel=True)
-    run, size = prepared(sp_config, "remat", sharded=True,
-                         remat_policy=SEQ_REMAT_POLICY)
-    with use_mesh(mesh):
-        loss, cost = seq_measured(run)
-    grad_leaf, grad_error = local_relative(grads["remat"], grads["whole"])
-    seq_report("18d remat_across_processes", rank, smi, cost,
-               seq_expected(sp_config, "remat", SEQ_REMAT_LEN, rank, size),
-               SEQ_REMAT_LEN, policy=SEQ_REMAT_POLICY,
-               layers=config.n_layers, dtype=config.dtype,
-               loss_abs_diff=f"{abs(loss - whole_loss):.3e}",
-               grad_rel_err=f"{grad_error:.3e}", grad_worst_leaf=grad_leaf)
-    if not (abs(loss - whole_loss) <= SHARD_F32_LOSS_ATOL
-            and grad_error <= SHARD_F32_GRAD_REL_TOL):
-        raise SystemExit(f"18d rank {rank}: loss {loss} vs unsharded "
-                         f"{whole_loss}; gradient {grad_error:.3e} relative "
-                         f"at {grad_leaf} (limit {SHARD_F32_GRAD_REL_TOL})")
-    torch.cuda.empty_cache()
-    return cost["launches"]
+    launches = {name: 0 for name in launch_counts()}
+    remat_across, reads = lm_module._remat_across, []
+
+    def read_after(*args):
+        """The layer, then (peak, allocated) on this card (the
+        allocator's counters are kept on the host: no synchronization)."""
+        out = remat_across(*args)
+        reads.append((torch.cuda.max_memory_allocated(),
+                      torch.cuda.memory_allocated()))
+        return out
+    for policy in SEQ_REMAT_POLICIES:
+        step, size = prepared(sp_config, policy, sharded=True,
+                              remat_policy=policy)
+        reads.clear()
+
+        def run(step=step):
+            reads.append((0, torch.cuda.memory_allocated()))
+            return step()
+        lm_module._remat_across = read_after
+        try:
+            with use_mesh(mesh):
+                loss, cost = seq_measured(run)
+        finally:
+            lm_module._remat_across = remat_across
+        del run, step
+        if len(reads) != 1 + config.n_layers:
+            raise SystemExit(f"18d rank {rank} {policy}: {len(reads) - 1} "
+                             f"layers went through the remat node, not "
+                             f"{config.n_layers}")
+        base = reads[0][1]
+        grad_leaf, grad_error = local_relative(grads.pop(policy),
+                                               grads["whole"])
+        seq_report("18d remat_across_processes", rank, smi, cost,
+                   seq_expected(sp_config, "remat", SEQ_REMAT_LEN, rank,
+                                size),
+                   SEQ_REMAT_LEN, policy=policy, layers=config.n_layers,
+                   dtype=config.dtype,
+                   layers_peak_gib=f"{(reads[-1][0] - base) / 2**30:.3f}",
+                   held_after_layers_gib=(
+                       f"{(reads[-1][1] - base) / 2**30:.3f}"),
+                   loss_abs_diff=f"{abs(loss - whole_loss):.3e}",
+                   grad_rel_err=f"{grad_error:.3e}",
+                   grad_worst_leaf=grad_leaf)
+        if not (abs(loss - whole_loss) <= SHARD_F32_LOSS_ATOL
+                and grad_error <= SHARD_F32_GRAD_REL_TOL):
+            raise SystemExit(f"18d rank {rank} {policy}: loss {loss} vs "
+                             f"unsharded {whole_loss}; gradient "
+                             f"{grad_error:.3e} relative at {grad_leaf} "
+                             f"(limit {SHARD_F32_GRAD_REL_TOL})")
+        add_launches(launches, cost["launches"])
+        torch.cuda.empty_cache()
+    return launches
 
 
 def seq_worker(argument: str) -> None:
@@ -7559,43 +7756,625 @@ def phase_seq_processes(smi: str) -> dict:
     return launches
 
 
-def main() -> None:
+# -- cards mode: the mesh on several cards --------------------------------------
+#
+# `python3 chip_smoke.py cards`, on a machine with four cards or more (the
+# first four take part where a phase names four): one process drives
+# meshes whose positions lie on distinct cards (19b-19d), then four
+# worker processes each own one card as one NCCL rank (20).  Every phase
+# holds the cards against the same work on cuda:0 alone or against the
+# unsharded steps; each card's peak is read with card_peaks.  The cards
+# phases build the kernels as phase 1 does and end with the same three
+# lines as the plain mode.
+
+CARDS = 4                     # 19c, 19d and 20: four cards, four ranks
+CARDS_8B_AXES = {"fsdp": 2, "model": 4}    # 19b: 13a's eight positions
+CARDS_TRAIN_AXES = {"fsdp": 2, "model": 2}  # 19c and 20a
+CARDS_TRAIN_STEPS = 2         # 19c: 1 + 2 steps, the first not counted
+CARDS_8B_NEW_TOKENS = 64      # 19b: the example ships 128
+CARDS_COPY_BYTES = 2 ** 30    # 19a: the peer-copy yardstick's block
+CARDS_TIMEOUT = 600           # phase 20's workers together, seconds
+CARDS_PROCESS_ARMS = (        # (label, dtype, layers: None for all, axes)
+    ("20a", "bfloat16", None, CARDS_TRAIN_AXES),
+    ("20b", "float32", SHARD_F32_LAYERS, {"fsdp": 2, "model": 2}),
+    ("20b", "float32", SHARD_F32_LAYERS, {"data": 2, "fsdp": 2}),
+)
+
+
+def card_list() -> list:
+    return [torch.device("cuda", index)
+            for index in range(torch.cuda.device_count())]
+
+
+def spread(positions: int, cards: list) -> list:
+    """`positions` devices over `cards`, in order, as evenly as they
+    go: eight positions over four cards sit two a card."""
+    return [cards[index * len(cards) // positions]
+            for index in range(positions)]
+
+
+def distinct_cards(devices) -> list:
+    return sorted({torch.device(device).index for device in devices})
+
+
+def reset_peaks(devices) -> None:
+    """Reset the peak of every card `devices` names."""
+    for index in distinct_cards(devices):
+        torch.cuda.reset_peak_memory_stats(index)
+
+
+def card_peaks(devices) -> dict:
+    """{cuda:i: GiB} -- max_memory_allocated of every card `devices`
+    names, since its last reset_peaks."""
+    return {f"cuda:{index}": round(torch.cuda.max_memory_allocated(index)
+                                   / 2 ** 30, 2)
+            for index in distinct_cards(devices)}
+
+
+def synchronize_cards(devices) -> None:
+    for index in distinct_cards(devices):
+        torch.cuda.synchronize(index)
+
+
+def free_cards(devices) -> None:
+    """Return the caching allocator's free blocks on every card."""
+    gc.collect()
+    for index in distinct_cards(devices):
+        with torch.cuda.device(index):
+            torch.cuda.empty_cache()
+
+
+def host_ms(function, devices, warmup: int = 1, runs: int = 5) -> float:
+    """Median milliseconds of `function` on the host clock, each call
+    ending when every card of `devices` is done (CUDA events time one
+    card's stream; this work spans several)."""
+    for _ in range(warmup):
+        function()
+    synchronize_cards(devices)
+    times = []
+    for _ in range(runs):
+        start = time.perf_counter()
+        function()
+        synchronize_cards(devices)
+        times.append(time.perf_counter() - start)
+    return statistics.median(times) * 1e3
+
+
+@contextlib.contextmanager
+def launches_by_card(counts: dict):
+    """Within the block, every K1/K2/K3 launch adds one to
+    counts[cuda:i][kernel] of the card it ran on (the wrappers and their
+    own counts stay as they are)."""
+    from aiko_services_tpu_torch.parallel import attention
+    launch = attention._launch
+
+    def counted(kernel, symbol, device, *arguments):
+        launch(kernel, symbol, device, *arguments)
+        card = counts.setdefault(str(torch.device(device)), {})
+        card[kernel] = card.get(kernel, 0) + 1
+    attention._launch = counted
+    try:
+        yield counts
+    finally:
+        attention._launch = launch
+
+
+def tree_equal(a, b) -> bool:
+    """Every leaf of two trees (Sharded leaves unsharded) bit for bit
+    equal."""
+    from aiko_services_tpu_torch.parallel import unshard
+    wants = dict(leaf_items(b))
+    for name, leaf in leaf_items(a):
+        got = unshard(leaf)
+        if not torch.equal(got, unshard(wants[name]).to(got.device)):
+            return False
+    return True
+
+
+def phase_cards_topology(smi: str, cards: list) -> dict:
+    """19a: the cards and their links (nvidia-smi topo -m), a 1 GiB bf16
+    copy cuda:0 -> cuda:k timed on each card, then phase 2's K1 and
+    K2/K3 cases on every card but cuda:0 (which phase 2's own run
+    covers), each against its plain version there, each launched twice
+    and bitwise equal.  Returns the O and gradient max abs errors at the
+    serving and training shapes, the worst over the cards."""
+    # a machine may refuse the topology query: then its message stands
+    # in, and torch's peer-access matrix says which cards reach which
+    topology = subprocess.run(["nvidia-smi", "topo", "-m"],
+                              capture_output=True, text=True, timeout=60)
+    lines = (topology.stdout.rstrip().splitlines()
+             if topology.returncode == 0 else
+             [f"nvidia-smi topo -m exited {topology.returncode}: "
+              f"{(topology.stdout + topology.stderr).strip()[:300]!r}"])
+    for line in lines:
+        print(f"[19a topology] {line.rstrip()}", flush=True)
+    names = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    peers = {str(card): [str(other) for other in cards if other != card
+                         and torch.cuda.can_device_access_peer(
+                             card.index, other.index)]
+             for card in cards}
+    say("19a cards", count=len(cards), cards=json.dumps(names),
+        peer_access=json.dumps(peers), card=repr(smi))
+    source = torch.randn(CARDS_COPY_BYTES // 2, device=cards[0]).to(
+        torch.bfloat16)
+    for target_card in cards[1:]:
+        target = torch.empty_like(source, device=target_card)
+        pair = [cards[0], target_card]
+        ms = host_ms(lambda: target.copy_(source), pair, warmup=2, runs=10)
+        if not torch.equal(target[:: 1 << 16].to(cards[0]),
+                           source[:: 1 << 16]):
+            raise SystemExit(f"19a: the copy to {target_card} differs")
+        say("19a peer_copy", source=str(cards[0]), target=str(target_card),
+            mib=CARDS_COPY_BYTES // 2 ** 20, dtype="bfloat16",
+            peer_access=torch.cuda.can_device_access_peer(
+                0, target_card.index),
+            ms=f"{ms:.3f}", gb_per_s=f"{CARDS_COPY_BYTES / ms / 1e6:.1f}",
+            card=repr(smi))
+        del target
+    del source
+    errors = {"flash_attention": 0.0, "flash_attention_dq": 0.0,
+              "flash_attention_dkv": 0.0}
+    for target_card in cards[1:]:
+        serving = phase_kernel_checks("19a kernel_vs_plain", target_card)
+        training = phase_backward_checks("19a backward_vs_plain",
+                                         target_card)
+        errors["flash_attention"] = max(errors["flash_attention"], serving)
+        for name, error in training.items():
+            errors[name] = max(errors[name], error)
+        torch.cuda.empty_cache()
+    return errors
+
+
+def cards_8b_arm(smi: str, devices: list, weights: dict | None) -> tuple:
+    """One arm of 19b: examples/pipeline_llm_8b.json (only `runtime` and
+    the element module changed, 13a's token cut) with its lm's positions
+    on `devices`, serving `weights` (None: 13a's, drawn on the first
+    card from the element's config with draw_on_card, seed 0) installed
+    through restore_state; then SHARD_DECODE_STEPS decode steps on the
+    element's sharded state, timed and counted.  Returns (generated
+    tokens, K1/K2/K3 launches, the line's fields, the weights)."""
+    from aiko_services_tpu_torch.models import forward
+    from aiko_services_tpu_torch.models import transformer
     from aiko_services_tpu_torch.ops import kernels
-    run_start = time.perf_counter()
-    smi = phase_card()
-    phase_build()
-    max_abs_err = {"flash_attention": phase_kernel_checks()}
-    max_abs_err.update(phase_backward_checks())
-    timing = phase_timing(smi)
-    phase_asr_tones()
-    launches = {name: 0 for name in kernels.KERNELS}
-    launches["flash_attention"] += phase_whisper_small(smi)
-    for path_launches in (phase_llama_training(smi),
-                          phase_asr_tones_training(), phase_config5(smi)):
-        for name, count in path_launches.items():
-            launches[name] += count
-    phase_engine(smi)
-    phase_serving_tier(smi)
-    for name, count in phase_model_families(smi).items():
-        launches[name] += count
-    for name, count in phase_long_context(smi).items():
-        launches[name] += count
-    for name, count in phase_parameter_sharding(smi).items():
-        launches[name] += count
-    for name, count in phase_hf_and_examples(smi).items():
-        launches[name] += count
-    for name, count in phase_fleet(smi).items():
-        launches[name] += count
-    for name, count in phase_last_modules(smi).items():
-        launches[name] += count
-    C5_WEIGHTS.clear()
+    from aiko_services_tpu_torch.parallel import (
+        Sharded, collective_totals, reset_collective_counts,
+        set_default_devices, sharded_leaves)
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import Process
+    definition = port_definition(PIPELINE_8B)
+    lm = next(element for element in definition["elements"]
+              if element["name"] == "lm")
+    lm["sharding"]["axes"] = CARDS_8B_AXES
+    lm["sharding"]["devices"] = [0, len(devices)]
+    lm["parameters"]["max_new_tokens"] = max_new = CARDS_8B_NEW_TOKENS
+    prompt_text = definition["elements"][0]["parameters"][
+        "data_sources"][0]
+    set_default_devices(devices)
+    process = Process(transport_kind="loopback")
+    try:
+        start = time.perf_counter()
+        pipeline = create_pipeline(process, definition)
+        element = pipeline.elements["lm"]
+        element.configure()
+        if weights is None:
+            weights = draw_on_card(element.config, int(
+                lm["parameters"].get("seed", 0)))
+        element.restore_state(weights)
+        synchronize_cards(devices)
+        setup_s = time.perf_counter() - start
+        misplaced = [
+            position for leaf in sharded_leaves(element.state)
+            for position, tensor in np.ndenumerate(leaf.shards)
+            if tensor.device != leaf.mesh.devices[position]]
+        if misplaced or not isinstance(element.state["layers"]["wq"]["w"],
+                                       Sharded):
+            raise SystemExit(f"19b: blocks off their positions' cards at "
+                             f"{misplaced[:4]}")
+        process.run(in_thread=True)
+        reset_peaks(devices)
+        responses = queue.Queue()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        pipeline.create_stream("s1", queue_response=responses)
+        _, _, outputs = responses.get(timeout=600)
+        synchronize_cards(devices)
+        elapsed = time.perf_counter() - start
+        launches = launch_counts()
+        generated = torch.as_tensor(outputs["generated"]).cpu()
+        if generated.shape != (1, max_new) or not outputs["text"]:
+            raise SystemExit(f"19b: generated {tuple(generated.shape)}, "
+                             f"text {outputs['text']!r}")
+        config, state = element.config, element.state
+        tokens = torch.from_numpy(element._encode_prompts(
+            None, prompt_text)[0]).to(devices[0])
+        cache = transformer._prompt_cache(state, config, tokens,
+                                          SHARD_DECODE_STEPS + 1, None)
+        with torch.no_grad():
+            logits, cache = forward(state, config, tokens, cache=cache)
+        token = logits[:, -1:].argmax(-1).to(torch.int32)
+        synchronize_cards(devices)
+        reset_collective_counts()
+        start = time.perf_counter()
+        for step in range(SHARD_DECODE_STEPS):
+            token, _, cache = transformer.decode_step(
+                state, config, cache, token, tokens.shape[1] + step)
+        synchronize_cards(devices)
+        step_ms = (time.perf_counter() - start) / SHARD_DECODE_STEPS * 1e3
+        calls, size = collective_totals()
+        peaks = card_peaks(devices)
+        del cache, logits, token
+    finally:
+        process.terminate()
+        set_default_devices(None)
+    fields = dict(
+        mesh=json.dumps(CARDS_8B_AXES),
+        devices=",".join(str(device) for device in devices),
+        layers=config.n_layers, d_model=config.d_model,
+        prompt_tokens=tokens.shape[1], new_tokens=max_new,
+        setup_s=f"{setup_s:.1f}", tokens_per_s=f"{max_new / elapsed:.2f}",
+        decode_step_ms=f"{step_ms:.2f}",
+        collective_calls_per_step=calls / SHARD_DECODE_STEPS,
+        collective_kib_per_step=f"{size / SHARD_DECODE_STEPS / 1024:.1f}",
+        peak_gib_by_card=json.dumps(peaks))
+    return generated, launches, fields, weights
+
+
+def phase_cards_serving(smi: str, cards: list) -> dict:
+    """19b: the 8B example on fsdp 2 x model 4 with its eight positions
+    spread over the cards (two a card on four), against the same
+    definition over cuda:0 eight times in the same run, on one draw of
+    the weights (13a's: draw_on_card, seed 0): the 64 greedy tokens
+    identical, decode-step ms, collective calls and KiB a step, each
+    card's peak."""
+    positions = int(np.prod(list(CARDS_8B_AXES.values())))
+    launches = {name: 0 for name in launch_counts()}
+    tokens, weights = {}, None
+    for label, devices in (("cards", spread(positions, cards)),
+                           ("one_card", [cards[0]] * positions)):
+        generated, counted, fields, weights = cards_8b_arm(smi, devices,
+                                                           weights)
+        tokens[label] = generated
+        add_launches(launches, counted)
+        say(f"19b llama3_8b_{label}", **fields, card=repr(smi))
+        free_cards(cards)
+    del weights
+    free_cards(cards)
+    parting = first_difference(tokens["cards"], tokens["one_card"])
+    say("19b llama3_8b_tokens", identical=parting < 0,
+        first_difference=parting, card=repr(smi))
+    if parting >= 0:
+        raise SystemExit(f"19b: the 8B over the cards parts from cuda:0 x "
+                         f"{positions} at token {parting}")
+    return launches
+
+
+def cards_train_arm(smi: str, config, devices: list, params: dict,
+                    batches: list) -> dict:
+    """One arm of 19c: 1 + CARDS_TRAIN_STEPS steps of
+    make_train_step(sharded=True) on CARDS_TRAIN_AXES with its positions
+    on `devices`, from `params` (copied); the first step not counted.
+    Returns the losses, the parameters after (whole, on the first
+    card), step ms, K1/K2/K3 launches a step by card and each card's
+    peak."""
+    from aiko_services_tpu_torch.models import (
+        adamw, make_train_step, param_specs)
+    from aiko_services_tpu_torch.parallel import (
+        collective_totals, create_mesh, filter_specs,
+        reset_collective_counts, shard_pytree)
+    mesh = create_mesh(CARDS_TRAIN_AXES, devices=devices)
+    sharded = copy_replicated(shard_pytree(
+        params, mesh, filter_specs(param_specs(config), mesh)))
+    optimizer = adamw(SHARD_LR)
+    state = optimizer.init(sharded)
+    step = make_train_step(config, optimizer, sharded=True)
+    losses, times, by_card = [], [], {}
+    with launches_by_card(by_card):
+        for index, batch in enumerate(batches):
+            if index == 1:  # the warm-up step is not counted
+                synchronize_cards(devices)
+                reset_peaks(devices)
+                reset_collective_counts()
+                by_card.clear()
+            start = time.perf_counter()
+            sharded, state, loss = step(sharded, state, batch)
+            losses.append(loss.item())
+            synchronize_cards(devices)
+            times.append(time.perf_counter() - start)
+    calls, size = collective_totals()
+    steps = len(batches) - 1
+    result = {"losses": losses,
+              "after": tree_to(unsharded(sharded), devices[0]),
+              "step_ms": statistics.median(times[1:]) * 1e3,
+              "launches": {card: {name: count / steps
+                                  for name, count in kernels_.items()}
+                           for card, kernels_ in sorted(by_card.items())},
+              "calls": calls / steps, "mib": size / steps / 2 ** 20,
+              "peaks": card_peaks(devices)}
+    del sharded, state, step
+    free_cards(devices)
+    return result
+
+
+def phase_cards_training(smi: str, cards: list) -> dict:
+    """19c: llama32_1b at full width and depth, bf16, 4 x 1024, adamw,
+    1 + CARDS_TRAIN_STEPS sharded steps on fsdp 2 x model 2 with its four
+    positions on four cards, against the same mesh over cuda:0 four
+    times (13c's gates; whether they are bit-equal too): step ms,
+    tokens/s, MFU over the cards' peak, each card's peak and K1/K2/K3
+    launches a step a card.  Returns the launches of both arms."""
+    from aiko_services_tpu_torch.models import LLAMA32_1B, count_params
+    config = LLAMA32_1B
+    rng = np.random.default_rng(19)
+    batches = [torch.from_numpy(rng.integers(
+        0, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to(cards[0])
+        for _ in range(1 + CARDS_TRAIN_STEPS)]
+    params = draw_on_card(config, 19)
+    n_params = count_params(params)
+    before = tree_to(params, cards[0])
+    positions = int(np.prod(list(CARDS_TRAIN_AXES.values())))
+    arms = {}
+    launches = {name: 0 for name in launch_counts()}
+    for label, devices in (("cards", spread(positions, cards[:CARDS])),
+                           ("one_card", [cards[0]] * positions)):
+        arms[label] = arm = cards_train_arm(smi, config, devices, params,
+                                            batches)
+        for per_card in arm["launches"].values():
+            add_launches(launches, {name: int(count * CARDS_TRAIN_STEPS)
+                                    for name, count in per_card.items()})
+        tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / arm["step_ms"] * 1e3
+        count = len(distinct_cards(devices))
+        mfu = (6 * n_params * tokens_per_s
+               / (count * peaks_for(smi)[1]["bfloat16"]))
+        say(f"19c llama32_1b_train_{label}",
+            mesh=json.dumps(CARDS_TRAIN_AXES),
+            devices=",".join(str(device) for device in devices),
+            layers=config.n_layers, batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}",
+            steps=f"1+{CARDS_TRAIN_STEPS}",
+            losses=json.dumps([round(value, 6) for value in arm["losses"]]),
+            step_ms=f"{arm['step_ms']:.1f}",
+            tokens_per_s=f"{tokens_per_s:.1f}", cards_counted=count,
+            train_mfu=f"{mfu:.4f}",
+            launches_per_step_by_card=json.dumps(arm["launches"]),
+            collective_calls_per_step=arm["calls"],
+            collective_mib_per_step=f"{arm['mib']:.1f}",
+            peak_gib_by_card=json.dumps(arm["peaks"]), card=repr(smi))
+    del params
     torch.cuda.empty_cache()
-    for name, count in phase_processes(smi).items():
-        launches[name] += count
-    for name, count in phase_seq_processes(smi).items():
-        launches[name] += count
-    say("run", seconds=f"{time.perf_counter() - run_start:.1f}",
-        card=repr(smi))
+    cards_arm, one = arms["cards"], arms["one_card"]
+    loss_diff = max(abs(a - b) for a, b in zip(cards_arm["losses"],
+                                               one["losses"]))
+    update_leaf, update_error = worst_relative(cards_arm["after"],
+                                               one["after"], before)
+    bit_equal = (cards_arm["losses"] == one["losses"]
+                 and tree_equal(cards_arm["after"], one["after"]))
+    per_card = {name: config.n_layers for name in launch_counts()}
+    launches_ok = (len(cards_arm["launches"]) == positions and all(
+        counts == per_card for counts in cards_arm["launches"].values()))
+    say("19c cards_vs_one_card", loss_max_abs_diff=f"{loss_diff:.3e}",
+        loss_limit=SHARD_LOSS_ATOL, update_rel_err=f"{update_error:.3e}",
+        update_worst_leaf=update_leaf,
+        update_limit=SHARD_BF16_UPDATE_REL_TOL, bit_equal=bit_equal,
+        launches_per_card_as_layers=launches_ok, card=repr(smi))
+    if not (np.isfinite(cards_arm["losses"]).all()
+            and loss_diff <= SHARD_LOSS_ATOL
+            and update_error <= SHARD_BF16_UPDATE_REL_TOL and launches_ok):
+        raise SystemExit(f"19c: over the cards losses {cards_arm['losses']}"
+                         f" vs {one['losses']}, parameter change "
+                         f"{update_error:.3e} relative at {update_leaf}, "
+                         f"launches a step by card {cards_arm['launches']}")
+    return launches
+
+
+def phase_cards_long_context(smi: str, cards: list) -> dict:
+    """19d: 12a's ring forward + backward at (1, 32, 8192, 64) bf16 on
+    {"seq": 4} with its positions on four cards, bit for bit the same
+    mesh over cuda:0 four times, timed against one K1 + K2 + K3 call;
+    then 12b's SP prefill (llama32_1b, 1 x 8192, ring and Ulysses) on the
+    four cards against the non-SP forward at 12b's gates.  Returns the
+    launches."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import LLAMA32_1B, forward
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import (
+        create_mesh, ring_attention, use_mesh)
+    from aiko_services_tpu_torch.parallel.attention import (
+        flash_attention_backward, flash_attention_forward)
+    devices = cards[:CARDS]
+    meshes = {"cards": create_mesh({"seq": CARDS}, devices=devices),
+              "one_card": seq_mesh(CARDS, cards[0])}
+    q, k, v = random_qkv(1, 32, SP_SEQ, SP_SEQ, 64, torch.bfloat16,
+                         seed=1200, device=cards[0])
+    dout = random_qkv(1, 32, SP_SEQ, 1, 64, torch.bfloat16, seed=1201,
+                      device=cards[0])[0]
+    launches = {name: 0 for name in launch_counts()}
+    results, by_card = {}, {}
+    for label, mesh in meshes.items():
+        kernels.reset_launch_counts()
+        with launches_by_card(by_card.setdefault(label, {})):
+            out, grads, hops, counted = ring_pass(q, k, v, dout, CARDS,
+                                                  True, mesh)
+        add_launches(launches, counted)
+        results[label] = (out, *grads)
+        expected = CARDS * (CARDS + 1) // 2
+        if hops != expected or set(counted.values()) != {expected}:
+            raise SystemExit(f"19d: ring on {label} ran {hops} hops, "
+                             f"launches {counted}; expected {expected}")
+    bit_equal = all(torch.equal(a.to(cards[0]), b) for a, b in zip(
+        results["cards"], results["one_card"]))
+    placed = {str(out.device) for out in results["cards"]}
+    del results
+    inputs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    times = {}
+    for label, mesh in meshes.items():
+        def ring_step(mesh=mesh):
+            out = ring_attention(*inputs, mesh, causal=True)
+            torch.autograd.grad(out, inputs, dout)
+        reset_peaks(devices)
+        times[label] = host_ms(ring_step, devices, warmup=2, runs=10)
+        times[f"{label}_peaks"] = card_peaks(devices)
+
+    def one_call_step():
+        out, lse = flash_attention_forward(q, k, v, causal=True)
+        flash_attention_backward(q, k, v, out, lse, dout, causal=True)
+    one_call_ms = cuda_ms(one_call_step, warmup=2, runs=10)
+    block = 32 * SP_SEQ // CARDS * 64
+    say("19d ring_across_cards", shape=f"1x32x{SP_SEQ}x64", causal=True,
+        seq_axis=CARDS, devices=",".join(str(device) for device in devices),
+        bit_equal_to_one_card=bit_equal, results_on=sorted(placed),
+        launches_by_card=json.dumps(by_card["cards"]),
+        ring_fwd_bwd_ms=f"{times['cards']:.4f}",
+        one_card_ring_fwd_bwd_ms=f"{times['one_card']:.4f}",
+        one_k1_k2_k3_ms=f"{one_call_ms:.4f}",
+        hop_mib_forward=f"{2 * block * 2 / 2 ** 20:.1f}",
+        hop_mib_backward=f"{block * (2 * 2 + 2 * 4) / 2 ** 20:.1f}",
+        peak_gib_by_card=json.dumps(times["cards_peaks"]), card=repr(smi))
+    if not bit_equal:
+        raise SystemExit("19d: the ring over the cards differs from the "
+                         "same mesh over cuda:0")
+    del q, k, v, dout, inputs
+    torch.cuda.empty_cache()
+
+    params = draw_on_card(LLAMA32_1B, 1202)
+    tokens = torch.from_numpy(np.random.default_rng(1202).integers(
+        0, LLAMA32_1B.vocab_size, (1, SP_SEQ)).astype(np.int32)).to(cards[0])
+    with torch.no_grad():
+        dense = forward(params, LLAMA32_1B, tokens)
+    for mechanism, per_layer in (("ring", CARDS * (CARDS + 1) // 2),
+                                 ("ulysses", CARDS)):
+        config = replace(LLAMA32_1B, sequence_parallel=True,
+                         sp_mechanism=mechanism)
+        outputs = {}
+        for label, mesh in meshes.items():
+            def prefill(mesh=mesh):
+                with use_mesh(mesh), torch.no_grad():
+                    outputs[label] = forward(params, config, tokens)
+            reset_peaks(devices)
+            kernels.reset_launch_counts()
+            ms = host_ms(prefill, devices, warmup=1, runs=2)
+            counted = launch_counts()
+            add_launches(launches, counted)
+            if counted["flash_attention"] != 3 * config.n_layers * per_layer:
+                raise SystemExit(f"19d: {mechanism} on {label} launched "
+                                 f"{counted}")
+            times[label] = ms
+            times[f"{label}_peaks"] = card_peaks(devices)
+        logits = outputs["cards"]
+        if not (logits.shape == dense.shape
+                and torch.isfinite(logits).all()):
+            raise SystemExit(f"19d: {mechanism} logits "
+                             f"{tuple(logits.shape)} not finite")
+        error = (logits - dense).abs().max().item()
+        same = (logits.argmax(-1) == dense.argmax(-1)).float().mean().item()
+        say("19d prefill_sp_across_cards", mechanism=mechanism,
+            seq_axis=CARDS, tokens=SP_SEQ, ms=f"{times['cards']:.1f}",
+            tokens_per_s=f"{SP_SEQ / times['cards'] * 1e3:.1f}",
+            one_card_ms=f"{times['one_card']:.1f}",
+            bit_equal_to_one_card=torch.equal(
+                logits, outputs["one_card"].to(logits.device)),
+            logits_max_abs_diff_vs_non_sp=f"{error:.3e}",
+            same_argmax_share=f"{same:.4f}",
+            peak_gib_by_card=json.dumps(times["cards_peaks"]),
+            card=repr(smi))
+        if error > SP_LOGITS_GROSS_TOL or same < SP_ARGMAX_FLOOR:
+            raise SystemExit(f"19d: {mechanism} logits differ from the "
+                             f"non-SP forward by {error:.3e} (argmax share "
+                             f"{same:.4f})")
+        del outputs, logits
+    del params, dense
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cards_worker(argument: str) -> None:
+    """One rank of phase 20, in its own process: joins the NCCL job with
+    its card (AIKO_PROCESS_ID) as the only position, loads the kernels
+    phase 1 built, runs 20a-20c, holds each new K1/K2/K3 case against its
+    plain version on its card (20d) and writes its results under
+    PROCESS_DIR."""
+    import os
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import (
+        global_mesh, initialize_distributed, process_count,
+        shutdown_distributed)
+    smi, reference = json.loads(argument)
+    if torch.cuda.device_count() < CARDS:
+        raise SystemExit("phase 20 worker: fewer than four cards")
+    rank = int(os.environ["AIKO_PROCESS_ID"])
+    if not initialize_distributed(backend="nccl", local_device_ids=[rank],
+                                  timeout_seconds=CARDS_TIMEOUT):
+        raise SystemExit("phase 20 worker: no AIKO_* job to join")
+    if torch.cuda.current_device() != rank:
+        raise SystemExit(f"phase 20 worker {rank}: current card "
+                         f"{torch.cuda.current_device()}")
+    for name in kernels.KERNEL_SOURCES:
+        kernels.load_kernel(name)
+    forward, backward = set(), set()
+    arms = []
+    launches = {name: 0 for name in kernels.KERNELS}
+    with recorded_kernel_cases(forward, backward):
+        for label, dtype, layers, axes in CARDS_PROCESS_ARMS:
+            config = process_config(dtype, layers)
+            arms.append(process_arm(rank, label, config, axes, smi,
+                                    reference[dtype],
+                                    header_cost=label == "20a"))
+            add_launches(launches, arms[-1]["launches"])
+        mesh = global_mesh({"seq": process_count()})
+        if mesh.process_axes != ("seq",):
+            raise SystemExit(f"phase 20 worker: {mesh} does not span the "
+                             f"processes on 'seq'")
+        add_launches(launches, seq_prefill(rank, mesh, smi, "20c"))
+    cases = check_new_cases(forward, backward, "20", f"20d rank{rank}",
+                            2000)
+    builds = sorted(kernels.build_seconds)
+    (PROCESS_DIR / f"rank{rank}.json").write_text(json.dumps({
+        "arms": arms, "launches": launches, "cases": cases,
+        "builds": builds}))
+    shutdown_distributed()
+    if builds:
+        raise SystemExit(f"phase 20 worker {rank} built {builds}: it must "
+                         f"load what phase 1 built")
+    print(f"rank {rank} done", flush=True)
+
+
+def phase_cards_processes(smi: str, cards: list) -> dict:
+    """Phase 20: four NCCL worker processes, one card each.  The parent
+    runs the unsharded steps first (phase 17's process_reference, 20a at
+    full depth) and frees the card.  Returns the workers' launches."""
+    import shutil
+    from aiko_services_tpu_torch.ops import kernels
+    start = time.perf_counter()
+    reference = process_references(CARDS_PROCESS_ARMS)
+    reference_s = time.perf_counter() - start
+    run_workers("20", PROCESS_DIR, "cards_worker",
+                json.dumps([smi, reference]), count=CARDS,
+                timeout=CARDS_TIMEOUT)
+    results = [json.loads((PROCESS_DIR / f"rank{rank}.json").read_text())
+               for rank in range(CARDS)]
+    launches = {name: 0 for name in kernels.KERNELS}
+    for result in results:
+        add_launches(launches, result["launches"])
+    replicas = equal_replicas(results, "20")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"20: {replicas} replicas compared, launches "
+                         f"{launches}")
+    shutil.rmtree(PROCESS_DIR, ignore_errors=True)
+    say("20 cards_processes", workers=CARDS, backend="nccl",
+        devices="cuda:r for rank r", reference_s=f"{reference_s:.1f}",
+        replicas_equal=replicas,
+        new_cases=[result["cases"] for result in results],
+        kernel_builds_in_workers=0,
+        wall_s=f"{time.perf_counter() - start:.1f}",
+        launches=json.dumps(launches), card=repr(smi))
+    return launches
+
+
+def contract_lines(smi: str, launches: dict, max_abs_err: dict,
+                   timing: dict) -> None:
+    """The last three lines: the card, the kernels JSON, the result."""
+    from aiko_services_tpu_torch.ops import kernels
     sources = {"flash_attention": ("flash_attention.cu", 75),
                "flash_attention_dq": ("flash_attention_backward.cu", 264),
                "flash_attention_dkv": ("flash_attention_backward.cu", 314)}
@@ -7615,5 +8394,86 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def main_cards() -> None:
+    """`python3 chip_smoke.py cards`: phases 0, 1, 19a-19d, 20, phase 3's
+    timing on cuda:0, and the contract lines."""
+    from aiko_services_tpu_torch.ops import kernels
+    run_start = time.perf_counter()
+    smi = phase_card()
+    cards = card_list()
+    if len(cards) < CARDS:
+        raise SystemExit(f"chip_smoke cards: needs {CARDS} CUDA devices "
+                         f"(one NCCL rank per card in phase 20), found "
+                         f"{len(cards)}")
+    phase_build()
+    max_abs_err = phase_cards_topology(smi, cards)
+    launches = {name: 0 for name in kernels.KERNELS}
+    # a phase that fails is reported and the later ones still run (one
+    # four-card run shows every fault it can); the mode then exits
+    # non-zero with no result
+    failed = []
+    for phase in (phase_cards_serving, phase_cards_training,
+                  phase_cards_long_context,
+                  phase_cards_processes):
+        try:
+            add_launches(launches, phase(smi, cards))
+        except (Exception, SystemExit) as error:
+            import traceback
+            traceback.print_exc()
+            failed.append(f"{getattr(phase, '__name__', phase)}: {error}")
+            free_cards(cards)
+    if failed:
+        raise SystemExit("chip_smoke cards: " + "; ".join(failed))
+    timing = phase_timing(smi)
+    say("run", mode="cards", seconds=f"{time.perf_counter() - run_start:.1f}",
+        card=repr(smi))
+    contract_lines(smi, launches, max_abs_err, timing)
+
+
+def timed_phase(phase, *args):
+    """phase(*args), then a line with the seconds it took on the host
+    (each phase's share of the run's time limit)."""
+    start = time.perf_counter()
+    result = phase(*args)
+    say("seconds", name=phase.__name__,
+        seconds=f"{time.perf_counter() - start:.1f}")
+    return result
+
+
+def main() -> None:
+    from aiko_services_tpu_torch.ops import kernels
+    run_start = time.perf_counter()
+    smi = phase_card()
+    timed_phase(phase_build)
+    max_abs_err = {"flash_attention": timed_phase(phase_kernel_checks)}
+    max_abs_err.update(timed_phase(phase_backward_checks))
+    timing = timed_phase(phase_timing, smi)
+    timed_phase(phase_asr_tones)
+    launches = {name: 0 for name in kernels.KERNELS}
+    launches["flash_attention"] += timed_phase(phase_whisper_small, smi)
+    for path_launches in (timed_phase(phase_llama_training, smi),
+                          timed_phase(phase_asr_tones_training),
+                          timed_phase(phase_config5, smi)):
+        add_launches(launches, path_launches)
+    timed_phase(phase_engine, smi)
+    timed_phase(phase_serving_tier, smi)
+    for phase in (phase_model_families, phase_long_context,
+                  phase_parameter_sharding, phase_hf_and_examples,
+                  phase_fleet, phase_last_modules):
+        add_launches(launches, timed_phase(phase, smi))
+    C5_WEIGHTS.clear()
+    torch.cuda.empty_cache()
+    for phase in (phase_processes, phase_seq_processes):
+        add_launches(launches, timed_phase(phase, smi))
+    say("run", seconds=f"{time.perf_counter() - run_start:.1f}",
+        card=repr(smi))
+    contract_lines(smi, launches, max_abs_err, timing)
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["cards"]:
+        main_cards()
+    elif sys.argv[1:]:
+        raise SystemExit(f"usage: python3 chip_smoke.py [cards], not "
+                         f"{sys.argv[1:]}")
+    else:
+        main()

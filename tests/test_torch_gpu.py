@@ -670,3 +670,93 @@ def test_ring_and_ulysses_across_cards_equal_one_card(cuda):
     for across, one in zip(*results):
         assert across.device == one.device == torch.device("cuda", 0)
         assert torch.equal(across, one)
+
+
+# -- several cards -------------------------------------------------------------
+
+@pytest.fixture
+def cards(cuda):
+    """cuda:0 ... cuda:N-1 (N <= 4); skips below two cards."""
+    count = min(torch.cuda.device_count(), 4)
+    if count < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    return [torch.device("cuda", index) for index in range(count)]
+
+
+@pytest.mark.parametrize("case", ["encoder_bf16", "lm_training_bf16",
+                                  "f32_causal_q_offset",
+                                  "d128_causal_bf16"])
+def test_kernels_on_every_card_match_plain(cards, case):
+    """K1, K2 and K3 launched on each card (the launch guard makes it
+    the current device) against their plain versions on that card, the
+    results on the card of the inputs."""
+    batch, heads, q_len, k_len, dim, dtype, causal, q_offset = CASES[case]
+    for card in cards:
+        q, k, v = _qkv((batch, heads, q_len, dim), (batch, heads, k_len, dim),
+                       dtype, card, seed=card.index)
+        dout = _qkv((batch, heads, q_len, dim), (batch, heads, 1, dim),
+                    dtype, card, seed=card.index + 10)[0]
+        before = dict(kernels.launch_counts)
+        out, lse = flash_attention_forward(q, k, v, causal=causal,
+                                           q_offset=q_offset)
+        grads = flash_attention_backward(q, k, v, out, lse, dout,
+                                         causal=causal, q_offset=q_offset)
+        torch.cuda.synchronize(card)
+        for name in ("flash_attention", "flash_attention_dq",
+                     "flash_attention_dkv"):
+            assert kernels.launch_counts[name] == before[name] + 1, name
+        ref_out, ref_lse = flash_attention_plain(
+            q.float(), k.float(), v.float(), causal=causal,
+            q_offset=q_offset)
+        expected = flash_attention_backward_plain(
+            q.float(), k.float(), v.float(), out.float(), lse, dout.float(),
+            causal=causal, q_offset=q_offset)
+        assert out.device == lse.device == card
+        tolerance = (dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16
+                     else dict(atol=1e-5, rtol=0))
+        torch.testing.assert_close(out.float(), ref_out, **tolerance)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+        for got, want, name in zip(grads, expected, ("dq", "dk", "dv")):
+            assert got.device == card, name
+            if dtype == torch.bfloat16:
+                assert _relative_error(got, want) <= 2e-2, (card, name)
+            else:
+                torch.testing.assert_close(got, want, atol=1e-4, rtol=0,
+                                           msg=f"{card} {name}")
+
+
+@pytest.mark.parametrize("collective", ["psum", "all_gather",
+                                        "psum_scatter", "all_to_all",
+                                        "ppermute"])
+def test_collectives_across_cards_equal_one_card(cards, collective):
+    """Each collective over a {"seq": N} mesh of cuda:0 ... N-1 puts every
+    position's result on its own card, bit for bit what the same mesh
+    over cuda:0 N times gives (the same f32 sums, in the same order)."""
+    from aiko_services_tpu_torch.parallel import collectives, create_mesh
+    count = len(cards)
+    generator = torch.Generator().manual_seed(7)
+    blocks = [torch.randn((2, 3, 4 * count, 8), generator=generator).to(
+        torch.bfloat16) for _ in range(count)]
+    calls = {
+        "psum": lambda grid, mesh: collectives.psum(grid, mesh, "seq"),
+        "all_gather": lambda grid, mesh: collectives.all_gather(
+            grid, mesh, "seq", dim=2),
+        "psum_scatter": lambda grid, mesh: collectives.psum_scatter(
+            grid, mesh, "seq", dim=2),
+        "all_to_all": lambda grid, mesh: collectives.all_to_all(
+            grid, mesh, "seq", split_dim=2, concat_dim=1),
+        "ppermute": lambda grid, mesh: collectives.ppermute(
+            grid, mesh, "seq", [(i, (i + 1) % count)
+                                for i in range(count)])}
+    results = []
+    for devices in (cards, [cards[0]] * count):
+        mesh = create_mesh({"seq": count}, devices=devices)
+        grid = np.empty(count, dtype=object)
+        for index, device in enumerate(mesh.devices.flat):
+            grid[index] = blocks[index].to(device)
+        results.append(calls[collective](grid, mesh))
+    for index, (across, one) in enumerate(zip(*(result.flat
+                                                for result in results))):
+        assert across.device == cards[index], (index, across.device)
+        assert one.device == cards[0]
+        assert torch.equal(across.to(cards[0]), one), index

@@ -179,6 +179,61 @@ WORKER = textwrap.dedent("""
                                        plan["new"])
         results[f"decode/{name}/tokens"] = generated.numpy()
 
+    # the products (aten.mm / addmm) each remat layer's forward and its
+    # backward's recompute run, and whether the forward's ran with
+    # autograd: counters entered beneath the policy's contexts see only
+    # what those contexts let through (under nothing_saveable no-op
+    # contexts themselves, as the policy's are)
+    from contextlib import contextmanager, nullcontext
+    from torch.utils._python_dispatch import TorchDispatchMode
+    products = {"forward": 0, "recompute": 0}
+    forward_grad = set()
+
+    class Products(TorchDispatchMode):
+        def __init__(self, phase):
+            super().__init__()
+            self.phase = phase
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default):
+                products[self.phase] += 1
+                if self.phase == "forward":
+                    forward_grad.add(torch.is_grad_enabled())
+            return func(*args, **(kwargs or {}))
+
+    class Counted(nullcontext):
+        def __init__(self, phase):
+            super().__init__()
+            self.mode = Products(phase)
+
+        def __enter__(self):
+            self.mode.__enter__()
+
+        def __exit__(self, *exc):
+            return self.mode.__exit__(*exc)
+
+    resolve = lm.resolve_remat_policy
+
+    def counted_policy(name):
+        context_fn = resolve(name)
+        if context_fn is None:
+            return None
+
+        @contextmanager
+        def beneath(phase, inner):
+            with Products(phase), inner:
+                yield
+
+        def contexts():
+            saving, recompute = context_fn()
+            if isinstance(saving, nullcontext):
+                return Counted("forward"), Counted("recompute")
+            return (beneath("forward", saving),
+                    beneath("recompute", recompute))
+        return contexts
+    lm.resolve_remat_policy = counted_policy
+
     for name, axes in plan["remat"].items():
         mesh = mesh_of(axes)
         cfg = config("ring" if "seq" in axes else None)
@@ -186,12 +241,19 @@ WORKER = textwrap.dedent("""
             params = weights(mesh, cfg)
             for policy in ["none", *plan["policies"]]:
                 before = exchanges(mesh)
+                products.update(forward=0, recompute=0)
+                forward_grad.clear()
                 _, grads = optim.value_and_grad(
                     loss_of(cfg, policy, activation_specs=True), params,
                     train_tokens)
                 results[f"remat/{name}/{policy}/exchanges"] = np.asarray(
                     exchanges(mesh) - before)
+                results[f"remat/{name}/{policy}/products"] = np.asarray(
+                    [products["forward"], products["recompute"]])
+                results[f"remat/{name}/{policy}/forward_grad"] = np.asarray(
+                    sorted(forward_grad))
                 results.update(flat(grads, f"remat/{name}/{policy}/grad"))
+    lm.resolve_remat_policy = resolve
 
     asr_config = asr_model.AsrConfig(**asr)
     mel = torch.from_numpy(np.load(paths["mel"]))
@@ -490,8 +552,14 @@ def test_remat_across_processes_gives_the_gradients_of_no_remat(
     and without remat, equals jax.value_and_grad of the JAX package's
     loss on the same weights and tokens (1e-6), and the policy's equals
     the same loss's without remat (1e-6); both ranks ran the same number
-    of exchanges -- more than without remat, the recomputed layers'
-    forward collectives run again inside the backward."""
+    of exchanges -- more than without remat where a layer is recomputed
+    (its forward collectives run again inside the backward), as many
+    under everything_saveable, which recomputes nothing.  The recompute
+    runs the products the policy does not save: none under the dots
+    policies, every one of the forward's under nothing_saveable; the
+    forward runs with autograd only where the policy's contexts pair its
+    operations with the recompute's (the dots policies), and holds no
+    graph under nothing_saveable."""
     results, _, references = runs
     prefix, base = f"remat/{mesh}/{policy}/", f"remat/{mesh}/none/"
     keys = [key for key in references if key.startswith("grad/")]
@@ -505,7 +573,18 @@ def test_remat_across_processes_gives_the_gradients_of_no_remat(
             np.testing.assert_allclose(
                 result[prefix + key], result[base + key], atol=1e-6,
                 rtol=0, err_msg=f"rank {rank} {key}")
+        forward, recompute = result[prefix + "products"].tolist()
+        if policy == "everything_saveable":
+            assert (result[prefix + "exchanges"]
+                    == result[base + "exchanges"])
+            assert (forward, recompute) == (0, 0), (rank, forward)
+            continue
         assert result[prefix + "exchanges"] > result[base + "exchanges"]
+        assert forward > 0, (rank, policy)
+        assert recompute == (forward if policy == "nothing_saveable"
+                             else 0), (rank, policy, forward, recompute)
+        assert (result[prefix + "forward_grad"].tolist()
+                == [policy != "nothing_saveable"]), (rank, policy)
     assert (results[0][prefix + "exchanges"]
             == results[1][prefix + "exchanges"])
 
