@@ -13,7 +13,8 @@ from .attention import (                                      # noqa: F401
 from .collectives import (                                    # noqa: F401
     all_gather, all_to_all, axis_index, begin_backward, collective_counts,
     collective_totals, conform, join_backward, map_shards, pmax, ppermute,
-    psum, psum_scatter, reset_collective_counts, reshard, staged_bytes)
+    psum, psum_scatter, reset_collective_counts, reshard, staged_bytes,
+    wire_copy_bytes)
 from .distributed import (                                    # noqa: F401
-    global_mesh, initialize_distributed, is_distributed, process_count,
-    process_index, shutdown_distributed)
+    global_mesh, initialize_distributed, is_distributed, process_card,
+    process_count, process_index, shutdown_distributed)

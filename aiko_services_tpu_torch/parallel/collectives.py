@@ -60,7 +60,13 @@
 # per-group sequence number, the size, the members) that every process
 # checks: processes out of step fail at once, never pairing two unrelated
 # tensors.  gloo moves host tensors: on a gloo group a CUDA block goes
-# through host memory, always (staged_bytes counts it).
+# through host memory, always (staged_bytes counts it).  NCCL moves
+# tensors on the card its group is bound to, the process's first
+# (distributed.process_card): every exchange's payload and header lie
+# there (_wire), whatever card the entries lie on; a payload on another
+# card of the process is copied there and its answer back, card to card
+# (wire_copy_bytes counts it).  A process with one card a rank copies
+# nothing.
 #
 # Every collective over an axis whose size exceeds 1 adds one call and
 # its bytes -- the bytes of every participating position's input -- to
@@ -88,6 +94,7 @@ import zlib
 import numpy as np
 import torch
 
+from .distributed import process_card
 from .mesh import (
     Mesh, Sharded, layout_spec, leaf_layout, named_sharding, shard_pytree,
     spec_layout, unshard)
@@ -95,11 +102,12 @@ from .mesh import (
 __all__ = ["map_shards", "axis_index", "psum", "pmax", "all_gather",
            "psum_scatter", "all_to_all", "ppermute", "collective_counts",
            "reset_collective_counts", "collective_totals", "staged_bytes",
-           "sum_replica_grads", "replicated", "reshard", "conform",
-           "join_backward", "begin_backward"]
+           "wire_copy_bytes", "sum_replica_grads", "replicated", "reshard",
+           "conform", "join_backward", "begin_backward"]
 
 _COUNTS: dict = {}
 _STAGED = {"bytes": 0}
+_WIRE_COPIED = {"bytes": 0}
 _COUNTS_LOCK = threading.Lock()
 
 
@@ -125,10 +133,21 @@ def staged_bytes() -> int:
         return _STAGED["bytes"]
 
 
+def wire_copy_bytes() -> int:
+    """The bytes the cross-process exchanges copied between two cards of
+    this process since the last reset: a payload on another card than
+    the NCCL group's (process_card) copied there, and the answer copied
+    back to the card the caller named.  Nothing of it goes through host
+    memory."""
+    with _COUNTS_LOCK:
+        return _WIRE_COPIED["bytes"]
+
+
 def reset_collective_counts() -> None:
     with _COUNTS_LOCK:
         _COUNTS.clear()
         _STAGED["bytes"] = 0
+        _WIRE_COPIED["bytes"] = 0
 
 
 def _record(axes: tuple, grid: np.ndarray) -> None:
@@ -212,27 +231,49 @@ def _mesh_ranks(mesh: Mesh) -> tuple:
 
 # -- moving tensors between processes ------------------------------------------
 
-def _staging(group, tensor) -> bool:
-    """gloo moves host tensors only: a CUDA tensor crosses a gloo group
-    through host memory."""
+def _wire(group, device) -> torch.device:
+    """Where an exchange over `group` of entries on `device` puts its
+    payload and header: on NCCL the process's card (the one its groups
+    are bound to), whatever card the entries lie on; on gloo, which
+    moves host tensors, the host for a CUDA device, else the device.
+    Entries NCCL cannot carry (host tensors) raise: nothing switches to
+    gloo."""
     import torch.distributed as dist
-    return tensor.is_cuda and dist.get_backend(group) == "gloo"
+    device = torch.device(device)
+    if dist.get_backend(group) == "nccl":
+        card = process_card()
+        if card is None or device.type != "cuda":
+            raise RuntimeError(
+                f"an NCCL exchange of entries on {device} with the "
+                f"process's card {card}: NCCL moves tensors on the card "
+                f"initialize_distributed bound")
+        return card
+    return torch.device("cpu") if device.type == "cuda" else device
 
 
-def _to_host(tensor):
-    """A copy of a CUDA tensor in pinned host memory (the copy runs at
-    the link's rate; PyTorch's host allocator keeps the buffers), its
-    bytes counted as staged."""
-    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
-    host.copy_(tensor)
-    return _staged(host)
-
-
-def _staged(tensor):
-    """`tensor`, its bytes counted as staged through host memory."""
+def _moved(tensor, device: torch.device):
+    """`tensor` on `device`, the copy counted: between a card and the
+    host as staged (pinned on the host, where PyTorch's host allocator
+    keeps the buffers), between two cards as a wire copy."""
+    if tensor.device == device:
+        return tensor
+    counter = _WIRE_COPIED if device.type == tensor.device.type else _STAGED
     with _COUNTS_LOCK:
-        _STAGED["bytes"] += tensor.numel() * tensor.element_size()
-    return tensor
+        counter["bytes"] += tensor.numel() * tensor.element_size()
+    if device.type == "cpu":
+        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        return host.copy_(tensor)
+    return tensor.to(device)
+
+
+def _payload(pieces: list, wire: torch.device):
+    """The pieces flattened and joined into one tensor on the wire:
+    where they lie on one device, joined there and moved once; else each
+    moved, then joined."""
+    flat = [piece.reshape(-1) for piece in pieces]
+    if len({piece.device for piece in flat}) == 1:
+        return _moved(torch.cat(flat), wire)
+    return torch.cat([_moved(piece, wire) for piece in flat])
 
 
 def _check_step(mesh: Mesh, ranks: tuple, group, numel: int, tag: int,
@@ -258,34 +299,31 @@ def _check_step(mesh: Mesh, ranks: tuple, group, numel: int, tag: int,
 def _transfer(mesh: Mesh, ranks: tuple, outgoing: dict, incoming: dict,
               dtype, device, numel: int, tag: int) -> dict:
     """One exchange over the process group of `ranks` (one all_to_all
-    with empty slots): this process sends outgoing[rank] (flattened) to
-    each rank it names and receives from each rank in `incoming` a
-    tensor of that shape and `dtype`; it sends nothing to, and receives
-    nothing from, the others.  `numel` is the exchange's size every
-    process of the group checks alike (_check_step).  Returns {rank:
-    received}, on `device`."""
+    with empty slots): this process sends outgoing[rank] (a list of
+    tensors, flattened and joined) to each rank it names and receives
+    from each rank in `incoming` a tensor of that shape and `dtype`; it
+    sends nothing to, and receives nothing from, the others.  `numel` is
+    the exchange's size every process of the group checks alike
+    (_check_step).  The payload crosses on the wire (_wire).  Returns
+    {rank: received}, on `device`."""
     import torch.distributed as dist
     group = _process_group(mesh, ranks)
-    staged = (torch.device(device).type == "cuda"
-              and dist.get_backend(group) == "gloo")
-    wire = "cpu" if staged else device
+    device = torch.device(device)
+    wire = _wire(group, device)
     _check_step(mesh, ranks, group, numel, tag, wire)
-    sends = [outgoing[rank].reshape(-1) for rank in ranks
-             if rank in outgoing]
-    send = (torch.cat(sends) if sends
-            else torch.empty(0, dtype=dtype, device=device))
-    if staged:
-        send = _to_host(send)
+    pieces = [piece for rank in ranks for piece in outgoing.get(rank, ())]
+    send = (_payload(pieces, wire) if pieces
+            else torch.empty(0, dtype=dtype, device=wire))
     sizes = {rank: int(np.prod(shape)) for rank, shape in incoming.items()}
+    # staged through the host: pinned, as _moved's copies are
     receive = torch.empty(sum(sizes.values()), dtype=dtype, device=wire,
-                          pin_memory=staged)
+                          pin_memory=wire.type != device.type)
     dist.all_to_all_single(
         receive, send,
         output_split_sizes=[sizes.get(rank, 0) for rank in ranks],
-        input_split_sizes=[outgoing[rank].numel() if rank in outgoing
-                           else 0 for rank in ranks], group=group)
-    if staged:
-        receive = _staged(receive).to(device)
+        input_split_sizes=[sum(piece.numel() for piece in outgoing.get(
+            rank, ())) for rank in ranks], group=group)
+    receive = _moved(receive, device)
     received, start = {}, 0
     for rank in ranks:
         if rank in sizes:
@@ -302,26 +340,28 @@ def _exchange(mesh: Mesh, ranks: tuple, outgoing: dict, like,
     tensor shaped and typed like `like` (the groups are symmetric).
     Returns {rank: received}, on like's device."""
     others = [rank for rank in ranks if rank != mesh.rank]
-    return _transfer(mesh, ranks, {rank: outgoing[rank] for rank in others},
+    return _transfer(mesh, ranks, {rank: [outgoing[rank]] for rank in others},
                      {rank: like.shape for rank in others}, like.dtype,
                      like.device, like.numel(), tag)
 
 
-def _all_reduce(mesh: Mesh, ranks: tuple, tensor, tag: int):
-    """The sum of `tensor` over the processes of `ranks`, in f32 (the
-    caller rounds it once to the dtype it wants)."""
+def _all_reduce(mesh: Mesh, ranks: tuple, tensors: list, tag: int) -> list:
+    """The sum of each of `tensors` over the processes of `ranks`, in
+    f32 (the caller rounds it once to the dtype it wants), each on its
+    own tensor's device: one all_reduce of them joined on the wire."""
     import torch.distributed as dist
     group = _process_group(mesh, ranks)
-    staged = _staging(group, tensor)
-    total = tensor.detach().float().contiguous()
-    _check_step(mesh, ranks, group, total.numel(), tag,
-                "cpu" if staged else total.device)
-    if staged:
-        total = _to_host(total)
+    wire = _wire(group, tensors[0].device)
+    parts = [tensor.detach().float() for tensor in tensors]
+    total = _payload(parts, wire)
+    _check_step(mesh, ranks, group, total.numel(), tag, wire)
     dist.all_reduce(total, group=group)
-    if staged:
-        total = _staged(total).to(tensor.device)
-    return total
+    sums, start = [], 0
+    for part in parts:
+        sums.append(_moved(total[start:start + part.numel()].view(
+            part.shape), part.device))
+        start += part.numel()
+    return sums
 
 
 class _Chain:
@@ -738,8 +778,8 @@ def _send_blocks(mesh: Mesh, ranks: tuple, counts: dict, sent: list,
     listed.  Returns the received blocks in `wanted`'s order."""
     outgoing, start = {}, 0
     for rank, count in counts.items():
-        outgoing[rank] = torch.cat([tensor.detach().reshape(-1).to(device)
-                                    for tensor in sent[start:start + count]])
+        outgoing[rank] = [tensor.detach() for tensor in
+                          sent[start:start + count]]
         start += count
     received = _transfer(mesh, ranks, outgoing, {
         rank: (sum(int(np.prod(shape)) for shape in shapes),)
@@ -831,12 +871,9 @@ def sum_replica_grads(leaf) -> None:
             continue
         blocks = sorted(block for block, held in across.items()
                         if held == ranks)
-        total = _all_reduce(mesh, ranks, torch.cat(
-            [sums[block].reshape(-1) for block in blocks]),
-            _tag(("replicas", ranks)))
-        for block, part in zip(blocks, total.split(
-                [sums[block].numel() for block in blocks])):
-            sums[block] = part.view(sums[block].shape)
+        totals = _all_reduce(mesh, ranks, [sums[block] for block in blocks],
+                             _tag(("replicas", ranks)))
+        sums.update(zip(blocks, totals))
     for block, total in sums.items():
         for tensor in copies[block].values():
             tensor.grad = total.to(device=tensor.device, dtype=tensor.dtype)
@@ -874,7 +911,7 @@ class _Replicated(torch.autograd.Function):
             grad = torch.zeros(shape, dtype=dtype, device=device)
         mesh = ctx.mesh
         ranks = _mesh_ranks(mesh)
-        total = _all_reduce(mesh, ranks, grad, _tag(("whole", shape)))
+        total, = _all_reduce(mesh, ranks, [grad], _tag(("whole", shape)))
         total = total.to(grad.dtype)
         _record(mesh.process_axes, _source_grid(total))
         return None, None, torch.zeros(()), total
@@ -985,8 +1022,8 @@ class _Reshard(torch.autograd.Function):
             ctx.state.spent = True
             if whole is None:
                 whole = torch.zeros(ctx.shape, dtype=ctx.dtype, device=home)
-            whole = _all_reduce(mesh, _mesh_ranks(mesh), whole, _tag(
-                ("reshard", tuple(ctx.shape)))).to(whole.dtype)
+            whole = _all_reduce(mesh, _mesh_ranks(mesh), [whole], _tag(
+                ("reshard", tuple(ctx.shape))))[0].to(whole.dtype)
             none = none[:-1] + (torch.zeros(()),)
         if whole is None:
             return none + (None,) * len(ctx.source)

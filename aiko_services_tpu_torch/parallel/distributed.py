@@ -29,7 +29,7 @@ from .mesh import Mesh, _canonical_axes, default_devices
 
 __all__ = [
     "initialize_distributed", "shutdown_distributed", "is_distributed",
-    "global_mesh", "process_index", "process_count",
+    "global_mesh", "process_index", "process_count", "process_card",
 ]
 
 _LOCK = threading.Lock()
@@ -56,12 +56,18 @@ def initialize_distributed(coordinator_address: str | None = None,
     On NCCL the process's card is the first of local_device_ids (by
     default the process id modulo the visible cards): it becomes the
     current device and the group's device_id before the first
-    collective, so every NCCL call of this process runs there.  Two
-    ranks of one NCCL job on one physical card (one UUID, whatever CUDA
-    index each sees it as) raise ValueError on every rank, before any
-    NCCL call (the ranks compare their cards through the rendezvous
-    store); nothing falls back to gloo."""
-    global _INITIALIZED, _LOCAL_DEVICE_IDS
+    collective, and every NCCL call of this process runs there
+    (process_card; the collectives copy a payload that lies on another
+    of its cards there and back).  local_device_ids may name several
+    cards, the TPU pod's layout of one process per host driving all its
+    chips: [2r, 2r + 1] gives rank r two positions on two cards.  Two
+    ranks of one NCCL job that name one physical card among their
+    local_device_ids (one UUID, whatever CUDA index each sees it as)
+    raise ValueError on every rank, before any NCCL call (the ranks
+    compare their cards through the rendezvous store); nothing falls
+    back to gloo.  One process may name one card several times ([0, 0,
+    1, 1]: two positions on each)."""
+    global _INITIALIZED, _LOCAL_DEVICE_IDS, _CARD
     with _LOCK:
         if _INITIALIZED:
             return True
@@ -87,14 +93,17 @@ def initialize_distributed(coordinator_address: str | None = None,
         world, rank = int(num_processes), int(process_id)
         timeout = datetime.timedelta(seconds=timeout_seconds)
         init_method = f"tcp://{coordinator_address}"
+        card = None
         if backend == "nccl":
             if local_device_ids is None:
                 local_device_ids = [rank % max(torch.cuda.device_count(), 1)]
-            card = torch.device("cuda", int(local_device_ids[0]))
+            cards = [torch.device("cuda", int(index))
+                     for index in local_device_ids]
+            card = cards[0]
             store, _, _ = next(dist.rendezvous(
                 init_method, rank, world, timeout=timeout))
             store.set_timeout(timeout)
-            _claim_card(store, rank, world, card)
+            _claim_cards(store, rank, world, cards)
             torch.cuda.set_device(card)
             # the prefix init_process_group gives a store it makes itself
             dist.init_process_group(
@@ -107,27 +116,33 @@ def initialize_distributed(coordinator_address: str | None = None,
                                     timeout=timeout)
         _LOCAL_DEVICE_IDS = (None if local_device_ids is None
                              else [int(index) for index in local_device_ids])
+        _CARD = card
         _INITIALIZED = True
         return True
 
 
-def _claim_card(store, rank: int, world: int, card) -> None:
-    """Every rank of an NCCL job publishes its card in the rendezvous
-    store and reads every other's; two ranks on one physical card raise
+def _claim_cards(store, rank: int, world: int, cards: list) -> None:
+    """Every rank of an NCCL job publishes its cards in the rendezvous
+    store and reads every other's; a card that two ranks name raises
     ValueError on all of them (NCCL takes one rank per card).  A card is
     named by its host and its UUID, not its CUDA index: a job that gives
     each rank its own card through CUDA_VISIBLE_DEVICES sees every card
-    as cuda:0.  The index stays for the message."""
+    as cuda:0.  The index stays for the message.  A card one rank names
+    several times is claimed once."""
     import socket
-    claim = {"host": socket.gethostname(), "card": _card_identity(card),
-             "index": card.index}
-    store.set(f"aiko_card/{rank}", json.dumps(claim))
-    claims = [json.loads(store.get(f"aiko_card/{other}").decode())
-              for other in range(world)]
+    host = socket.gethostname()
+    mine: dict = {}
+    for card in cards:
+        mine.setdefault(_card_identity(card), card.index)
+    store.set(f"aiko_card/{rank}", json.dumps(
+        {"host": host, "cards": sorted(mine.items())}))
     owners: dict = {}
-    for other, claim in enumerate(claims):
-        owners.setdefault((claim["host"], claim["card"]), []).append(other)
-    shared = [ranks for ranks in owners.values() if len(ranks) > 1]
+    for other in range(world):
+        claim = json.loads(store.get(f"aiko_card/{other}").decode())
+        for identity, index in claim["cards"]:
+            owners.setdefault((claim["host"], identity), []).append(
+                (other, index))
+    shared = {card: held for card, held in owners.items() if len(held) > 1}
     if shared:
         # the store lives in rank 0: it leaves only once every rank has
         # read the claims, so each rank raises this error, not a lost
@@ -142,11 +157,11 @@ def _claim_card(store, rank: int, world: int, card) -> None:
         raise ValueError(
             "NCCL takes one rank per card, but ranks share cards: "
             + "; ".join(
-                f"ranks {ranks} on card {claims[ranks[0]]['card']} of "
-                f"{claims[ranks[0]]['host']} (as cuda:"
-                + "/".join(str(claims[other]["index"]) for other in ranks)
-                + ")" for ranks in shared)
-            + " (give each rank its own card in local_device_ids, or "
+                f"ranks {[other for other, _ in held]} on card {identity} "
+                f"of {host_name} (as cuda:"
+                + "/".join(str(index) for _, index in held) + ")"
+                for (host_name, identity), held in shared.items())
+            + " (give each rank cards of its own in local_device_ids, or "
               "backend='gloo' for several ranks on one card)")
 
 
@@ -164,15 +179,25 @@ def _card_identity(card) -> str:
 
 
 _LOCAL_DEVICE_IDS: list | None = None
+_CARD: torch.device | None = None
+
+
+def process_card() -> torch.device | None:
+    """The card this process's NCCL group is bound to -- the first of
+    initialize_distributed's local_device_ids, its current device -- or
+    None on a gloo job and before one is joined.  Every NCCL exchange of
+    the process puts its payload there (collectives._wire)."""
+    return _CARD
 
 
 def shutdown_distributed() -> None:
-    global _INITIALIZED
+    global _INITIALIZED, _CARD
     with _LOCK:
         if _INITIALIZED:
             import torch.distributed as dist
             dist.destroy_process_group()
             _INITIALIZED = False
+            _CARD = None
 
 
 def is_distributed() -> bool:

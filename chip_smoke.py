@@ -5,8 +5,8 @@ parameter-sharding axes (tensor, FSDP, data and expert parallelism),
 HuggingFace checkpoints, the shipped examples, the analyzer's eval
 pass, the elastic fleet, the media and vision elements, the
 Checkpointer, the native codec and sharded training across processes
-on one NVIDIA GPU; with `cards`, the mesh on several cards (phases 19
-and 20, below).
+on one NVIDIA GPU; with `cards`, the mesh on several cards (phases
+19-21, below).
 
     python3 chip_smoke.py
     python3 chip_smoke.py cards    # a machine with four cards
@@ -327,8 +327,9 @@ result:
      18e every K1 and K2/K3 case 18a-18d launched that phase 2 did not
          check, against the plain versions, on each rank
 
-`python3 chip_smoke.py cards` runs phases 0, 1, 19 and 20 and phase 3's
-timing on cuda:0; it exits non-zero with fewer than four CUDA devices:
+`python3 chip_smoke.py cards` runs phases 0, 1, 19, 20 and 21 and phase
+3's timing on cuda:0; it exits non-zero with fewer than four CUDA
+devices:
  19. one process over several cards:
      19a nvidia-smi topo -m, a 1 GiB bf16 copy cuda:0 -> cuda:k timed
          on each card, then phase 2's K1 and K2/K3 cases on every card
@@ -363,6 +364,31 @@ timing on cuda:0; it exits non-zero with fewer than four CUDA devices:
          hops r + 1 a layer;
      20d every K1 and K2/K3 case 20a-20c launched that phase 2 did not
          check, against the plain versions on each rank's card
+ 21. the pod layout: two NCCL worker processes with two cards each
+     (local_device_ids [2r, 2r + 1], cuda:2r current and bound), every
+     mesh's across-process axis major and "model" (or "seq") within the
+     process; every exchange crosses on the rank's first card, a payload
+     on its second copied there and back (the bytes held to the count
+     worked out from the mesh), nothing staged through host memory; per
+     arm and rank the collectives, each card's peak and K1/K2/K3
+     launches:
+     21a generate on fsdp 2 across x model 2 within: llama32_1b at full
+         width and depth, bf16, 2 x 128 prompt tokens, 32 new, tokens
+         identical to the same mesh over cuda:0; then f32 at 2 layers,
+         tokens identical to generate on the whole weights on cuda:0;
+     21b 20a's step (full depth, bf16, 4 x 1024, adamw, 1 + 2 steps) on
+         data 2 across x model 2 within (the replica sums cross the
+         processes from both cards) and on fsdp 2 x model 2, losses and
+         parameters against the unsharded steps at 20a's gates;
+     21c 20c's ring and Ulysses forwards on {"seq": 4}, positions 2r and
+         2r + 1 on rank r: hops inside a process card to card, across
+         over NCCL, each against 12b's path on the rank's card;
+     21d 18d's remat arm in bf16 on seq 2 across x model 2 within (the
+         weights cut over "model"): each gradient leaf against the same
+         step without remat (POD_REMAT_GRAD_REL_TOL), the layers' peak
+         and what they leave held;
+     21e every K1 and K2/K3 case 21a-21d launched that phase 2 did not
+         check, against the plain versions on both of each rank's cards
 
 The last three lines are the card's nvidia-smi name and power limit, one
 JSON object describing every kernel of the paths, and {"ok": true,
@@ -3823,6 +3849,14 @@ def add_launches(total: dict, more: dict) -> None:
         total[name] += count
 
 
+def add_card_launches(total: dict, more: dict) -> None:
+    """{card: {kernel: launches}} `more` added into `total`."""
+    for card, counts in more.items():
+        into = total.setdefault(card, {})
+        for name, count in counts.items():
+            into[name] = into.get(name, 0) + count
+
+
 def plain_attention_chunks(q, k, v, dout, causal: bool) -> list:
     """[O, dQ, dK, dV] of the plain f32 version on the whole sequence,
     SP_HEAD_CHUNK heads at a time (heads are independent)."""
@@ -6835,8 +6869,10 @@ def local_blocks(leaf) -> list:
 def local_relative(got_tree, want_tree, base_tree=None) -> tuple:
     """worst_relative over the blocks this process holds: per leaf,
     ||got - want|| / ||want|| over its distinct local blocks against the
-    same slices of the whole `want_tree` (with `base_tree`, a tree placed
+    same slices of the whole `want_tree`, or against its blocks where
+    `want_tree` is placed as `got_tree` (with `base_tree`, a tree placed
     as `got_tree`, of the changes from it)."""
+    from aiko_services_tpu_torch.parallel import Sharded
     worst = ("", 0.0)
     wants = dict(leaf_items(want_tree))
     bases = dict(leaf_items(base_tree)) if base_tree is not None else {}
@@ -6844,9 +6880,13 @@ def local_relative(got_tree, want_tree, base_tree=None) -> tuple:
         error2 = scale2 = 0.0
         base = (local_blocks(bases[name]) if name in bases
                 else [(None, None)] * len(local_blocks(leaf)))
-        for (tensor, index), (start, _) in zip(local_blocks(leaf), base):
+        placed = (local_blocks(wants[name])
+                  if isinstance(wants[name], Sharded) else None)
+        for number, ((tensor, index), (start, _)) in enumerate(
+                zip(local_blocks(leaf), base)):
             got = tensor.detach().float()
-            want = wants[name][index].to(got.device).float()
+            want = (placed[number][0] if placed is not None
+                    else wants[name][index]).to(got.device).float()
             if start is not None:
                 got, want = got - start.float(), want - start.float()
             error2 += (got - want).norm().item() ** 2
@@ -6881,6 +6921,23 @@ def replica_digests(tree, mesh) -> dict:
     return out
 
 
+def fsdp_position_bytes(config, mesh) -> int:
+    """The bytes of one position's entries of one sharded train step's
+    fsdp collectives: the embedding's gather, per layer the q/k/v and
+    gate/up psums and the wo and w_down gathers (the activations, the
+    batch's rows the position computes), and the f32 logits' psum."""
+    fsdp, model, data = (mesh.size(name) for name in ("fsdp", "model",
+                                                      "data"))
+    rows = TRAIN_BATCH // data if TRAIN_BATCH % data == 0 else TRAIN_BATCH
+    tokens = rows * TRAIN_SEQ
+    width = torch.empty((), dtype=config.torch_dtype).element_size()
+    d, hd = config.d_model, config.head_dim
+    return tokens * width * (d // fsdp + config.n_layers * (
+        (config.n_heads + 2 * config.n_kv_heads) * hd // model
+        + 2 * d // fsdp + 2 * config.d_ff // model)) + (
+        tokens * config.vocab_size * 4)
+
+
 def process_expected(config, mesh) -> dict:
     """What one sharded train step issues on this process, worked out
     from the mesh: its K1 (and K2, K3) launches -- one per layer and per
@@ -6890,8 +6947,8 @@ def process_expected(config, mesh) -> dict:
     over fsdp, the wo and w_down psums over model (each the activations'
     bytes), the f32 logits' psum over fsdp; per step, each whole leaf's
     gradient summed across the processes and each Sharded leaf whose
-    blocks another process holds too summed with it (sum_replica_grads),
-    each with its local blocks' bytes."""
+    blocks another process holds too, or this one on two cards, summed
+    with them (sum_replica_grads), each with its local blocks' bytes."""
     from aiko_services_tpu_torch.models import init_params, param_specs
     from aiko_services_tpu_torch.parallel import filter_specs
     from aiko_services_tpu_torch.parallel.mesh import spec_layout
@@ -6908,17 +6965,13 @@ def process_expected(config, mesh) -> dict:
                     else 0 for name in ("data", "model"))
               for position in positions}
     calls = per_position = 0
-    d, hd = config.d_model, config.head_dim
     if fsdp > 1:
         calls += 2 + 4 * config.n_layers
-        per_position += tokens * width * (
-            d // fsdp + config.n_layers * (
-                (config.n_heads + 2 * config.n_kv_heads) * hd // model
-                + 2 * d // fsdp + 2 * config.d_ff // model))
-        per_position += tokens * config.vocab_size * 4
+        per_position += fsdp_position_bytes(config, mesh)
     if model > 1:
         calls += 2 * config.n_layers
-        per_position += tokens * width * config.n_layers * 2 * d // fsdp
+        per_position += (tokens * width * config.n_layers * 2
+                         * config.d_model // fsdp)
     total = per_position * len(positions)
     with torch.device("meta"):
         shapes = init_params(config, torch.Generator(), device="meta")
@@ -6931,12 +6984,37 @@ def process_expected(config, mesh) -> dict:
         if not cut_by:
             calls += 1
             total += leaf_bytes
-        elif spanning - cut_by:
+            continue
+        # a block other processes hold too, or that this one holds on
+        # two cards (fsdp across the processes, model within: the
+        # embedding's model replicas)
+        holders: dict = {}
+        for position in positions:
+            block = tuple(position[axis] for axis, name
+                          in enumerate(mesh.axis_names) if name in cut_by)
+            holders.setdefault(block, set()).add(str(mesh.devices[position]))
+        if spanning - cut_by or any(len(cards) > 1
+                                    for cards in holders.values()):
             cut = int(np.prod([mesh.shape[axis] for axis in cut_by]))
             calls += 1
             total += leaf_bytes // cut * len(positions)
     return {"launches": config.n_layers * len(shards),
             "collective_calls": calls, "collective_bytes": total}
+
+
+def process_wire_expected(config, mesh) -> int:
+    """The bytes one sharded train step copies between this process's
+    cards to reach NCCL's card and back (wire_copy_bytes), worked out
+    from the mesh: where "fsdp" spans the processes, each position off
+    the card sends its entry of every fsdp collective (process_expected's
+    per-position bytes) to the card and takes the other rank's back, in
+    the forward and again for the cotangents in the backward (four times
+    its bytes); and the replica sums (replica_wire_expected).  None on
+    gloo, nor with one card a process."""
+    total = replica_wire_expected(config, mesh)
+    if "fsdp" in mesh.process_axes:
+        total += 4 * fsdp_position_bytes(config, mesh) * len(off_card(mesh))
+    return total
 
 
 def process_arm(rank: int, label: str, config, axes: dict, smi: str,
@@ -6956,10 +7034,12 @@ def process_arm(rank: int, label: str, config, axes: dict, smi: str,
     from aiko_services_tpu_torch.ops import kernels
     from aiko_services_tpu_torch.parallel import (
         collective_totals, filter_specs, global_mesh, process_count,
-        reset_collective_counts, shard_pytree, staged_bytes, use_mesh)
+        reset_collective_counts, shard_pytree, staged_bytes, use_mesh,
+        wire_copy_bytes)
     from aiko_services_tpu_torch.utils.tree import tree_map
     f32 = config.dtype == "float32"
     mesh = global_mesh(axes)
+    devices = list(mesh.devices[mesh.local])
     params = draw_on_card(config, PROCESS_SEED)
     n_params = count_params(params)
     sharded = copy_replicated(shard_pytree(
@@ -6977,23 +7057,26 @@ def process_arm(rank: int, label: str, config, axes: dict, smi: str,
     optimizer = recording(adamw(SHARD_LR), record)
     state = optimizer.init(sharded)
     step = make_train_step(config, optimizer, sharded=True)
-    losses, times = [], []
-    with use_mesh(mesh):
+    losses, times, by_card = [], [], {}
+    with use_mesh(mesh), launches_by_card(by_card):
         for index, batch in enumerate(process_batches(config)):
             if index == 1:  # the warm-up step is not counted
-                torch.cuda.synchronize()
+                synchronize_cards(devices)
                 torch.cuda.reset_peak_memory_stats()
+                reset_peaks(devices)
                 kernels.reset_launch_counts()
                 reset_collective_counts()
+                by_card.clear()
                 exchanges = sum(mesh.sequence.values())
             start = time.perf_counter()
             sharded, state, loss = step(sharded, state, batch)
             losses.append(loss.item())
-            torch.cuda.synchronize()
+            synchronize_cards(devices)
             times.append(time.perf_counter() - start)
     launches = launch_counts()
     calls, size = collective_totals()
-    staged = staged_bytes()
+    staged, wire = staged_bytes(), wire_copy_bytes()
+    peaks = card_peaks(devices)
     exchanges = sum(mesh.sequence.values()) - exchanges
     peak = torch.cuda.max_memory_allocated()
     after = load_pytree(PROCESS_DIR / f"{config.dtype}_after.safetensors",
@@ -7026,8 +7109,10 @@ def process_arm(rank: int, label: str, config, axes: dict, smi: str,
     step_s = statistics.median(times[1:])
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / step_s
     # over the peak of the cards the job runs on: one on gloo (every
-    # rank on cuda:0), one a rank on NCCL
-    cards = process_count() if nccl_job() else 1
+    # rank on cuda:0), each rank's own on NCCL
+    cards = (process_count() * len(distinct_cards(devices)) if nccl_job()
+             else 1)
+    expected_wire = process_wire_expected(config, mesh)
     mfu = (6 * n_params * tokens_per_s
            / (cards * peaks_for(smi)[1][config.dtype]))
     grad_leaf, grad_error = max(grad_errors, key=lambda item: item[1],
@@ -7055,6 +7140,12 @@ def process_arm(rank: int, label: str, config, axes: dict, smi: str,
         collective_mib_per_step=f"{size / steps / 2**20:.3f}",
         expected_collective_mib=f"{expected['collective_bytes'] / 2**20:.3f}",
         host_staged_mib_per_step=f"{staged / steps / 2**20:.1f}",
+        wire_copy_mib_per_step=f"{wire / steps / 2**20:.3f}",
+        expected_wire_copy_mib=f"{expected_wire / 2**20:.3f}",
+        launches_per_step_by_card=json.dumps(
+            {card: {name: count / steps for name, count in counts.items()}
+             for card, counts in sorted(by_card.items())}),
+        peak_gib_by_card=json.dumps(peaks),
         **(dict(step_ms_headers_skipped=f"{statistics.median(unchecked) * 1e3:.1f}",
                 headers_ms_per_step=f"{(step_s - statistics.median(unchecked)) * 1e3:.1f}",
                 checked_exchanges_per_step=exchanges / steps)
@@ -7078,29 +7169,35 @@ def process_arm(rank: int, label: str, config, axes: dict, smi: str,
     if (any(count != expected["launches"]
             for count in per_step["launches"].values())
             or per_step["collective_calls"] != expected["collective_calls"]
-            or per_step["collective_bytes"] != expected["collective_bytes"]):
-        raise SystemExit(f"{label} rank {rank}: a step issued {per_step}, "
-                         f"worked out from the mesh: {expected}")
+            or per_step["collective_bytes"] != expected["collective_bytes"]
+            or wire != expected_wire * steps):
+        raise SystemExit(f"{label} rank {rank}: a step issued {per_step} "
+                         f"and copied {wire / steps} bytes between the "
+                         f"cards, worked out from the mesh: {expected}, "
+                         f"{expected_wire}")
     return {"label": label, "axes": axes, "launches": launches,
-            "digests": digests}
+            "by_card": by_card, "digests": digests}
 
 
 def check_new_cases(forward: set, backward: set, prefix: str,
-                    phase: str, seed: int) -> tuple:
+                    phase: str, seed: int, devices=("cuda",)) -> tuple:
     """Each K1 case of `forward` and K2/K3 case of `backward` that phase
-    2 did not check, against the plain versions at phase 2's limits;
-    returns how many of each were checked."""
+    2 did not check, against the plain versions at phase 2's limits, on
+    each of `devices` (the current card by default); returns how many of
+    each were checked."""
     def checked(cases):
         return {(*spec, 1.0 / math.sqrt(spec[4])) for spec in cases}
     new_forward = sorted(forward - checked(KERNEL_CASES.values()), key=str)
     new_backward = sorted(backward - checked(BACKWARD_CASES.values()),
                           key=str)
-    for index, spec in enumerate(new_forward):
-        check_forward_case(f"{prefix}_{index}", spec, seed + index,
-                           f"{phase} kernel_vs_plain")
-    for index, spec in enumerate(new_backward):
-        check_backward_case(f"{prefix}_{index}", spec, seed + 100 + index,
-                            f"{phase} backward_vs_plain")
+    for device in devices:
+        for index, spec in enumerate(new_forward):
+            check_forward_case(f"{prefix}_{index}", spec, seed + index,
+                               f"{phase} kernel_vs_plain", device)
+        for index, spec in enumerate(new_backward):
+            check_backward_case(f"{prefix}_{index}", spec,
+                                seed + 100 + index,
+                                f"{phase} backward_vs_plain", device)
     return len(new_forward), len(new_backward)
 
 
@@ -7266,36 +7363,51 @@ def nccl_job() -> bool:
     return dist.is_initialized() and dist.get_backend() == "nccl"
 
 
-def seq_measured(run) -> tuple:
+def seq_measured(run, devices=None) -> tuple:
     """(run()'s result, what it cost on this process: seconds, K1/K2/K3
     launches, collective calls and bytes, bytes staged through host
-    memory, peak bytes allocated on the card)."""
+    memory, bytes copied between its cards to reach NCCL's card, peak
+    bytes allocated on the card; with `devices`, each of their cards'
+    peak GiB and K1/K2/K3 launches too)."""
     from aiko_services_tpu_torch.ops import kernels
     from aiko_services_tpu_torch.parallel import (
-        collective_totals, reset_collective_counts, staged_bytes)
+        collective_totals, reset_collective_counts, staged_bytes,
+        wire_copy_bytes)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if devices is not None:
+        reset_peaks(devices)
     kernels.reset_launch_counts()
     reset_collective_counts()
+    by_card: dict = {}
     start = time.perf_counter()
-    result = run()
+    with launches_by_card(by_card):
+        result = run()
     torch.cuda.synchronize()
+    if devices is not None:
+        synchronize_cards(devices)
     seconds = time.perf_counter() - start
     calls, size = collective_totals()
-    return result, {"seconds": seconds, "launches": launch_counts(),
-                    "calls": calls, "bytes": size, "staged": staged_bytes(),
-                    "peak": torch.cuda.max_memory_allocated()}
+    cost = {"seconds": seconds, "launches": launch_counts(),
+            "calls": calls, "bytes": size, "staged": staged_bytes(),
+            "wire": wire_copy_bytes(),
+            "peak": torch.cuda.max_memory_allocated()}
+    if devices is not None:
+        cost.update(peaks=card_peaks(devices), by_card=by_card)
+    return result, cost
 
 
 def seq_expected(config, kind: str, length: int, rank: int,
                  whole: tuple = (0, 0), new_tokens: int = 0,
-                 size: int = 2) -> dict:
+                 size: int = 2, seq_indices=None, model: int = 1) -> dict:
     """What one arm issues on this rank of a causal {"seq": size} ring
-    (or Ulysses) across `size` processes, worked out from the shapes: K1
-    (and K2, K3) launches -- rank r runs r + 1 hops a layer, each one
-    launch -- and its collective calls and bytes, each call counting this
-    process's block (B 1, H heads after the K/V expansion, L/size
-    positions); the ring moves its blocks size - 1 hops a layer:
+    (or Ulysses) across processes, worked out from the shapes: K1 (and
+    K2, K3) launches -- the position at seq index i runs i + 1 hops a
+    layer, each one launch -- and its collective calls and bytes, each
+    call counting every local position's block (B 1, H heads after the
+    K/V expansion, L/size positions).  The rank holds `seq_indices`
+    (default [rank]), each at `model` positions along "model", which cut
+    its heads.  The ring moves its blocks size - 1 hops a layer:
       - a forward hop: one ppermute of K and V;
       - a backward hop: one of K, V and their f32 dK, dV; one more
         returns dK, dV home;
@@ -7303,26 +7415,32 @@ def seq_expected(config, kind: str, length: int, rank: int,
       - the cached prefill: one all_gather of the un-expanded K/V block;
       - a decode step: per layer one pmax of the (B, Hkv, G, 1) maxima
         and one psum of [num, den], f32;
-      - a train step: one all_reduce of each whole parameter's gradient
-        (`whole`: the count of such leaves and their bytes)."""
+      - with model > 1, each layer's forward: one psum over "model" of
+        the attention's and one of the FFN's (B, L/size, d) partials;
+      - a train step: one sum across the processes of each parameter's
+        gradient (`whole`: the count of leaves and their bytes)."""
     layers, heads, hd = config.n_layers, config.n_heads, config.head_dim
     width = torch.empty((), dtype=config.torch_dtype).element_size()
+    indices = [rank] if seq_indices is None else list(seq_indices)
     block = length // size
-    qkv = heads * block * hd               # elements of one expanded block
-    hop = 2 * qkv * width
-    hops = rank + 1
+    qkv = heads * block * hd      # elements of one seq index's expanded block
+    hop = len(indices) * 2 * qkv * width
+    hops = model * sum(index + 1 for index in indices)
+    psums = (2 * layers, 2 * layers * len(indices) * model * block
+             * config.d_model * width) if model > 1 else (0, 0)
     if kind == "ring":
         return {"launches": {"flash_attention": layers * hops,
                              "flash_attention_dq": 0,
                              "flash_attention_dkv": 0},
-                "calls": layers * (size - 1),
-                "bytes": layers * (size - 1) * hop}
+                "calls": layers * (size - 1) + psums[0],
+                "bytes": layers * (size - 1) * hop + psums[1]}
     if kind == "ulysses":
-        return {"launches": {"flash_attention": layers,
+        return {"launches": {"flash_attention": layers * len(indices),
                              "flash_attention_dq": 0,
                              "flash_attention_dkv": 0},
-                "calls": 2 * layers,
-                "bytes": layers * (3 * qkv + qkv) * width}
+                "calls": 2 * layers + psums[0],
+                "bytes": layers * (3 * qkv + qkv) * width * len(indices)
+                + psums[1]}
     if kind == "generate":
         groups = heads // config.n_kv_heads
         prefill = hop + 2 * config.n_kv_heads * block * hd * width
@@ -7333,18 +7451,99 @@ def seq_expected(config, kind: str, length: int, rank: int,
                 "calls": 2 * layers * new_tokens,
                 "bytes": layers * (prefill + (new_tokens - 1) * step)}
     forwards = 2 if kind == "remat" else 1
-    backward = qkv * (2 * 4 + 2 * width) + qkv * 2 * 4
+    backward = len(indices) * (qkv * (2 * 4 + 2 * width) + qkv * 2 * 4)
     return {"launches": {"flash_attention": forwards * layers * hops,
                          "flash_attention_dq": layers * hops,
                          "flash_attention_dkv": layers * hops},
-            "calls": (forwards + 2) * layers + whole[0],
-            "bytes": layers * (forwards * hop + backward) + whole[1]}
+            "calls": (forwards + 2) * layers + whole[0]
+            + forwards * psums[0],
+            "bytes": layers * (forwards * hop + backward) + whole[1]
+            + forwards * psums[1]}
+
+
+def local_positions(mesh) -> list:
+    return [position for position in np.ndindex(mesh.devices.shape)
+            if mesh.local[position]]
+
+
+def off_card(mesh) -> list:
+    """This process's positions whose device is not its NCCL card (none
+    on gloo, where no exchange copies between cards)."""
+    from aiko_services_tpu_torch.parallel import process_card
+    if not nccl_job():
+        return []
+    return [position for position in local_positions(mesh)
+            if mesh.devices[position] != process_card()]
+
+
+def replica_wire_expected(config, mesh) -> int:
+    """The bytes the replica sums of one train step copy between this
+    process's cards (sum_replica_grads): each block another process
+    holds too is summed across in f32, and a block at a position off
+    the process's card goes to the card and its sum comes back (8 bytes
+    an element)."""
+    from aiko_services_tpu_torch.models import init_params, param_specs
+    from aiko_services_tpu_torch.parallel import filter_specs
+    from aiko_services_tpu_torch.parallel.mesh import spec_layout
+    away = off_card(mesh)
+    if not away:
+        return 0
+    with torch.device("meta"):
+        shapes = init_params(config, torch.Generator(), device="meta")
+    specs = dict(leaf_items(filter_specs(param_specs(config), mesh)))
+    spanning = set(mesh.process_axes)
+    total = 0
+    for name, leaf in leaf_items(shapes):
+        layout = spec_layout(specs[name], mesh, leaf.ndim)
+        cut_by = {axis for names in layout for axis in names}
+        if cut_by and spanning - cut_by:
+            cut = int(np.prod([mesh.shape[axis] for axis in cut_by]))
+            total += 8 * leaf.numel() // cut * len(away)
+    return total
+
+
+def seq_wire_expected(config, kind: str, length: int, mesh) -> int:
+    """The bytes an arm on a process mesh with a "seq" axis copies
+    between this process's cards to reach NCCL's card
+    (wire_copy_bytes), worked out from the mesh: every ring hop sends
+    the block of the process's last seq index (at each "model" position)
+    to the next process and lands the one it receives at its first, so
+    it copies each sender's block that lies off the card -- each forward
+    hop, again in remat's recompute, and the backward's hops of K, V,
+    dK, dV and its return of dK, dV; Ulysses' all_to_alls stack the
+    process's entries on its first position, which lies on the card;
+    a train step adds its replica sums (replica_wire_expected)."""
+    axis = mesh.axis_names.index("seq")
+    last = max(position[axis] for position in local_positions(mesh))
+    senders = sum(position[axis] == last for position in off_card(mesh))
+    size, model = mesh.size("seq"), mesh.size("model")
+    width = torch.empty((), dtype=config.torch_dtype).element_size()
+    qkv = config.n_heads // model * (length // size) * config.head_dim
+    hop = 2 * qkv * width
+    if kind == "ulysses":
+        return 0
+    if kind == "ring":
+        return senders * config.n_layers * (size - 1) * hop
+    forwards = 2 if kind == "remat" else 1
+    backward = (size - 1) * qkv * (2 * 4 + 2 * width) + qkv * 2 * 4
+    return (senders * config.n_layers
+            * (forwards * (size - 1) * hop + backward)
+            + replica_wire_expected(config, mesh))
 
 
 def seq_report(label: str, rank: int, smi: str, cost: dict,
                expected: dict, tokens: int, **fields) -> None:
     """One arm's line, then its launches and collectives held to the
-    counts worked out in advance."""
+    counts worked out in advance (and the bytes copied between the
+    process's cards, where `expected` has "wire")."""
+    wire = {}
+    if "wire" in expected:
+        wire = dict(wire_copy_mib=f"{cost['wire'] / 2**20:.3f}",
+                    expected_wire_copy_mib=f"{expected['wire'] / 2**20:.3f}")
+    cards = {}
+    if "peaks" in cost:
+        cards = dict(launches_by_card=json.dumps(cost["by_card"]),
+                     peak_gib_by_card=json.dumps(cost["peaks"]))
     say(f"{label} rank{rank}", ms=f"{cost['seconds'] * 1e3:.1f}",
         tokens_per_s=f"{tokens / cost['seconds']:.1f}", **fields,
         launches=json.dumps(cost["launches"]),
@@ -7353,14 +7552,18 @@ def seq_report(label: str, rank: int, smi: str, cost: dict,
         expected_collective_calls=expected["calls"],
         collective_mib=f"{cost['bytes'] / 2**20:.3f}",
         expected_collective_mib=f"{expected['bytes'] / 2**20:.3f}",
-        host_staged_mib=f"{cost['staged'] / 2**20:.1f}",
-        max_memory_allocated_gib=f"{cost['peak'] / 2**30:.2f}",
+        host_staged_mib=f"{cost['staged'] / 2**20:.1f}", **wire,
+        max_memory_allocated_gib=f"{cost['peak'] / 2**30:.2f}", **cards,
         card=repr(smi))
     if (cost["launches"] != expected["launches"]
             or cost["calls"] != expected["calls"]
-            or cost["bytes"] != expected["bytes"]):
+            or cost["bytes"] != expected["bytes"]
+            or cost["wire"] != expected.get("wire", cost["wire"])):
         raise SystemExit(f"{label} rank {rank}: issued {cost}, worked out "
                          f"from the shapes: {expected}")
+    if nccl_job() and cost["staged"]:
+        raise SystemExit(f"{label} rank {rank}: staged {cost['staged']} "
+                         f"bytes through host memory on NCCL")
 
 
 def warm_exchanges(mesh, axis_name: str) -> None:
@@ -7387,12 +7590,14 @@ def seq_tokens(config, shape, seed: int):
         0, config.vocab_size, shape)).cuda()
 
 
-def seq_prefill(rank: int, mesh, smi: str, label: str = "18a") -> dict:
-    """18a (20c): llama32_1b at full width and depth, bf16, one 1 x
+def seq_prefill(rank: int, mesh, smi: str, label: str = "18a",
+                by_card: dict | None = None) -> dict:
+    """18a (20c, 21c): llama32_1b at full width and depth, bf16, one 1 x
     SP_SEQ prompt through the ring and through Ulysses across the
     processes of `mesh`'s "seq" axis, against 12b's path (the one-process
     {"seq": SP_SIZE} forward on the same weights, on this process's
-    card).  On an NCCL job nothing is staged through host memory."""
+    card).  On an NCCL job nothing is staged through host memory.
+    Returns the K1 launches; with `by_card`, adds each card's to it."""
     from dataclasses import replace
     from aiko_services_tpu_torch.models import LLAMA32_1B, forward
     from aiko_services_tpu_torch.parallel import use_mesh
@@ -7400,6 +7605,8 @@ def seq_prefill(rank: int, mesh, smi: str, label: str = "18a") -> dict:
     tokens = seq_tokens(LLAMA32_1B, (1, SP_SEQ), 1801)
     launches = {name: 0 for name in launch_counts()}
     size = mesh.size("seq")
+    indices = [position[0] for position in local_positions(mesh)]
+    devices = list(mesh.devices[mesh.local])
     card = f"cuda:{torch.cuda.current_device()}"
     warm_exchanges(mesh, "seq")
     for mechanism in ("ring", "ulysses"):
@@ -7409,7 +7616,7 @@ def seq_prefill(rank: int, mesh, smi: str, label: str = "18a") -> dict:
             reference = forward(params, config, tokens)
         with use_mesh(mesh), torch.no_grad():
             logits, cost = seq_measured(
-                lambda: forward(params, config, tokens))
+                lambda: forward(params, config, tokens), devices)
         if not (logits.shape == reference.shape
                 and torch.isfinite(logits).all()):
             raise SystemExit(f"{label} rank {rank}: {mechanism} logits "
@@ -7419,20 +7626,22 @@ def seq_prefill(rank: int, mesh, smi: str, label: str = "18a") -> dict:
             ).item()
         del logits, reference
         torch.cuda.empty_cache()
+        expected = seq_expected(config, mechanism, SP_SEQ, rank, size=size,
+                                seq_indices=indices)
+        expected["wire"] = seq_wire_expected(config, mechanism, SP_SEQ,
+                                             mesh)
         seq_report(f"{label} prefill_across_processes", rank, smi, cost,
-                   seq_expected(config, mechanism, SP_SEQ, rank, size=size),
-                   SP_SEQ, mechanism=mechanism, seq_axis=size,
+                   expected, SP_SEQ, mechanism=mechanism, seq_axis=size,
+                   seq_indices=json.dumps(indices),
                    logits_max_abs_diff_vs_12b=f"{error:.3e}",
                    same_argmax_share=f"{same:.4f}")
         if error > SP_LOGITS_GROSS_TOL or same < SP_ARGMAX_FLOOR:
             raise SystemExit(f"{label} rank {rank}: {mechanism} logits "
                              f"differ from 12b's by {error:.3e} (argmax "
                              f"share {same:.4f})")
-        if nccl_job() and cost["staged"]:
-            raise SystemExit(f"{label} rank {rank}: {mechanism} staged "
-                             f"{cost['staged']} bytes through host memory "
-                             f"on NCCL")
         add_launches(launches, cost["launches"])
+        if by_card is not None:
+            add_card_launches(by_card, cost["by_card"])
     del params
     torch.cuda.empty_cache()
     return launches
@@ -7494,7 +7703,7 @@ def seq_train(rank: int, mesh, smi: str) -> dict:
     cost = {"seconds": statistics.median(c["seconds"] for c in costs),
             "launches": costs[-1]["launches"], "calls": costs[-1]["calls"],
             "bytes": costs[-1]["bytes"], "staged": costs[-1]["staged"],
-            "peak": max(c["peak"] for c in costs)}
+            "wire": costs[-1]["wire"], "peak": max(c["peak"] for c in costs)}
     if any((c["launches"], c["calls"], c["bytes"])
            != (cost["launches"], cost["calls"], cost["bytes"])
            for c in costs):
@@ -7605,38 +7814,65 @@ def seq_generate(rank: int, mesh, smi: str) -> dict:
     return cost["launches"]
 
 
-def seq_remat(rank: int, mesh, smi: str) -> dict:
-    """18d: llama32_1b widths in f32 at SEQ_REMAT_LAYERS layers, one
+def seq_remat(rank: int, mesh, smi: str, label: str = "18d",
+              dtype: str = "float32", by_card: dict | None = None) -> dict:
+    """18d (21d): llama32_1b widths at SEQ_REMAT_LAYERS layers, one
     train step through the ring across the processes under each of
     SEQ_REMAT_POLICIES (nothing_saveable keeps each layer's inputs,
-    dots_saveable its products too), against the unsharded step's
-    gradients (like 17b).  The step's own peak is the f32 head's
+    dots_saveable its products too).  In f32 (18d) each gradient leaf is
+    held against the unsharded step's (like 17b); in bf16 (21d), with
+    the weights cut by param_specs over the mesh's "model" axis, against
+    the same step on the same mesh without remat, block by block, at
+    POD_REMAT_GRAD_REL_TOL.  The step's own peak is the f32 head's
     transient, alike under both; so each layer's end also reads the
     card's allocator: the peak over the layers' forward and what the
-    layers leave held for the backward, each above what the card held as
-    the step began."""
+    layers leave held for the backward, each above what the card held
+    as the step began.  With `by_card`, adds each card's launches to
+    it."""
     from dataclasses import replace
     from aiko_services_tpu_torch.models import (
-        LLAMA32_1B, adamw, make_train_step)
+        LLAMA32_1B, adamw, make_train_step, param_specs)
     from aiko_services_tpu_torch.models import transformer as lm_module
-    from aiko_services_tpu_torch.parallel import use_mesh
-    config = replace(LLAMA32_1B, n_layers=SEQ_REMAT_LAYERS, dtype="float32")
+    from aiko_services_tpu_torch.parallel import (
+        filter_specs, shard_pytree, use_mesh)
+    from aiko_services_tpu_torch.utils.tree import tree_map
+    f32 = dtype == "float32"
+    config = replace(LLAMA32_1B, n_layers=SEQ_REMAT_LAYERS, dtype=dtype)
+    sp_config = replace(config, sequence_parallel=True)
     batch = seq_tokens(config, (1, SEQ_REMAT_LEN + 1), 1830)
+    devices = list(mesh.devices[mesh.local])
     grads = {}
 
     def prepared(run_config, name, **options):
         """(the step on fresh weights, the weights' (leaves, bytes))."""
         params = draw_on_card(run_config, SEQ_SEED)
+        size = whole_leaves(params)
+        if options.get("sharded") and mesh.size("model") > 1:
+            params = copy_replicated(shard_pytree(params, mesh, filter_specs(
+                param_specs(run_config), mesh)))
         optimizer = recording(adamw(SHARD_LR), lambda _, tree: grads.update(
-            {name: tree_to(tree, "cuda")}))
+            {name: tree_map(lambda tensor: tensor.detach().clone(), tree)}))
         train_step = make_train_step(run_config, optimizer, **options)
         state = optimizer.init(params)
-        return (lambda: train_step(params, state, batch)[2].item(),
-                whole_leaves(params))
+        return (lambda: train_step(params, state, batch)[2].item(), size)
 
-    whole_loss = prepared(config, "whole")[0]()
+    if f32:
+        reference_loss = prepared(config, "reference")[0]()
+    else:
+        with use_mesh(mesh):
+            reference_loss = prepared(sp_config, "reference",
+                                      sharded=True)[0]()
+        # the same weights in f32, unsharded: what both bf16 steps
+        # approximate
+        params = tree_map(lambda tensor: tensor.float(),
+                          draw_on_card(config, SEQ_SEED))
+        optimizer = recording(adamw(SHARD_LR), lambda _, tree: grads.update(
+            f32=tree_map(lambda tensor: tensor.detach().clone(), tree)))
+        make_train_step(replace(config, dtype="float32"), optimizer)(
+            params, optimizer.init(params), batch)
+        del params, optimizer
+        distance = local_relative(grads["reference"], grads["f32"])
     torch.cuda.empty_cache()
-    sp_config = replace(config, sequence_parallel=True)
     launches = {name: 0 for name in launch_counts()}
     remat_across, reads = lm_module._remat_across, []
 
@@ -7648,7 +7884,7 @@ def seq_remat(rank: int, mesh, smi: str) -> dict:
                       torch.cuda.memory_allocated()))
         return out
     for policy in SEQ_REMAT_POLICIES:
-        step, size = prepared(sp_config, policy, sharded=True,
+        step, held = prepared(sp_config, policy, sharded=True,
                               remat_policy=policy)
         reads.clear()
 
@@ -7658,35 +7894,51 @@ def seq_remat(rank: int, mesh, smi: str) -> dict:
         lm_module._remat_across = read_after
         try:
             with use_mesh(mesh):
-                loss, cost = seq_measured(run)
+                loss, cost = seq_measured(run, devices)
         finally:
             lm_module._remat_across = remat_across
         del run, step
         if len(reads) != 1 + config.n_layers:
-            raise SystemExit(f"18d rank {rank} {policy}: {len(reads) - 1} "
-                             f"layers went through the remat node, not "
-                             f"{config.n_layers}")
+            raise SystemExit(f"{label} rank {rank} {policy}: "
+                             f"{len(reads) - 1} layers went through the "
+                             f"remat node, not {config.n_layers}")
         base = reads[0][1]
-        grad_leaf, grad_error = local_relative(grads.pop(policy),
-                                               grads["whole"])
-        seq_report("18d remat_across_processes", rank, smi, cost,
-                   seq_expected(sp_config, "remat", SEQ_REMAT_LEN, rank,
-                                size),
-                   SEQ_REMAT_LEN, policy=policy, layers=config.n_layers,
-                   dtype=config.dtype,
+        got = grads.pop(policy)
+        grad_leaf, grad_error = local_relative(got, grads["reference"])
+        limits = ((SHARD_F32_LOSS_ATOL, SHARD_F32_GRAD_REL_TOL) if f32
+                  else (POD_REMAT_LOSS_ATOL, POD_REMAT_GRAD_REL_TOL))
+        to_f32 = {} if f32 else dict(
+            grad_rel_err_vs_f32="{}@{:.3e}".format(
+                *local_relative(got, grads["f32"])),
+            no_remat_rel_err_vs_f32="{}@{:.3e}".format(*distance))
+        expected = seq_expected(
+            sp_config, "remat", SEQ_REMAT_LEN, rank, held,
+            size=mesh.size("seq"), model=mesh.size("model"),
+            seq_indices=sorted({position[mesh.axis_names.index("seq")]
+                                for position in local_positions(mesh)}))
+        expected["wire"] = seq_wire_expected(sp_config, "remat",
+                                             SEQ_REMAT_LEN, mesh)
+        seq_report(f"{label} remat_across_processes", rank, smi, cost,
+                   expected, SEQ_REMAT_LEN, policy=policy,
+                   layers=config.n_layers, dtype=config.dtype,
+                   mesh=json.dumps(dict(mesh.shape)),
                    layers_peak_gib=f"{(reads[-1][0] - base) / 2**30:.3f}",
                    held_after_layers_gib=(
                        f"{(reads[-1][1] - base) / 2**30:.3f}"),
-                   loss_abs_diff=f"{abs(loss - whole_loss):.3e}",
+                   reference="unsharded" if f32 else "no_remat",
+                   loss_abs_diff=f"{abs(loss - reference_loss):.3e}",
                    grad_rel_err=f"{grad_error:.3e}",
-                   grad_worst_leaf=grad_leaf)
-        if not (abs(loss - whole_loss) <= SHARD_F32_LOSS_ATOL
-                and grad_error <= SHARD_F32_GRAD_REL_TOL):
-            raise SystemExit(f"18d rank {rank} {policy}: loss {loss} vs "
-                             f"unsharded {whole_loss}; gradient "
+                   grad_worst_leaf=grad_leaf, grad_limit=limits[1],
+                   **to_f32)
+        if not (abs(loss - reference_loss) <= limits[0]
+                and grad_error <= limits[1]):
+            raise SystemExit(f"{label} rank {rank} {policy}: loss {loss} vs "
+                             f"{reference_loss} (limit {limits[0]}); gradient "
                              f"{grad_error:.3e} relative at {grad_leaf} "
-                             f"(limit {SHARD_F32_GRAD_REL_TOL})")
+                             f"(limit {limits[1]})")
         add_launches(launches, cost["launches"])
+        if by_card is not None:
+            add_card_launches(by_card, cost["by_card"])
         torch.cuda.empty_cache()
     return launches
 
@@ -8371,6 +8623,227 @@ def phase_cards_processes(smi: str, cards: list) -> dict:
     return launches
 
 
+# -- phase 21: the pod layout on NCCL -------------------------------------------
+#
+# Two NCCL worker processes (phase 20's harness), rank r with two cards,
+# local_device_ids [2r, 2r + 1]: the TPU pod's layout of one process per
+# host driving its chips.  Each mesh puts its across-process axis major
+# and "model" (or a "seq" axis of four) within the process, so every
+# exchange whose entries lie on a rank's second card crosses on its
+# first, the card its NCCL group is bound to: the payload is copied
+# there and the answer back (wire_copy_bytes, held to the bytes worked
+# out from the mesh in advance), and nothing is staged through host
+# memory.  The parent first runs the references on cuda:0 (the
+# unsharded train steps, phase 17's process_references; the generate on
+# whole weights and on a one-process mesh over cuda:0) and frees it.
+
+POD_PROCESSES = 2
+POD_CARDS = 2                 # cards a process: local_device_ids [2r, 2r+1]
+POD_SEED = 21
+POD_TRAIN_ARMS = (            # (label, dtype, layers: None for all, axes)
+    ("21b", "bfloat16", None, {"data": 2, "model": 2}),
+    ("21b", "bfloat16", None, {"fsdp": 2, "model": 2}),
+)
+POD_SERVE_AXES = {"fsdp": 2, "model": 2}
+POD_SERVE_ARMS = (("bfloat16", None), ("float32", SHARD_F32_LAYERS))
+POD_SERVE_BATCH, POD_SERVE_PROMPT, POD_SERVE_NEW = 2, 128, 32
+POD_REMAT_AXES = {"seq": 2, "model": 2}
+# 21d, bf16: the remat step against the same step on the same mesh
+# without remat.  The recompute runs the same kernels on the same inputs
+# (the loss comes out the same), but the remat node's backward adds a
+# layer's cotangents in another order than the plain graph, each sum
+# rounded to bf16: at toy widths on the CPU every layer leaf then
+# differs by 0.6-1.1e-2 relative, while each of the two is 1.6-1.8e-2
+# from an f32 step on the same weights.  So the gate is about twice one
+# bf16 step's own error, where a gradient off by a factor or missing a
+# layer's share gives O(1); both runs' distance from the f32 step is
+# printed beside it.
+POD_REMAT_LOSS_ATOL = 1e-3
+POD_REMAT_GRAD_REL_TOL = 5e-2
+
+
+def pod_prompt(config):
+    return seq_tokens(config, (POD_SERVE_BATCH, POD_SERVE_PROMPT),
+                      2101).to(torch.int32)
+
+
+def pod_serve_references() -> dict:
+    """21a's references on cuda:0, for each of POD_SERVE_ARMS: the greedy
+    tokens of generate on the whole weights, and on a one-process
+    POD_SERVE_AXES mesh over cuda:0 (the same sharded path, one card)."""
+    from aiko_services_tpu_torch.models import generate, param_specs
+    from aiko_services_tpu_torch.parallel import (
+        filter_specs, shard_pytree, use_mesh)
+    out = {}
+    mesh = shard_mesh(POD_SERVE_AXES)
+    for dtype, layers in POD_SERVE_ARMS:
+        config = process_config(dtype, layers)
+        params = draw_on_card(config, POD_SEED)
+        prompt = pod_prompt(config)
+        with torch.no_grad():
+            whole = generate(params, config, prompt, POD_SERVE_NEW)[0]
+            with use_mesh(mesh):
+                one_card = generate(shard_pytree(params, mesh, filter_specs(
+                    param_specs(config), mesh)), config, prompt,
+                    POD_SERVE_NEW)[0]
+        out[dtype] = {"whole": whole.tolist(), "one_card": one_card.tolist()}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def pod_serve(rank: int, mesh, smi: str, reference: dict) -> None:
+    """21a: generate across the two processes on POD_SERVE_AXES (fsdp
+    across them, model within), the weights drawn on the card and placed
+    by param_specs: llama32_1b at full width and depth in bf16, its
+    tokens identical to the same mesh over cuda:0 (and the first token
+    where they part from the whole weights' shown: bf16 partial sums
+    round per shard, as in 13a); then in f32 at SHARD_F32_LAYERS layers,
+    its tokens identical to the whole weights' generate on cuda:0.
+    Tokens/s, the collectives, the bytes copied between the cards (each
+    fsdp collective's entry at the second card out to the first and the
+    other rank's back: the fsdp bytes the counter records at that
+    position, twice) and each card's peak."""
+    from aiko_services_tpu_torch.models import generate, param_specs
+    from aiko_services_tpu_torch.parallel import (
+        collective_counts, filter_specs, shard_pytree, use_mesh)
+    devices = list(mesh.devices[mesh.local])
+    warm_exchanges(mesh, "fsdp")
+    for dtype, layers in POD_SERVE_ARMS:
+        config = process_config(dtype, layers)
+        params = draw_on_card(config, POD_SEED)
+        sharded = shard_pytree(params, mesh, filter_specs(
+            param_specs(config), mesh))
+        del params
+        prompt = pod_prompt(config)
+        with use_mesh(mesh), torch.no_grad():
+            tokens, cost = seq_measured(lambda: generate(
+                sharded, config, prompt, POD_SERVE_NEW)[0], devices)
+        fsdp = collective_counts().get("fsdp", {"bytes": 0})["bytes"]
+        wire = fsdp * 2 * len(off_card(mesh)) // len(local_positions(mesh))
+        want = reference[dtype]
+        one_card = first_difference(tokens, want["one_card"])
+        whole = first_difference(tokens, want["whole"])
+        say(f"21a rank{rank} generate_across_processes",
+            mesh=json.dumps(POD_SERVE_AXES), dtype=dtype,
+            layers=config.n_layers,
+            prompt=f"{POD_SERVE_BATCH}x{POD_SERVE_PROMPT}",
+            new_tokens=POD_SERVE_NEW, ms=f"{cost['seconds'] * 1e3:.1f}",
+            tokens_per_s=(
+                f"{POD_SERVE_BATCH * POD_SERVE_NEW / cost['seconds']:.1f}"),
+            identical_to_one_card_mesh=one_card < 0,
+            first_difference_vs_whole_weights=whole,
+            collective_calls=cost["calls"],
+            collective_mib=f"{cost['bytes'] / 2**20:.3f}",
+            host_staged_mib=f"{cost['staged'] / 2**20:.1f}",
+            wire_copy_mib=f"{cost['wire'] / 2**20:.3f}",
+            expected_wire_copy_mib=f"{wire / 2**20:.3f}",
+            launches_by_card=json.dumps(cost["by_card"]),
+            peak_gib_by_card=json.dumps(cost["peaks"]), card=repr(smi))
+        if one_card >= 0 or (dtype == "float32" and whole >= 0):
+            raise SystemExit(f"21a rank {rank} {dtype}: tokens part from "
+                             f"the one-card mesh's at {one_card}, from the "
+                             f"whole weights' at {whole}")
+        if cost["wire"] != wire or (nccl_job() and cost["staged"]):
+            raise SystemExit(f"21a rank {rank} {dtype}: copied "
+                             f"{cost['wire']} bytes between the cards "
+                             f"(worked out: {wire}), staged "
+                             f"{cost['staged']}")
+        del sharded
+        torch.cuda.empty_cache()
+
+
+def pod_worker(argument: str) -> None:
+    """One rank of phase 21, in its own process: joins the NCCL job with
+    cards 2r and 2r + 1, loads the kernels phase 1 built, runs 21a-21d,
+    holds each new K1/K2/K3 case against its plain version on both its
+    cards (21e) and writes its results under PROCESS_DIR."""
+    import os
+    from aiko_services_tpu_torch.ops import kernels
+    from aiko_services_tpu_torch.parallel import (
+        global_mesh, initialize_distributed, shutdown_distributed)
+    smi, reference, serving = json.loads(argument)
+    if torch.cuda.device_count() < POD_PROCESSES * POD_CARDS:
+        raise SystemExit("phase 21 worker: fewer than four cards")
+    rank = int(os.environ["AIKO_PROCESS_ID"])
+    cards = [POD_CARDS * rank + index for index in range(POD_CARDS)]
+    if not initialize_distributed(backend="nccl", local_device_ids=cards,
+                                  timeout_seconds=CARDS_TIMEOUT):
+        raise SystemExit("phase 21 worker: no AIKO_* job to join")
+    if torch.cuda.current_device() != cards[0]:
+        raise SystemExit(f"phase 21 worker {rank}: current card "
+                         f"{torch.cuda.current_device()}, not {cards[0]}")
+    for name in kernels.KERNEL_SOURCES:
+        kernels.load_kernel(name)
+    forward, backward = set(), set()
+    arms, by_card = [], {}
+    launches = {name: 0 for name in kernels.KERNELS}
+    with recorded_kernel_cases(forward, backward):
+        pod_serve(rank, global_mesh(POD_SERVE_AXES), smi, serving)
+        for label, dtype, layers, axes in POD_TRAIN_ARMS:
+            arms.append(process_arm(rank, label, process_config(
+                dtype, layers), axes, smi, reference[dtype]))
+            add_launches(launches, arms[-1]["launches"])
+            add_card_launches(by_card, arms[-1]["by_card"])
+        add_launches(launches, seq_prefill(
+            rank, global_mesh({"seq": POD_PROCESSES * POD_CARDS}), smi,
+            "21c", by_card))
+        add_launches(launches, seq_remat(
+            rank, global_mesh(POD_REMAT_AXES), smi, "21d", "bfloat16",
+            by_card))
+    cases = check_new_cases(forward, backward, "21", f"21e rank{rank}",
+                            2100, [f"cuda:{card}" for card in cards])
+    builds = sorted(kernels.build_seconds)
+    (PROCESS_DIR / f"rank{rank}.json").write_text(json.dumps({
+        "arms": arms, "launches": launches, "by_card": by_card,
+        "cases": cases, "builds": builds}))
+    shutdown_distributed()
+    if builds:
+        raise SystemExit(f"phase 21 worker {rank} built {builds}: it must "
+                         f"load what phase 1 built")
+    print(f"rank {rank} done", flush=True)
+
+
+def phase_pod_processes(smi: str, cards: list) -> dict:
+    """Phase 21: two NCCL worker processes with two cards each.  The
+    parent runs the references on cuda:0 first and frees it.  Returns
+    the workers' launches; fails unless K1, K2 and K3 ran on each of the
+    four cards."""
+    import shutil
+    from aiko_services_tpu_torch.ops import kernels
+    start = time.perf_counter()
+    reference = process_references(POD_TRAIN_ARMS)
+    serving = pod_serve_references()
+    reference_s = time.perf_counter() - start
+    run_workers("21", PROCESS_DIR, "pod_worker",
+                json.dumps([smi, reference, serving]), count=POD_PROCESSES,
+                timeout=CARDS_TIMEOUT)
+    results = [json.loads((PROCESS_DIR / f"rank{rank}.json").read_text())
+               for rank in range(POD_PROCESSES)]
+    launches = {name: 0 for name in kernels.KERNELS}
+    by_card: dict = {}
+    for result in results:
+        add_launches(launches, result["launches"])
+        add_card_launches(by_card, result["by_card"])
+    replicas = equal_replicas(results, "21")
+    idle = [f"cuda:{index}" for index in range(POD_PROCESSES * POD_CARDS)
+            if min(by_card.get(f"cuda:{index}", {}).get(name, 0)
+                   for name in kernels.KERNELS) == 0]
+    shutil.rmtree(PROCESS_DIR, ignore_errors=True)
+    say("21 pod_processes", workers=POD_PROCESSES, backend="nccl",
+        devices="cuda:2r and cuda:2r+1 for rank r",
+        reference_s=f"{reference_s:.1f}", replicas_equal=replicas,
+        new_cases=[result["cases"] for result in results],
+        kernel_builds_in_workers=0,
+        wall_s=f"{time.perf_counter() - start:.1f}",
+        launches=json.dumps(launches),
+        launches_by_card=json.dumps(dict(sorted(by_card.items()))),
+        card=repr(smi))
+    if idle:
+        raise SystemExit(f"21: K1, K2 or K3 never ran on {idle}: {by_card}")
+    return launches
+
+
 def contract_lines(smi: str, launches: dict, max_abs_err: dict,
                    timing: dict) -> None:
     """The last three lines: the card, the kernels JSON, the result."""
@@ -8395,8 +8868,8 @@ def contract_lines(smi: str, launches: dict, max_abs_err: dict,
 
 
 def main_cards() -> None:
-    """`python3 chip_smoke.py cards`: phases 0, 1, 19a-19d, 20, phase 3's
-    timing on cuda:0, and the contract lines."""
+    """`python3 chip_smoke.py cards`: phases 0, 1, 19a-19d, 20, 21,
+    phase 3's timing on cuda:0, and the contract lines."""
     from aiko_services_tpu_torch.ops import kernels
     run_start = time.perf_counter()
     smi = phase_card()
@@ -8413,8 +8886,8 @@ def main_cards() -> None:
     # non-zero with no result
     failed = []
     for phase in (phase_cards_serving, phase_cards_training,
-                  phase_cards_long_context,
-                  phase_cards_processes):
+                  phase_cards_long_context, phase_cards_processes,
+                  phase_pod_processes):
         try:
             add_launches(launches, phase(smi, cards))
         except (Exception, SystemExit) as error:

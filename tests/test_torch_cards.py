@@ -24,12 +24,23 @@
 # Each worker runs with one thread (OMP_NUM_THREADS=1): the tier-1 run
 # shares the machine's cores between several test processes.
 #
+# The same job in the pod layout (one process per host driving its
+# cards): two processes with two positions each, data 2 x model 2 and
+# fsdp 2 x model 2 with the first axis across the processes, and the
+# ring and Ulysses on {"seq": 4} with positions 2r and 2r + 1 on rank r,
+# against the same JAX references.  On gloo with CPU entries no exchange
+# copies a byte between cards or stages one through host memory.
+#
 # initialize_distributed on NCCL is held here with torch.cuda and
 # torch.distributed patched: the process's card is current (and the
-# group's device_id) before any collective, and two ranks on one physical
-# card (one UUID, whatever CUDA index each process sees it as) raise on
-# both before any NCCL call, while ranks that each see their own card as
-# cuda:0 (CUDA_VISIBLE_DEVICES) initialize.
+# group's device_id) before any collective, and two ranks that name one
+# physical card (one UUID, whatever CUDA index each process sees it as)
+# anywhere in their local_device_ids raise on both before any NCCL call,
+# while ranks that each see their own card as cuda:0
+# (CUDA_VISIBLE_DEVICES) initialize, as do ranks with two cards each.
+# The wire rule (parallel/collectives.py _wire) is held under a patched
+# torch.distributed.get_backend: an NCCL exchange's payload lies on the
+# process's bound card whatever card its entries lie on.
 import json
 import os
 import socket
@@ -61,6 +72,12 @@ TRAIN_MESHES = {"fsdp_model": TRAIN_AXES, "data_fsdp": {"data": 2, "fsdp": 2}}
 BATCH, SEQ = 2, 16            # the train step's tokens: (2, 17)
 ATTENTION = (1, 4, 64, 8)     # (B, H, L, D): 16 positions a process
 MECHANISMS = ("ring", "ulysses")
+# the pod layout (one process per host driving its cards): two processes
+# with two positions each, the data or fsdp axis across them and model
+# within; {"seq": 4} puts positions 2r and 2r + 1 on rank r
+POD_PROCESSES, POD_POSITIONS = 2, 2
+POD_MESHES = {"data_model": {"data": 2, "model": 2},
+              "fsdp_model": {"fsdp": 2, "model": 2}}
 # against the JAX package, rtol 0: the ring within 1e-6 (largest read
 # 7.153e-7, dV); Ulysses' dK and dV differ by up to 1.192e-6 and 1.431e-6
 # at values up to 3.16 and 5.16 (a few f32 ulps: the two sides sum a
@@ -79,10 +96,10 @@ WORKER = textwrap.dedent("""
         attention, collectives, filter_specs, global_mesh,
         initialize_distributed, process_index, set_default_devices,
         shutdown_distributed, unshard, use_mesh)
-    small, meshes, paths, target = json.loads(sys.argv[1])
+    small, meshes, paths, target, positions = json.loads(sys.argv[1])
     assert initialize_distributed(timeout_seconds=200)
     rank = process_index()
-    set_default_devices(["cpu"])  # one position a process
+    set_default_devices(["cpu"] * positions)  # positions a process
     results = {}
 
     def flat(tree, prefix):
@@ -96,6 +113,12 @@ WORKER = textwrap.dedent("""
     def counted():
         return {axes: [entry["calls"], entry["bytes"]] for axes, entry
                 in collectives.collective_counts().items()}
+
+    def copied():
+        # (bytes copied between cards to reach the wire, bytes staged
+        # through host memory): both 0 for CPU entries on gloo
+        return np.asarray([collectives.wire_copy_bytes(),
+                           collectives.staged_bytes()])
 
     # the train step on each mesh
     cfg = lm.TransformerConfig(**small)
@@ -118,21 +141,25 @@ WORKER = textwrap.dedent("""
             _, _, loss = step(params, state, tokens)
         results[f"{name}/loss"] = np.asarray(float(loss))
         results[f"{name}/counts"] = np.asarray(json.dumps(counted()))
+        results[f"{name}/copied"] = copied()
         results[f"{name}/groups"] = np.asarray(json.dumps(sorted(
             list(ranks) for ranks in mesh.process_groups)))
 
-    # ring and Ulysses forward + backward on {"seq": 4}, this rank's block
+    # ring and Ulysses forward + backward on {"seq": 4}, this rank's
+    # blocks (contiguous: its positions are consecutive along "seq")
     mesh = global_mesh({"seq": 4})
     arrays = [np.load(paths[name]) for name in ("q", "k", "v")]
     block = arrays[0].shape[2] // 4
-    own = slice(rank * block, (rank + 1) * block)
+    mine = [index for index, local in enumerate(mesh.local.flat) if local]
     for mechanism in ("ring", "ulysses"):
-        inputs = [torch.from_numpy(array[:, :, own].copy()).requires_grad_()
-                  for array in arrays]
+        inputs = {index: [torch.from_numpy(
+            array[:, :, index * block:(index + 1) * block].copy()
+        ).requires_grad_() for array in arrays] for index in mine}
         grids = []
-        for tensor in inputs:
+        for which in range(3):
             grid = np.empty(mesh.devices.shape, dtype=object)
-            grid[rank] = tensor
+            for index in mine:
+                grid[index] = inputs[index][which]
             grids.append(grid)
         function = (attention.ring_attention_grid if mechanism == "ring"
                     else attention.ulysses_attention_grid)
@@ -141,18 +168,23 @@ WORKER = textwrap.dedent("""
         collectives.begin_backward()
         collectives.reset_collective_counts()
         try:
-            out = function(*grids, mesh, "seq", causal=True)[rank]
+            grid = function(*grids, mesh, "seq", causal=True)
+            outs = [grid[index] for index in mine]
             forward_hops = len(hops)
             loss = collectives.join_backward(
-                (out * torch.cos(out)).sum(), mesh)
-            grads = torch.autograd.grad(loss, inputs)
+                sum((out * torch.cos(out)).sum() for out in outs), mesh)
+            grads = torch.autograd.grad(loss, [
+                tensor for index in mine for tensor in inputs[index]])
         finally:
             attention._RING_HOP_CALLBACK = None
-        results[f"{mechanism}/out"] = out.detach().numpy()
-        for name, grad in zip(("dq", "dk", "dv"), grads):
-            results[f"{mechanism}/{name}"] = grad.numpy()
+        results[f"{mechanism}/out"] = np.concatenate(
+            [out.detach().numpy() for out in outs], axis=2)
+        for which, name in enumerate(("dq", "dk", "dv")):
+            results[f"{mechanism}/{name}"] = np.concatenate(
+                [grad.numpy() for grad in grads[which::3]], axis=2)
         results[f"{mechanism}/hops"] = np.asarray(forward_hops)
         results[f"{mechanism}/counts"] = np.asarray(json.dumps(counted()))
+        results[f"{mechanism}/copied"] = copied()
     np.savez(f"{target}.{rank}.npz", **results)
     print(f"rank {rank} done", flush=True)
     shutdown_distributed()
@@ -207,9 +239,47 @@ def _jax_references(params, data) -> dict:
     return out
 
 
+def _start_job(root, paths: dict, meshes: dict, processes: int,
+               positions: int) -> tuple:
+    """The workers of one job, `positions` mesh positions each: (the
+    worker processes, the stem of their result files)."""
+    out = str(root / f"out{processes}x{positions}")
+    argument = json.dumps([SMALL, meshes, paths, out, positions])
+    coordinator = f"127.0.0.1:{_free_port()}"
+    workers = []
+    for rank in range(processes):
+        env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+                   AIKO_COORDINATOR=coordinator,
+                   AIKO_NUM_PROCESSES=str(processes),
+                   AIKO_PROCESS_ID=str(rank))
+        workers.append(subprocess.Popen(
+            [sys.executable, "-c", WORKER, argument],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
+            text=True))
+    return workers, out
+
+
+def _finish_job(workers: list, out: str) -> list:
+    """Each rank's results, once every worker ended well; a worker still
+    running when the test gives up is killed."""
+    try:
+        for rank, worker in enumerate(workers):
+            output, _ = worker.communicate(timeout=240)
+            assert worker.returncode == 0, output
+            assert f"rank {rank} done" in output, output
+    finally:
+        for worker in workers:
+            if worker.poll() is None:
+                worker.kill()
+                worker.wait()
+    return [dict(np.load(f"{out}.{rank}.npz"))
+            for rank in range(len(workers))]
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """(each rank's results, the JAX references)."""
+def job_inputs(tmp_path_factory):
+    """(directory, the input files, the JAX package's weights, the
+    inputs)."""
     root = tmp_path_factory.mktemp("cards")
     rng = np.random.default_rng(16)
     data = {"tokens": rng.integers(0, SMALL["vocab_size"],
@@ -223,33 +293,32 @@ def runs(tmp_path_factory):
     params = jax_lm.init_params(jax_lm.TransformerConfig(**SMALL),
                                 jax.random.PRNGKey(16))
     jax_save_pytree(paths["lm"], params)
-    out = str(root / "out")
-    argument = json.dumps([SMALL, TRAIN_MESHES, paths, out])
-    coordinator = f"127.0.0.1:{_free_port()}"
-    workers = []
-    for rank in range(PROCESSES):
-        env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
-                   AIKO_COORDINATOR=coordinator,
-                   AIKO_NUM_PROCESSES=str(PROCESSES),
-                   AIKO_PROCESS_ID=str(rank))
-        workers.append(subprocess.Popen(
-            [sys.executable, "-c", WORKER, argument],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
-            text=True))
+    return root, paths, params, data
+
+
+@pytest.fixture(scope="module")
+def runs(job_inputs):
+    """(each rank's results, the JAX references): four processes, one
+    position each."""
+    root, paths, params, data = job_inputs
+    workers, out = _start_job(root, paths, TRAIN_MESHES, PROCESSES, 1)
     try:
         # the JAX references run while the workers compute
         references = _jax_references(params, data)
-        for rank, worker in enumerate(workers):
-            output, _ = worker.communicate(timeout=240)
-            assert worker.returncode == 0, output
-            assert f"rank {rank} done" in output, output
     finally:
-        for worker in workers:
-            if worker.poll() is None:
-                worker.kill()
-                worker.wait()
-    return ([dict(np.load(f"{out}.{rank}.npz")) for rank in range(PROCESSES)],
-            references)
+        results = _finish_job(workers, out)
+    return results, references
+
+
+@pytest.fixture(scope="module")
+def pod_runs(job_inputs, runs):
+    """(each rank's results, the JAX references): the pod layout, two
+    processes with two positions each, every mesh's across-process axis
+    major and its within-process axis minor."""
+    root, paths, _, _ = job_inputs
+    workers, out = _start_job(root, paths, POD_MESHES, POD_PROCESSES,
+                              POD_POSITIONS)
+    return _finish_job(workers, out), runs[1]
 
 
 def _train_step_counts() -> dict:
@@ -370,8 +439,15 @@ def test_four_process_attention_hops_and_exchanges(runs, mechanism):
 
 def _claim(index: int, uuid: str, host: str | None = None) -> str:
     """What a rank on card `uuid`, its cuda:`index`, sets in the store."""
-    return json.dumps({"host": host or socket.gethostname(), "card": uuid,
-                       "index": index})
+    return _claims([(index, uuid)], host)
+
+
+def _claims(cards, host: str | None = None) -> str:
+    """What a rank on `cards` ((its cuda index, uuid) pairs) sets in the
+    store."""
+    return json.dumps({"host": host or socket.gethostname(),
+                       "cards": sorted([uuid, index]
+                                       for index, uuid in cards)})
 
 
 def _store(others: dict):
@@ -395,6 +471,7 @@ def nccl(monkeypatch):
     calls, uuids = [], {}
     monkeypatch.setattr(distributed, "_INITIALIZED", False)
     monkeypatch.setattr(distributed, "_LOCAL_DEVICE_IDS", None)
+    monkeypatch.setattr(distributed, "_CARD", None)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setattr(torch.cuda, "set_device",
                         lambda device: calls.append(("set_device", device)))
@@ -492,3 +569,155 @@ def test_gloo_keeps_the_init_method_and_sets_no_card(nccl):
     assert backend == "gloo"
     assert options["init_method"] == "tcp://127.0.0.1:1"
     assert "device_id" not in options and "store" not in options
+
+
+# -- the pod layout: several cards a process on NCCL --------------------------
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_nccl_ranks_naming_one_card_among_several_raise(nccl, rank):
+    """Rank 0 on [0, 1] and rank 1 on [1, 2]: their first cards differ,
+    but both name cuda:1.  Each raises before any NCCL call, the message
+    naming the shared card and each rank's index for it (and no card
+    only one rank names); nothing falls back to gloo."""
+    calls, install, _ = nccl
+    cards = {0: [0, 1], 1: [1, 2]}
+    other = 1 - rank
+    install(_store({
+        f"aiko_card/{other}": _claims([(index, f"GPU-{index}")
+                                       for index in cards[other]]),
+        "aiko_card_read/1": "1"}))
+    with pytest.raises(ValueError, match=(
+            r"ranks \[0, 1\] on card GPU-1 of .* \(as cuda:1/1\)")) as raised:
+        distributed.initialize_distributed(
+            "127.0.0.1:1", 2, rank, local_device_ids=cards[rank],
+            backend="nccl")
+    assert "GPU-0" not in str(raised.value)
+    assert "GPU-2" not in str(raised.value)
+    assert [call[0] for call in calls] == ["rendezvous"]
+    assert not distributed._INITIALIZED
+    assert distributed.process_card() is None
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_nccl_two_cards_a_rank_bind_the_first(nccl, rank):
+    """The pod layout, rank r on [2r, 2r + 1]: the job initializes,
+    cuda:2r is the current card, the group's device_id and
+    process_card(), and the process's positions lie on both cards."""
+    calls, install, _ = nccl
+    other = 1 - rank
+    install(_store({f"aiko_card/{other}": _claims(
+        [(2 * other, f"GPU-{2 * other}"),
+         (2 * other + 1, f"GPU-{2 * other + 1}")])}))
+    assert distributed.initialize_distributed(
+        "127.0.0.1:1", 2, rank, local_device_ids=[2 * rank, 2 * rank + 1],
+        backend="nccl")
+    card = torch.device("cuda", 2 * rank)
+    assert [call[0] for call in calls] == ["rendezvous", "set_device",
+                                           "init_process_group"]
+    assert calls[1] == ("set_device", card)
+    assert calls[2][2]["device_id"] == card
+    assert distributed.process_card() == card
+    assert distributed._local_devices() == [
+        card, torch.device("cuda", 2 * rank + 1)]
+
+
+def test_nccl_one_process_may_name_a_card_several_times(nccl):
+    """[0, 0, 1, 1]: two positions on each of two cards in one process.
+    Its claim names each card once, the job (rank 1 on [2, 3])
+    initializes with device_id cuda:0, and equal devices are one
+    object."""
+    calls, install, _ = nccl
+    store = _store({"aiko_card/1": _claims([(2, "GPU-2"), (3, "GPU-3")])})
+    install(store)
+    assert distributed.initialize_distributed(
+        "127.0.0.1:1", 2, 0, local_device_ids=[0, 0, 1, 1], backend="nccl")
+    assert calls[2][2]["device_id"] == torch.device("cuda", 0)
+    assert json.loads(store.get("aiko_card/0").decode())["cards"] == [
+        ["GPU-0", 0], ["GPU-1", 1]]
+    devices = distributed._local_devices()
+    assert devices == [torch.device("cuda", index) for index in (0, 0, 1, 1)]
+    assert devices[0] is devices[1] and devices[2] is devices[3]
+
+
+@pytest.fixture
+def backends(monkeypatch):
+    """torch.distributed.get_backend patched: the group "nccl" is an
+    NCCL group bound to cuda:2, the group "gloo" a gloo group."""
+    import torch.distributed as dist
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: group)
+    monkeypatch.setattr(distributed, "_CARD", torch.device("cuda", 2))
+
+
+@pytest.mark.parametrize("entries", ["cuda:2", "cuda:3", "cuda:0"])
+def test_wire_is_the_bound_card_on_nccl_whatever_the_entries(backends,
+                                                             entries):
+    """An NCCL exchange puts its payload on the process's bound card
+    whatever card its entries lie on; gloo keeps CPU entries where they
+    are and stages CUDA ones through the host."""
+    from aiko_services_tpu_torch.parallel import collectives
+    assert collectives._wire("nccl", entries) == torch.device("cuda", 2)
+    assert collectives._wire("gloo", "cpu") == torch.device("cpu")
+    assert collectives._wire("gloo", entries) == torch.device("cpu")
+
+
+def test_wire_refuses_what_nccl_cannot_carry(backends, monkeypatch):
+    """Host entries on an NCCL group, or an NCCL group with no bound
+    card (joined without initialize_distributed), raise: nothing falls
+    back to gloo or carries on on the CPU."""
+    from aiko_services_tpu_torch.parallel import collectives
+    with pytest.raises(RuntimeError, match="NCCL"):
+        collectives._wire("nccl", "cpu")
+    monkeypatch.setattr(distributed, "_CARD", None)
+    with pytest.raises(RuntimeError, match="NCCL"):
+        collectives._wire("nccl", "cuda:2")
+
+
+@pytest.mark.parametrize("mesh", list(POD_MESHES))
+def test_pod_layout_train_step_matches_jax(pod_runs, mesh):
+    """make_train_step(sharded=True) on data 2 x model 2 and fsdp 2 x
+    model 2 over two processes with two positions each (the data or
+    fsdp axis across them, model within): the loss and every gradient
+    leaf the optimizer receives, on both ranks, equal jax.value_and_grad
+    of the JAX package's loss (1e-6)."""
+    results, references = pod_runs
+    keys = [key for key in references if key.startswith("grad/")]
+    assert keys
+    for rank, result in enumerate(results):
+        np.testing.assert_array_equal(result[f"{mesh}/processes"],
+                                      [[0, 0], [1, 1]])
+        np.testing.assert_allclose(result[f"{mesh}/loss"],
+                                   references["loss"], atol=1e-6, rtol=0)
+        for key in keys:
+            np.testing.assert_allclose(result[f"{mesh}/" + key],
+                                       references[key], atol=1e-6, rtol=0,
+                                       err_msg=f"rank {rank} {mesh} {key}")
+
+
+@pytest.mark.parametrize("mechanism", MECHANISMS)
+def test_pod_layout_attention_matches_jax(pod_runs, mechanism):
+    """Ring and Ulysses on {"seq": 4} with positions 2r and 2r + 1 on
+    rank r: each rank's two blocks of O and of the gradients of
+    sum(O cos O) equal the JAX package's (ATTENTION_ATOL)."""
+    results, references = pod_runs
+    span = ATTENTION[2] // POD_PROCESSES
+    for rank, result in enumerate(results):
+        own = slice(rank * span, (rank + 1) * span)
+        for name in ("out", "dq", "dk", "dv"):
+            np.testing.assert_allclose(
+                result[f"{mechanism}/{name}"],
+                references[f"{mechanism}/{name}"][:, :, own],
+                atol=ATTENTION_ATOL[mechanism], rtol=0,
+                err_msg=f"rank {rank} {mechanism} {name}")
+
+
+@pytest.mark.parametrize("layout", ["pod", "four"])
+def test_gloo_jobs_copy_nothing_between_cards(runs, pod_runs, layout):
+    """On gloo with CPU entries every exchange lies where its entries
+    are: no byte is copied between cards to reach the wire, none staged
+    through host memory, in either layout and any arm."""
+    results = (pod_runs if layout == "pod" else runs)[0]
+    for rank, result in enumerate(results):
+        arms = [key for key in result if key.endswith("/copied")]
+        assert len(arms) == 4, arms
+        for key in arms:
+            assert result[key].tolist() == [0, 0], (rank, key)

@@ -760,3 +760,96 @@ def test_collectives_across_cards_equal_one_card(cards, collective):
         assert across.device == cards[index], (index, across.device)
         assert one.device == cards[0]
         assert torch.equal(across.to(cards[0]), one), index
+
+
+_POD_WORKER = """
+import json, os, sys
+import numpy as np
+import torch
+from aiko_services_tpu_torch.parallel import (
+    collectives, global_mesh, initialize_distributed, process_card,
+    shutdown_distributed)
+cards = json.loads(sys.argv[1])[int(os.environ["AIKO_PROCESS_ID"])]
+try:
+    initialize_distributed(backend="nccl", local_device_ids=cards,
+                           timeout_seconds=120)
+except ValueError as error:
+    print("refused:", error, flush=True)
+    sys.exit(0)
+mesh = global_mesh({"data": 2, "model": 2})
+grid = np.empty(mesh.devices.shape, dtype=object)
+for position in np.ndindex(mesh.devices.shape):
+    if mesh.local[position]:
+        grid[position] = torch.full((1024,), float(1 + sum(position)),
+                                    device=mesh.devices[position])
+collectives.reset_collective_counts()
+total = collectives.psum(grid, mesh, "data")
+sums = {str(tuple(position)): total[position].tolist()[:1]
+        + [str(total[position].device)]
+        for position in np.ndindex(mesh.devices.shape)
+        if mesh.local[position]}
+print("joined", json.dumps({
+    "current": torch.cuda.current_device(), "card": str(process_card()),
+    "sums": sums, "wire": collectives.wire_copy_bytes(),
+    "staged": collectives.staged_bytes()}), flush=True)
+shutdown_distributed()
+"""
+
+
+@pytest.mark.parametrize("layout", ["pod", "shared_second_card"])
+def test_nccl_pod_layout_on_cards(cards, layout):
+    """Two NCCL ranks with two cards each.  On [0, 1] / [2, 3] both join,
+    cuda:2r current and bound, and a psum over "data" (across the ranks)
+    at model position 1 -- entries on each rank's second card -- crosses
+    on its first: each result on its position's card, the sum right,
+    the entry copied to the bound card and the other rank's back (2 x
+    4 KiB a rank), nothing staged.  On [0, 1] / [1, 2] (cuda:1 named
+    twice) both ranks refuse with ValueError, naming the card."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    if len(cards) < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    local = ([[0, 1], [2, 3]] if layout == "pod" else [[0, 1], [1, 2]])
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    workers = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=root,
+                   AIKO_COORDINATOR=f"127.0.0.1:{port}",
+                   AIKO_NUM_PROCESSES="2", AIKO_PROCESS_ID=str(rank))
+        workers.append(subprocess.Popen(
+            [sys.executable, "-c", _POD_WORKER, json.dumps(local)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
+            text=True))
+    outputs = []
+    try:
+        for worker in workers:
+            outputs.append(worker.communicate(timeout=240)[0])
+            assert worker.returncode == 0, outputs[-1]
+    finally:
+        for worker in workers:
+            if worker.poll() is None:
+                worker.kill()
+                worker.wait()
+    for rank, output in enumerate(outputs):
+        if layout != "pod":
+            assert "refused:" in output and "ranks [0, 1] on card" in output \
+                and "(as cuda:1/1)" in output, output
+            continue
+        line = next(line for line in output.splitlines()
+                    if line.startswith("joined "))
+        seen = json.loads(line[len("joined "):])
+        assert seen["current"] == 2 * rank, seen
+        assert seen["card"] == f"cuda:{2 * rank}", seen
+        # position (d, m) holds 1 + d + m; the psum over data adds both
+        for model in range(2):
+            value, device = seen["sums"][str((rank, model))]
+            assert value == float(2 + 1 + 2 * model), seen
+            assert device == f"cuda:{2 * rank + model}", seen
+        assert seen["wire"] == 2 * 1024 * 4, seen
+        assert seen["staged"] == 0, seen
