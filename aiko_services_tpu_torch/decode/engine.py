@@ -74,6 +74,7 @@ import torch
 from ..models import (
     f32_head, init_paged_pool, paged_decode_step, paged_prefill,
     paged_prefill_chunk, paged_verify_step)
+from ..observe.trace import PROGRAM
 from ..runtime.compile_cache import record_capture
 from ..utils import get_logger
 from ..utils.padding import bucket_length
@@ -90,7 +91,7 @@ class _Request:
     request_id: object
     prompt: np.ndarray            # (true_len,) int32, exact tokens
     max_new: int
-    submitted_at: float
+    arrived_at: float             # perf_counter: reached the system
     generated: list = field(default_factory=list)
     emitted_upto: int = 0         # token offsets already surfaced
     admitted_at: float | None = None
@@ -343,7 +344,11 @@ class DecodeEngine:
         padded = bucket_length(true_len, minimum=block)
         return min(-(-padded // block) * block, self.max_context)
 
-    def submit(self, request_id, prompt_tokens, max_new_tokens: int):
+    def submit(self, request_id, prompt_tokens, max_new_tokens: int,
+               arrived_at: float | None = None):
+        """Queue a request for admission.  `arrived_at` is the
+        perf_counter time the request reached the system (now when
+        None): its queue wait, TTFT and total time count from there."""
         prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
         max_new = int(max_new_tokens)
         if prompt.size < 1:
@@ -362,7 +367,8 @@ class DecodeEngine:
                 f"{self.blocks.capacity}; raise kv_blocks")
         self.waiting.append(_Request(
             request_id=request_id, prompt=prompt, max_new=max_new,
-            submitted_at=time.perf_counter()))
+            arrived_at=(time.perf_counter() if arrived_at is None
+                        else float(arrived_at))))
         self._update_gauges()
 
     def _ingest_kv_blocks(self, record: dict, needed: int,
@@ -480,10 +486,10 @@ class DecodeEngine:
         # slot bookkeeping identical to a local prefill's end state
         request = _Request(
             request_id=request_id, prompt=prompt, max_new=max_new,
-            submitted_at=(adopt_start
-                          - float(handoff.get("queue_wait_s", 0.0))
-                          - float(handoff.get("prefill_s", 0.0))))
-        request.admitted_at = adopt_start
+            arrived_at=(adopt_start
+                        - float(handoff.get("queue_wait_s", 0.0))
+                        - float(handoff.get("prefill_s", 0.0))))
+        self._note_admitted(request, adopt_start)
         bucket = self._bucket(true_len)
         padded = np.zeros((bucket,), np.int32)
         padded[:true_len] = prompt
@@ -608,9 +614,9 @@ class DecodeEngine:
         now = time.perf_counter()
         request = _Request(
             request_id=request_id, prompt=prompt, max_new=max_new,
-            submitted_at=now)
-        request.admitted_at = now
-        request.first_token_at = now
+            arrived_at=now)
+        self._note_admitted(request, now)
+        self._note_first_token(request, now)
         request.generated = generated
         # the emission floor: tokens the downstream already holds are
         # re-decoded (their K/V feeds later positions) but re-emission
@@ -699,12 +705,13 @@ class DecodeEngine:
         step over the decoding slots.  Chunked prefill progress and
         decode progress share the tick -- that interleaving is what
         stops a long prompt from convoying every co-scheduled slot."""
-        with on_stream(self.stream):
+        with on_stream(self.stream), PROGRAM.span("engine.step"):
             return self._step()
 
     def _step(self) -> StepReport:
         report = StepReport()
-        self._admit(report)
+        with PROGRAM.span("engine.admit"):
+            self._admit(report)
         ran_chunk = self._advance_prefills(report)
         active = [index for index, slot in enumerate(self.slots)
                   if slot is not None]
@@ -722,7 +729,8 @@ class DecodeEngine:
             self._update_gauges()
             return report
         if self.draft_params is not None:
-            self._spec_round(decoding, report)
+            with PROGRAM.span("engine.verify", device=True):
+                self._spec_round(decoding, report)
         else:
             self._plain_step(decoding, report)
         if ran_chunk:
@@ -736,16 +744,17 @@ class DecodeEngine:
     def _plain_step(self, decoding: list, report: StepReport) -> None:
         """One paged_decode_step over all slots; mid-prefill and free
         slots write to the trash block and their rows are ignored."""
-        write_blocks = np.zeros((self.slots_n,), np.int32)
-        write_offsets = np.zeros((self.slots_n,), np.int32)
-        for index in decoding:
-            position = int(self.positions[index])
-            block_index = position // self.blocks.block_size
-            write_blocks[index] = self.slots[index].blocks[block_index]
-            write_offsets[index] = position % self.blocks.block_size
-        next_tokens = self._fixed_step(
-            False, paged_decode_step, self.tables, self.positions,
-            self.last_tokens, write_blocks, write_offsets)
+        with PROGRAM.span("engine.decode", device=True):
+            write_blocks = np.zeros((self.slots_n,), np.int32)
+            write_offsets = np.zeros((self.slots_n,), np.int32)
+            for index in decoding:
+                position = int(self.positions[index])
+                block_index = position // self.blocks.block_size
+                write_blocks[index] = self.slots[index].blocks[block_index]
+                write_offsets[index] = position % self.blocks.block_size
+            next_tokens = self._fixed_step(
+                False, paged_decode_step, self.tables, self.positions,
+                self.last_tokens, write_blocks, write_offsets)
         for index in decoding:
             slot = self.slots[index]
             request = slot.request
@@ -823,8 +832,7 @@ class DecodeEngine:
             # a preempted request's RE-admission keeps first-attempt
             # timestamps: the caller saw its first token back then, so
             # ttft/queue_wait/prefill stats must not absorb the retry
-            if request.admitted_at is None:
-                request.admitted_at = time.perf_counter()
+            self._note_admitted(request, time.perf_counter())
             self.counters["admitted"] += 1
             report.admitted += 1
             self._bump("decode.admitted", 1)
@@ -843,12 +851,15 @@ class DecodeEngine:
                 self._tail_prefill(index, report)
                 continue
             self._note_signature(("prefill", "target", bucket))
-            _, first = paged_prefill(
-                self.params, self.config, self.pool,
-                self._tensor(padded[None]), self._tensor(self.tables[index]),
-                true_len)
+            with PROGRAM.span("engine.prefill", request.request_id,
+                              device=True):
+                _, first = paged_prefill(
+                    self.params, self.config, self.pool,
+                    self._tensor(padded[None]),
+                    self._tensor(self.tables[index]), true_len)
+                first = int(first)
             slot.prefill_pos = bucket
-            self._finish_prefill(index, report, int(first))
+            self._finish_prefill(index, report, first)
 
     def _tail_prefill(self, index: int, report: StepReport) -> None:
         """Prefill ONLY the uncached tail of a prefix-cache hit in one
@@ -891,8 +902,7 @@ class DecodeEngine:
         slot.prefill_pos = max(slot.prefill_pos, slot.true_len)
         if self.prefix is not None:
             self._register_slot_prefix(slot)
-        if request.first_token_at is None:
-            request.first_token_at = time.perf_counter()
+        self._note_first_token(request, time.perf_counter())
         request.generated.append(first)
         self.positions[index] = slot.true_len
         self.last_tokens[index, 0] = first
@@ -1327,11 +1337,12 @@ class DecodeEngine:
         params, config, pool = self._model(draft)
         self._note_signature(("chunk", "draft" if draft else "target",
                               chunk.shape[1]))
-        _, greedy = paged_prefill_chunk(
-            params, config, pool, self._tensor(chunk),
-            self._tensor(table_row), int(start),
-            self._tensor(write_blocks), self._tensor(write_offsets))
-        return greedy.cpu().numpy()
+        with PROGRAM.span("engine.prefill_chunk", device=True):
+            _, greedy = paged_prefill_chunk(
+                params, config, pool, self._tensor(chunk),
+                self._tensor(table_row), int(start),
+                self._tensor(write_blocks), self._tensor(write_offsets))
+            return greedy.cpu().numpy()
 
     def _fixed_step(self, draft: bool, step, *arrays) -> np.ndarray:
         """A fixed-shape step over all slots (paged_decode_step or
@@ -1353,6 +1364,29 @@ class DecodeEngine:
         return captured.replay(arrays)
 
     # -- completion --------------------------------------------------------
+
+    def _note_admitted(self, request: _Request, now: float) -> None:
+        """A request's first admission: its arrival -> admission wait
+        as the queue:engine interval and decode.queue_wait_s, once per
+        request (a preempted request keeps its first-attempt times)."""
+        if request.admitted_at is not None:
+            return
+        request.admitted_at = now
+        PROGRAM.interval("queue:engine", request.arrived_at, now,
+                         request.request_id)
+        if self._registry is not None:
+            self._registry.histogram("decode.queue_wait_s").record(
+                now - request.arrived_at)
+
+    def _note_first_token(self, request: _Request, now: float) -> None:
+        """A request's first token surfaced: decode.ttft_s from its
+        arrival, once per request."""
+        if request.first_token_at is not None:
+            return
+        request.first_token_at = now
+        if self._registry is not None:
+            self._registry.histogram("decode.ttft_s").record(
+                now - request.arrived_at)
 
     def _finished(self, request: _Request) -> bool:
         if len(request.generated) >= request.max_new:
@@ -1380,12 +1414,12 @@ class DecodeEngine:
         admitted_at = request.admitted_at or now
         first_at = request.first_token_at or now
         stats = {
-            "queue_wait_s": admitted_at - request.submitted_at,
+            "queue_wait_s": admitted_at - request.arrived_at,
             "prefill_s": first_at - admitted_at,
-            "ttft_s": first_at - request.submitted_at,
+            "ttft_s": first_at - request.arrived_at,
             "decode_steps": request.decode_steps,
             "preemptions": request.preemptions,
-            "total_s": now - request.submitted_at,
+            "total_s": now - request.arrived_at,
             "tokens": len(request.generated),
         }
         if self.prefix is not None:
@@ -1394,12 +1428,8 @@ class DecodeEngine:
             # cache-bound prefill floor from a compute-bound one
             stats["prefix_blocks"] = slot.shared
         if self._registry is not None:
-            self._registry.histogram("decode.queue_wait_s").record(
-                stats["queue_wait_s"])
             self._registry.histogram("decode.prefill_s").record(
                 stats["prefill_s"])
-            self._registry.histogram("decode.ttft_s").record(
-                stats["ttft_s"])
             self._registry.histogram("decode.total_s").record(
                 stats["total_s"])
             self._registry.histogram("decode.steps").record(

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..observe.trace import PROGRAM
 from ..ops.audio import full_f32_convolution, log_mel_spectrogram
 from ..ops.device import resolve_device
 from ..parallel.attention import flash_attention
@@ -440,22 +441,29 @@ def transcribe(params: dict, config: AsrConfig, mel, max_tokens: int = 32):
     call, params = _asr_call(params, config)
     if call is not None:
         return _sharded_transcribe(call, params, mel, max_tokens)
-    memory = encode_audio(params, config, mel)
-    cross_k, cross_v = _cross_kv(params, config, memory)
-    batch = mel.shape[0]
-    shape = (_layer_count(params["dec_layers"]), batch, config.n_heads,
-             max_tokens, config.head_dim)
-    self_k = torch.zeros(shape, dtype=config.torch_dtype, device=mel.device)
-    self_v = torch.zeros(shape, dtype=config.torch_dtype, device=mel.device)
-    tokens = _start_tokens(config, batch, max_tokens, mel.device)
-    finished = torch.zeros((batch,), dtype=torch.bool, device=mel.device)
-    for index in range(max_tokens):
-        token = tokens[:, index:index + 1]
-        logits, self_k, self_v = _decode_step(
-            params, config, token, index, self_k, self_v, cross_k, cross_v)
-        next_token = _greedy_next(config, logits, finished)
-        tokens[:, index + 1] = next_token
-        finished = finished | (next_token == config.eot_token)
+    with PROGRAM.span("asr.encode", device=True):
+        memory = encode_audio(params, config, mel)
+    with PROGRAM.span("asr.cross_kv", device=True):
+        cross_k, cross_v = _cross_kv(params, config, memory)
+    with PROGRAM.span("asr.decode", device=True):
+        batch = mel.shape[0]
+        shape = (_layer_count(params["dec_layers"]), batch, config.n_heads,
+                 max_tokens, config.head_dim)
+        self_k = torch.zeros(shape, dtype=config.torch_dtype,
+                             device=mel.device)
+        self_v = torch.zeros(shape, dtype=config.torch_dtype,
+                             device=mel.device)
+        tokens = _start_tokens(config, batch, max_tokens, mel.device)
+        finished = torch.zeros((batch,), dtype=torch.bool,
+                               device=mel.device)
+        for index in range(max_tokens):
+            token = tokens[:, index:index + 1]
+            logits, self_k, self_v = _decode_step(
+                params, config, token, index, self_k, self_v, cross_k,
+                cross_v)
+            next_token = _greedy_next(config, logits, finished)
+            tokens[:, index + 1] = next_token
+            finished = finished | (next_token == config.eot_token)
     return tokens[:, 1:]
 
 
@@ -463,7 +471,8 @@ def transcribe_audio(params: dict, config: AsrConfig, audio,
                      max_tokens: int = 32):
     """audio (B, samples) 16 kHz f32 -> (B, max_tokens) token ids: the
     log-mel frontend, then transcribe(), on audio's device."""
-    mel = log_mel_spectrogram(audio, n_mels=config.n_mels)
+    with PROGRAM.span("asr.frontend", device=True):
+        mel = log_mel_spectrogram(audio, n_mels=config.n_mels)
     return transcribe(params, config, mel, max_tokens=max_tokens)
 
 

@@ -10,10 +10,11 @@ from .metrics import (                                      # noqa: F401
     get_registry, merge_snapshots, snapshot_from_wire,
     snapshot_quantile)
 from .trace import (                                        # noqa: F401
-    FrameTrace, TRACE_CONTEXT_KEY, Tracer, attach_trace_context,
+    FrameTrace, PROGRAM, TRACE_CONTEXT_KEY, Tracer, attach_trace_context,
     chrome_trace_document, clock_epoch_unix_us,
     definition_fingerprint, make_trace_context, pop_trace_context,
-    trace_context_of, trace_metadata, trace_metadata_of)
+    record_program_spans, trace_context_of, trace_metadata,
+    trace_metadata_of)
 from .collector import (                                    # noqa: F401
     collect_traces, merge_trace_documents, merge_trace_files,
     publish_trace_document, trace_summary)

@@ -45,6 +45,32 @@
 #   compile    "compile:{node}"              (re)compilation instants
 #   park/fault instants                      park/resume, retries,
 #                                            deadline + breaker events
+#   program    "flush:{node}" > "gather:",   the port's own spans of work
+#              "element:{node}", "split:";   that belongs to no single
+#              "asr.frontend", "asr.encode", frame, on the process-wide
+#              "asr.cross_kv", "asr.decode"; tracer PROGRAM (global lane
+#              "engine.step" >               0; recorded only while a
+#              "engine.admit" >              torch.profiler records or
+#              "engine.prefill",             after record_program_spans
+#              "engine.prefill_chunk",       (True)).  flush = one
+#              "engine.decode",              coalesced group, dispatch to
+#              "engine.verify";              the members' downstream run;
+#              "queue:engine" (interval)     asr.* and engine.prefill/
+#                                            prefill_chunk/decode/verify
+#                                            carry device ms (CUDA
+#                                            events); queue:engine =
+#                                            arrival -> admission
+#                                            (">" = encloses)
+#
+# Program spans on the device trace's clock: torch.profiler's (Kineto's)
+# host timestamps are Unix-epoch nanoseconds, so a program span's
+# perf_counter start `s` lies at
+#     (to_us(s) + clock_epoch_unix_us()) * 1e3   ns
+# on a torch.profiler trace -- the metadata's `clock_epoch_unix_us` lines
+# an export of PROGRAM up with a torch.profiler Chrome trace in one
+# Perfetto view.  Each program span also enters
+# torch.profiler.record_function(name), so on a thread the profiler
+# captures it nests with the aten ops and kernels it launched.
 #
 # Naming scheme: "{kind}:{node}" -- tune/loader._node_of strips the
 # prefix (and the "[row]" suffix) to join spans to typed graph nodes.
@@ -63,7 +89,9 @@
 # Cost contract: when tracing is disabled the frame carries trace=None
 # and every hook is a single `is None` check; when enabled, a span is one
 # perf_counter read and one tuple append -- no dict churn on the hot
-# path, events materialize only at export.
+# path, events materialize only at export.  A program span while nothing
+# records is one flag read returning a shared no-op context: no record,
+# no record_function, no CUDA event.
 
 from __future__ import annotations
 
@@ -71,14 +99,17 @@ import hashlib
 import itertools
 import json
 import os
+import sys
+import threading
 import time
 from collections import deque
 
-__all__ = ["FrameTrace", "Tracer", "TRACE_CONTEXT_KEY",
-           "attach_trace_context", "chrome_trace_document",
-           "clock_epoch_unix_us", "definition_fingerprint",
-           "make_trace_context", "pop_trace_context", "trace_context_of",
-           "trace_metadata", "trace_metadata_of"]
+__all__ = ["FrameTrace", "PROGRAM", "ProgramSpan", "Tracer",
+           "TRACE_CONTEXT_KEY", "attach_trace_context",
+           "chrome_trace_document", "clock_epoch_unix_us",
+           "definition_fingerprint", "make_trace_context",
+           "pop_trace_context", "record_program_spans", "recording",
+           "trace_context_of", "trace_metadata", "trace_metadata_of"]
 
 # trace-metadata schema version: bumped when the embedded layout
 # changes; the tune/ loader refuses versions it does not understand
@@ -225,13 +256,135 @@ class FrameTrace:
         return self.marks.pop(key, None)
 
 
+# -- program spans ------------------------------------------------------------
+
+_record_all = False   # record_program_spans(True): record with no profiler
+_profiler = None      # torch.autograd.profiler, bound once torch is loaded
+
+
+def record_program_spans(on: bool) -> None:
+    """Record program spans with no torch.profiler running (an
+    operator's switch; the profiler turns recording on by itself)."""
+    global _record_all
+    _record_all = bool(on)
+
+
+def recording() -> bool:
+    """Whether program spans record now: record_program_spans(True), or
+    a torch.profiler recording anywhere in this process (its flag is
+    module-global, so every thread sees it)."""
+    global _profiler
+    if _record_all:
+        return True
+    if _profiler is None:
+        _profiler = sys.modules.get("torch.autograd.profiler")
+        if _profiler is None:
+            return False
+    return _profiler._is_profiler_enabled
+
+
+class ProgramSpan:
+    """One finished program span or interval: perf_counter start and
+    end, the thread that ran it (None for an interval, a wait no thread
+    ran), the id of the span that enclosed it on that thread, its key
+    (a request id or a group's lead frame trace id; a span given none
+    inherits its parent's), and device milliseconds (CUDA events for a
+    device span on the card, the host duration for one on the CPU, None
+    for host spans) once Tracer.collect has resolved them."""
+
+    __slots__ = ("span_id", "name", "start_s", "end_s", "thread", "parent",
+                 "key", "device_ms", "events")
+
+    def __init__(self, span_id: int, name: str, start_s: float,
+                 thread: int | None, parent: int | None, key):
+        self.span_id = span_id
+        self.name = name
+        self.start_s = start_s
+        self.end_s = start_s
+        self.thread = thread
+        self.parent = parent
+        self.key = key
+        self.device_ms = None
+        self.events = None        # (start event, end event, card)
+
+    def as_dict(self) -> dict:
+        return {"span_id": self.span_id, "name": self.name,
+                "start_s": self.start_s, "end_s": self.end_s,
+                "thread": self.thread, "parent": self.parent,
+                "key": self.key, "device_ms": self.device_ms}
+
+
+class _NoSpan:
+    """The shared context a span returns while nothing records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    """An open program span: enters torch.profiler.record_function, and
+    for a device span records the pooled start event on the thread's
+    current CUDA stream."""
+
+    __slots__ = ("tracer", "name", "key", "device", "record", "profiled")
+
+    def __init__(self, tracer: "Tracer", name: str, key, device: bool):
+        self.tracer = tracer
+        self.name = name
+        self.key = key
+        self.device = device
+
+    def __enter__(self) -> ProgramSpan:
+        import torch
+        stack = self.tracer._stack()
+        parent = stack[-1] if stack else None
+        key = self.key
+        if key is None and parent is not None:
+            key = parent.key
+        self.profiled = torch.profiler.record_function(self.name)
+        self.profiled.__enter__()
+        record = ProgramSpan(next(self.tracer._span_ids), self.name,
+                             time.perf_counter(), threading.get_ident(),
+                             None if parent is None else parent.span_id,
+                             key)
+        if self.device and torch.cuda.is_initialized():
+            record.events = self.tracer._take_events()
+            record.events[0].record()
+        stack.append(record)
+        self.record = record
+        return record
+
+    def __exit__(self, *exc) -> bool:
+        record = self.record
+        if record.events is not None:
+            record.events[1].record()
+        record.end_s = time.perf_counter()
+        if self.device and record.events is None:
+            record.device_ms = (record.end_s - record.start_s) * 1e3
+        self.tracer._stack().pop()
+        self.profiled.__exit__(*exc)
+        self.tracer._keep(record)
+        return False
+
+
 class Tracer:
     """Mints trace ids, keeps a bounded ring of completed frame traces,
     and renders Chrome-trace documents.  Global (non-frame) events --
     fused-program compiles, scheduler decisions -- accumulate in their
-    own bounded list and export on a dedicated lane."""
+    own bounded list and export on a dedicated lane, beside the program
+    spans (span / interval) in a bounded ring of their own."""
 
     _pids = itertools.count()
+    # program spans kept (a window of the benchmark keeps a few hundred)
+    PROGRAM_RING = 16384
 
     def __init__(self, ring_size: int = 256, pid: int | None = None):
         self._ids = itertools.count(1)
@@ -245,6 +398,14 @@ class Tracer:
         # frames evicted from the bounded ring: exports surface this so
         # a truncated artifact never silently reads as full coverage
         self.dropped = 0
+        # program spans: finished ProgramSpans, the count evicted, the
+        # open spans of each thread, and CUDA event pairs by card
+        self.program: deque = deque(maxlen=self.PROGRAM_RING)
+        self.program_dropped = 0
+        self._span_ids = itertools.count(1)
+        self._local = threading.local()
+        self._events: dict = {}
+        self._lock = threading.Lock()
 
     def begin(self, stream_id: str, frame_id: int) -> FrameTrace:
         return FrameTrace(self._pid, next(self._ids), stream_id,
@@ -273,6 +434,78 @@ class Tracer:
             ("X", name, category, now_us() - elapsed_s * 1e6,
              elapsed_s * 1e6, args))
 
+    def span(self, name: str, key=None, device: bool = False):
+        """Context manager around one piece of the program's work (the
+        taxonomy's `program` row).  While nothing records it returns a
+        shared no-op context; while recording() it keeps a ProgramSpan
+        parented to the thread's enclosing span, enters
+        torch.profiler.record_function(name), and with `device` times
+        the work on the thread's current CUDA stream with a pooled
+        event pair."""
+        if not recording():
+            return _NO_SPAN
+        return _Span(self, name, key, device)
+
+    def interval(self, name: str, start_s: float, end_s: float,
+                 key=None) -> None:
+        """Keep a finished wait (perf_counter start and end) that is no
+        host call, e.g. a request's arrival -> admission, while
+        recording()."""
+        if not recording():
+            return
+        record = ProgramSpan(next(self._span_ids), name, float(start_s),
+                             None, None, key)
+        record.end_s = float(end_s)
+        self._keep(record)
+
+    def collect(self, since: float | None = None) -> list:
+        """The kept program spans that end at or after perf_counter
+        `since` (all without it), as dicts (ProgramSpan.as_dict), their
+        device milliseconds resolved with one synchronise per card."""
+        records = [record for record in list(self.program)
+                   if since is None or record.end_s >= since]
+        self._resolve(records)
+        return [record.as_dict() for record in records]
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _take_events(self) -> tuple:
+        import torch
+        card = torch.cuda.current_device()
+        with self._lock:
+            pool = self._events.setdefault(card, [])
+            if pool:
+                return pool.pop()
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True), card)
+
+    def _keep(self, record: ProgramSpan) -> None:
+        with self._lock:
+            if len(self.program) == self.program.maxlen:
+                self.program_dropped += 1
+            self.program.append(record)
+
+    def _resolve(self, records: list) -> None:
+        """Fill device_ms from each device span's events, returning the
+        events to the pool."""
+        with self._lock:
+            pending = [record for record in records
+                       if record.events is not None]
+            if not pending:
+                return
+            import torch
+            for card in {record.events[2] for record in pending}:
+                torch.cuda.synchronize(card)
+            for record in pending:
+                start, end, card = record.events
+                record.device_ms = start.elapsed_time(end)
+                record.events = None
+                self._events.setdefault(card, []).append((start, end, card))
+
     def _lane(self, stream_id: str) -> int:
         lane = self._stream_lanes.get(stream_id)
         if lane is None:
@@ -299,6 +532,25 @@ class Tracer:
         for kind, name, category, ts, dur, args in self.global_events:
             events.append(self._event(kind, name, category, ts, dur,
                                       args, tid=0))
+        if self.program_dropped:
+            events.append(self._event(
+                "i", f"program span ring dropped {self.program_dropped}",
+                "truncation", now_us(), 0.0,
+                {"dropped_spans": self.program_dropped,
+                 "ring_size": self.program.maxlen}, tid=0))
+        for record in self.collect():
+            args = {"program_span": record["span_id"]}
+            if record["thread"] is not None:
+                args["thread"] = record["thread"]
+            if record["parent"] is not None:
+                args["program_parent"] = record["parent"]
+            if record["key"] is not None:
+                args["key"] = str(record["key"])
+            if record["device_ms"] is not None:
+                args["device_ms"] = record["device_ms"]
+            events.append(self._event(
+                "X", record["name"], "program", to_us(record["start_s"]),
+                (record["end_s"] - record["start_s"]) * 1e6, args, tid=0))
         named_lanes = set()
         for trace in list(self.completed):
             lane = self._lane(trace.stream_id)
@@ -419,3 +671,10 @@ def trace_metadata_of(document: dict) -> dict | None:
         return None
     aiko = metadata.get("aiko")
     return aiko if isinstance(aiko, dict) else None
+
+
+# The process-wide tracer of the port's program spans (work that belongs
+# to no single frame: a coalesced group's flush, the speech element's
+# phases, the decode engine's steps); export it with
+# PROGRAM.export(path, metadata=trace_metadata(clock_epoch=True)).
+PROGRAM = Tracer(ring_size=1)

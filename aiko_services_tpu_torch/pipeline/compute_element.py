@@ -331,14 +331,14 @@ class ComputeElement(PipelineElement):
                 for name, axis in self._bucket_axes.items()
                 if name in inputs}
         try:
-            # record_function: per-element spans in torch.profiler traces.
             # The element's mesh is the AMBIENT mesh of this thread while
             # it computes, so the model's sequence-parallel attention (ring,
-            # Ulysses, sp decode) runs on it with mesh=None
+            # Ulysses, sp decode) runs on it with mesh=None.  The
+            # pipeline's "element:{node}" program span, around this call,
+            # is the element's span in torch.profiler traces
             mesh_scope = (use_mesh(self.mesh) if self.mesh is not None
                           else contextlib.nullcontext())
-            with mesh_scope, torch.profiler.record_function(
-                    f"element:{self.definition.name}"):
+            with mesh_scope:
                 outputs = self._call(dynamic, placed)
         except TypeError as error:
             bad = {name: type(value).__name__

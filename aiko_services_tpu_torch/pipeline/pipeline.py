@@ -38,7 +38,7 @@ import torch
 
 from ..faults import create_injector, get_injector
 from ..observe import PipelineTelemetry
-from ..observe.trace import pop_trace_context
+from ..observe.trace import PROGRAM, pop_trace_context, recording
 from ..runtime import Actor, Lease, ServiceFilter, ServicesCache
 from ..runtime.service import SERVICE_PROTOCOL_PIPELINE
 from ..utils import (
@@ -208,6 +208,10 @@ class Pipeline(Actor):
         # other's programs
         self._fused_programs: dict[str, dict] = {}
         self._fused_rejected: set = set()
+        # program span names per node ("flush:", "gather:", "element:",
+        # "split:" + node), built once so a span costs no string while
+        # nothing records (observe/trace.py, the taxonomy's program row)
+        self._span_names: dict[str, tuple] = {}
         # fused-path circuit breaker: RUN-time program failures per node;
         # FUSED_FLAP_LIMIT failures pin the node to the chained path
         self._fused_failures: dict[str, int] = {}
@@ -856,8 +860,9 @@ class Pipeline(Actor):
                     "diagnostic": f"{node_name}: injected fault "
                                   f"(element_raise frame "
                                   f"{frame.frame_id})"}
-        return self._safe_call(node_name, element.process_frame,
-                               stream, **inputs)
+        with PROGRAM.span(self._names(node_name)[2]):
+            return self._safe_call(node_name, element.process_frame,
+                                   stream, **inputs)
 
     def _handle_element_error(self, stream: Stream, frame: Frame,
                               node_name: str, element, outputs) -> bool:
@@ -1314,7 +1319,28 @@ class Pipeline(Actor):
                 if self.streams.get(entry[0].stream_id) is entry[0]
                 and entry[0].frames.get(entry[1].frame_id) is entry[1]]
             if group:
-                self._run_micro_group(element, group, micro)
+                key = self._group_key(group) if recording() else None
+                with PROGRAM.span(self._names(node_name)[0], key):
+                    self._run_micro_group(element, group, micro)
+
+    def _names(self, node_name: str) -> tuple:
+        """The node's program span names: (flush, gather, element,
+        split)."""
+        names = self._span_names.get(node_name)
+        if names is None:
+            names = self._span_names[node_name] = tuple(
+                f"{kind}:{node_name}"
+                for kind in ("flush", "gather", "element", "split"))
+        return names
+
+    @staticmethod
+    def _group_key(group: list):
+        """A coalesced group's span key: its lead frame's trace id,
+        else its lead stream and frame ids."""
+        stream, frame = group[0][0], group[0][1]
+        if frame.trace is not None:
+            return frame.trace.trace_id
+        return f"{stream.stream_id}:{frame.frame_id}"
 
     def _run_micro_group(self, element, group: list, micro: int) -> None:
         """One coalesced element call for `group` parked frames
@@ -1434,8 +1460,9 @@ class Pipeline(Actor):
                 shared_outputs = {
                     port["name"] for port in element.definition.output
                     if not port.get("batched", True)}
-                per_frame = self._split_micro_outputs_all(
-                    outputs or {}, split_rows, target, shared_outputs)
+                with PROGRAM.span(self._names(node_name)[3]):
+                    per_frame = self._split_micro_outputs_all(
+                        outputs or {}, split_rows, target, shared_outputs)
             for (stream, frame, _, _), frame_outputs in zip(group,
                                                             per_frame):
                 if (self.streams.get(stream.stream_id) is not stream
@@ -1516,13 +1543,16 @@ class Pipeline(Actor):
         process_frame over the coalesced batch (also the retry path for
         a failed fused group)."""
         node_name = element.definition.name
-        if len(group) == 1 and target == total:
-            coalesced = dict(group[0][2])
-        else:
-            named_arrays = self._gather_named_arrays(group, fillers)
-            coalesced = _concat_pad(named_arrays, target)
-        return self._safe_call(node_name, element.process_frame,
-                               lead_stream, **coalesced)
+        _, gather, call, _ = self._names(node_name)
+        with PROGRAM.span(gather):
+            if len(group) == 1 and target == total:
+                coalesced = dict(group[0][2])
+            else:
+                named_arrays = self._gather_named_arrays(group, fillers)
+                coalesced = _concat_pad(named_arrays, target)
+        with PROGRAM.span(call):
+            return self._safe_call(node_name, element.process_frame,
+                                   lead_stream, **coalesced)
 
     def _isolate_micro_group(self, element, group: list, node_name: str,
                              group_outputs) -> None:
@@ -1667,21 +1697,27 @@ class Pipeline(Actor):
                 return value[offset:offset + count]
             return value  # leading axis not the batch: shared whole
 
+        _, gather, call, split = self._names(node_name)
+
         def fused(context, named, target, counts, shared):
-            batch = _concat_pad(named, target)
-            outputs = kernel(context, **batch)
+            with PROGRAM.span(gather):
+                batch = _concat_pad(named, target)
+            with PROGRAM.span(call):
+                outputs = kernel(context, **batch)
             if not isinstance(outputs, dict):
                 raise TypeError(
                     f"{node_name}: group kernel must return a dict, "
                     f"got {type(outputs)}")
             frames = []
             offset = 0
-            for count in counts:
-                frames.append({
-                    name: (value if name in shared
-                           else slice_rows(value, offset, count, target))
-                    for name, value in outputs.items()})
-                offset += count
+            with PROGRAM.span(split):
+                for count in counts:
+                    frames.append({
+                        name: (value if name in shared
+                               else slice_rows(value, offset, count,
+                                               target))
+                        for name, value in outputs.items()})
+                    offset += count
             return tuple(frames)
 
         if len(programs) >= 8:
