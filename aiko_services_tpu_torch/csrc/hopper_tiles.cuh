@@ -1,9 +1,10 @@
 // Building blocks shared by the port's Hopper (sm_90a) kernels: cp.async
 // copies, warpgroup MMAs (wgmma) and their fences, the swizzled
 // shared-memory tiles wgmma's descriptors read, and the conversions between
-// accumulator and operand fragments.  Included by flash_attention.cu and
-// flash_attention_backward.cu; each source is built into a library of its
-// own, so the helpers live in an anonymous namespace.
+// accumulator and operand fragments.  Included by flash_attention.cu,
+// flash_attention_backward.cu and paged_attention.cu; each source is built
+// into a library of its own, so the helpers live in an anonymous
+// namespace.
 
 #pragma once
 

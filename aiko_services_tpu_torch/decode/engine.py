@@ -75,6 +75,7 @@ from ..models import (
     f32_head, init_paged_pool, paged_decode_step, paged_prefill,
     paged_prefill_chunk, paged_verify_step)
 from ..observe.trace import PROGRAM
+from ..ops import kernels
 from ..runtime.compile_cache import record_capture
 from ..utils import get_logger
 from ..utils.padding import bucket_length
@@ -173,7 +174,9 @@ class _CapturedStep:
     on one model) captured as a CUDA graph.  Its static inputs start as
     all-trash tables and writes, so the warm-up runs before the capture
     write only the trash block; each replay copies the host arrays into
-    them and reads the greedy tokens back."""
+    them and reads the greedy tokens back.  The kernel launches the
+    capture records (ops.kernels.captured_launches) are counted at each
+    replay, when the card runs them."""
 
     def __init__(self, step, params, config, pool, shapes):
         device = pool["k"].device
@@ -192,9 +195,12 @@ class _CapturedStep:
         self.graph = torch.cuda.CUDAGraph()
         # thread_local: another engine's thread may launch, allocate or
         # copy while this one captures
-        with _CAPTURE_LOCK, torch.cuda.graph(
-                self.graph, capture_error_mode="thread_local"):
+        with _CAPTURE_LOCK, kernels.captured_launches() as launches, \
+                torch.cuda.graph(self.graph,
+                                 capture_error_mode="thread_local"):
             self.output = run()
+        self.launches = {name: count for name, count in launches.items()
+                         if count}
         # counted beside the kernel build cache's hits and misses: a
         # warm replica captures its own graphs (runtime/compile_cache.py)
         record_capture()
@@ -203,6 +209,7 @@ class _CapturedStep:
         for static, array in zip(self.inputs, arrays):
             static.copy_(torch.from_numpy(array))
         self.graph.replay()
+        kernels.count_replay(self.launches)
         return self.output.cpu().numpy()
 
 

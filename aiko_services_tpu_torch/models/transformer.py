@@ -16,7 +16,9 @@
 # goes through flash_attention (the hand-written Hopper kernels on CUDA,
 # forward and backward).  The cached and paged attentions are the JAX
 # package's masked einsum (no Pallas kernel there either), here plain
-# matmuls, one function for both.
+# matmuls, one function for both; on the card the paged steps' windows of
+# up to 16 rows over a bf16 pool take K4 instead (paged_decode_attention,
+# below), which reads each slot's live blocks in place.
 #
 # The cache and the pool are written IN PLACE (the JAX package donates
 # them to its jitted steps, so no caller keeps the old buffer); forward
@@ -79,7 +81,8 @@ from torch.utils.checkpoint import (
 
 from ..ops.device import resolve_device
 from ..parallel.attention import (
-    flash_attention, ring_attention, ring_attention_grid,
+    PAGED_HEAD_DIMS, PAGED_MAX_WINDOW, flash_attention,
+    paged_decode_attention, ring_attention, ring_attention_grid,
     sp_decode_attention, sp_decode_grid, ulysses_attention,
     ulysses_attention_grid)
 from ..parallel.collectives import (
@@ -102,7 +105,8 @@ __all__ = ["TransformerConfig", "init_params", "forward", "init_cache",
            "generate_stream", "make_train_step", "count_params",
            "quantize_weights_int8", "REMAT_POLICIES", "resolve_remat_policy",
            "init_paged_pool", "paged_prefill", "paged_decode_step",
-           "paged_verify_step", "paged_prefill_chunk", "f32_head"]
+           "paged_verify_step", "paged_prefill_chunk", "f32_head",
+           "paged_gather_attention"]
 
 
 @dataclass(frozen=True)
@@ -1653,7 +1657,14 @@ def generate_stream(params, config: TransformerConfig, prompt,
 #     into blocks);
 #   - the paged attention is _masked_attention, the cached path's, over
 #     the block-table gather: positions beyond a slot's cursor hold stale
-#     or trash values but are masked to exactly zero weight;
+#     or trash values but are masked to exactly zero weight
+#     (paged_gather_attention).  On the card a bf16 pool's windows of up
+#     to PAGED_MAX_WINDOW rows -- the decode, verify and draft steps, and
+#     a chunk that short -- go to K4 instead (paged_decode_attention): the
+#     same function read from the pool in place, up to each slot's
+#     position and no further; a head size K4 does not take raises there.
+#     The route follows only the device, the pool's dtype and the window:
+#     the CPU, an f32 or int8 pool and a longer chunk keep the gather;
 #   - inactive slots compute on the reserved TRASH block (index 0, never
 #     allocated), so a step's shapes -- (slots, max_blocks) -- stay the
 #     same across any admission/eviction sequence.  On the card that is
@@ -1727,6 +1738,38 @@ def _paged_gather(pool_layer, tables):
                                         max_blocks * block_size, depth)
 
 
+def paged_gather_attention(config: TransformerConfig, q, k_pool, v_pool,
+                           tables, positions, k_scale=None, v_scale=None):
+    """The paged steps' attention by gathering: q (S, H, W, d) over one
+    layer's pools (num_blocks, H_kv, bs, d) -- int8 codes dequantized
+    with their scale planes when given -- through tables (S, MB), every
+    slot's whole table gathered and row w of slot s attending to the
+    positions up to positions[s] + w (_masked_attention).  Returns
+    (S, H, W, d) in q's dtype.  The route of the CPU, of f32 and int8
+    pools and of windows longer than K4 takes; over a bf16 pool it is
+    K4's plain version, which the tests hold K4 to."""
+    block_size = k_pool.shape[2]
+    tables = tables.long()
+    k_eff = _paged_gather(k_pool, tables)
+    v_eff = _paged_gather(v_pool, tables)
+    if k_scale is not None:
+        k_eff = _dequantized(k_eff, _paged_gather(k_scale, tables), q.dtype)
+        v_eff = _dequantized(v_eff, _paged_gather(v_scale, tables), q.dtype)
+    q_pos = positions.long()[:, None] + torch.arange(
+        q.shape[2], device=q.device)[None, :]
+    k_pos = torch.arange(tables.shape[1] * block_size, device=q.device)
+    return _masked_attention(config, q, k_eff, v_eff,
+                             q_pos[:, None, :, None], k_pos)
+
+
+def _takes_paged_kernel(pool, window: int) -> bool:
+    """K4's route: a bf16 pool (not f32, not int8) on a CUDA device and a
+    window of at most PAGED_MAX_WINDOW rows."""
+    return (pool["k"].device.type == "cuda"
+            and pool["k"].dtype == torch.bfloat16
+            and window <= PAGED_MAX_WINDOW)
+
+
 @torch.no_grad()
 def _paged_window(params, config: TransformerConfig, pool, tables,
                   positions, tokens, write_blocks, write_offsets):
@@ -1737,16 +1780,23 @@ def _paged_window(params, config: TransformerConfig, pool, tables,
     tokens (S, W) are consumed left to right per slot: window position i
     sits at absolute position positions[s] + i and its K/V lands at
     (write_blocks[s, i], write_offsets[s, i]).  Every write of the window
-    happens before the gather, so later window positions attend to
+    happens before the attention, so later window positions attend to
     earlier ones causally; rows meant to be inert write to the trash
     block (duplicate trash writes leave only the trash's contents
     depending on which one wins).  Returns greedy (S, W) int32:
     greedy[s, i] is the greedy token after window positions 0..i."""
-    block_size = pool["k"].shape[3]
     quantized = config.kv_dtype == "int8"
     device = tokens.device
     slots, window = tokens.shape
-    tables = tables.long()
+    kernel = _takes_paged_kernel(pool, window)
+    if kernel:
+        if config.head_dim not in PAGED_HEAD_DIMS:
+            raise ValueError(
+                f"a paged step over a CUDA bf16 pool runs K4, which takes "
+                f"head_dim in {PAGED_HEAD_DIMS}, not {config.head_dim}")
+        # K4 reads int32 tables and positions, converted once a window
+        tables = tables.to(torch.int32)
+        positions = positions.to(torch.int32)
     write_blocks = write_blocks.long()
     write_offsets = write_offsets.long()
     h = _embed(params, config, tokens)
@@ -1754,8 +1804,6 @@ def _paged_window(params, config: TransformerConfig, pool, tables,
         window, device=device)[None, :]                     # (S, W)
     cos, sin = rotary_embedding(q_pos, config.head_dim, config.rope_theta)
     cos, sin = cos[:, None], sin[:, None]                   # (S, 1, W, hd/2)
-    k_pos = torch.arange(tables.shape[1] * block_size, device=device)
-    mask_pos = q_pos[:, None, :, None]                      # (S, 1, W, 1)
     for index, layer in enumerate(_unstack(params["layers"])):
         layer_pool = {name: buffer[index] for name, buffer in pool.items()}
         q, k, v = _project_qkv(
@@ -1774,17 +1822,15 @@ def _paged_window(params, config: TransformerConfig, pool, tables,
         # every slot
         layer_pool["k"][write_blocks, :, write_offsets] = k.transpose(1, 2)
         layer_pool["v"][write_blocks, :, write_offsets] = v.transpose(1, 2)
-        if quantized:
-            k_eff = _dequantized(_paged_gather(layer_pool["k"], tables),
-                                 _paged_gather(layer_pool["k_scale"],
-                                               tables), q.dtype)
-            v_eff = _dequantized(_paged_gather(layer_pool["v"], tables),
-                                 _paged_gather(layer_pool["v_scale"],
-                                               tables), q.dtype)
+        if kernel:
+            out = paged_decode_attention(
+                q, layer_pool["k"], layer_pool["v"], tables, positions,
+                _attention_scale(config.head_dim))
         else:
-            k_eff = _paged_gather(layer_pool["k"], tables)
-            v_eff = _paged_gather(layer_pool["v"], tables)
-        out = _masked_attention(config, q, k_eff, v_eff, mask_pos, k_pos)
+            out = paged_gather_attention(
+                config, q, layer_pool["k"], layer_pool["v"], tables,
+                positions, layer_pool.get("k_scale"),
+                layer_pool.get("v_scale"))
         out = out.transpose(1, 2).reshape(slots, window, -1)
         h = h + dense(layer["wo"], out)
         mlp_out, _ = _mlp_block(

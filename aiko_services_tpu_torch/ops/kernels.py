@@ -15,13 +15,17 @@
 # thread's first request for an already-built library (hits) are
 # counted there.
 #
-# Every wrapper that launches a kernel adds one to its count in
-# `launch_counts` where it launches, and nowhere else: a run can show that
-# its path went through the kernels by resetting the counts before it and
-# reading them after.
+# Every wrapper that launches a kernel counts one launch of it
+# (count_launch) where it launches, and nowhere else: a run can show that
+# its path went through the kernels by resetting `launch_counts` before it
+# and reading them after.  A launch recorded into a CUDA graph runs
+# nothing until the graph is replayed, so inside captured_launches() this
+# thread's launches are kept apart, and the graph's owner counts them again
+# at each replay (count_replay): the counts are the launches the card ran.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,8 +37,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["KERNEL_SOURCES", "KERNELS", "build_kernel", "build_all",
-           "load_kernel", "launch_counts", "reset_launch_counts",
+__all__ = ["KERNEL_SOURCES", "KERNELS", "FLASH_KERNELS", "build_kernel",
+           "build_all", "load_kernel", "launch_counts", "reset_launch_counts",
+           "count_launch", "captured_launches", "count_replay",
            "build_seconds"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -44,10 +49,16 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 KERNEL_SOURCES = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_backward": "flash_attention_backward.cu",
+    "paged_attention": "paged_attention.cu",
 }
-# the kernels, each with its launch counter: the forward in
-# flash_attention.cu, dQ and dK/dV in flash_attention_backward.cu
-KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
+# the kernels, each with its launch counter: K1, K2 and K3 (the forward
+# in flash_attention.cu, dQ and dK/dV in flash_attention_backward.cu),
+# which every attention outside the decode engine's paged steps runs, and
+# K4, the paged decode attention's two launches (splits, merge) in
+# paged_attention.cu
+FLASH_KERNELS = ("flash_attention", "flash_attention_dq",
+                 "flash_attention_dkv")
+KERNELS = FLASH_KERNELS + ("paged_decode_attention",)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -67,11 +78,40 @@ _LOCK = threading.Lock()
 # per thread, `loaded`: (name, directory) -> the library this thread
 # has requested from there
 _REQUESTED = threading.local()
+# per thread, `counts`: the launches of the graph this thread captures
+_CAPTURING = threading.local()
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel `name`: in launch_counts, or in the counts of
+    the graph this thread is capturing (captured_launches)."""
+    captured = getattr(_CAPTURING, "counts", None)
+    (launch_counts if captured is None else captured)[name] += 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """A scope around a CUDA graph capture: yields a dict, kernel name ->
+    the launches this thread records into the graph, which launch_counts
+    does not count (the capture runs nothing)."""
+    counts = {name: 0 for name in KERNELS}
+    _CAPTURING.counts = counts
+    try:
+        yield counts
+    finally:
+        _CAPTURING.counts = None
+
+
+def count_replay(counts: dict) -> None:
+    """One replay of a graph whose capture recorded `counts`
+    (captured_launches): its launches run now."""
+    for name, count in counts.items():
+        launch_counts[name] += count
 
 
 def _nvcc() -> str:

@@ -22,6 +22,11 @@
 #   sp_decode_attention       -- cached decode with the cache length
 #                                sharded over "seq" (plain torch, as the
 #                                JAX package's einsums are)
+#   paged_decode_attention    -- the decode engine's attention over a
+#                                paged KV pool: K4 (csrc/paged_attention.cu),
+#                                CUDA only; its plain version is
+#                                models/transformer.py's gather path,
+#                                paged_gather_attention
 #
 # The sequence-parallel functions run on a Mesh (parallel/mesh.py; the
 # ambient one when mesh=None).  One process drives every device of the
@@ -69,7 +74,8 @@ __all__ = ["attention_reference", "flash_attention", "count_meta_flops",
            "flash_attention_dq_plain", "flash_attention_dkv_plain",
            "ring_attention", "ulysses_attention", "sp_decode_attention",
            "ring_attention_grid", "ulysses_attention_grid",
-           "sp_decode_grid"]
+           "sp_decode_grid", "paged_decode_attention", "PAGED_HEAD_DIMS",
+           "PAGED_MAX_WINDOW"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -92,7 +98,20 @@ _SIGNATURES = {
         "flash_attention_backward",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          ctypes.c_float, _I, _P]),
+    "aiko_paged_decode_attention": (
+        "paged_attention",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+         ctypes.c_float, _P]),
+    "aiko_paged_decode_attention_merge": (
+        "paged_attention",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
+
+# what K4 takes (csrc/paged_attention.cu): K1's head sizes, window rows,
+# and the positions of a split, which sizes its scratch
+PAGED_HEAD_DIMS = _HEAD_DIMS
+PAGED_MAX_WINDOW = 16
+_PAGED_SPLIT_KEYS = 512
 
 
 def _causal_mask(q_len: int, k_len: int, q_offset: int, device):
@@ -277,7 +296,7 @@ def _launch(kernel: str, symbol: str, device, *arguments) -> None:
     if error != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
                            f"{error}")
-    kernels.launch_counts[kernel] += 1
+    kernels.count_launch(kernel)
 
 
 def _diagonal(causal: bool, q_offset: int, q_len: int, k_len: int) -> int:
@@ -367,6 +386,78 @@ def _flash_kernel_dkv(q, k, v, dout, lse, delta, causal: bool,
             int(causal), float(sm_scale),
             _diagonal(causal, q_offset, q_len, k_len))
     return dk, dv
+
+
+def _check_paged_inputs(q, k_pool, v_pool, tables, positions) -> None:
+    where = "paged decode attention kernel"
+    for name, tensor in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                         ("tables", tables), ("positions", positions)):
+        if tensor.device.type != "cuda" or tensor.device != q.device:
+            raise ValueError(f"{where}: {name} is on {tensor.device}, not "
+                             f"q's CUDA device")
+        if not tensor.is_contiguous():
+            raise ValueError(f"{where}: {name} must be contiguous")
+    for name, tensor in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if tensor.dtype != torch.bfloat16 or tensor.dim() != 4:
+            raise TypeError(f"{where}: {name} must be 4-D bfloat16, got "
+                            f"{tensor.dtype} {tuple(tensor.shape)}")
+    for name, tensor in (("tables", tables), ("positions", positions)):
+        if tensor.dtype != torch.int32:
+            raise TypeError(f"{where}: {name} must be int32, got "
+                            f"{tensor.dtype}")
+    slots, heads, window, head_dim = q.shape
+    kv_heads = k_pool.shape[1]
+    if head_dim not in PAGED_HEAD_DIMS:
+        raise ValueError(f"{where} takes head_dim in {PAGED_HEAD_DIMS}, "
+                         f"got {head_dim}")
+    if not 1 <= window <= PAGED_MAX_WINDOW:
+        raise ValueError(f"{where} takes 1 to {PAGED_MAX_WINDOW} window "
+                         f"rows, got {window}")
+    if v_pool.shape != k_pool.shape or k_pool.shape[3] != head_dim or (
+            heads % kv_heads):
+        raise ValueError(f"{where}: pools {tuple(k_pool.shape)} and "
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)} (num_blocks, H_kv, bs, D) with "
+                         f"H a multiple of H_kv")
+    if tables.dim() != 2 or tables.shape[0] != slots or (
+            positions.shape != (slots,)):
+        raise ValueError(f"{where}: tables {tuple(tables.shape)} and "
+                         f"positions {tuple(positions.shape)} do not match "
+                         f"{slots} slots")
+    _check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
+
+
+def paged_decode_attention(q, k_pool, v_pool, tables, positions,
+                           sm_scale: float):
+    """K4: attention of q (S, H, W, D) bf16 over one layer's paged K and
+    V pools (num_blocks, H_kv, bs, D) bf16, read in place through the
+    block tables (S, MB) int32: row w of slot s sees the keys
+    0 .. positions[s] + w (int32 (S,), on the device), as many as the
+    table holds.  Returns (S, H, W, D) bf16.  Two launches, each counted:
+    every split of 512 positions a slot's rows see, then the merge of a
+    row's splits; the scratch between them is allocated here.  CUDA
+    tensors only; raises on anything the kernel does not take."""
+    _check_paged_inputs(q, k_pool, v_pool, tables, positions)
+    slots, heads, window, head_dim = q.shape
+    kv_heads, block_size = k_pool.shape[1], k_pool.shape[2]
+    max_blocks = tables.shape[1]
+    splits = -(-max_blocks * block_size // _PAGED_SPLIT_KEYS)
+    rows = slots * heads * window
+    part_ml = torch.empty((rows, splits, 2), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((rows, splits, head_dim), dtype=torch.float32,
+                           device=q.device)
+    out = torch.empty_like(q)
+    shape = (slots, heads, kv_heads, window, head_dim, max_blocks,
+             block_size, splits)
+    _launch("paged_decode_attention", "aiko_paged_decode_attention",
+            q.device, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), positions.data_ptr(), part_ml.data_ptr(),
+            part_acc.data_ptr(), *shape, float(sm_scale))
+    _launch("paged_decode_attention", "aiko_paged_decode_attention_merge",
+            q.device, part_ml.data_ptr(), part_acc.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), *shape)
+    return out
 
 
 # -- dispatch ------------------------------------------------------------------

@@ -29,6 +29,15 @@ result:
      version on the card, on the same inputs and the same dO (bf16 at
      D = 16, 32, 64, 128, ragged, causal with a negative q_offset; f32),
      and a second launch bitwise equal to the first
+  2c. hold the paged decode attention kernel (K4) against its plain
+     version (the gather path, in f32 on the same bf16 inputs) at the
+     mistral_7b.serve_chat step's shapes (64 slots, 144 blocks of 32,
+     H 32, H_kv 8, d 128): the 44 residents at 1,000-2,000 positions,
+     all 64 slots at the whole table, and the residents under a verify
+     window of 4; a second launch bitwise equal; K4's and the plain
+     version's device time (torch.profiler) beside K4's bound (the live
+     K/V, q and the output over the memory rate), and a call's time by
+     CUDA events, the wrapper's host work included
   3. time K1 at the serving shape and K1, K2, K3 at the llama32_1b
      training shape with CUDA events, beside their bounds (and the
      achieved TFLOP/s and kernel/bound ratio), their plain versions and
@@ -68,7 +77,8 @@ result:
      9a warm-up, capacity with every slot busy, then open-loop arrivals
         at twice that: goodput tokens/s, TTFT p50/p99, ms per engine
         step, slot occupancy, step signatures added in the window (must
-        be 0), peak memory; 20 steps under torch.profiler (idle share)
+        be 0), K4's launches in the window (must be 2 a layer a replayed
+        step, and not 0), peak memory; 20 steps under torch.profiler (idle share)
         and one graph replay's device time; the same requests submitted
         all at once and through a pool cut until preemption fires, each
         request's tokens identical to the open-loop run's;
@@ -106,7 +116,10 @@ result:
          replicas (yolov8n shape, 640 px, micro_batch 16), 16 streams x
          30 frames; goodput, shed rate, admitted p50/p99, 0 frames lost,
          every admitted frame's detections bit-equal to the direct
-         replica's
+         replica's;
+     and over 10a-10d K4's launches: 2 a layer for every bf16 window of
+     at most 16 rows the engines ran (a captured step's at each replay,
+     its capture's two eager warm-up runs, eager chunks), and not 0
  11. the remaining model families:
      11a a switch-MoE llama32_1b (the published widths, 8 experts,
          capacity factor 1.25, depth cut to 8 layers, bf16, random
@@ -415,6 +428,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# K1, K2 and K3, whose launches the training, speech, long-context and
+# multi-card phases count and check; K4 runs only in the decode engine's
+# paged steps (phases 9a and 10 check its launches, 2c holds it to its
+# plain version)
+from aiko_services_tpu_torch.ops.kernels import FLASH_KERNELS
+
 ROOT = pathlib.Path(__file__).resolve().parent
 ASSET = ROOT / "tests" / "assets" / "asr_tones.safetensors"
 MODULE = "aiko_services_tpu_torch.elements"
@@ -558,15 +577,18 @@ def ptxas_stats(log: str) -> dict:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
-            name = re.search(r"(flash_[a-z]+(?:_[a-z]+)*)I", mangled)
+            name = re.search(r"((?:flash|paged)_[a-z]+(?:_[a-z]+)*)I",
+                             mangled)
             # the element type of the tensors the kernel takes: a
             # template argument or the type of its first pointer
             dtype = ("bf16," if "13__nv_bfloat16" in mangled else
                      "f32," if "IfLi" in mangled or "EEvPKf" in mangled
                      else "")
-            dim = re.search(r"Li(\d+)E", mangled)
+            # the integer template arguments (up to the end of the
+            # template list, "EEv"): D, and a paged split kernel's rows
+            ints = re.findall(r"Li(\d+)E", mangled.split("EEv")[0])
             label = (f"{name.group(1) if name else mangled}"
-                     f"<{dtype}{dim.group(1) if dim else ''}>")
+                     f"<{dtype}{','.join(ints)}>")
             stats[label] = {}
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -589,7 +611,10 @@ BUILT_KERNELS = tuple(
         ("flash_forward_kernel_tc", "bf16"), ("flash_forward_kernel", "f32"),
         ("flash_dq_kernel_tc", "bf16"), ("flash_dq_kernel", "f32"),
         ("flash_dkv_kernel_tc", "bf16"), ("flash_dkv_kernel", "f32"))
-    for dim in (16, 32, 64, 128))
+    for dim in (16, 32, 64, 128)) + tuple(
+    f"paged_attention_split_kernel<bf16,{dim},{rows}>"
+    for dim in (16, 32, 64, 128) for rows in (4, 8, 16, 32)) + tuple(
+    f"paged_attention_merge_kernel<bf16,{dim}>" for dim in (16, 32, 64, 128))
 
 
 def phase_build() -> None:
@@ -915,6 +940,137 @@ def phase_timing(smi: str) -> dict:
     return timings
 
 
+# K4, the paged decode attention, at the mistral_7b.serve_chat step: 64
+# slots, blocks of 32, tables of 144 blocks (max_context 4,608), the
+# engine's full pool, H 32, H_kv 8, d 128, one window row.  K4 keeps P in
+# f32 and rounds its output once to bf16, from f32 sums in another order
+# than its plain version's (run in f32 on the same bf16 inputs).  A
+# resident's row averages ~1,500 random V rows, so its outputs are of
+# order 0.03-0.05: atol 2e-3 holds them (one bf16 rounding is ~2e-4
+# there); rtol 1e-2 holds the one rounding (at most 2^-8 relative) of the
+# free slots' verify rows, which see 1 to 4 keys and reach 1 to 4
+PAGED_SHAPE = {"slots": 64, "heads": 32, "kv_heads": 8, "head_dim": 128,
+               "block_size": 32, "max_blocks": 144}
+PAGED_ATOL, PAGED_RTOL = 2e-3, 1e-2
+# (occupancy, window): the cell's 44 residents at ~1,500 positions and 20
+# free slots on the trash block; all 64 slots at the whole table; the
+# residents under a verify window of 4
+PAGED_CASES = {"residents_44": (44, 1), "full_64": (64, 1),
+               "residents_44_verify_4": (44, 4)}
+
+
+def paged_inputs(case: str, seed: int) -> tuple:
+    """(config, q, k_pool, v_pool, tables, positions) for a PAGED_CASES
+    case: the engine's pool of slots x max_blocks + 1 blocks, each busy
+    slot on its own shuffled blocks, residents at 1,000 to 2,000
+    positions, the full case at the whole table; free slots on block 0
+    at position 0."""
+    from aiko_services_tpu_torch.models import TransformerConfig
+    busy, window = PAGED_CASES[case]
+    shape = PAGED_SHAPE
+    config = TransformerConfig(
+        vocab_size=64, d_model=shape["heads"] * shape["head_dim"],
+        n_layers=1, n_heads=shape["heads"], n_kv_heads=shape["kv_heads"],
+        d_ff=64, dtype="bfloat16")
+    slots, max_blocks = shape["slots"], shape["max_blocks"]
+    capacity = max_blocks * shape["block_size"]
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    num_blocks = slots * max_blocks + 1
+    pools = [torch.randn((num_blocks, shape["kv_heads"],
+                          shape["block_size"], shape["head_dim"]),
+                         generator=generator, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2)]
+    q = torch.randn((slots, shape["heads"], window, shape["head_dim"]),
+                    generator=generator, device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    tables = np.zeros((slots, max_blocks), np.int32)
+    tables[:busy] = rng.permutation(np.arange(1, num_blocks))[
+        :busy * max_blocks].reshape(busy, max_blocks)
+    positions = np.zeros(slots, np.int32)
+    positions[:busy] = (capacity - window if busy == slots else
+                        rng.integers(1000, 2001, size=busy))
+    return (config, q, *pools, torch.from_numpy(tables).cuda(),
+            torch.from_numpy(positions).cuda())
+
+
+def paged_bytes(q, tables, positions, block_size: int, kv_heads: int) -> int:
+    """What K4 has to move: each slot's live K and V positions once, q
+    read and the output written once."""
+    capacity = tables.shape[1] * block_size
+    window = q.shape[2]
+    live = int(torch.clamp(positions.long() + window, max=capacity)
+               .sum().item())
+    return (2 * live * kv_heads * q.shape[3] * 2
+            + 2 * q.numel() * q.element_size())
+
+
+def phase_paged_attention(smi: str) -> tuple:
+    """2c K4 against its plain version, then timed beside its bound and
+    the plain version (the gather path) at the cell's shapes; returns
+    (max abs error, timing fields).  Its launches are not the main path's
+    and count nowhere."""
+    from dataclasses import replace
+    from aiko_services_tpu_torch.models import transformer
+    from aiko_services_tpu_torch.parallel.attention import (
+        paged_decode_attention)
+    peaks_name, peaks = peaks_for(smi)
+    scale = transformer._attention_scale(PAGED_SHAPE["head_dim"])
+    max_error, timing = 0.0, {}
+    for index, case in enumerate(PAGED_CASES):
+        config, q, k_pool, v_pool, tables, positions = paged_inputs(
+            case, seed=300 + index)
+
+        def k4():
+            return paged_decode_attention(q, k_pool, v_pool, tables,
+                                          positions, scale)
+
+        out, again = k4(), k4()
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise SystemExit(f"K4 {case}: two launches on the same inputs "
+                             f"differ")
+        f32 = replace(config, dtype="float32")
+        k32, v32 = k_pool.float(), v_pool.float()
+        expected = torch.cat([transformer.paged_gather_attention(
+            f32, q[slot:slot + 1].float(), k32, v32, tables[slot:slot + 1],
+            positions[slot:slot + 1]) for slot in range(q.shape[0])])
+        del k32, v32
+        error = (out.float() - expected).abs().max().item()
+        torch.testing.assert_close(out.float(), expected, atol=PAGED_ATOL,
+                                   rtol=PAGED_RTOL)
+        max_error = max(max_error, error)
+        # device time: at these sizes the wrapper's host work (checks,
+        # scratch, two ctypes launches) outlasts K4 itself, and the engine
+        # replays K4 from a CUDA graph with none of it; call_ms is a call
+        # timed by CUDA events, host work included
+        kernel_ms = device_ms(k4, runs=20)
+        call_ms = cuda_ms(k4)
+        plain_ms = device_ms(lambda: transformer.paged_gather_attention(
+            config, q, k_pool, v_pool, tables, positions), runs=3)
+        moved = paged_bytes(q, tables, positions,
+                            PAGED_SHAPE["block_size"],
+                            PAGED_SHAPE["kv_heads"])
+        bound_ms = moved / peaks["bytes"] * 1e3
+        say("2c paged_attention", kernel="paged_decode_attention",
+            case=case, slots=q.shape[0],
+            busy=PAGED_CASES[case][0], window=q.shape[2],
+            live_positions=int(torch.clamp(
+                positions.long() + q.shape[2],
+                max=tables.shape[1] * PAGED_SHAPE["block_size"]).sum()),
+            o_max_abs_err=f"{error:.3e}", bitwise_repeat=True,
+            kernel_ms=f"{kernel_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+            bound_by="bytes", kernel_over_bound=f"{kernel_ms / bound_ms:.2f}",
+            call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}", bytes=moved,
+            peaks=f"{peaks_name}:{peaks['bytes']:.3g}B/s", card=repr(smi))
+        if case == "residents_44":
+            timing = {"ms": kernel_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": "bytes",
+                      "library_ms": None}
+        del q, k_pool, v_pool, out, again, expected
+        torch.cuda.empty_cache()
+    return max_error, timing
+
+
 def _definition(asr_parameters: dict) -> dict:
     return {
         "name": "speech",
@@ -1226,7 +1382,7 @@ def phase_llama_training(smi: str) -> dict:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     launches = {name: kernels.launch_counts[name]
-                for name in kernels.KERNELS}
+                for name in FLASH_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     losses = [value.item() for value in losses]
     if not np.isfinite(losses).all():
@@ -1387,7 +1543,7 @@ def phase_asr_tones_training() -> dict:
                 break
     elapsed = time.perf_counter() - start
     launches = {name: kernels.launch_counts[name]
-                for name in kernels.KERNELS}
+                for name in FLASH_KERNELS}
     if not (exact and loss < 0.01):
         raise SystemExit(f"asr_tones did not converge in {TONE_STEPS} "
                          f"steps: loss {loss}, held-out exact {exact}")
@@ -1671,7 +1827,7 @@ def phase_config5(smi: str) -> dict:
             _, frame, outputs = responses.get(timeout=900)
             measured.append((time.time(), frame, outputs))
         elapsed = time.perf_counter() - start
-        launches = dict(kernels.launch_counts)
+        launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         summary = pipeline.telemetry.summary()
     finally:
@@ -1769,9 +1925,72 @@ def same_tokens(what: str, done: dict, reference: dict) -> None:
                          f"(first: {differ[:4]})")
 
 
+@contextlib.contextmanager
+def expected_k4_launches():
+    """While open, the K4 launches the paged steps should add, counted
+    from the steps' inputs and not from K4's own counter: 2 a layer
+    (splits, merge) for every window on K4's route (a CUDA bf16 pool, at
+    most PAGED_MAX_WINDOW rows) the card runs -- an eager window as it
+    runs, a captured step's windows at each replay.  Yields a dict:
+    `launches`, and the `replays` of captured steps."""
+    from aiko_services_tpu_torch.decode import engine as engine_module
+    from aiko_services_tpu_torch.models import transformer
+    from aiko_services_tpu_torch.parallel.attention import PAGED_MAX_WINDOW
+    window, captured = transformer._paged_window, engine_module._CapturedStep
+    init, replay = captured.__init__, captured.replay
+    tally = {"launches": 0, "replays": 0}
+    lock, capture = threading.Lock(), threading.local()
+
+    def counted_window(params, config, pool, tables, positions, tokens,
+                       *rest):
+        if (pool["k"].is_cuda and pool["k"].dtype == torch.bfloat16
+                and tokens.shape[1] <= PAGED_MAX_WINDOW):
+            if torch.cuda.is_current_stream_capturing():
+                capture.launches += 2 * config.n_layers
+            else:
+                with lock:
+                    tally["launches"] += 2 * config.n_layers
+        return window(params, config, pool, tables, positions, tokens,
+                      *rest)
+
+    def counted_init(self, *args):
+        capture.launches = 0
+        init(self, *args)
+        self.expected_k4 = capture.launches
+
+    def counted_replay(self, arrays):
+        with lock:
+            tally["launches"] += self.expected_k4
+            tally["replays"] += 1
+        return replay(self, arrays)
+
+    transformer._paged_window = counted_window
+    captured.__init__, captured.replay = counted_init, counted_replay
+    try:
+        yield tally
+    finally:
+        transformer._paged_window = window
+        captured.__init__, captured.replay = init, replay
+
+
+def k4_launches(phase: str, expected: dict) -> int:
+    """K4's launches since the last reset_launch_counts(), checked against
+    expected_k4_launches()'s count over the same span: exits non-zero on
+    0 (the engine's path missed K4) or on any difference."""
+    from aiko_services_tpu_torch.ops import kernels
+    launches = kernels.launch_counts["paged_decode_attention"]
+    if launches == 0 or launches != expected["launches"]:
+        raise SystemExit(
+            f"{phase}: {launches} K4 launches on the decode engine's path, "
+            f"{expected['launches']} expected (2 a layer a bf16 window; "
+            f"{expected['replays']} replays of captured steps)")
+    return launches
+
+
 def phase_engine_storm(params, config, workload, rng, max_context,
-                       smi: str) -> tuple:
-    """9a.  Returns (the open-loop tokens {request: tokens}, the engine)."""
+                       smi: str, expected_k4: dict) -> tuple:
+    """9a, under expected_k4_launches().  Returns (the open-loop tokens
+    {request: tokens}, the engine, K4's launches in the window)."""
     from aiko_services_tpu_torch.decode import DecodeEngine
     from aiko_services_tpu_torch.ops import kernels
     engine = DecodeEngine(params, config, decode_slots=E_SLOTS,
@@ -1798,6 +2017,7 @@ def phase_engine_storm(params, config, workload, rng, max_context,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    expected_k4.update(launches=0, replays=0)
     signatures = engine.compile_count
     ttft, occupancy, step_ms, tokens_done, done = {}, [], [], 0, {}
     next_index = 0
@@ -1826,8 +2046,11 @@ def phase_engine_storm(params, config, workload, rng, max_context,
     added = engine.compile_count - signatures
     peak = torch.cuda.max_memory_allocated()
     # the engine's path runs no Pallas counterpart: the JAX package's
-    # paged steps are masked einsums too
-    flash_launches = sum(kernels.launch_counts.values())
+    # paged steps are masked einsums too, and K4, which runs them here,
+    # replaces none (counted apart)
+    flash_launches = sum(kernels.launch_counts[name]
+                         for name in FLASH_KERNELS)
+    paged_launches = kernels.launch_counts["paged_decode_attention"]
     open_loop = {key: done[key].tokens for key in range(E_REQUESTS)}
     for key, tokens in open_loop.items():
         if not (tokens.shape == (workload[key][1],)
@@ -1848,6 +2071,8 @@ def phase_engine_storm(params, config, workload, rng, max_context,
         slot_occupancy_mean=f"{np.mean(occupancy):.3f}",
         signatures_in_window=added,
         flash_attention_launches=flash_launches,
+        paged_decode_attention_launches=paged_launches,
+        graph_replays=expected_k4["replays"],
         preempted=engine.counters["preempted"],
         max_memory_allocated_gib=f"{peak / 2**30:.2f}",
         wall_s=f"{elapsed:.2f}", card=repr(smi))
@@ -1855,6 +2080,7 @@ def phase_engine_storm(params, config, workload, rng, max_context,
         raise SystemExit(f"9a: {added} step signatures added and "
                          f"{flash_launches} flash-attention launches "
                          f"inside the measured window")
+    paged_launches = k4_launches("9a", expected_k4)
     profile_engine_steps(engine, workload, smi)
     # the same requests submitted all at once, then with the pool cut so
     # that preemption fires: each request's tokens are those of the
@@ -1876,7 +2102,7 @@ def phase_engine_storm(params, config, workload, rng, max_context,
         preempted=cut.counters["preempted"],
         deferred_admissions=cut.counters["deferred_admissions"],
         cut_pool_identical=True)
-    return open_loop, engine
+    return open_loop, engine, paged_launches
 
 
 def decode_step_bound(engine, smi: str) -> tuple:
@@ -2178,8 +2404,9 @@ def phase_engine_pipeline(max_context: int, smi: str) -> None:
         card=repr(smi))
 
 
-def phase_engine(smi: str) -> None:
-    """Phase 9: the continuous decode engine at llama32_1b's full width."""
+def phase_engine(smi: str) -> int:
+    """Phase 9: the continuous decode engine at llama32_1b's full width.
+    Returns K4's launches in 9a's window."""
     from aiko_services_tpu_torch.models import LLAMA32_1B, init_params
     from aiko_services_tpu_torch.utils.tree import tree_leaves
     torch.cuda.empty_cache()
@@ -2191,8 +2418,10 @@ def phase_engine(smi: str) -> None:
                        for leaf in tree_leaves(params))
     say("9 engine_setup", weights_gib=f"{weight_bytes / 2**30:.2f}",
         setup_s=f"{time.perf_counter() - start:.1f}")
-    _, engine = phase_engine_storm(params, LLAMA32_1B, workload, rng,
-                                   max_context, smi)
+    with expected_k4_launches() as expected_k4:
+        _, engine, paged_launches = phase_engine_storm(
+            params, LLAMA32_1B, workload, rng, max_context, smi,
+            expected_k4)
     del engine
     phase_engine_graph_vs_eager(params, LLAMA32_1B, workload, max_context,
                                 smi)
@@ -2200,6 +2429,7 @@ def phase_engine(smi: str) -> None:
     del params
     torch.cuda.empty_cache()
     phase_engine_pipeline(max_context, smi)
+    return paged_launches
 
 
 # -- the serving tier ----------------------------------------------------------
@@ -2957,28 +3187,37 @@ def phase_admission(smi: str) -> None:
                          f"the direct replica (first: {mismatched[:4]})")
 
 
-def phase_serving_tier(smi: str) -> None:
-    """Phase 10: the serving tier at llama32_1b's full width."""
+def phase_serving_tier(smi: str) -> int:
+    """Phase 10: the serving tier at llama32_1b's full width.  Returns
+    K4's launches."""
     from aiko_services_tpu_torch.models import LLAMA32_1B, init_params
     from aiko_services_tpu_torch.ops import kernels
     torch.cuda.empty_cache()
     start = time.perf_counter()
     kernels.reset_launch_counts()
-    params = init_params(LLAMA32_1B, torch.Generator().manual_seed(0),
-                         device="cuda")
-    say("10 serving_setup", setup_s=f"{time.perf_counter() - start:.1f}")
-    phase_disagg(params, LLAMA32_1B, smi)
-    phase_warm_failover(params, LLAMA32_1B, smi)
-    phase_prefix(params, LLAMA32_1B, smi)
-    del params
-    torch.cuda.empty_cache()
-    phase_admission(smi)
-    flash_launches = sum(kernels.launch_counts.values())
+    with expected_k4_launches() as expected_k4:
+        params = init_params(LLAMA32_1B, torch.Generator().manual_seed(0),
+                             device="cuda")
+        say("10 serving_setup",
+            setup_s=f"{time.perf_counter() - start:.1f}")
+        phase_disagg(params, LLAMA32_1B, smi)
+        phase_warm_failover(params, LLAMA32_1B, smi)
+        phase_prefix(params, LLAMA32_1B, smi)
+        del params
+        torch.cuda.empty_cache()
+        phase_admission(smi)
+    flash_launches = sum(kernels.launch_counts[name]
+                         for name in FLASH_KERNELS)
     say("10 serving_tier", flash_attention_launches=flash_launches,
+        paged_decode_attention_launches=kernels.launch_counts[
+            "paged_decode_attention"],
+        expected_paged_launches=expected_k4["launches"],
+        graph_replays=expected_k4["replays"],
         wall_s=f"{time.perf_counter() - start:.1f}", card=repr(smi))
     if flash_launches:
         raise SystemExit(f"10: {flash_launches} flash-attention launches "
                          f"on the serving tier's path")
+    return k4_launches("10", expected_k4)
 
 
 # -- the remaining model families ------------------------------------------------
@@ -3167,7 +3406,7 @@ def phase_moe_training(smi: str) -> tuple:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     launches = {name: kernels.launch_counts[name]
-                for name in kernels.KERNELS}
+                for name in FLASH_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     losses = [value.item() for value in losses]
     if not np.isfinite(losses).all():
@@ -3841,7 +4080,7 @@ def seq_mesh(size: int = SP_SIZE, device="cuda:0"):
 
 def launch_counts() -> dict:
     from aiko_services_tpu_torch.ops import kernels
-    return {name: kernels.launch_counts[name] for name in kernels.KERNELS}
+    return {name: kernels.launch_counts[name] for name in FLASH_KERNELS}
 
 
 def add_launches(total: dict, more: dict) -> None:
@@ -4013,7 +4252,7 @@ def phase_sp_prefill(params, config, smi: str) -> dict:
     dense_argmax = dense.argmax(-1)
     say("12b prefill_non_sp", tokens=SP_SEQ, ms=f"{dense_ms:.1f}",
         tokens_per_s=f"{SP_SEQ / dense_ms * 1e3:.1f}", card=repr(smi))
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     for mechanism, per_layer in (("ring", SP_SIZE * (SP_SIZE + 1) // 2),
                                  ("ulysses", SP_SIZE)):
         sp_config = replace(config, sequence_parallel=True,
@@ -4248,7 +4487,7 @@ def phase_sp_element(smi: str) -> dict:
     from aiko_services_tpu_torch.pipeline import create_pipeline
     from aiko_services_tpu_torch.runtime import Process
     set_default_devices(["cuda:0"] * SP_SIZE)
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     processes = []
     try:
         process = Process(transport_kind="loopback")
@@ -4364,12 +4603,11 @@ def phase_long_context(smi: str) -> dict:
     (12b's SP forwards, 12c's measured steps, 12d's SP generate, 12e's
     frames); 12a's ring checks are reported on their own lines."""
     from aiko_services_tpu_torch.models import LLAMA32_1B, init_params
-    from aiko_services_tpu_torch.ops import kernels
     start = time.perf_counter()
     phase_ring_kernels(smi)
     params = init_params(LLAMA32_1B, torch.Generator().manual_seed(12),
                          device="cuda")
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     add_launches(launches, phase_sp_prefill(params, LLAMA32_1B, smi))
     add_launches(launches, phase_sp_generate(params, LLAMA32_1B, smi))
     add_launches(launches, phase_sp_training(params, LLAMA32_1B, smi))
@@ -5148,9 +5386,8 @@ def phase_shard_kernel_checks(forward: set, backward: set) -> None:
 
 def phase_parameter_sharding(smi: str) -> dict:
     """Phase 13.  Returns the kernel launches of its main-path runs."""
-    from aiko_services_tpu_torch.ops import kernels
     start = time.perf_counter()
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     forward, backward = set(), set()
     with recorded_kernel_cases(forward, backward):
         served, whole = phase_8b_arm(smi, {"data": 1, "fsdp": 2, "seq": 1,
@@ -5727,10 +5964,9 @@ def phase_eval_pass(smi: str) -> None:
 
 def phase_hf_and_examples(smi: str) -> dict:
     """Phase 14.  Returns the kernel launches of its main-path runs."""
-    from aiko_services_tpu_torch.ops import kernels
     start = time.perf_counter()
     HF_DIR.mkdir(parents=True, exist_ok=True)
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     forward, backward = set(), set()
     with recorded_kernel_cases(forward, backward):
         launches["flash_attention"] += phase_hf_whisper(smi)
@@ -5908,7 +6144,7 @@ def phase_fleet_bring_up(factory, threads: dict, smi: str) -> tuple:
                                             cold.pipeline)
     cold_k1 = threads.get(loop_thread(cold.pipeline), 0)
     warm_k1 = threads.get(loop_thread(warm.pipeline), 0)
-    launches = dict(kernels.launch_counts)
+    launches = launch_counts()
     say("15a fleet_bring_up", cold_time_to_healthy_s=f"{cold_s:.2f}",
         warm_time_to_healthy_s=f"{warm_s:.2f}",
         nvcc_build_s=f"{nvcc_s:.2f}" if nvcc_s is not None else None,
@@ -6024,7 +6260,7 @@ def phase_fleet_scaling(gateway, cold, frames: list, reference: list,
     deadline = time.monotonic() + 30
     while len(gateway.replicas) > 1 and time.monotonic() < deadline:
         time.sleep(0.05)
-    launches = dict(kernels.launch_counts)
+    launches = launch_counts()
     replica_k1 = {cold.name: threads.get(cold_thread, 0) - cold_before,
                   grown[0]: threads.get(grown_thread, 0)}
     spawns = list(gateway.autoscaler.spawns)
@@ -6447,7 +6683,7 @@ def serve_frames(definition: dict, count: int, weights: dict) -> tuple:
             _, frame, outputs = responses.get(timeout=600)
             results[frame.frame_id] = outputs
         torch.cuda.synchronize()
-        launches = dict(kernels.launch_counts)
+        launches = launch_counts()
     finally:
         process.terminate()
     return ([results[key] for key in sorted(results)], launches,
@@ -6658,7 +6894,7 @@ def phase_checkpoint(smi: str) -> dict:
         kernels.reset_launch_counts()
         after = serve_stream(pipeline, "s16_restored", frames)
         torch.cuda.synchronize()
-        launches = dict(kernels.launch_counts)
+        launches = launch_counts()
     finally:
         process.terminate()
     shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
@@ -6735,9 +6971,8 @@ def phase_media_kernel_checks(forward: set) -> None:
 
 def phase_last_modules(smi: str) -> dict:
     """Phase 16.  Returns the kernel launches of its main-path runs."""
-    from aiko_services_tpu_torch.ops import kernels
     start = time.perf_counter()
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     forward = set()
     with recorded_kernel_cases(forward, set()):
         add_launches(launches, phase_media_speech(smi))
@@ -7300,7 +7535,6 @@ def phase_processes(smi: str) -> dict:
     """Phase 17: sharded training across two processes on the card.
     Returns the kernel launches of both workers' main-path steps."""
     import shutil
-    from aiko_services_tpu_torch.ops import kernels
     start = time.perf_counter()
     reference = process_references(PROCESS_ARMS)
     reference_s = time.perf_counter() - start
@@ -7308,7 +7542,7 @@ def phase_processes(smi: str) -> dict:
                 json.dumps([smi, reference]))
     results = [json.loads((PROCESS_DIR / f"rank{rank}.json").read_text())
                for rank in range(2)]
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     for result in results:
         for arm in result["arms"]:
             add_launches(launches, arm["launches"])
@@ -7966,7 +8200,7 @@ def seq_worker(argument: str) -> None:
         raise SystemExit(f"phase 18 worker: {mesh} does not span the "
                          f"processes on 'seq'")
     forward, backward = set(), set()
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     with recorded_kernel_cases(forward, backward):
         for arm in (seq_prefill, seq_train, seq_generate, seq_remat):
             add_launches(launches, arm(rank, mesh, smi))
@@ -7986,14 +8220,13 @@ def phase_seq_processes(smi: str) -> dict:
     """Phase 18: sequence parallelism across two processes on the card.
     Returns the kernel launches of both workers' main-path runs."""
     import shutil
-    from aiko_services_tpu_torch.ops import kernels
     start = time.perf_counter()
     shutil.rmtree(SEQ_DIR, ignore_errors=True)
     SEQ_DIR.mkdir(parents=True)
     run_workers("18", SEQ_DIR, "seq_worker", json.dumps(smi))
     results = [json.loads((SEQ_DIR / f"rank{rank}.json").read_text())
                for rank in range(2)]
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     for result in results:
         add_launches(launches, result["launches"])
     if min(launches.values()) == 0:
@@ -8565,7 +8798,7 @@ def cards_worker(argument: str) -> None:
         kernels.load_kernel(name)
     forward, backward = set(), set()
     arms = []
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     with recorded_kernel_cases(forward, backward):
         for label, dtype, layers, axes in CARDS_PROCESS_ARMS:
             config = process_config(dtype, layers)
@@ -8596,7 +8829,6 @@ def phase_cards_processes(smi: str, cards: list) -> dict:
     runs the unsharded steps first (phase 17's process_reference, 20a at
     full depth) and frees the card.  Returns the workers' launches."""
     import shutil
-    from aiko_services_tpu_torch.ops import kernels
     start = time.perf_counter()
     reference = process_references(CARDS_PROCESS_ARMS)
     reference_s = time.perf_counter() - start
@@ -8605,7 +8837,7 @@ def phase_cards_processes(smi: str, cards: list) -> dict:
                 timeout=CARDS_TIMEOUT)
     results = [json.loads((PROCESS_DIR / f"rank{rank}.json").read_text())
                for rank in range(CARDS)]
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     for result in results:
         add_launches(launches, result["launches"])
     replicas = equal_replicas(results, "20")
@@ -8777,7 +9009,7 @@ def pod_worker(argument: str) -> None:
         kernels.load_kernel(name)
     forward, backward = set(), set()
     arms, by_card = [], {}
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     with recorded_kernel_cases(forward, backward):
         pod_serve(rank, global_mesh(POD_SERVE_AXES), smi, serving)
         for label, dtype, layers, axes in POD_TRAIN_ARMS:
@@ -8810,7 +9042,6 @@ def phase_pod_processes(smi: str, cards: list) -> dict:
     the workers' launches; fails unless K1, K2 and K3 ran on each of the
     four cards."""
     import shutil
-    from aiko_services_tpu_torch.ops import kernels
     start = time.perf_counter()
     reference = process_references(POD_TRAIN_ARMS)
     serving = pod_serve_references()
@@ -8820,7 +9051,7 @@ def phase_pod_processes(smi: str, cards: list) -> dict:
                 timeout=CARDS_TIMEOUT)
     results = [json.loads((PROCESS_DIR / f"rank{rank}.json").read_text())
                for rank in range(POD_PROCESSES)]
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     by_card: dict = {}
     for result in results:
         add_launches(launches, result["launches"])
@@ -8828,7 +9059,7 @@ def phase_pod_processes(smi: str, cards: list) -> dict:
     replicas = equal_replicas(results, "21")
     idle = [f"cuda:{index}" for index in range(POD_PROCESSES * POD_CARDS)
             if min(by_card.get(f"cuda:{index}", {}).get(name, 0)
-                   for name in kernels.KERNELS) == 0]
+                   for name in FLASH_KERNELS) == 0]
     shutil.rmtree(PROCESS_DIR, ignore_errors=True)
     say("21 pod_processes", workers=POD_PROCESSES, backend="nccl",
         devices="cuda:2r and cuda:2r+1 for rank r",
@@ -8844,24 +9075,27 @@ def phase_pod_processes(smi: str, cards: list) -> dict:
     return launches
 
 
-def contract_lines(smi: str, launches: dict, max_abs_err: dict,
+def contract_lines(smi: str, names, launches: dict, max_abs_err: dict,
                    timing: dict) -> None:
-    """The last three lines: the card, the kernels JSON, the result."""
-    from aiko_services_tpu_torch.ops import kernels
+    """The last three lines: the card, the kernels JSON of `names`, the
+    result."""
     sources = {"flash_attention": ("flash_attention.cu", 75),
                "flash_attention_dq": ("flash_attention_backward.cu", 264),
-               "flash_attention_dkv": ("flash_attention_backward.cu", 314)}
+               "flash_attention_dkv": ("flash_attention_backward.cu", 314),
+               "paged_decode_attention": ("paged_attention.cu", None)}
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"aiko_services_tpu_torch/csrc/{sources[name][0]}",
-        "replaces": f"aiko_services_tpu/parallel/attention.py:"
+        # K4 replaces no TPU kernel (the JAX package's masked einsum)
+        "replaces": None if sources[name][1] is None else
+                    f"aiko_services_tpu/parallel/attention.py:"
                     f"{sources[name][1]}",
         "launches": launches[name],
         "max_abs_err": max_abs_err[name],
         **timing[name],
-    } for name in kernels.KERNELS]}), flush=True)
+    } for name in names]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -8869,8 +9103,8 @@ def contract_lines(smi: str, launches: dict, max_abs_err: dict,
 
 def main_cards() -> None:
     """`python3 chip_smoke.py cards`: phases 0, 1, 19a-19d, 20, 21,
-    phase 3's timing on cuda:0, and the contract lines."""
-    from aiko_services_tpu_torch.ops import kernels
+    phase 3's timing on cuda:0, and the contract lines of K1, K2 and
+    K3."""
     run_start = time.perf_counter()
     smi = phase_card()
     cards = card_list()
@@ -8880,7 +9114,7 @@ def main_cards() -> None:
                          f"{len(cards)}")
     phase_build()
     max_abs_err = phase_cards_topology(smi, cards)
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches = {name: 0 for name in FLASH_KERNELS}
     # a phase that fails is reported and the later ones still run (one
     # four-card run shows every fault it can); the mode then exits
     # non-zero with no result
@@ -8900,7 +9134,7 @@ def main_cards() -> None:
     timing = phase_timing(smi)
     say("run", mode="cards", seconds=f"{time.perf_counter() - run_start:.1f}",
         card=repr(smi))
-    contract_lines(smi, launches, max_abs_err, timing)
+    contract_lines(smi, FLASH_KERNELS, launches, max_abs_err, timing)
 
 
 def timed_phase(phase, *args):
@@ -8921,6 +9155,9 @@ def main() -> None:
     max_abs_err = {"flash_attention": timed_phase(phase_kernel_checks)}
     max_abs_err.update(timed_phase(phase_backward_checks))
     timing = timed_phase(phase_timing, smi)
+    (max_abs_err["paged_decode_attention"],
+     timing["paged_decode_attention"]) = timed_phase(phase_paged_attention,
+                                                     smi)
     timed_phase(phase_asr_tones)
     launches = {name: 0 for name in kernels.KERNELS}
     launches["flash_attention"] += timed_phase(phase_whisper_small, smi)
@@ -8928,8 +9165,10 @@ def main() -> None:
                           timed_phase(phase_asr_tones_training),
                           timed_phase(phase_config5, smi)):
         add_launches(launches, path_launches)
-    timed_phase(phase_engine, smi)
-    timed_phase(phase_serving_tier, smi)
+    # K4's launches: the decode engine's paged steps in 9a and 10 only
+    launches["paged_decode_attention"] += timed_phase(phase_engine, smi)
+    launches["paged_decode_attention"] += timed_phase(phase_serving_tier,
+                                                      smi)
     for phase in (phase_model_families, phase_long_context,
                   phase_parameter_sharding, phase_hf_and_examples,
                   phase_fleet, phase_last_modules):
@@ -8940,7 +9179,7 @@ def main() -> None:
         add_launches(launches, timed_phase(phase, smi))
     say("run", seconds=f"{time.perf_counter() - run_start:.1f}",
         card=repr(smi))
-    contract_lines(smi, launches, max_abs_err, timing)
+    contract_lines(smi, kernels.KERNELS, launches, max_abs_err, timing)
 
 if __name__ == "__main__":
     if sys.argv[1:] == ["cards"]:
